@@ -11,7 +11,10 @@ calls, at the scale of the ring benchmark (``BASELINE.json`` config 5: a
    and hold it bit-equal against its plain PyTorch version on the card and
    the numpy farm copy on the host, over every key length 0-130 (random
    bytes, >= 0x80 included), at widths that are not a multiple of 4 and
-   batch sizes that are not a multiple of 32;
+   batch sizes that are not a multiple of 32, at key matrices whose base is
+   not 16-byte aligned (storage offsets 1, 3, 5, 7, 15), B = 1 and 257,
+   W = 64 and 128 (the bank-conflict widths), int64 lengths, and W = 8200,
+   which takes the kernel's wide route;
 2. keyed lookup: hash 1,048,576 UUID-shaped 41-byte keys on the card and
    find their owners (``keyed_owner_lookup``) — owners equal a numpy
    searchsorted over the host hashes;
@@ -19,9 +22,16 @@ calls, at the scale of the ring benchmark (``BASELINE.json`` config 5: a
    ``serve_lookup_fused`` and ``serve_lookup_n_fused`` (n=3) against the host
    oracles, then a 1% churn commit (40 servers out, 40 in) is re-certified at
    generation 1, and the generation-0 snapshot still answers generation 0;
-4. timings (CUDA events, medians, L2 flushed before each run) of the kernel,
-   its plain version and the lookups, the card's name and power limit, one
-   ``{"kernels": [...]}`` line, and the result line as the last line.
+4. timings (CUDA events, medians, L2 flushed before each run) of the kernel's
+   wrapper, its plain version and the lookups; the kernel alone by name from
+   ``torch.profiler`` at 1,048,576 keys x W = 45, 64 and 128, beside its
+   byte bound; the card's name and power limit, one ``{"kernels": [...]}``
+   line, and the result line as the last line.
+
+``python3 chip_smoke.py --kernel-profile`` runs step 4's kernel profile
+alone and prints it as one JSON line: run from another checkout's root it
+measures that checkout's kernel, so two versions can be compared on one
+card in one run of the chip machine.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
 device is available.  Imports nothing of JAX or of ``ringpop_tpu``.
@@ -101,13 +111,142 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
+def profile_ms(fn, reps: int, flush, flush_tag: str) -> dict[str, tuple[int, float]]:
+    """Device time of each kernel that ``fn`` launches, by kernel name, from
+    ``torch.profiler`` over ``reps`` runs with ``flush()`` (which evicts the
+    L2 cache) before each, after one untimed warm-up run: {name: (launches,
+    mean ms per launch)}.  The flush's own kernels, named with
+    ``flush_tag``, are left out.  A profile whose record misses a flush or
+    a launch (the profiler can drop device records) is run again, twice at
+    most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        flush_kernels = 0
+        found = {}
+        for evt in prof.key_averages():
+            us = evt.self_device_time_total
+            # device activities that are not kernels (CUPTI's buffer
+            # requests, module loading) carry no signature
+            if evt.device_type != torch.autograd.DeviceType.CUDA or us <= 0 or "(" not in evt.key:
+                continue
+            if flush_tag in evt.key:
+                flush_kernels += evt.count
+                continue
+            found[evt.key] = (evt.count, us / evt.count / 1e3)
+        if flush_kernels >= reps and all(n % reps == 0 for n, _ in found.values()):
+            return found
+        log(f"profile: the profiler recorded {flush_kernels} of {reps} flushes and "
+            f"{[n for n, _ in found.values()]} launches; profiling again")
+    raise SystemExit(f"chip_smoke FAILED: profiler saw {flush_kernels} of the {reps} flushes")
+
+
+def kernel_alone(found: dict[str, tuple[int, float]], reps: int) -> tuple[float, float]:
+    """(Fingerprint32 kernel's mean ms per launch, the other kernels' ms per
+    call) from :func:`profile_ms`'s record of ``reps`` wrapper calls."""
+    fp = [(n, ms) for name, (n, ms) in found.items() if "fingerprint32" in name]
+    check(len(fp) == 1 and fp[0][0] == reps,
+          f"profiler shows the Fingerprint32 kernel once per call: {sorted(found)}")
+    others = sum(n * ms for name, (n, ms) in found.items() if "fingerprint32" not in name)
+    return fp[0][1], others / reps
+
+
+def random_keys(rng: np.random.Generator, n: int, width: int) -> tuple[np.ndarray, np.ndarray]:
+    """n random-byte keys of length width-4, packed as ``pack_strings``
+    would: uint8[n, width] with 4 zero bytes after each key."""
+    mat = np.zeros((n, width), np.uint8)
+    mat[:, : width - 4] = rng.integers(0, 256, size=(n, width - 4), dtype=np.uint8)
+    return mat, np.full(n, width - 4, np.int64)
+
+
+def kernel_profile(dev: torch.device, widths=(45, 64, 128), n_keys: int = N_KEYS) -> dict:
+    """The Fingerprint32 wrapper at n_keys x W for each W: its kernel alone
+    (profiler) and the whole wrapper call (CUDA events), with the byte
+    bound (key matrix + int32 lengths + int64 hashes) and the share of it.
+    W = 45 hashes the main path's UUID keys, other widths random bytes.
+
+    The L2 cache is flushed before each run as ``time_ms`` does, by zeroing
+    a 256 MiB buffer, which leaves the L2 full of dirty lines that the
+    kernel's reads then evict to device memory; the kernel alone is also
+    timed after a flush that reads the buffer (clean lines, evicted for
+    free), which charges it with its own bytes only."""
+    rng = np.random.default_rng(SEED + 2)
+    buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    dirty, clean = buf.zero_, lambda: buf.sum(dtype=torch.int64)
+    out = {}
+    for w in widths:
+        mat, lens = uuid_keys(rng, n_keys) if w == KEY_LEN + 4 else random_keys(rng, n_keys, w)
+        dmat, dlens = upload_keys(mat, lens, dev)
+        fn = lambda: hash_kernel.fingerprint32_cuda(dmat, dlens)  # noqa: E731
+        found = profile_ms(fn, 20, dirty, "FillFunctor")
+        k_ms, other_ms = kernel_alone(found, 20)
+        clean_ms, _ = kernel_alone(profile_ms(fn, 20, clean, "reduce_kernel"), 20)
+        bound_ms = (n_keys * w + 4 * n_keys + 8 * n_keys) / HBM_BYTES_PER_S * 1e3
+        rec = out[str(w)] = {
+            "kernel_ms": k_ms, "kernel_ms_clean_l2": clean_ms, "other_kernels_ms": other_ms,
+            "call_ms": time_ms(fn, 20, buf), "bound_ms": bound_ms,
+            "share_of_bound": bound_ms / k_ms, "share_of_bound_clean_l2": bound_ms / clean_ms,
+            "kernels": {name: {"launches": n, "ms": ms} for name, (n, ms) in found.items()},
+        }
+        log(f"profile: B={n_keys} W={w}: kernel alone {k_ms * 1e3:.2f} us "
+            f"({clean_ms * 1e3:.2f} us after a clean flush), other kernels "
+            f"{other_ms * 1e3:.2f} us, call {rec['call_ms'] * 1e3:.2f} us, bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_ms / k_ms:.1%}; {bound_ms / clean_ms:.1%})")
+    return out
+
+
+def check_case(dmat: torch.Tensor, dlens: torch.Tensor, mat: np.ndarray, lens: np.ndarray,
+               what: str) -> int:
+    """The kernel == the plain version on the card == the numpy farm on the
+    host, bit for bit, for one key matrix; returns the max abs difference."""
+    want = fingerprint32_batch(mat, lens).astype(np.int64)
+    got = hash_kernel.fingerprint32_cuda(dmat, dlens)
+    plain = fingerprint32_device(dmat, dlens)
+    torch.cuda.synchronize()
+    b, w = dmat.shape
+    check(got.dtype == torch.int64 and got.shape == (b,), f"kernel output int64[B] ({what})")
+    err = int((got - plain).abs().max()) if b else 0
+    check(torch.equal(got, plain), f"kernel == plain at B={b} W={w} ({what})")
+    check(np.array_equal(as_np(got), want), f"kernel == numpy farm at B={b} W={w} ({what})")
+    log(f"phase1: B={b} W={w} {what}: kernel == plain == numpy farm (tolerance: none, bit-equal)")
+    return err
+
+
+def random_strings(rng: np.random.Generator, n: int, max_len: int) -> tuple[np.ndarray, np.ndarray]:
+    """n random-byte strings of random lengths 0..max_len (max_len once),
+    packed: uint8[n, max_len + 4]."""
+    lengths = rng.integers(0, max_len + 1, size=n)
+    lengths[0] = max_len
+    return pack_strings([rng.integers(0, 256, size=n_, dtype=np.uint8).tobytes() for n_ in lengths])
+
+
+def at_offset(dmat: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``dmat`` that starts ``offset`` bytes into its
+    storage, so its base is not 16-byte aligned for offset % 16 != 0."""
+    b, w = dmat.shape
+    flat = torch.zeros(b * w + 32, dtype=torch.uint8, device=dmat.device)
+    view = flat[offset: offset + b * w].view(b, w)
+    view.copy_(dmat)
+    check(view.is_contiguous() and view.data_ptr() % 16 == offset % 16, "offset view")
+    return view
+
+
 def phase1_kernel_vs_plain(dev: torch.device) -> int:
-    """Kernel == plain version == numpy copy over every length class."""
+    """Kernel == plain version == numpy copy over every length class, ragged
+    B and W, bases that are not 16-byte aligned, the bank-conflict widths,
+    int64 lengths and the wide route."""
     t0 = time.perf_counter()
     lib = hash_kernel.build()
     log(f"phase1: built {lib.name} in {time.perf_counter() - t0:.1f} s")
     for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"phase1: ptxas: {line.strip()}")
     rng = np.random.default_rng(SEED)
     strings = [
@@ -124,16 +263,38 @@ def phase1_kernel_vs_plain(dev: torch.device) -> int:
         b, w = mat.shape
         check(w % 4 != 0 and b % 32 != 0, f"corpus shape {b}x{w} is meant to be ragged")
         check(int((mat >= 0x80).sum()) > 0, "corpus holds bytes >= 0x80")
-        want = fingerprint32_batch(mat, lens).astype(np.int64)
         dmat, dlens = upload_keys(mat, lens, dev)
-        got = hash_kernel.fingerprint32_cuda(dmat, dlens)
-        plain = fingerprint32_device(dmat, dlens)
-        torch.cuda.synchronize()
-        check(got.dtype == torch.int64 and got.shape == (b,), "kernel output int64[B]")
-        max_err = max(max_err, int((got - plain).abs().max()))
-        check(torch.equal(got, plain), f"kernel == plain at B={b} W={w}")
-        check(np.array_equal(as_np(got), want), f"kernel == numpy farm at B={b} W={w}")
-        log(f"phase1: B={b} W={w}: kernel == plain == numpy farm (tolerance: none, bit-equal)")
+        max_err = max(max_err, check_case(dmat, dlens, mat, lens, "corpus"))
+        if (max_len, extra) == (41, 0):
+            uuid_case = (mat, lens, dmat, dlens)
+
+    mat, lens, dmat, dlens = uuid_case
+    for offset in (1, 7, 15):
+        max_err = max(max_err, check_case(at_offset(dmat, offset), dlens, mat, lens,
+                                          f"base at storage offset {offset}"))
+    for b in (1, 257):
+        max_err = max(max_err, check_case(dmat[:b], dlens[:b], mat[:b], lens[:b], f"B={b}"))
+        max_err = max(max_err, check_case(at_offset(dmat[:b], 3), dlens[:b], mat[:b], lens[:b],
+                                          f"B={b}, base at storage offset 3"))
+    max_err = max(max_err, check_case(dmat, dlens.to(torch.int64), mat, lens, "int64 lens"))
+    for w in (64, 128):
+        mat, lens = random_strings(rng, 3001, w - 4)
+        dmat, dlens = upload_keys(mat, lens, dev)
+        rows, stages, smem, route = hash_kernel.plan_tiles(w)
+        check(route == "staged", f"W={w} takes the staged route")
+        what = f"{rows} rows x {stages} stages, pad_shift {hash_kernel.pad_shift(w)}"
+        max_err = max(max_err, check_case(dmat, dlens, mat, lens, what))
+        max_err = max(max_err, check_case(at_offset(dmat, 7), dlens.to(torch.int64), mat, lens,
+                                          "int64 lens, base at storage offset 7"))
+    # wide route: not even a 32-row stage fits in shared memory
+    mat, lens = random_strings(rng, 67, 8196)
+    check(hash_kernel.plan_tiles(mat.shape[1])[3] == "wide", "W=8200 takes the wide route")
+    dmat, dlens = upload_keys(mat, lens, dev)
+    wide_before = hash_kernel.route_launches["wide"]
+    max_err = max(max_err, check_case(dmat, dlens, mat, lens, "wide route"))
+    max_err = max(max_err, check_case(at_offset(dmat, 5), dlens.to(torch.int64), mat, lens,
+                                      "wide route, int64 lens, base at storage offset 5"))
+    check(hash_kernel.route_launches["wide"] == wide_before + 2, "the wide route launched")
     return max_err
 
 
@@ -148,6 +309,9 @@ def main() -> int:
         capture_output=True, text=True, timeout=60,
     )
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    if sys.argv[1:] == ["--kernel-profile"]:
+        log(json.dumps({"card": card, "profile": kernel_profile(torch.device("cuda"))}))
+        return 0
     kernels, timings = run(torch.device("cuda"), N_SERVERS, N_KEYS)
     timings["card"] = card
     log(json.dumps(timings))
@@ -173,7 +337,7 @@ def run(dev: torch.device, n_servers: int, n_keys: int) -> tuple[list, dict]:
     dmat, dlens = upload_keys(mat, lens, dev)
 
     # -- the main path: launch counts are 0 before it and read right after --
-    hash_kernel.launches = 0
+    hash_kernel.reset_launches()
     t0 = time.perf_counter()
     tokens, owners = build_ring_tokens(servers, REPLICAS, device=dev)
     check(tokens.shape[0] == n_servers * REPLICAS, f"ring holds {n_servers} x {REPLICAS} tokens")
@@ -224,31 +388,33 @@ def run(dev: torch.device, n_servers: int, n_keys: int) -> tuple[list, dict]:
     check(int(old[-1]) == 0 and np.array_equal(old[:-1], host_owner(ht0, ho0, host_hashes)),
           "the generation-0 snapshot survives one commit")
     launches = hash_kernel.launches
-    check(launches > 0, "the main path launched the Fingerprint32 kernel")
-    log(f"main path: fingerprint32 launches = {launches}")
+    by_route = dict(hash_kernel.route_launches)
+    check(launches > 0 and by_route["staged"] == launches,
+          f"the main path launched the staged Fingerprint32 kernel: {by_route}")
+    log(f"main path: fingerprint32 launches = {launches} {by_route}")
 
     # -- timings and the full-size kernel-vs-plain check (not counted) --
     plain = fingerprint32_device(dmat, dlens)
     max_err = max(max_err, int((hashes - plain).abs().max()))
     check(torch.equal(hashes, plain), "kernel == plain on the main path's keys")
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    k_ms = time_ms(lambda: hash_kernel.fingerprint32_cuda(dmat, dlens), 20, flush)
     p_ms = time_ms(lambda: fingerprint32_device(dmat, dlens), 10, flush)
     keyed_ms = time_ms(lambda: keyed_owner_lookup(tokens, owners, dmat, dlens), 10, flush)
     lookup_ms = time_ms(lambda: ring_lookup(tokens, owners, hashes), 10, flush)
     serve_ms = time_ms(lambda: serve_lookup_fused(ring1, hashes), 10, flush)
     serve_n_ms = time_ms(lambda: serve_lookup_n_fused(ring1, ns1, hashes, 3), 10, flush)
-    b, w = dmat.shape
-    # bytes the kernel must move: key matrix + int32 lengths + uint32 hashes
-    bound_ms = (b * w + 4 * b + 4 * b) / HBM_BYTES_PER_S * 1e3
+    del flush
+    profile = kernel_profile(dev)
+    main = profile[str(dmat.shape[1])]
     timings = {
         "timings_ms": {
-            "fingerprint32_kernel": k_ms, "fingerprint32_plain": p_ms,
+            "fingerprint32_kernel_alone": main["kernel_ms"],
+            "fingerprint32_call": main["call_ms"], "fingerprint32_plain": p_ms,
             "keyed_owner_lookup": keyed_ms, "ring_lookup": lookup_ms,
             "serve_lookup_fused": serve_ms, "serve_lookup_n_fused_n3": serve_n_ms,
         },
-        "keys": b, "key_width": w, "ring_tokens": int(tokens.shape[0]),
-        "keyed_lookup_keys_per_s": b / (keyed_ms / 1e3),
+        "keys": n_keys, "key_width": int(dmat.shape[1]), "ring_tokens": int(tokens.shape[0]),
+        "keyed_lookup_keys_per_s": n_keys / (keyed_ms / 1e3),
     }
     kernels = [{
         "name": "fingerprint32",
@@ -256,12 +422,17 @@ def run(dev: torch.device, n_servers: int, n_keys: int) -> tuple[list, dict]:
         "source": "ringpop_tpu_torch/csrc/fingerprint32.cu",
         "replaces": "ringpop_tpu/ops/hash_pallas.py:122",
         "launches": launches,
+        "launches_by_route": by_route,
         "max_abs_err": max_err,
-        "ms": k_ms,
+        "ms": main["kernel_ms"],
+        "call_ms": main["call_ms"],
         "plain_ms": p_ms,
-        "bound_ms": bound_ms,
+        "bound_ms": main["bound_ms"],
+        "share_of_bound": main["share_of_bound"],
         "bound_by": "bytes",
         "library_ms": None,
+        "by_width": {w: {k: v for k, v in rec.items() if k != "kernels"}
+                     for w, rec in profile.items()},
     }]
     return kernels, timings
 

@@ -142,3 +142,98 @@ def test_kernel_launcher_raises_without_card(monkeypatch, tmp_path):
 def test_key_matrix_contract(mat, lens):
     with pytest.raises(ValueError):
         hash_ops.fingerprint32_device(torch.from_numpy(mat), torch.from_numpy(lens))
+
+
+# every width 4..10,000, in ten slices
+@pytest.mark.parametrize("lo", range(4, 10_001, 1000))
+def test_plan_tiles_every_width(lo):
+    """The tile plan: a staged tile is a multiple of 32 rows (one thread per
+    row, whole warps), so its span T*W is a multiple of 16 bytes (the
+    copy's chunk); the ring fits a block's shared memory; and the wide
+    route is taken exactly where a 32-row stage does not fit."""
+    for width in range(lo, min(lo + 1000, 10_001)):
+        rows, stages, smem, route = hash_kernel.plan_tiles(width)
+        one_stage = hash_kernel.stage_bytes(32, width, hash_kernel.pad_shift(width))
+        assert (route == "wide") == (one_stage > hash_kernel.SMEM_BUDGET), width
+        if route == "wide":
+            assert (rows, stages, smem) == (0, 0, 0)
+            continue
+        assert route == "staged"
+        assert rows >= 32 and rows % 32 == 0 and rows <= 256, (width, rows)
+        assert (rows * width) % 16 == 0
+        assert 1 <= stages <= 2
+        assert smem == stages * hash_kernel.stage_bytes(rows, width, hash_kernel.pad_shift(width))
+        assert smem <= 232_448 and smem % (16 * stages) == 0, (width, smem)
+
+
+def test_plan_tiles_main_path_widths():
+    """The key widths a ring sees get full 256-row tiles and a ring of at
+    least two stages; widths past ~6,450 bytes take the wide route."""
+    for width in (20, 45, 64, 128, 256):
+        rows, stages, _, route = hash_kernel.plan_tiles(width)
+        assert (rows, route) == (256, "staged") and stages >= 2, width
+    assert hash_kernel.plan_tiles(8200)[3] == "wide"
+    assert hash_kernel.plan_tiles(45, smem_budget=16_000)[:2] == (160, 2)
+
+
+@pytest.mark.parametrize("width,unskewed,skewed", [(45, 2, 2), (64, 16, 4), (128, 32, 4), (256, 32, 4)])
+def test_pad_shift_spreads_a_warp_over_the_banks(width, unskewed, skewed):
+    """Rows W bytes apart start in few banks when W is a multiple of 16; the
+    chosen skew brings a warp's word loads to the 16-byte-chunk optimum
+    (4-way) and leaves a width that needs none unpadded."""
+    shift = hash_kernel.pad_shift(width)
+    assert hash_kernel.bank_conflicts(width, hash_kernel.NO_PAD) == unskewed
+    assert hash_kernel.bank_conflicts(width, shift) == skewed
+    if unskewed == skewed:
+        assert shift == hash_kernel.NO_PAD
+
+
+@pytest.mark.parametrize("width", [4, 13, 45, 64, 128, 333])
+@pytest.mark.parametrize("misalign", [0, 1, 15])
+def test_stage_holds_every_byte_the_kernel_reads(width, misalign):
+    """``stage_bytes`` covers the kernel's staged layout: a tile's span at
+    logical offset ``misalign`` (the base's distance past a 16-byte
+    boundary), each logical 16-byte chunk c at physical chunk
+    c + (c >> pad_shift), and the aligned word after a row's last word."""
+    rows, stages, smem, _ = hash_kernel.plan_tiles(width)
+    shift = hash_kernel.pad_shift(width)
+    words = smem // stages // 4
+    last_word = (misalign + rows * width - 4) // 4 + 1  # logical word read last
+    assert last_word + 4 * ((last_word >> 2) >> shift) < words
+
+
+def test_reset_launches_zeroes_every_route():
+    hash_kernel.route_launches["staged"] += 2
+    hash_kernel.route_launches["wide"] += 1
+    hash_kernel.launches += 3
+    hash_kernel.reset_launches()
+    assert hash_kernel.launches == 0
+    assert hash_kernel.route_launches == {"staged": 0, "wide": 0}
+
+
+def test_import_builds_nothing(tmp_path):
+    """Importing the kernel module and planning tiles needs neither nvcc nor
+    a card: nothing is built or loaded until a CUDA tensor is hashed."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import ringpop_tpu_torch.ops.hash_kernel as k\n"
+        "assert k._lib is None\n"
+        "print(k.plan_tiles(45))\n"
+    )
+    env = {**os.environ, "PATH": str(tmp_path), "CUDA_HOME": str(tmp_path), "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == str(hash_kernel.plan_tiles(45))
+
+
+@pytest.mark.parametrize("lens_dtype", [np.int32, np.int64])
+def test_kernel_launcher_raises_on_cpu_tensors(lens_dtype):
+    mat, lens = farm.pack_strings([b"0123456789abcdef0123456789", b""])
+    before = (hash_kernel.launches, dict(hash_kernel.route_launches))
+    with pytest.raises(ValueError, match="CUDA"):
+        hash_kernel.fingerprint32_cuda(torch.from_numpy(mat), torch.from_numpy(lens.astype(lens_dtype)))
+    assert (hash_kernel.launches, hash_kernel.route_launches) == before
