@@ -1,1 +1,1 @@
-"""Device ops of the keyed-ownership path: Fingerprint32 (plain + kernel) and ring lookups."""
+"""Device ops: Fingerprint32 (plain + kernel), ring lookups, and the packed-plane kernels of the sim engines."""

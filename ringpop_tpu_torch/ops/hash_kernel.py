@@ -4,7 +4,8 @@ Replaces ``ringpop_tpu/ops/hash_pallas.py`` (``fingerprint32_pallas`` and its
 ``_mix_kernel``).  The kernel, ``csrc/fingerprint32.cu``, is CUDA C++ for
 ``sm_90a`` with a plain C entry point: it is compiled with ``nvcc`` at first
 use into ``ringpop_tpu_torch/_build/`` (keyed by a hash of the source and the
-flags, so an edited source rebuilds) and loaded with ctypes.  Nothing is
+flags, so an edited source rebuilds; ``ops/_cuda_build.py``) and loaded with
+ctypes.  Nothing is
 built or loaded when this module is imported.
 
 :func:`fingerprint32` follows its input's device: a CPU tensor takes the plain
@@ -27,10 +28,6 @@ so a run can show its main path went through the kernel;
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from functools import lru_cache
 from pathlib import Path
@@ -38,14 +35,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ringpop_tpu_torch.ops import _cuda_build
 from ringpop_tpu_torch.ops.hash_ops import check_key_matrix, fingerprint32_device
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fingerprint32.cu"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = _cuda_build.CSRC / "fingerprint32.cu"
+BUILD_DIR = _cuda_build.BUILD_DIR
 
 SMEM_BUDGET = 232_448  # dynamic shared memory one block may use on Hopper (227 KB)
 MAX_ROWS_PER_TILE = 256  # rows of a tile = threads of a block
@@ -59,45 +53,11 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _find_nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin): the Fingerprint32 kernel "
-        "cannot be built on this machine"
-    )
-
-
-def _library_path() -> Path:
-    """Where the built library for the current source and flags lives."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libfingerprint32_{key[:16]}.so"
-
-
 def build() -> Path:
     """Compile ``csrc/fingerprint32.cu`` unless the library for this source
-    is already built.  The compiler's report (registers, spills) is kept
-    beside it as ``<library>.log``.  Raises RuntimeError on failure."""
-    path = _library_path()
-    if path.exists():
-        return path
-    nvcc = _find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    os.replace(tmp, path)
-    return path
+    is already built (``_cuda_build.build``).  Raises RuntimeError on
+    failure."""
+    return _cuda_build.build(SOURCE, BUILD_DIR)
 
 
 def _library():

@@ -1,0 +1,15 @@
+"""The sim plane of the port: whole simulated SWIM clusters as dense tensors.
+
+Counterpart of ``ringpop_tpu/sim``.  Ported so far:
+
+* :mod:`ringpop_tpu_torch.sim.packbits` — bit-packed boolean planes (the
+  K rumor slots 32 to an int32 word) and their word ops; the popcount and
+  the bitwise OR/AND row reduces launch the hand-written Hopper kernels of
+  ``csrc/packbits.cu`` on a CUDA tensor;
+* :mod:`ringpop_tpu_torch.sim.prng` — the partition-invariant counter
+  stream (``rng="counter"``), a pure function of (seed, tick, site, lane);
+* :mod:`ringpop_tpu_torch.sim.delta` — the O(N·K) rumor-dissemination
+  engine (``DeltaSim``) at ``rng="counter"``.
+
+This module imports none of them, so importing the package costs nothing.
+"""
