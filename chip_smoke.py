@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Smoke run of ringpop_tpu_torch on one CUDA card: the keyed-ownership path
-and the SWIM dissemination engine.
+"""Smoke run of ringpop_tpu_torch on one CUDA card: the keyed-ownership path,
+the SWIM dissemination engine and the SWIM failure-detection engine.
 
     python3 chip_smoke.py
 
 Drives the PyTorch port's main paths once, through the entry points a user
 calls: the keyed path at the scale of the ring benchmark (``BASELINE.json``
 config 5: a 4096-server ring x 256 vnodes = 1,048,576 tokens, 1,048,576
-keys), and the delta engine at ``bench.py``'s delta configuration
-(1,000,000 nodes x 128 rumor slots):
+keys), the delta engine at ``bench.py``'s delta configuration
+(1,000,000 nodes x 128 rumor slots) and the lifecycle engine at
+``bench.py``'s headline (1,000,000 nodes x 256 rumor slots, 1000 down):
 
 1. build the Fingerprint32 kernel (``ringpop_tpu_torch/csrc/fingerprint32.cu``)
    and hold it bit-equal against its plain PyTorch version on the card and
@@ -51,7 +52,29 @@ keys), and the delta engine at ``bench.py``'s delta configuration
    with the device's busy share of the window;
 7. the uniform exchange with faults at 1,000,000 x 128: 1000 nodes down,
    ``drop_rate=0.01``, 24 ticks from ``seed=1``; the final leaves' digests
-   equal the pinned JAX ones.
+   equal the pinned JAX ones;
+8. build the lifecycle kernels (``ringpop_tpu_torch/csrc/lifecycle.cu``)
+   and hold the subject-slot walk (L1: checksum mode, and detect mode at
+   three observer masks x SUSPECT/FAULTY) and the first-live-learner select
+   (L2: no mask, a random one, all down) bit-equal against their plain
+   PyTorch versions on the card, at N = 1, 31, 33, 4097, 1,000,000 x
+   K = 40, 64, 256, over sparse, medium and dense planes with empty rows
+   and slot columns and rumor tables with free slots, a subject holding a
+   third of the slots, no free slot and only free slots;
+9. the lifecycle engine at 1,000,000 x 256, ``rng="counter"``, shift, from
+   ``seed=0`` with bench.py's 1000 victims down: the first 8 ticks on the
+   kernels and, side by side, on the plain versions (walk, first learner
+   and row reduces), every leaf and both queries equal at every tick and
+   the tick-8 digests equal to the JAX pins; L1 and L2 alone by profiler
+   name on that tick-8 state (its slots in flight) beside their bounds, and
+   the detection check and the checksums with the kernel and with the plain
+   walk; then the main path
+   ``LifecycleSim(...).run_until_detected(max_ticks=4096, check_every=32,
+   blocks_per_dispatch=8)``, ``run_until_converged(...)`` and
+   ``view_checksums`` reach the JAX package's tick counts, final-leaf
+   digests and checksums (pinned below), with their launch counts and wall
+   times (CUDA events, three runs), and a ``torch.profiler`` breakdown of
+   one 32-tick block by phase and by kernel with the device's busy share.
 
 ``python3 chip_smoke.py --kernel-profile`` runs step 4's kernel profile
 alone and prints it as one JSON line: run from another checkout's root it
@@ -77,11 +100,12 @@ import numpy as np
 import torch
 
 from ringpop_tpu_torch.hashing.farm import fingerprint32_batch, pack_strings
-from ringpop_tpu_torch.ops import hash_kernel, packbits_kernel
+from ringpop_tpu_torch.ops import hash_kernel, lifecycle_kernel, packbits_kernel
 from ringpop_tpu_torch.ops.hash_ops import fingerprint32_device, keyed_owner_lookup, upload_keys
 from ringpop_tpu_torch.ops.ring_ops import build_ring_tokens, host_lookup_n, ring_lookup
 from ringpop_tpu_torch.serve.state import RingStore, serve_lookup_fused, serve_lookup_n_fused
-from ringpop_tpu_torch.sim import delta, packbits
+from ringpop_tpu_torch.sim import delta, lifecycle, packbits
+from ringpop_tpu_torch.swim.member import FAULTY, SUSPECT
 
 SEED = 20261016
 N_SERVERS = 4096
@@ -114,6 +138,50 @@ PIN_UNIFORM = {
     "tick": "17fa9c7f5e9039a2d46e73e17d8e094a796ee4c313199bad42db4ee1dc30d865",
     "key": "01acecb507abfe1a354aa8064f4af5d3f1acd019e37db3c11c97523b71c76e9d",
 }
+# the lifecycle engine's configuration: bench.py's headline (bench.py:419-440)
+LIFE_N, LIFE_K, LIFE_SEED, LIFE_VICTIMS = 1_000_000, 256, 0, 1000
+LIFE_MAX_TICKS, LIFE_CHECK_EVERY, LIFE_TWIN_TICKS, LIFE_RUNS = 4096, 32, 8, 3
+LIFECYCLE_ROWS = (1, 31, 33, 4097, 1_000_000)
+LIFECYCLE_SLOTS = (40, 64, 256)
+# pinned from the JAX package (ringpop_tpu.sim.lifecycle, rng="counter") run
+# on the CPU; tests/test_torch_chip_smoke_pins.py recomputes them
+PIN_LIFE_DETECT_TICKS, PIN_LIFE_CONVERGE_TICKS = 128, 0
+PIN_LIFE_TWIN = {  # after the first LIFE_TWIN_TICKS ticks
+    "r_subject": "d74b088d291fa3ce5557e893dc498ea115c87d6da6a6588dfd97c32a96f87d71",
+    "r_inc": "5f70bf18a086007016e948b04aed3b82103a36bea41755b6cddfaf10ace3c6ef",
+    "r_status": "2661920f2409dd6c8adeb0c44972959f232b6429afa913845d0fd95e7e768234",
+    "r_deadline": "a4f141dde60bd5a1235d5be9e1c3b0f02a5afc5090f28d95ffd201de19f608a7",
+    "learned": "e0834c1215aa5209c8ca54236c5ccedf25275de4d378a2dbe4c89b21ff425531",
+    "pcount": "17157d15d7e26c866e2a69bc08ee8f5cf7026583be9ba60890863a17b5cb7e54",
+    "ride_ok": "90b1c49f30fb1e958e1dbce3cb82a0ec15a9ac18a5dda4f63a91eb41f00acbb2",
+    "base_status": "d29751f2649b32ff572b5e0a9f541ea660a50f94ff0beedfb0b692b924cc8025",
+    "base_inc": "8dbe5f139fd946d4cd84e8cc612cd9f68cbc87e394457884acc0c5dad56dd8dd",
+    "base_present": "1fb6a051d8996888485d47fea0007a88e1e78ea273fa5fb60e1ab00608dbb764",
+    "base_pending": "bfa872a3021d48c84643f831ee5f9358bceccf3ad6a5f8b3a7a00e0b3f22bdbc",
+    "base_deadline": "8475ac20a4d76c1cc91be24ed0ae8df288cccf830bc15d9acb7da81cab0b5110",
+    "self_inc": "8dbe5f139fd946d4cd84e8cc612cd9f68cbc87e394457884acc0c5dad56dd8dd",
+    "tick": "dc765660b06ee03dd16fd7ca5b957e8c805161ac2c4af28c5a100ab2ab432ca1",
+    "key": "af5570f5a1810b7af78caf4bc70a660f0df51e42baf91d4de5b2328de0e83dfc",
+}
+PIN_LIFE = {  # after run_until_detected and run_until_converged
+    "r_subject": "5f4ecdb7b71c3e403983fe405cddcdc2f2576b655fdb3e80d94a6f7c32e58bc2",
+    "r_inc": "5f70bf18a086007016e948b04aed3b82103a36bea41755b6cddfaf10ace3c6ef",
+    "r_status": "f5c22e35d04167e37913e7963ce033b1f3d17a924a4e6fe5fc95af1224051921",
+    "r_deadline": "6c3181e9bbc7e417cee2f110dddc2091481502f5630644f72192862c39b601d4",
+    "learned": "1a100baed95a65f66d01cd08644b28e134783fd0c52ac7e35ad52a452e8b90b2",
+    "pcount": "ff18e8f15bd1b40478433ebafd0b49b46c875ad9e8eabf0cf3747f493ebb6200",
+    "ride_ok": "90b1c49f30fb1e958e1dbce3cb82a0ec15a9ac18a5dda4f63a91eb41f00acbb2",
+    "base_status": "854b1c3e9eab4ebbb97227e0c67dcf6e1679c69e28aac64c6f4f89e5fa4e003e",
+    "base_inc": "8dbe5f139fd946d4cd84e8cc612cd9f68cbc87e394457884acc0c5dad56dd8dd",
+    "base_present": "1fb6a051d8996888485d47fea0007a88e1e78ea273fa5fb60e1ab00608dbb764",
+    "base_pending": "3e272cb77b8338b209212d16b0e490e050c178d18cd221181cc67015cb2a6f3d",
+    "base_deadline": "4942aab639a923b98047de571aa82528ab1016fc91d9aa9f905ef7599b402cf4",
+    "self_inc": "8dbe5f139fd946d4cd84e8cc612cd9f68cbc87e394457884acc0c5dad56dd8dd",
+    "tick": "50c8ba3a6170f0a2fb6736ece8a603576ef6309a35e810911599bc6211b554a9",
+    "key": "af5570f5a1810b7af78caf4bc70a660f0df51e42baf91d4de5b2328de0e83dfc",
+}
+PIN_LIFE_VIEWS_SUM = 1194085248  # view_checksums(...) summed in wrapping uint32
+PIN_LIFE_VIEWS_SHA = "7779b7f65d5d326f6b04c5fba2a49e3582dd02db8bea59052fea5756eed095ce"
 
 
 def check(ok: bool, what: str) -> None:
@@ -164,14 +232,15 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
-def profile_ms(fn, reps: int, flush, flush_tag: str) -> dict[str, tuple[int, float]]:
+def profile_ms(fn, reps: int, flush, flush_tag: str, lost_ok: int = 0) -> dict[str, tuple[int, float]]:
     """Device time of each kernel that ``fn`` launches, by kernel name, from
     ``torch.profiler`` over ``reps`` runs with ``flush()`` (which evicts the
-    L2 cache) before each, after one untimed warm-up run: {name: (launches,
-    mean ms per launch)}.  The flush's own kernels, named with
-    ``flush_tag``, are left out.  A profile whose record misses a flush or
-    a launch (the profiler can drop device records) is run again, twice at
-    most."""
+    L2 cache) before each, after one untimed warm-up run: {name: (recorded
+    launches, mean ms per recorded launch)}.  The flush's own kernels, named
+    with ``flush_tag``, are left out.  A profile whose record misses a flush
+    or a launch (the profiler can drop device records) is run again, twice
+    at most, unless it misses at most ``lost_ok`` flushes (the mean per
+    recorded launch stands)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -195,6 +264,10 @@ def profile_ms(fn, reps: int, flush, flush_tag: str) -> dict[str, tuple[int, flo
                 continue
             found[evt.key] = (evt.count, us / evt.count / 1e3)
         if flush_kernels >= reps and all(n % reps == 0 for n, _ in found.values()):
+            return found
+        if reps - lost_ok <= flush_kernels <= reps:
+            log(f"profile: the profiler dropped {reps - flush_kernels} of {reps} flushes' records; "
+                f"kernel times are means over the recorded launches {[n for n, _ in found.values()]}")
             return found
         log(f"profile: the profiler recorded {flush_kernels} of {reps} flushes and "
             f"{[n for n, _ in found.values()]} launches; profiling again")
@@ -348,12 +421,12 @@ def phase1_kernel_vs_plain(dev: torch.device) -> int:
 # -- the delta engine: packed-plane kernels and the SWIM dissemination path --
 
 
-def leaf_digests(leaves) -> dict[str, str]:
-    """sha256 of each ``DeltaState`` leaf (numpy, in the JAX package's
-    dtypes: uint32 planes and key, int8 pcount, int32 tick) over its
+def leaf_digests(leaves, fields=delta.DeltaState._fields) -> dict[str, str]:
+    """sha256 of each state leaf (numpy, in the JAX package's dtypes:
+    uint32 planes and key, int8 counters, int32 tick) over its
     little-endian bytes."""
     out = {}
-    for name, leaf in zip(delta.DeltaState._fields, leaves):
+    for name, leaf in zip(fields, leaves):
         arr = np.ascontiguousarray(np.asarray(leaf))
         out[name] = hashlib.sha256(arr.astype(arr.dtype.newbyteorder("<")).tobytes()).hexdigest()
     return out
@@ -650,11 +723,350 @@ def run_delta(dev: torch.device) -> tuple[list, dict]:
     return kernels, {"delta_shift": shift, "delta_uniform": uniform}
 
 
+# -- the lifecycle engine: the slot-walk and first-live-learner kernels and --
+# -- SWIM failure detection at bench.py's headline scale --------------------
+
+
+@contextlib.contextmanager
+def plain_lifecycle():
+    """Route ``ops/lifecycle_kernel``'s walk and first-live-learner on CUDA
+    tensors, and ``sim/packbits``'s reduces, to their plain versions (on
+    the card) for the duration: the lifecycle path with no kernel."""
+    saved = lifecycle_kernel.slot_walk_cuda, lifecycle_kernel.first_live_learner_cuda
+    lifecycle_kernel.slot_walk_cuda = lifecycle_kernel.slot_walk_plain
+    lifecycle_kernel.first_live_learner_cuda = lifecycle_kernel.first_live_learner_plain
+    try:
+        with plain_packbits():
+            yield
+    finally:
+        lifecycle_kernel.slot_walk_cuda, lifecycle_kernel.first_live_learner_cuda = saved
+
+
+def random_rumor_table(gen: torch.Generator, n: int, k: int, dev, kind: str):
+    """(r_subject, rkey) for a random K-slot table: about a quarter of the
+    slots free, keys of every status (equal keys included); ``kind`` "many"
+    gives one subject a third of the slots, "full" frees no slot, "free"
+    frees every slot."""
+    subj = torch.randint(0, n, (k,), generator=gen, device=dev, dtype=torch.int32)
+    if kind == "many":
+        subj[: k // 3] = subj[0]
+    if kind != "full":
+        free = torch.rand(k, generator=gen, device=dev) < (1.0 if kind == "free" else 0.25)
+        subj = torch.where(free, -1, subj)
+    inc = torch.randint(0, 4, (k,), generator=gen, device=dev, dtype=torch.int32)
+    status = torch.randint(0, 5, (k,), generator=gen, device=dev, dtype=torch.int32)
+    rkey = torch.where(subj >= 0, (inc << 3) | status, -1).to(torch.int32)
+    return subj, rkey
+
+
+def random_base_key(gen: torch.Generator, n: int, dev) -> torch.Tensor:
+    """int32[n]: a base key per subject, absent (-1) for about a tenth."""
+    key = (torch.randint(0, 3, (n,), generator=gen, device=dev, dtype=torch.int32) << 3) | torch.randint(
+        0, 5, (n,), generator=gen, device=dev, dtype=torch.int32)
+    return torch.where(torch.rand(n, generator=gen, device=dev) < 0.1, -1, key).to(torch.int32)
+
+
+def random_learned(gen: torch.Generator, n: int, k: int, dev, density: float) -> torch.Tensor:
+    """int32[n, W] packed from K random slot bits (tail bits zero); rows
+    0 and 1 learn nothing and three slot columns are empty."""
+    bits = torch.rand((n, k), generator=gen, device=dev) < density
+    bits[:, :3] = False
+    bits[:2] = False
+    return packbits.pack_bool(bits)
+
+
+def phase8_lifecycle_kernels(dev: torch.device) -> int:
+    """L1 (both modes) and L2 bit-equal to their plain versions on the card
+    at N x K in LIFECYCLE_ROWS x LIFECYCLE_SLOTS; launch counts checked.
+    Returns the max abs difference."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    lifecycle_kernel.reset_launches()
+    calls = {"slot_walk": 0, "first_live_learner": 0}
+    max_err = 0
+    for n in LIFECYCLE_ROWS:
+        for k in LIFECYCLE_SLOTS:
+            base_key = random_base_key(gen, n, dev)
+            ups = {"every row": None, "random up": torch.rand(n, generator=gen, device=dev) < 0.7,
+                   "all down": torch.zeros(n, dtype=torch.bool, device=dev)}
+            for density in (0.002, 0.3, 0.9):
+                learned = random_learned(gen, n, k, dev, density)
+                for kind in ("many", "full", "spread", "free"):
+                    subj, rkey = random_rumor_table(gen, n, k, dev, kind)
+                    order, ss, sk = lifecycle_kernel.walk_order(subj, rkey, n)
+                    got = lifecycle_kernel.slot_walk_cuda(learned, order, ss, sk, base_key, "checksum")
+                    want = lifecycle_kernel.slot_walk_plain(learned, order, ss, sk, base_key, "checksum")
+                    calls["slot_walk"] += 1
+                    max_err = max(max_err, int((got - want).abs().max()))
+                    check(torch.equal(got, want), f"L1 checksum == plain (N={n} K={k} {density} {kind})")
+                    for oname, obs in ups.items():
+                        obs = torch.ones(n, dtype=torch.bool, device=dev) if obs is None else obs
+                        for min_status in (SUSPECT, FAULTY):
+                            got = lifecycle_kernel.slot_walk_cuda(learned, order, ss, sk, base_key, "detect",
+                                                                  obs, min_status)
+                            want = lifecycle_kernel.slot_walk_plain(learned, order, ss, sk, base_key, "detect",
+                                                                    obs, min_status)
+                            calls["slot_walk"] += 1
+                            max_err = max(max_err, int((got.int() - want.int()).abs().max()))
+                            check(torch.equal(got, want),
+                                  f"L1 detect == plain (N={n} K={k} {density} {kind} {oname} {min_status})")
+                for uname, up in ups.items():
+                    got = lifecycle_kernel.first_live_learner_cuda(learned, up, k)
+                    want = lifecycle_kernel.first_live_learner_plain(learned, up, k)
+                    calls["first_live_learner"] += 1
+                    max_err = max(max_err, int((got - want).abs().max()))
+                    check(torch.equal(got, want), f"L2 == plain (N={n} K={k} {density} {uname})")
+            log(f"phase8: N={n} K={k}: L1 (checksum; detect x 3 observer masks x SUSPECT/FAULTY) and L2 "
+                f"(x 3 up masks) == plain over 3 densities x 4 rumor tables (tolerance: none, bit-equal)")
+    torch.cuda.synchronize()
+    check(lifecycle_kernel.launches == calls,
+          f"one launch per wrapper call: {lifecycle_kernel.launches} vs {calls}")
+    log(f"phase8: launches {lifecycle_kernel.launches}; max abs err {max_err}")
+    return max_err
+
+
+def headline_victims(n: int) -> np.ndarray:
+    """bench.py's headline victims: 0.1% of the nodes (bench.py:435-440)."""
+    return np.sort(np.random.default_rng(0).choice(n, size=LIFE_VICTIMS, replace=False))
+
+
+def headline_faults(dev: torch.device, n: int):
+    """The headline's victims and its faults: the victims down."""
+    victims = headline_victims(n)
+    up = np.ones(n, bool)
+    up[victims] = False
+    return victims, delta.DeltaFaults(up=torch.from_numpy(up).to(dev))
+
+
+def lifecycle_block_profile(params, state, faults, ticks: int) -> dict:
+    """``torch.profiler`` over ``ticks`` ticks from ``state``: device time by
+    phase range and by kernel (top 10), the window (CUDA events), the
+    device's busy share of it and kernel launches per tick."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(ticks):
+            state = lifecycle.step(params, state, faults)
+        end.record()
+        torch.cuda.synchronize()
+    window_ms = start.elapsed_time(end)
+    kernels, phases, spans = {}, {}, {}
+    for evt in prof.key_averages():
+        on_device = evt.device_type == torch.autograd.DeviceType.CUDA
+        if evt.key in lifecycle.PHASES:
+            if on_device:
+                spans[evt.key] = evt.self_device_time_total / 1e3
+            else:
+                phases[evt.key] = evt.device_time_total / 1e3
+        elif on_device and evt.self_device_time_total > 0:
+            kernels[evt.key] = (evt.count, evt.self_device_time_total / 1e3)
+    busy_ms = sum(ms for _, ms in kernels.values())
+    launches = sum(c for c, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
+    return {
+        "ticks": ticks, "window_ms": window_ms, "device_busy_ms": busy_ms,
+        "busy_share": busy_ms / window_ms, "idle_share": 1.0 - busy_ms / window_ms,
+        "kernel_launches": launches, "kernel_launches_per_tick": launches / ticks,
+        "phases_kernel_ms": phases, "phases_span_ms": spans,
+        "port_kernels": {name: {"launches": c, "ms": ms} for name, (c, ms) in kernels.items()
+                         if "packbits_" in name or "lifecycle_" in name},
+        "top_kernels": [{"name": name[:160], "launches": c, "ms": ms} for name, (c, ms) in top],
+    }
+
+
+def one_kernel_ms(found: dict, kname: str) -> float:
+    ms = [v[1] for key, v in found.items() if kname in key]
+    check(len(ms) == 1, f"profiler shows {kname} once: {sorted(found)}")
+    return ms[0]
+
+
+def lifecycle_profile(dev: torch.device, state, victims, faults) -> dict:
+    """L1 (both modes) and L2 alone (profiler, by name) on a headline state
+    after a flush that leaves the L2 cache clean, beside their byte bounds;
+    the wrapper calls, the queries and the plain versions by CUDA events."""
+    n, w = state.learned.shape
+    k = state.r_subject.shape[0]
+    subjects = torch.as_tensor(victims, dtype=torch.int64, device=dev)
+    base_key = lifecycle._base_key(state)
+    order, ss, sk = lifecycle_kernel.walk_order(state.r_subject, lifecycle._rkey(state), n)
+    obs = lifecycle._observers(state, subjects, faults)
+    up = faults.up
+    buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    clean = lambda: buf.sum(dtype=torch.int64)  # noqa: E731
+    table = 16 * k  # order, subject, key and the base key per slot
+    cases = {
+        "slot_walk_detect": (
+            lambda: lifecycle_kernel.slot_walk_cuda(state.learned, order, ss, sk, base_key, "detect", obs, FAULTY),
+            lambda: lifecycle_kernel.slot_walk_plain(state.learned, order, ss, sk, base_key, "detect", obs, FAULTY),
+            "lifecycle_slot_walk", 4 * n * w + n + table + n),
+        "slot_walk_checksum": (
+            lambda: lifecycle_kernel.slot_walk_cuda(state.learned, order, ss, sk, base_key, "checksum"),
+            lambda: lifecycle_kernel.slot_walk_plain(state.learned, order, ss, sk, base_key, "checksum"),
+            "lifecycle_slot_walk", 4 * n * w + table + 8 * n),
+        "first_live_learner": (
+            lambda: lifecycle_kernel.first_live_learner_cuda(state.learned, up, k),
+            lambda: lifecycle_kernel.first_live_learner_plain(state.learned, up, k),
+            "lifecycle_first_live_learner", 4 * n * w + n + 4 * 32 * w),
+    }
+    out = {}
+    for name, (fn, plain, kname, nbytes) in cases.items():
+        ms = one_kernel_ms(profile_ms(fn, 20, clean, "reduce_kernel", lost_ok=2), kname)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rec = out[name] = {
+            "kernel_ms": ms, "call_ms": time_ms(fn, 20, buf), "plain_ms": time_ms(plain, 3, buf),
+            "bound_ms": bound_ms, "share_of_bound": bound_ms / ms, "bytes": nbytes,
+        }
+        log(f"profile: {name} N={n} K={k}: kernel alone {ms * 1e3:.2f} us after a clean flush; "
+            f"call {rec['call_ms'] * 1e3:.2f} us; plain {rec['plain_ms']:.3f} ms; bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_ms / ms:.1%})")
+    check_fn = lambda: lifecycle.detection_complete(state, subjects, faults)  # noqa: E731
+    views_fn = lambda: lifecycle.view_checksums(state, faults)  # noqa: E731
+    out["detection_check_ms"] = time_ms(check_fn, 10, buf)
+    out["view_checksums_ms"] = time_ms(views_fn, 10, buf)
+    with plain_lifecycle():
+        out["detection_check_plain_ms"] = time_ms(check_fn, 3, buf)
+        out["view_checksums_plain_ms"] = time_ms(views_fn, 3, buf)
+    log(f"profile: detection check {out['detection_check_ms']:.3f} ms (plain walk "
+        f"{out['detection_check_plain_ms']:.3f} ms); view_checksums {out['view_checksums_ms']:.3f} ms "
+        f"(plain {out['view_checksums_plain_ms']:.3f} ms)")
+    return out
+
+
+def phase9_lifecycle_headline(dev: torch.device) -> dict:
+    """bench.py's headline at 1,000,000 x 256: kernels vs plain for the
+    first ticks and the kernels' profile on the state they reach, then the
+    counted, timed detection + convergence + view checksum run against the
+    JAX pins, then one block under the profiler."""
+    n, k = LIFE_N, LIFE_K
+    victims, faults = headline_faults(dev, n)
+    params = lifecycle.LifecycleParams(n=n, k=k, rng="counter", exchange="shift")
+    subjects = torch.as_tensor(victims, dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    a = lifecycle.init_state(params, seed=LIFE_SEED, device=dev)
+    b = a
+    for t in range(LIFE_TWIN_TICKS):
+        a = lifecycle.step(params, a, faults)
+        qa = (lifecycle.detection_complete(a, subjects, faults), lifecycle.view_checksums(a, faults))
+        before = {**packbits_kernel.launches, **lifecycle_kernel.launches}
+        with plain_lifecycle():
+            b = lifecycle.step(params, b, faults)
+            qb = (lifecycle.detection_complete(b, subjects, faults), lifecycle.view_checksums(b, faults))
+        check({**packbits_kernel.launches, **lifecycle_kernel.launches} == before,
+              "the plain twin launched no kernel")
+        for name, x, y in zip(lifecycle.LifecycleState._fields, a, b):
+            check(torch.equal(x, y), f"tick {t + 1}: {name} on the kernels == on the plain versions")
+        check(torch.equal(qa[0], qb[0]) and torch.equal(qa[1], qb[1]),
+              f"tick {t + 1}: detection_complete and view_checksums on the kernels == plain")
+    digests = leaf_digests(lifecycle.state_to_numpy(a), lifecycle.LifecycleState._fields)
+    for name, want in PIN_LIFE_TWIN.items():
+        check(digests[name] == want, f"tick {LIFE_TWIN_TICKS}: {name} digest == the JAX package's")
+    torch.cuda.synchronize()
+    log(f"phase9: {LIFE_TWIN_TICKS} ticks at {n} x {k}: every leaf, detection_complete and view_checksums "
+        f"on the kernels == on the plain versions at every tick; tick-{LIFE_TWIN_TICKS} digests == JAX "
+        f"({time.perf_counter() - t0:.1f} s with the warm-up)")
+    # the kernels alone on a state in mid-detection (its slots in flight)
+    active = int((a.r_subject >= 0).sum())
+    log(f"phase9: profiling L1 and L2 on the tick-{LIFE_TWIN_TICKS} state: {active} of {k} slots in flight")
+    prof = lifecycle_profile(dev, a, victims, faults)
+    prof["slots_in_flight"] = active
+    del a, b, qa, qb
+
+    # -- the main path: launch counts are 0 before it and read right after --
+    runs = []
+    for run_i in range(LIFE_RUNS):
+        sim = lifecycle.LifecycleSim(n=n, k=k, seed=LIFE_SEED, rng="counter", device=dev)
+        torch.cuda.synchronize()
+        if run_i == 0:
+            packbits_kernel.reset_launches()
+            lifecycle_kernel.reset_launches()
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        events[0].record()
+        ticks, ok = sim.run_until_detected(victims, faults, max_ticks=LIFE_MAX_TICKS,
+                                           check_every=LIFE_CHECK_EVERY, blocks_per_dispatch=8)
+        events[1].record()
+        cticks, cok = sim.run_until_converged(faults, max_ticks=LIFE_MAX_TICKS,
+                                              check_every=LIFE_CHECK_EVERY, blocks_per_dispatch=8)
+        events[2].record()
+        cs = lifecycle.view_checksums(sim.state, faults)
+        events[3].record()
+        torch.cuda.synchronize()
+        detect_ms, converge_ms, views_ms = (events[i].elapsed_time(events[i + 1]) for i in range(3))
+        runs.append({"detect_ms": detect_ms, "converge_ms": converge_ms, "view_checksums_ms": views_ms})
+        if run_i == 0:
+            launches = {**packbits_kernel.launches, **lifecycle_kernel.launches}
+            final, final_cs = sim.state, cs
+            check(ok and ticks == PIN_LIFE_DETECT_TICKS,
+                  f"detected in {ticks} ticks (JAX: {PIN_LIFE_DETECT_TICKS})")
+            check(cok and cticks == PIN_LIFE_CONVERGE_TICKS,
+                  f"converged {cticks} ticks later (JAX: {PIN_LIFE_CONVERGE_TICKS})")
+        del sim
+    digests = leaf_digests(lifecycle.state_to_numpy(final), lifecycle.LifecycleState._fields)
+    for name, want in PIN_LIFE.items():
+        check(digests[name] == want, f"final {name} digest == the JAX package's")
+    cs_np = final_cs.cpu().numpy()
+    check(final_cs.dtype == torch.int64 and cs_np.shape == (n,) and cs_np.min() >= 0 and cs_np.max() < 2**32,
+          "view_checksums is int64[N] holding uint32")
+    cs_sum = int(cs_np.sum()) % 2**32
+    cs_sha = hashlib.sha256(cs_np.astype("<u4").tobytes()).hexdigest()
+    check(cs_sum == PIN_LIFE_VIEWS_SUM and cs_sha == PIN_LIFE_VIEWS_SHA,
+          f"view_checksums: sum {cs_sum} and digest == the JAX package's")
+    checks = 1 + PIN_LIFE_DETECT_TICKS // LIFE_CHECK_EVERY
+    want_launches = {"row_reduce": 3 * PIN_LIFE_DETECT_TICKS, "popcount_rows": 0,
+                     "slot_walk": checks + 2, "first_live_learner": PIN_LIFE_DETECT_TICKS}
+    check(launches == want_launches,
+          f"the lifecycle path launched S1 3x a tick, L2 once a tick, L1 once a check + 1: {launches}")
+    log(f"phase9: detected in {ticks} ticks == JAX, converged {cticks} ticks later == JAX; final leaf "
+        f"digests and view_checksums (sum {cs_sum}) == JAX; launches {launches}; runs {runs}")
+
+    del final, final_cs
+    block = lifecycle_block_profile(params, lifecycle.init_state(params, seed=LIFE_SEED, device=dev),
+                                    faults, LIFE_CHECK_EVERY)
+    log(f"phase9: one {LIFE_CHECK_EVERY}-tick block: window {block['window_ms']:.3f} ms, device busy "
+        f"{block['device_busy_ms']:.3f} ms ({block['busy_share']:.1%}), "
+        f"{block['kernel_launches_per_tick']:.1f} kernel launches a tick; kernel ms by phase "
+        f"{block['phases_kernel_ms']}; span ms by phase {block['phases_span_ms']}; this port's kernels "
+        f"{block['port_kernels']}")
+    for rec in block["top_kernels"]:
+        log(f"phase9:   {rec['ms']:.4f} ms  x{rec['launches']}  {rec['name'][:110]}")
+    return {
+        "launches": launches, "detect_ticks": ticks, "converge_ticks": cticks, "runs": runs,
+        "detect_ms_per_tick": [r["detect_ms"] / ticks for r in runs],
+        "view_checksums_sum": cs_sum, "kernel_profile": prof, "block_profile": block,
+    }
+
+
+def run_lifecycle(dev: torch.device) -> tuple[list, dict]:
+    """Phases 8-9 on ``dev``; returns L1's and L2's records, the lifecycle
+    path's S1/S2 launches and the timings."""
+    max_err = phase8_lifecycle_kernels(dev)
+    life = phase9_lifecycle_headline(dev)
+    prof = life["kernel_profile"]
+    launches = life["launches"]
+    kernels = []
+    for name, key, cases, line in (
+        ("lifecycle_slot_walk", "slot_walk", ("slot_walk_detect", "slot_walk_checksum"),
+         "ringpop_tpu/sim/lifecycle.py:1363"),
+        ("lifecycle_first_live_learner", "first_live_learner", ("first_live_learner",),
+         "ringpop_tpu/sim/lifecycle.py:755"),
+    ):
+        rec = prof[cases[0]]  # L1: the detection check, most of its launches
+        kernels.append({
+            "name": name, "route": "cuda", "source": "ringpop_tpu_torch/csrc/lifecycle.cu",
+            "replaces": line, "launches": launches[key], "max_abs_err": max_err,
+            "ms": rec["kernel_ms"], "call_ms": rec["call_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "share_of_bound": rec["share_of_bound"], "bound_by": "bytes",
+            "library_ms": None, "by_case": {c: prof[c] for c in cases},
+        })
+    return kernels, {"lifecycle": life}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        libs = list(ex.map(lambda m: m.build(), (hash_kernel, packbits_kernel)))
+    with ThreadPoolExecutor(3) as ex:
+        libs = list(ex.map(lambda m: m.build(), (hash_kernel, packbits_kernel, lifecycle_kernel)))
     log(f"build: {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -679,8 +1091,15 @@ def main() -> int:
     build_kernels()
     kernels, timings = run(torch.device("cuda"), N_SERVERS, N_KEYS)
     delta_kernels, delta_timings = run_delta(torch.device("cuda"))
-    kernels += delta_kernels
+    life_kernels, life_timings = run_lifecycle(torch.device("cuda"))
+    # S1 runs on both sim paths: its launches are the sum of their runs
+    life_launches = life_timings["lifecycle"]["launches"]
+    for rec, key in zip(delta_kernels, ("row_reduce", "popcount_rows")):
+        rec["launches_by_path"] = {"delta_shift": rec["launches"], "lifecycle": life_launches[key]}
+        rec["launches"] += life_launches[key]
+    kernels += delta_kernels + life_kernels
     timings.update(delta_timings)
+    timings.update(life_timings)
     timings["card"] = card
     log(json.dumps(timings))
     log(card)

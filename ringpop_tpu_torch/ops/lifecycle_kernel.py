@@ -1,0 +1,268 @@
+"""The lifecycle engine's kernels for Hopper: plain versions, build, launch.
+
+``csrc/lifecycle.cu`` holds two kernels of ``sim/lifecycle.py`` that torch
+cannot express in one call:
+
+* L1 ``slot_walk`` — the per-subject slot walk under
+  ``detection_complete`` and ``view_checksums``: per node, the K rumor slots
+  sorted by (subject asc, key desc), each subject's governing key combined
+  into a view checksum (checksum mode) or into a per-subject "some observer
+  has not detected it" flag (detect mode); replaces the XLA ``fori_loop``
+  of ``ringpop_tpu/sim/lifecycle.py`` (``_walk_subject_slots``);
+* L2 ``first_live_learner`` — per slot, the lowest live row that learned
+  it (0 where none did); replaces ``_first_live_learner``'s argmax over the
+  unpacked [N, K] plane.
+
+Each has its plain PyTorch version here (:func:`slot_walk_plain`,
+:func:`first_live_learner_plain`); :func:`slot_walk` and
+:func:`first_live_learner` dispatch by device: the plain version for a CPU
+tensor, the kernel for a CUDA tensor (or an error — never a fallback).  The
+source is compiled with ``nvcc`` for ``sm_90a`` at first use
+(``ops/_cuda_build.py``) and loaded with ctypes; nothing is built or loaded
+when this module is imported.  ``launches`` counts each kernel's launches;
+:func:`reset_launches` sets them to 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from ringpop_tpu_torch.ops import _cuda_build
+from ringpop_tpu_torch.ops.packbits_kernel import vec_words
+from ringpop_tpu_torch.sim.packbits import M32, bit_column, mix32, unpack_bits
+from ringpop_tpu_torch.swim.member import TOMBSTONE, key_state
+
+SOURCE = _cuda_build.CSRC / "lifecycle.cu"
+BUILD_DIR = _cuda_build.BUILD_DIR
+
+MODES = {"checksum": 0, "detect": 1}
+INT32_MAX = 2**31 - 1
+_WALK_THREADS = 256
+_SMEM_LIMIT = 232_448  # shared memory one Hopper block can use
+
+launches = {"slot_walk": 0, "first_live_learner": 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build() -> Path:
+    """Compile ``csrc/lifecycle.cu`` unless the library for this source is
+    already built.  Raises RuntimeError on failure."""
+    return _cuda_build.build(SOURCE, BUILD_DIR)
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.rp_slot_walk.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                         ptr, ptr, ptr]
+            lib.rp_slot_walk.restype = i32
+            lib.rp_slot_walk_smem.argtypes = [i32, i32, i32]
+            lib.rp_slot_walk_smem.restype = ctypes.c_longlong
+            lib.rp_first_live_learner.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
+            lib.rp_first_live_learner.restype = i32
+            _lib = lib
+        return _lib
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for name in launches:
+        launches[name] = 0
+
+
+def _require_cuda(t: torch.Tensor, what: str) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{what} needs CUDA tensors, got {t.device}")
+
+
+# -- L1: the subject-slot walk -------------------------------------------------
+
+
+def walk_order(r_subject: torch.Tensor, rkey: torch.Tensor, n: int):
+    """The walk's slot order: the K slots sorted by (subject asc, key desc),
+    free slots (subject -1) pushed past the end as subject ``n``, ties in
+    slot order — ``jnp.lexsort((-rkey, subj_or_sentinel))``, as one stable
+    sort of the int64 key ``subj * 2**32 + (2**31 - rkey)`` (rkey >= -1, so
+    the low part stays in [1, 2**32)).  Returns (order int64[K],
+    sorted_subj int32[K], sorted_key int32[K])."""
+    subj = torch.where(r_subject >= 0, r_subject, n).to(torch.int64)
+    composite = subj * (1 << 32) + ((1 << 31) - rkey.to(torch.int64))
+    order = torch.sort(composite, stable=True).indices
+    return order, subj[order].to(torch.int32), rkey[order].to(torch.int32)
+
+
+def member_term(subject, key: torch.Tensor) -> torch.Tensor:
+    """int64 holding uint32: the view checksum's contribution of (subject,
+    governing key), ``mix32(mix32(subject) ^ key)``, zero when the key is
+    absent (< 0) or a tombstone (the reference excludes tombstones)."""
+    include = (key >= 0) & (key_state(key.clamp_min(0)) != TOMBSTONE)
+    h = mix32(mix32(subject) ^ (key.to(torch.int64) & M32))
+    return torch.where(include, h, 0)
+
+
+def slot_walk_plain(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torch.Tensor,
+                    sorted_key: torch.Tensor, base_key: torch.Tensor, mode: str,
+                    obs: Optional[torch.Tensor] = None, min_status: int = 0) -> torch.Tensor:
+    """The plain version of :func:`slot_walk`: the JAX package's walk, one
+    step per sorted slot over [N] columns, keeping each node's best learned
+    key of the current subject and combining at the subject's last slot."""
+    n = learned.shape[0]
+    k = order.shape[0]
+    dev = learned.device
+    # the sorted positions that close their subject's run (free slots close nothing)
+    nxt = torch.cat([sorted_subj[1:], sorted_subj.new_full((1,), n + 1)])
+    is_last = (sorted_subj != nxt) & (sorted_subj < n)
+    best = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    if mode == "checksum":
+        acc = torch.zeros(n, dtype=torch.int64, device=dev)
+    else:
+        anybad = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    for j in range(k):
+        s = sorted_subj[j]
+        valid = s < n
+        sc = s.clamp_max(n - 1)
+        lcol = bit_column(learned, order[j])
+        best = torch.where(lcol & valid, torch.maximum(best, sorted_key[j]), best)
+        m = torch.maximum(best, base_key[sc])
+        fin = is_last[j]
+        if mode == "checksum":
+            acc = acc + torch.where(fin, member_term(sc, m), 0)
+        else:
+            bad = (obs & (m >= 0) & (key_state(m.clamp_min(0)) < min_status)).any()
+            anybad[torch.where(fin, sc, n).reshape(1)] = (bad & fin).reshape(1)
+        best = torch.where(fin, -1, best)
+    return acc & M32 if mode == "checksum" else anybad[:n]
+
+
+def slot_walk_cuda(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torch.Tensor,
+                   sorted_key: torch.Tensor, base_key: torch.Tensor, mode: str,
+                   obs: Optional[torch.Tensor] = None, min_status: int = 0) -> torch.Tensor:
+    """Launch L1 on CUDA tensors; same contract as :func:`slot_walk_plain`.
+    Raises ValueError for tensors it does not take and RuntimeError when the
+    kernel cannot be built or its launch is refused."""
+    if mode not in MODES:
+        raise ValueError(f"unknown walk mode {mode!r}")
+    _require_cuda(learned, "slot_walk_cuda")
+    if learned.dtype != torch.int32 or learned.dim() != 2:
+        raise ValueError(f"slot_walk_cuda takes an int32[N, W] plane, got {learned.dtype}{list(learned.shape)}")
+    n, w = learned.shape
+    k = order.shape[0]
+    dev = learned.device
+    if not 1 <= k < (1 << 24) or 32 * w < k or n >= 2**31:
+        raise ValueError(f"slot_walk_cuda: unsupported shape N={n} W={w} K={k}")
+    if base_key.shape != (n,) or sorted_subj.shape != (k,) or sorted_key.shape != (k,):
+        raise ValueError("slot_walk_cuda: base_key must be [N] and the slot vectors [K]")
+    if mode == "detect" and (obs is None or obs.dtype != torch.bool or obs.shape != (n,)):
+        raise ValueError(f"slot_walk_cuda: detect mode needs a bool[{n}] observer mask")
+    tensors = [learned, order, sorted_subj, sorted_key, base_key] + ([obs] if mode == "detect" else [])
+    if any(t.device != dev for t in tensors):
+        raise ValueError("slot_walk_cuda: every tensor must be on the plane's device")
+    learned = learned.contiguous()
+    order32 = order.to(torch.int32).contiguous()
+    sorted_subj = sorted_subj.to(torch.int32).contiguous()
+    sorted_key = sorted_key.to(torch.int32).contiguous()
+    base_key = base_key.to(torch.int32).contiguous()
+    sums = torch.empty(n if mode == "checksum" else 0, dtype=torch.int64, device=dev)
+    anybad = torch.zeros(n if mode == "detect" else 0, dtype=torch.bool, device=dev)
+    obs_c = obs.contiguous() if mode == "detect" else None
+    if n:
+        lib = _library()
+        threads = _WALK_THREADS
+        while threads > 32 and lib.rp_slot_walk_smem(w, k, threads) > _SMEM_LIMIT:
+            threads -= 32
+        if lib.rp_slot_walk_smem(w, k, threads) > _SMEM_LIMIT:
+            raise ValueError(f"slot_walk_cuda: W={w} K={k} needs more shared memory than a block has")
+        with torch.cuda.device(dev):
+            err = lib.rp_slot_walk(
+                learned.data_ptr(), n, w, k, order32.data_ptr(), sorted_subj.data_ptr(),
+                sorted_key.data_ptr(), base_key.data_ptr(),
+                None if obs_c is None else obs_c.data_ptr(), int(min_status), MODES[mode], threads,
+                sums.data_ptr() if mode == "checksum" else None,
+                anybad.data_ptr() if mode == "detect" else None,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"slot_walk kernel ({mode}) launch failed: cudaError {err}")
+        launches["slot_walk"] += 1
+    return sums if mode == "checksum" else anybad
+
+
+def slot_walk(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torch.Tensor,
+              sorted_key: torch.Tensor, base_key: torch.Tensor, mode: str,
+              obs: Optional[torch.Tensor] = None, min_status: int = 0) -> torch.Tensor:
+    """The subject-slot walk over slots in :func:`walk_order`'s order, with
+    ``base_key`` (int32[N], by subject id).  ``mode="checksum"``: int64[N]
+    holding uint32, per node the wrapping sum over subjects that hold a slot
+    of :func:`member_term` of the node's governing key.  ``mode="detect"``:
+    bool[N] by subject id, True where some node with ``obs`` set governs the
+    subject by a present key of status below ``min_status`` (False for
+    subjects without a slot).  The plain version on a CPU plane, L1 on a
+    CUDA plane."""
+    if learned.device.type == "cpu":
+        return slot_walk_plain(learned, order, sorted_subj, sorted_key, base_key, mode, obs, min_status)
+    return slot_walk_cuda(learned, order, sorted_subj, sorted_key, base_key, mode, obs, min_status)
+
+
+# -- L2: the per-slot first live learner -----------------------------------------
+
+
+def first_live_learner_plain(learned: torch.Tensor, up: Optional[torch.Tensor], k: int) -> torch.Tensor:
+    """The plain version of :func:`first_live_learner`: the lowest row
+    index per slot column of the unpacked plane (not ``torch.argmax`` of
+    a bool tensor, which the CPU build refuses)."""
+    n = learned.shape[0]
+    bits = unpack_bits(learned, k)
+    if up is not None:
+        bits = bits & up[:, None]
+    rows = torch.arange(n, dtype=torch.int32, device=learned.device)[:, None]
+    first = torch.where(bits, rows, n).amin(0) if n else torch.zeros(k, dtype=torch.int32, device=learned.device)
+    return torch.where(first == n, 0, first).to(torch.int32)
+
+
+def first_live_learner_cuda(learned: torch.Tensor, up: Optional[torch.Tensor], k: int) -> torch.Tensor:
+    """Launch L2 on a CUDA plane; same contract as
+    :func:`first_live_learner_plain`.  Raises as :func:`slot_walk_cuda`."""
+    _require_cuda(learned, "first_live_learner_cuda")
+    if learned.dtype != torch.int32 or learned.dim() != 2 or not learned.is_contiguous():
+        raise ValueError("first_live_learner_cuda takes a contiguous int32[N, W] plane")
+    n, w = learned.shape
+    if n >= 2**31 or not 0 < k <= 32 * w:
+        raise ValueError(f"first_live_learner_cuda: unsupported shape N={n} W={w} K={k}")
+    if up is not None:
+        if up.dtype != torch.bool or up.shape != (n,) or up.device != learned.device:
+            raise ValueError(f"up must be bool[{n}] on {learned.device}")
+        up = up.contiguous()
+    out = torch.full((32 * w,), INT32_MAX, dtype=torch.int32, device=learned.device)
+    if n:
+        lib = _library()
+        vec = vec_words(w, learned.data_ptr())
+        with torch.cuda.device(learned.device):
+            err = lib.rp_first_live_learner(
+                learned.data_ptr(), None if up is None else up.data_ptr(), n, w, vec,
+                out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"first_live_learner kernel launch failed: cudaError {err}")
+        launches["first_live_learner"] += 1
+    out = out[:k]
+    return torch.where(out == INT32_MAX, 0, out)
+
+
+def first_live_learner(learned: torch.Tensor, up: Optional[torch.Tensor], k: int) -> torch.Tensor:
+    """int32[K]: per slot j < k, the lowest row r with bit j of
+    ``learned[r]`` set and ``up[r]`` (every row when ``up`` is None); 0
+    where there is none, as ``jnp.argmax`` of an all-False column gives.
+    The plain version on a CPU plane, L2 on a CUDA plane."""
+    if learned.device.type == "cpu":
+        return first_live_learner_plain(learned, up, k)
+    return first_live_learner_cuda(learned, up, k)

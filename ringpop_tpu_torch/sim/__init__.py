@@ -9,7 +9,12 @@ Counterpart of ``ringpop_tpu/sim``.  Ported so far:
 * :mod:`ringpop_tpu_torch.sim.prng` — the partition-invariant counter
   stream (``rng="counter"``), a pure function of (seed, tick, site, lane);
 * :mod:`ringpop_tpu_torch.sim.delta` — the O(N·K) rumor-dissemination
-  engine (``DeltaSim``) at ``rng="counter"``.
+  engine (``DeltaSim``) at ``rng="counter"``;
+* :mod:`ringpop_tpu_torch.sim.lifecycle` — the O(N·K) failure-detection
+  engine (``LifecycleSim``: probe, ping-req, Suspect, Faulty, Tombstone,
+  evict, refutation) at ``rng="counter"``; its slot walk and
+  first-live-learner select launch the Hopper kernels of
+  ``csrc/lifecycle.cu`` on a CUDA tensor.
 
 This module imports none of them, so importing the package costs nothing.
 """

@@ -1,0 +1,1065 @@
+"""Scalable full-lifecycle SWIM simulator: failure detection at O(N·K).
+
+Counterpart of ``ringpop_tpu/sim/lifecycle.py``, bit for bit at
+``rng="counter"``.  The delta engine (``sim/delta.py``) measures pure
+dissemination; this engine adds the failure-detection dynamics of the
+reference — probe → indirect probe → Suspect → deadline → Faulty →
+Tombstone → evict, and refutation by reincarnation
+(``swim/node.go:470-513``, ``swim/state_transitions.go:90-117``,
+``swim/memberlist.go:337-354``) — at O(N·K) memory.
+
+Representation: every node's view is ``converged base ⊔ learned rumors``:
+
+* ``base_{status,inc,present,pending,deadline}[N]`` — the view every node
+  agrees on, and its per-subject timers;
+* a K-slot rumor table ``(subject, incarnation, status, deadline)`` — the
+  changes in flight (subject -1 = free slot);
+* ``learned[N, W]`` (int32 holding the uint32 words of the K slot bits,
+  ``sim/packbits``), ``pcount[N, K]`` (int8 piggyback counters) and the
+  carried ``ride_ok[N, W] == pack_bool(pcount < max_p)``.
+
+Change application is a lattice max over ``key = (incarnation << 3) |
+state`` (``swim/member.py``), so a node's belief about subject ``s`` is
+``max(base_key[s], max key of the learned slots about s)``.
+
+On the card, three packed row reduces a tick run S1 (``csrc/packbits.cu``),
+the per-slot first live learner runs L2 and the subject-slot walk under
+:func:`detection_complete` and :func:`view_checksums` runs L1
+(``csrc/lifecycle.cu``, ``ops/lifecycle_kernel.py``); the rest of the tick
+is plain PyTorch.  The run loops are Python loops over blocks of
+``check_every`` ticks with one host sync per block (``delta.until_loop``).
+
+Where the JAX package's code is shaped by its SPMD partitioner, the port
+takes the plain form the JAX docstrings prove value-identical: the
+hierarchical candidate select ``_top_m_sparse`` is the full stable sort it
+falls back to (``lax.top_k``: value descending, lower index first among
+equals — one ``torch.sort(stable=True)``, not ``torch.topk``, which makes
+no promise on ties), and the two-level ``_gather_rows`` is ``plane[idx]``.
+The first-live-learner argmax, which the JAX package guards with a
+``lax.cond`` on "a timer fired", runs every tick: its value is masked by
+the same condition, and a branch here would cost a host sync a tick.
+
+Not ported yet, each refused with NotImplementedError: the threefry stream
+(``rng="threefry"``, the JAX package's default — ROADMAP A8), the sharded
+exchange and layout hints (``exchange_mesh``, ``learned_sharding``,
+``state_shardings`` — A12), telemetry (A7) and the AOT warm start (A15).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Any, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ringpop_tpu_torch.device import DeviceLike, resolve_device
+from ringpop_tpu_torch.ops import lifecycle_kernel
+from ringpop_tpu_torch.sim import delta, prng
+from ringpop_tpu_torch.sim.delta import (
+    DeltaFaults,
+    check_tier_legs,
+    clamped_max_p,
+    has_drop,
+    leg_survives,
+    pair_connected,
+    resolve_faults,
+    resolve_max_p,
+    tier_pair_drop,
+    until_loop,
+)
+from ringpop_tpu_torch.sim.packbits import (
+    and_reduce_rows,
+    as_i32,
+    bit_column,
+    n_words,
+    or_reduce_rows,
+    pack_bool,
+    row_mask,
+    set_bit,
+    set_bit_per_row,
+    unpack_bits,
+)
+from ringpop_tpu_torch.swim.member import (
+    ALIVE,
+    FAULTY,
+    KEY_STATE_BITS,
+    SUSPECT,
+    TOMBSTONE,
+    is_detraction,
+    is_pingable,
+    key_incarnation,
+    key_state,
+    pack_key,
+)
+
+NO_DEADLINE = 2**31 - 1
+INT32_MIN = -(2**31)
+
+# the profiler ranges of ``step``, in order (the JAX package's phase scopes;
+# "piggyback-counters" is entered twice, for the int8 passes A and B)
+PHASES = (
+    "tick-prologue", "ping-target", "rumor-exchange", "heal", "piggyback-counters",
+    "timers-fold", "peer-choice", "candidate-select", "alloc-seed", "commit",
+)
+
+
+class LifecycleState(NamedTuple):
+    # rumor table (K slots; subject -1 = free)
+    r_subject: torch.Tensor  # int32[K]
+    r_inc: torch.Tensor  # int32[K] incarnation (protocol-tick counter)
+    r_status: torch.Tensor  # int8[K]
+    r_deadline: torch.Tensor  # int32[K] tick when the state timer fires
+    # per-(node, rumor); learned is bit-packed along the rumor axis
+    learned: torch.Tensor  # int32[N, W] holding uint32 words, W = ceil(K/32)
+    pcount: torch.Tensor  # int8[N, K]
+    ride_ok: torch.Tensor  # int32[N, W]: pack_bool(pcount < clamped max_p), carried
+    # converged base view shared by all nodes
+    base_status: torch.Tensor  # int8[N]
+    base_inc: torch.Tensor  # int32[N]
+    base_present: torch.Tensor  # bool[N]
+    base_pending: torch.Tensor  # int8[N] scheduled transition source state or -1
+    base_deadline: torch.Tensor  # int32[N]
+    # each node's own incarnation (refutation bumps it)
+    self_inc: torch.Tensor  # int32[N]
+    tick: torch.Tensor  # int32 scalar
+    key: torch.Tensor  # int64[2] holding the uint32 PRNG key
+
+
+@dataclass(frozen=True)
+class LifecycleParams:
+    n: int
+    k: int = 128  # rumor-slot capacity
+    # reference defaults in ticks (protocol period 200 ms, swim/node.go:74-100)
+    suspect_ticks: int = 25  # 5 s
+    faulty_ticks: int = 432000  # 24 h
+    tombstone_ticks: int = 300  # 60 s
+    ping_req_size: int = 3
+    p_factor: int = 15
+    max_p: Optional[int] = None
+    alloc_per_tick: int = 64  # new-rumor budget per tick (<= k)
+    tick_ms: int = 200  # simulated ms per tick (reporting only)
+    # "shift": cyclic-permutation partners (one probe per target per tick);
+    # "uniform": independent draws (see DeltaParams.exchange)
+    exchange: str = "shift"
+    # partition-healer attempt rate, cluster-wide per tick (~one attempt per
+    # 10 s in the reference: swim/node.go:59-67, heal_via_discover_provider.go)
+    heal_prob: float = 0.02
+    # PRNG family: "counter" (sim/prng.py) is the one the port runs;
+    # "threefry", the JAX package's default, is refused until ROADMAP A8
+    rng: str = "threefry"
+    # the sharded exchange of the JAX package and its tuning fields, refused
+    # until ROADMAP A12 (exchange_h and exchange_pipelined are read only with
+    # a mesh)
+    exchange_mesh: Optional[Any] = None
+    exchange_h: int = 2
+    exchange_pipelined: bool = True
+
+    def resolved_max_p(self) -> int:
+        return resolve_max_p(self.n, self.p_factor, self.max_p)
+
+
+def _check_supported(params: LifecycleParams) -> None:
+    if params.rng not in ("threefry", "counter"):
+        raise ValueError(f"unknown rng family {params.rng!r}")
+    if params.rng == "threefry":
+        raise NotImplementedError(
+            "rng='threefry' (the jax.random stream) is not ported yet "
+            "(ROADMAP Queue A8); pass rng='counter'"
+        )
+    if params.exchange_mesh is not None:
+        raise NotImplementedError(
+            "exchange_mesh (the sharded shift exchange) is not ported yet "
+            "(ROADMAP Queue A12)"
+        )
+    if params.ping_req_size >= prng.D_COLUMN_SPAN:
+        raise ValueError(
+            f"ping_req_size={params.ping_req_size} overflows the counter RNG's "
+            f"per-site column span ({prng.D_COLUMN_SPAN}): column draws would "
+            "collide with the next draw site's stream (sim/prng.py)"
+        )
+
+
+def _refuse_telemetry(telemetry) -> None:
+    if telemetry is not None:
+        raise NotImplementedError(
+            "lifecycle telemetry (sim/telemetry) is not ported yet (ROADMAP Queue A7)"
+        )
+
+
+def init_state(params: LifecycleParams, seed: int = 0, device: DeviceLike = None) -> LifecycleState:
+    """The initial state on ``device`` (the card unless the caller asks for
+    the CPU); ``key`` is ``prng.prng_key(seed)``, the value
+    ``jax.random.PRNGKey(seed)`` has."""
+    dev = resolve_device(device)
+    n, k = params.n, params.k
+    i32 = dict(dtype=torch.int32, device=dev)
+    return LifecycleState(
+        r_subject=torch.full((k,), -1, **i32),
+        r_inc=torch.zeros((k,), **i32),
+        r_status=torch.zeros((k,), dtype=torch.int8, device=dev),
+        r_deadline=torch.full((k,), NO_DEADLINE, **i32),
+        learned=torch.zeros((n, n_words(k)), **i32),
+        pcount=torch.zeros((n, k), dtype=torch.int8, device=dev),
+        ride_ok=pack_bool(torch.zeros((n, k), dtype=torch.int8, device=dev) < clamped_max_p(params)),
+        base_status=torch.zeros((n,), dtype=torch.int8, device=dev),
+        base_inc=torch.zeros((n,), **i32),
+        base_present=torch.ones((n,), dtype=torch.bool, device=dev),
+        base_pending=torch.full((n,), -1, dtype=torch.int8, device=dev),
+        base_deadline=torch.full((n,), NO_DEADLINE, **i32),
+        self_inc=torch.zeros((n,), **i32),
+        tick=torch.zeros((), **i32),
+        key=prng.prng_key(seed, dev),
+    )
+
+
+def _key_of(inc: torch.Tensor, status) -> torch.Tensor:
+    """``member.pack_key`` in int32 (wraps for incarnations >= 2**28);
+    ``status`` is a tensor or a state id."""
+    if isinstance(status, torch.Tensor):
+        status = status.to(torch.int32)
+    return pack_key(inc.to(torch.int32), status)
+
+
+def _status_of(key: torch.Tensor) -> torch.Tensor:
+    return key_state(key).to(torch.int8)
+
+
+_inc_of = key_incarnation
+
+
+def _like(x: torch.Tensor, value: int) -> torch.Tensor:
+    """A 0-d tensor of ``x``'s dtype and device: ``torch.where`` keeps the
+    dtype of a tensor pair, where a Python scalar pair would promote."""
+    return torch.tensor(value, dtype=x.dtype, device=x.device)
+
+
+def _segment_max(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.ops.segment_max(vals, seg, num_segments=n + 1)[:n]``: an empty
+    segment holds the dtype's minimum; segment ``n`` is the dump."""
+    out = torch.full((n + 1,), INT32_MIN, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(0, seg.to(torch.int64), vals, "amax", include_self=True)[:n]
+
+
+def _segment_min(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.ops.segment_min(..., num_segments=n + 1)[:n]``: an empty
+    segment holds int32 max, which is ``NO_DEADLINE``."""
+    out = torch.full((n + 1,), NO_DEADLINE, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(0, seg.to(torch.int64), vals, "amin", include_self=True)[:n]
+
+
+def _scatter_any(n: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``jnp.zeros(n, bool).at[idx].max(vals, mode="drop")`` for indices in
+    [0, n] (index n is dropped)."""
+    out = torch.zeros(n + 1, dtype=torch.uint8, device=vals.device)
+    out.scatter_reduce_(0, idx.to(torch.int64), vals.to(torch.uint8), "amax", include_self=True)
+    return out[:n].to(torch.bool)
+
+
+def _top_m(vals: torch.Tensor, m: int):
+    """``lax.top_k(vals, m)``: the m largest values, descending, the lower
+    index first among equals (one stable sort; int64 indices)."""
+    v, i = torch.sort(vals, descending=True, stable=True)
+    return v[:m], i[:m]
+
+
+def _bel_rumor_dense(learned_b, r_subject, rkey, active, targets):
+    """Per-node max learned-rumor key about its ping target — the general
+    O(N·K) form (any target assignment; ``learned_b`` unpacked bool)."""
+    bmask = learned_b & active[None, :] & (r_subject[None, :] == targets[:, None])
+    return torch.where(bmask, rkey[None, :], -1).amax(dim=1).to(torch.int32)
+
+
+def step(
+    params: LifecycleParams,
+    state: LifecycleState,
+    faults: DeltaFaults = DeltaFaults(),
+    telemetry=None,
+) -> LifecycleState:
+    """One protocol period for all N nodes, bit-equal to the JAX package's
+    ``step`` at ``rng="counter"``.  ``faults`` may be a ``DeltaFaults`` or a
+    plan with ``at_tick`` (evaluated at ``state.tick``).  The profiler
+    ranges name the protocol phases as the JAX package's scopes do
+    (:data:`PHASES`).  ``telemetry`` must be None (not ported: A7)."""
+    _refuse_telemetry(telemetry)
+    _check_supported(params)
+    faults = resolve_faults(faults, state.tick)
+    n, k = params.n, params.k
+    dev = state.learned.device
+    with record_function("tick-prologue"):
+        m = min(params.alloc_per_tick, params.k, params.n)
+        maxp = clamped_max_p(params)
+        # stateless counter stream: the key leaf carries the seed material
+        # and the tick counter advances the stream
+        cseed = prng.fold_key(state.key)
+        ctick = state.tick
+        now = state.tick + 1
+        i_all = torch.arange(n, dtype=torch.int64, device=dev)
+        up_leg = faults.up
+        up = up_leg if up_leg is not None else torch.ones(n, dtype=torch.bool, device=dev)
+
+        has_topo = check_tier_legs(faults)
+        # suspicion timeout: the static param unless the fault model carries
+        # the override leg (-1 = "use the param")
+        if faults.suspect_ticks is None:
+            susp_ticks = params.suspect_ticks
+        else:
+            leg = torch.as_tensor(faults.suspect_ticks, device=dev).to(torch.int32)
+            susp_ticks = torch.where(leg < 0, _like(leg, params.suspect_ticks), leg)
+
+        active = state.r_subject >= 0
+        rkey = torch.where(active, _key_of(state.r_inc, state.r_status), -1)
+        # segment id n == dump bucket for free slots
+        subj = torch.where(active, state.r_subject, n).to(torch.int64)
+        subj_rumor_max = _segment_max(rkey, subj, n).clamp_min(-1)
+        base_key = torch.where(state.base_present, _key_of(state.base_inc, state.base_status), -1)
+        eff_max = torch.maximum(subj_rumor_max, base_key)
+        active_w = pack_bool(active)  # [W], tail bits zero
+
+    with record_function("ping-target"):
+        shift_mode = params.exchange == "shift"
+        if shift_mode:
+            shift = prng.draw_randint(cseed, ctick, prng.D_SHIFT, 0, 1, n).to(torch.int64)
+            targets = (i_all + shift) % n
+            # each subject has exactly one prober (s - shift) mod n: K bit
+            # gathers + one scatter-max instead of the O(N·K) masked reduce
+            prober = (state.r_subject.to(torch.int64) - shift) % n
+            pbit = bit_column(state.learned[prober.clamp(0, n - 1)], torch.arange(k, device=dev))
+            bel_vals = torch.where(active & pbit, rkey, -1)
+            bel_rumor = torch.full((n + 1,), -1, dtype=torch.int32, device=dev).scatter_reduce_(
+                0, torch.where(active, prober, n), bel_vals, "amax", include_self=True)[:n]
+        else:
+            targets = prng.draw_randint(cseed, ctick, prng.D_TARGET, i_all, 0, n - 1).to(torch.int64)
+            targets = torch.where(targets >= i_all, targets + 1, targets)
+            learned0_b = unpack_bits(state.learned, k)
+            bel_rumor = _bel_rumor_dense(learned0_b, state.r_subject, rkey, active, targets)
+        bel = torch.maximum(bel_rumor, base_key[targets])
+        bel_status = _status_of(bel.clamp_min(0))
+        believes_pingable = (bel >= 0) & is_pingable(bel_status)
+        wants = up & believes_pingable
+
+    with record_function("rumor-exchange"):
+        conn = pair_connected(faults, i_all, targets)
+        if has_drop(faults):
+            drop_u = prng.draw_uniform(cseed, ctick, prng.D_DROP, i_all)
+            conn &= leg_survives(faults, drop_u, i_all, targets)
+        if has_topo:
+            topo_u = prng.draw_uniform(cseed, ctick, prng.D_TOPO, i_all)
+            conn &= topo_u >= tier_pair_drop(faults, i_all, targets)
+        delivered = conn & wants
+
+        if shift_mode:
+            ride_ok_w = state.ride_ok
+            dmask = row_mask(delivered)
+            riding_w = state.learned & ride_ok_w & active_w[None, :]
+            sent_w = riding_w & dmask
+            # out[i] = in[(i - s) mod n]: rolls as row gathers
+            idx_fwd = (i_all - shift) % n
+            inbound_w = sent_w.index_select(0, idx_fwd)
+            got_pinged = delivered.index_select(0, idx_fwd)
+            learned1_w = state.learned | inbound_w
+            answerable_w = learned1_w & ride_ok_w & active_w[None, :]
+            resp_src = answerable_w.index_select(0, (i_all + shift) % n)
+            learned2_w = learned1_w | (resp_src & dmask)
+            newly_w = learned2_w & ~state.learned
+        else:
+            ride_ok_b = state.pcount < maxp
+            riding_b = learned0_b & active[None, :] & ride_ok_b
+            sent_b = riding_b & delivered[:, None]
+            # segment_max of bools by target: a max over duplicate targets
+            inbound_b = torch.zeros((n, k), dtype=torch.uint8, device=dev).scatter_reduce_(
+                0, targets[:, None].expand(n, k), sent_b.to(torch.uint8), "amax", include_self=True
+            ).to(torch.bool)
+            got_pinged = torch.zeros(n, dtype=torch.uint8, device=dev).scatter_reduce_(
+                0, targets, delivered.to(torch.uint8), "amax", include_self=True
+            ).to(torch.bool)
+            learned1_b = learned0_b | inbound_b
+            answerable_b = learned1_b & active[None, :] & ride_ok_b
+            resp_b = answerable_b[targets] & delivered[:, None]
+            learned2_b = learned1_b | resp_b
+            learned2_w = pack_bool(learned2_b)
+
+    with record_function("heal"):
+        # one probabilistic attempt per tick: a random connected pair swaps
+        # its full rumor set (AttemptHeal's join + membership merge)
+        if params.heal_prob > 0:
+            h = prng.draw_randint(cseed, ctick, prng.D_HEAL_A, 0, 0, n).to(torch.int64)
+            p = prng.draw_randint(cseed, ctick, prng.D_HEAL_B, 0, 0, n).to(torch.int64)
+            heal_u = prng.draw_uniform(cseed, ctick, prng.D_HEAL_U, 0)
+            attempt = (
+                (heal_u < torch.tensor(params.heal_prob, dtype=torch.float32, device=dev))
+                & (h != p)
+                & up[h]
+                & up[p]
+                & pair_connected(faults, h[None], p[None])[0]
+            )
+            heal_rows2 = torch.stack([h, p])
+            rows_hp = learned2_w[heal_rows2]  # [2, W]
+            merged_row = (rows_hp[0] | rows_hp[1]) & active_w
+            # the 2-row swap, in place: learned2_w is this tick's own plane,
+            # and its only other reader (newly_w) is taken above
+            learned2_w[heal_rows2] = torch.where(attempt, merged_row[None, :], rows_hp)
+            merged_bits = unpack_bits(merged_row, k)
+        learned2h_w = learned2_w
+
+    with record_function("piggyback-counters"):
+        # -- pcount pass A: bump + newly-learned + heal resets
+        if shift_mode:
+            # bump = sent + (riding & got_pinged) = riding * (delivered + got)
+            bump = unpack_bits(riding_w, k).to(torch.int8) * (
+                delivered.to(torch.int8) + got_pinged.to(torch.int8))[:, None]
+            newly_bit = unpack_bits(newly_w, k)
+        else:
+            bump = sent_b.to(torch.int8) + (riding_b & got_pinged[:, None]).to(torch.int8)
+            newly_bit = learned2_b & ~learned0_b
+        # a bump lands only where pcount < max_p <= 126: the int8 sum stays <= 127
+        pcount_a = (state.pcount + bump).clamp_max(maxp).masked_fill(newly_bit, 0)
+        if params.heal_prob > 0:
+            # heal resets (a join transfer restarts dissemination of all it
+            # carried), as the same 2-row write
+            pcount_a[heal_rows2] = torch.where(
+                attempt & merged_bits[None, :], _like(pcount_a, 0), pcount_a[heal_rows2])
+
+        # full-sync analog: re-seed rumors that expired short of full
+        # coverage.  The three row reduces read the up mask directly
+        mid_ride_w = pack_bool(pcount_a < maxp)
+        fully_learned = unpack_bits(and_reduce_rows(learned2h_w, up_leg), k) & active
+        has_live_learner = unpack_bits(or_reduce_rows(learned2h_w, up_leg), k)
+        riding_now_w = learned2h_w & mid_ride_w & active_w[None, :]
+        stuck = active & ~unpack_bits(or_reduce_rows(riding_now_w, up_leg), k) & ~fully_learned
+
+    with record_function("timers-fold"):
+        # -- timers fire: slot rumors (state_transitions.go:90-117)
+        subj_c = subj.clamp(0, n - 1)
+        due = active & (state.tick >= state.r_deadline)
+        dominant = rkey >= eff_max[subj_c]
+        fire = due & dominant
+        fire_subj = subj_c
+        # a transition fires only where some live node can seed the successor
+        fire_s = fire & (state.r_status == SUSPECT) & has_live_learner
+        fire_f = fire & (state.r_status == FAULTY) & has_live_learner
+        # eviction additionally waits for the tombstone to be fully disseminated
+        fire_t = fire & (state.r_status == TOMBSTONE) & fully_learned
+        fire_sf = fire_s | fire_f
+        slot_next = torch.where(fire_s, _like(state.r_status, FAULTY), _like(state.r_status, TOMBSTONE))
+        slot_cand = torch.where(fire_sf, _key_of(state.r_inc, slot_next), -1)
+        fire_key = _segment_max(slot_cand, subj, n).clamp_min(-1)
+        # seed of a fired transition: the first live node that learned the
+        # rumor (L2 on the card), every tick — masked by fire_s | fire_f
+        slot_seed = lifecycle_kernel.first_live_learner(learned2h_w, up_leg, k)
+        seed_node = _segment_max(torch.where(fire_sf, slot_seed, -1), subj, n).clamp_min(-1)
+        r_deadline = state.r_deadline
+
+        # dominated base timers cancel; due + dominant base timers fire
+        bdue = (state.base_pending >= 0) & (state.tick >= state.base_deadline) & state.base_present
+        bdom = base_key >= subj_rumor_max
+        bfire = bdue & bdom
+        base_pending = torch.where(bdue & ~bdom, _like(state.base_pending, -1), state.base_pending)
+        bfire_s = bfire & (state.base_pending == SUSPECT)
+        bfire_f = bfire & (state.base_pending == FAULTY)
+        bfire_t = bfire & (state.base_pending == TOMBSTONE)
+        # the first True of up (argmax of a bool: cast first)
+        first_live = up_leg.to(torch.int32).argmax() if up_leg is not None else torch.zeros(
+            (), dtype=torch.int64, device=dev)
+        bfire_key = torch.where(
+            bfire_s | bfire_f,
+            _key_of(state.base_inc, torch.where(bfire_s, _like(state.base_status, FAULTY),
+                                                _like(state.base_status, TOMBSTONE))),
+            -1,
+        )
+        # slot-fired rumors keep their first live learner; base-fired ones
+        # seed at the first live node.  Ties keep the slot's learner
+        seed_node = torch.where(bfire_key > fire_key, first_live.to(torch.int32), seed_node)
+        fire_key = torch.maximum(fire_key, bfire_key)
+
+        # -- evictions (tombstone timer expired; memberlist.Evict analog)
+        evicted = _scatter_any(n, subj_c, fire_t) | bfire_t
+        base_present = state.base_present & ~evicted
+        freed_by_evict = active & evicted[subj_c]
+
+        # -- fold fully learned dominant rumors into the base
+        foldable = fully_learned & (rkey >= eff_max[subj_c]) & ~freed_by_evict
+        folded_key = _segment_max(torch.where(foldable, rkey, -1), subj, n).clamp_min(-1)
+        fold_mask = folded_key >= 0
+        folded0 = folded_key.clamp_min(0)
+        base_status = torch.where(fold_mask, _status_of(folded0), state.base_status)
+        base_inc = torch.where(fold_mask, _inc_of(folded0), state.base_inc)
+        base_present = base_present | fold_mask
+        # the folded rumor's pending deadline moves to the base timer
+        fold_dl = _segment_min(
+            torch.where(foldable & (rkey == folded_key[subj_c]), r_deadline, NO_DEADLINE), subj, n)
+        base_pending = torch.where(
+            fold_mask,
+            torch.where(fold_dl < NO_DEADLINE, _status_of(folded0), _like(base_pending, -1)),
+            base_pending,
+        )
+        base_deadline = torch.where(fold_mask, fold_dl, state.base_deadline)
+        # free every slot of a folded subject, and dead rumors whose only
+        # learners have crashed
+        freed = freed_by_evict | (active & fold_mask[subj_c]) | (active & ~has_live_learner)
+        r_subject = torch.where(freed, _like(state.r_subject, -1), state.r_subject)
+        learned3_w = learned2h_w & ~pack_bool(freed)[None, :]
+        active = r_subject >= 0
+        base_key = torch.where(base_present, _key_of(base_inc, base_status), -1)
+        subj = torch.where(active, r_subject, n).to(torch.int64)
+        subj_rumor_max = _segment_max(
+            torch.where(active, _key_of(state.r_inc, state.r_status), -1), subj, n).clamp_min(-1)
+        eff_max = torch.maximum(subj_rumor_max, base_key)
+
+    with record_function("peer-choice"):
+        # the [N, P] indirect-probe draws: elementwise in (node, column)
+        pcols = torch.arange(params.ping_req_size, dtype=torch.int64, device=dev)[None, :]
+        lanes = i_all[:, None]
+        peer_choices = prng.draw_randint(cseed, ctick, prng.D_PEER + pcols, lanes, 0, n).to(torch.int64)
+        if has_drop(faults):
+            pd_req_u = prng.draw_uniform(cseed, ctick, prng.D_PEER_DROP_REQ + pcols, lanes)
+            pd_ack_u = prng.draw_uniform(cseed, ctick, prng.D_PEER_DROP_ACK + pcols, lanes)
+        if has_topo:
+            topo_req_u = prng.draw_uniform(cseed, ctick, prng.D_TOPO_PEER_REQ + pcols, lanes)
+            topo_ack_u = prng.draw_uniform(cseed, ctick, prng.D_TOPO_PEER_ACK + pcols, lanes)
+
+    with record_function("candidate-select"):
+        # -- refutation candidates (memberlist.go:337-354): only (node ==
+        # slot subject) pairs self-detect, so K bit gathers + one scatter
+        subj_c = subj.clamp(0, n - 1)
+        own_bit = bit_column(learned3_w[subj_c], torch.arange(k, device=dev))
+        slot_self_detract = (
+            active & own_bit & is_detraction(state.r_status) & (state.r_inc >= state.self_inc[subj_c])
+        )
+        self_detract = _scatter_any(n, subj, slot_self_detract)
+        base_detract = is_detraction(base_status) & (base_inc >= state.self_inc) & base_present
+        refute = up & (self_detract | base_detract)
+        refute_key = torch.where(refute, _key_of(now, ALIVE), -1)
+
+        # -- failed probe → indirect probes → Suspect (node.go:494-510)
+        probing = wants & ~conn
+        i_bcast = lanes.expand(peer_choices.shape)
+        targets_b = targets[:, None].expand(peer_choices.shape)
+        peer_ok = (
+            pair_connected(faults, i_bcast, peer_choices)
+            & (peer_choices != i_bcast)
+            & (peer_choices != targets_b)
+        )
+        peer_reaches = peer_ok & pair_connected(faults, peer_choices, targets_b) & up[targets][:, None]
+        # each indirect leg is its own RPC and suffers packet loss too
+        if has_drop(faults):
+            peer_ok &= leg_survives(faults, pd_req_u, i_bcast, peer_choices)
+            peer_reaches &= peer_ok & leg_survives(faults, pd_ack_u, peer_choices, targets_b)
+        if has_topo:
+            peer_ok &= topo_req_u >= tier_pair_drop(faults, i_bcast, peer_choices)
+            peer_reaches &= peer_ok & (topo_ack_u >= tier_pair_drop(faults, peer_choices, targets_b))
+        reached = peer_reaches.any(dim=1)
+        inconclusive = (~peer_ok).all(dim=1)
+        declare = probing & ~reached & ~inconclusive
+        susp_cand = torch.where(declare, _key_of(_inc_of(bel.clamp_min(0)), SUSPECT), -1)
+        susp_key = _segment_max(susp_cand, torch.where(declare, targets, n), n).clamp_min(-1)
+        susp_key = torch.where(susp_key > eff_max, susp_key, -1)
+
+        # -- merge per-subject candidates & allocate into free slots
+        cand = torch.maximum(torch.maximum(refute_key, susp_key), fire_key)
+        cand_vals, cand_subj = _top_m(cand, m)
+        free_vals, free_slots = _top_m((~active).to(torch.int32), m)
+
+    with record_function("alloc-seed"):
+        place = (cand_vals >= 0) & (free_vals == 1)
+        new_status = _status_of(cand_vals.clamp_min(0))
+        new_inc = _inc_of(cand_vals.clamp_min(0))
+        tick = state.tick
+        new_dl = torch.where(
+            new_status == SUSPECT,
+            tick + susp_ticks,
+            torch.where(
+                new_status == FAULTY,
+                tick + params.faulty_ticks,
+                torch.where(new_status == TOMBSTONE, tick + params.tombstone_ticks, _like(tick, NO_DEADLINE)),
+            ),
+        ).to(torch.int32)
+        r_subject = r_subject.clone()
+        r_subject[free_slots] = torch.where(place, cand_subj.to(torch.int32), r_subject[free_slots])
+        r_inc = state.r_inc.clone()
+        r_inc[free_slots] = torch.where(place, new_inc, r_inc[free_slots])
+        r_status = state.r_status.clone()
+        r_status[free_slots] = torch.where(place, new_status, r_status[free_slots])
+        r_deadline = r_deadline.clone()
+        r_deadline[free_slots] = torch.where(place, new_dl, r_deadline[free_slots])
+
+        # fresh slots start unlearned, then get seeded
+        placed_col = torch.zeros(k, dtype=torch.bool, device=dev)
+        placed_col[free_slots] = place
+        learned4_w = learned3_w & ~pack_bool(placed_col)[None, :]
+
+        # seed row per placed candidate: refute → the subject itself; timer
+        # transition → first live learner of the precursor.  Fresh suspect
+        # rumors are seeded by their declarers below
+        seed_rows = torch.where(new_status == ALIVE, cand_subj, seed_node[cand_subj].to(torch.int64))
+        seed_ok = place & (new_status != SUSPECT) & (seed_rows >= 0)
+        learned5_w = set_bit(learned4_w, seed_rows.clamp(0, n - 1), free_slots, seed_ok)
+        # suspect rumors: every declarer that targeted the subject seeds it
+        subj_to_slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
+        subj_to_slot[cand_subj] = torch.where(place & (new_status == SUSPECT), free_slots, -1)
+        decl_slot = subj_to_slot[targets]
+        decl_ok = declare & (decl_slot >= 0)
+        learned6_w = set_bit_per_row(learned5_w, decl_slot.clamp(0, k - 1), decl_ok)
+
+    with record_function("piggyback-counters"):
+        # -- pcount pass B: the deferred stuck/freed/placed clears
+        cleared = freed | placed_col
+        learned2h_b = unpack_bits(learned2h_w, k)
+        pcount_final = pcount_a.masked_fill(cleared[None, :] | (stuck[None, :] & learned2h_b), 0)
+        # the carried gate invariant ride_ok == pack(pcount < max_p): a reset
+        # to zero opens the gate iff max_p > 0
+        reset_w = pack_bool(cleared)[None, :] | (pack_bool(stuck)[None, :] & learned2h_w)
+        if maxp <= 0:
+            reset_w = torch.zeros_like(reset_w)
+        ride_next = mid_ride_w | reset_w
+
+    with record_function("commit"):
+        # refutation bumps the refuter's own incarnation iff its rumor placed
+        placed_subject = torch.zeros(n, dtype=torch.bool, device=dev)
+        placed_subject[cand_subj] = place & (new_status == ALIVE)
+        self_inc = torch.where(refute & placed_subject, now, state.self_inc)
+        # deferred timer clears: a fired timer retires once a rumor at least
+        # as strong as its successor was allocated for its subject
+        placed_key = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        placed_key[cand_subj] = torch.where(place, cand_vals, -1)
+        slot_fired_ok = fire_sf & (placed_key[fire_subj] >= slot_cand) & ~placed_col
+        r_deadline = torch.where(slot_fired_ok, _like(r_deadline, NO_DEADLINE), r_deadline)
+        base_fired_ok = ((bfire_s | bfire_f) & (bfire_key >= 0) & (placed_key >= bfire_key)) | bfire_t
+        base_pending = torch.where(base_fired_ok, _like(base_pending, -1), base_pending)
+
+    return LifecycleState(
+        r_subject=r_subject,
+        r_inc=r_inc,
+        r_status=r_status,
+        r_deadline=r_deadline,
+        learned=learned6_w,
+        pcount=pcount_final,
+        ride_ok=ride_next,
+        base_status=base_status,
+        base_inc=base_inc,
+        base_present=base_present,
+        base_pending=base_pending,
+        base_deadline=base_deadline,
+        self_inc=self_inc,
+        tick=state.tick + 1,
+        key=state.key,
+    )
+
+
+# -- membership operations -------------------------------------------------------
+
+
+def admit(params: LifecycleParams, state: LifecycleState, idx: int) -> LifecycleState:
+    """Admit (or re-admit) node ``idx``: the join path's Alive rumor at a
+    fresh incarnation, seeded only at the joiner, in the first free slot
+    (``swim/join_sender.go``).  Reads the rumor table on the host; raises if
+    it is full."""
+    free = np.flatnonzero(state.r_subject.cpu().numpy() < 0)
+    if free.size == 0:
+        raise RuntimeError("rumor table full; cannot admit now")
+    k0 = int(free[0])
+    now = int(state.tick) + 1
+    n = params.n
+    dev = state.learned.device
+    w0 = k0 >> 5
+    bitv = int(as_i32(torch.tensor(1 << (k0 & 31))))
+    col = (state.learned[:, w0] & ~bitv) | torch.where(
+        torch.arange(n, device=dev) == idx, bitv, 0).to(torch.int32)
+    # slot k0's counters reset to 0, so its carried ride gate opens (unless
+    # max_p = 0, where nothing ever rides)
+    if clamped_max_p(params) > 0:
+        ride_col = state.ride_ok[:, w0] | bitv
+    else:
+        ride_col = state.ride_ok[:, w0] & ~bitv
+    learned, pcount, ride_ok = state.learned.clone(), state.pcount.clone(), state.ride_ok.clone()
+    learned[:, w0] = col
+    pcount[:, k0] = 0
+    ride_ok[:, w0] = ride_col
+    r_subject, r_inc, r_status, r_deadline, self_inc = (
+        x.clone() for x in (state.r_subject, state.r_inc, state.r_status, state.r_deadline, state.self_inc))
+    r_subject[k0] = idx
+    r_inc[k0] = now
+    r_status[k0] = ALIVE
+    r_deadline[k0] = NO_DEADLINE
+    self_inc[idx] = now
+    return state._replace(
+        r_subject=r_subject, r_inc=r_inc, r_status=r_status, r_deadline=r_deadline,
+        learned=learned, pcount=pcount, ride_ok=ride_ok, self_inc=self_inc,
+    )
+
+
+# -- queries -----------------------------------------------------------------
+
+
+def _rkey(state: LifecycleState) -> torch.Tensor:
+    return torch.where(state.r_subject >= 0, _key_of(state.r_inc, state.r_status), -1)
+
+
+def _base_key(state: LifecycleState) -> torch.Tensor:
+    return torch.where(state.base_present, _key_of(state.base_inc, state.base_status), -1)
+
+
+def _subjects(subjects, device) -> torch.Tensor:
+    if isinstance(subjects, torch.Tensor):
+        return subjects.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(subjects, np.int64).reshape(-1), device=device)
+
+
+def believed_key(state: LifecycleState, subjects) -> torch.Tensor:
+    """int32[N, S]: node i's belief key about each subject (-1 = not
+    present).  O(N·K·S) — for small subject lists."""
+    dev = state.learned.device
+    subjects = _subjects(subjects, dev)
+    k = state.r_subject.shape[0]
+    active = state.r_subject >= 0
+    sel = active[:, None] & (state.r_subject[:, None] == subjects[None, :])  # [K, S]
+    per_rumor = torch.where(sel, _rkey(state)[:, None], -1)  # [K, S]
+    bel_rumor = torch.where(unpack_bits(state.learned, k)[:, :, None], per_rumor[None], -1).amax(dim=1)
+    return torch.maximum(bel_rumor, _base_key(state)[subjects][None, :]).to(torch.int32)
+
+
+def believed_status(state: LifecycleState, subjects) -> torch.Tensor:
+    """int8[N, S]: belief status; -1 where the subject is absent."""
+    bk = believed_key(state, subjects)
+    return torch.where(bk >= 0, _status_of(bk.clamp_min(0)), _like(_status_of(bk), -1))
+
+
+def _observers(state: LifecycleState, subjects: torch.Tensor, faults: DeltaFaults) -> torch.Tensor:
+    n = state.learned.shape[0]
+    dev = state.learned.device
+    up = faults.up if faults.up is not None else torch.ones(n, dtype=torch.bool, device=dev)
+    is_subject = torch.zeros(n, dtype=torch.bool, device=dev)
+    is_subject[subjects] = True
+    return up & ~is_subject
+
+
+def detection_fraction(
+    state: LifecycleState,
+    subjects,
+    faults: DeltaFaults = DeltaFaults(),
+    min_status: int = FAULTY,
+) -> torch.Tensor:
+    """float32[S]: fraction of live observers whose belief about each
+    subject has reached ``min_status`` (or the subject is evicted).  Past
+    2**28 elements of N·K·S the slot walk of
+    :func:`_detection_fraction_large` computes the same from [N] columns."""
+    faults = resolve_faults(faults, state.tick)
+    n_subj = len(subjects)
+    if state.learned.shape[0] * state.r_subject.shape[0] * n_subj > 2**28:
+        return _detection_fraction_large(state, subjects, faults, min_status)
+    subjects = _subjects(subjects, state.learned.device)
+    bk = believed_key(state, subjects)
+    detected = (bk < 0) | (_status_of(bk.clamp_min(0)) >= min_status)
+    observer = _observers(state, subjects, faults)
+    num = (detected & observer[:, None]).sum(dim=0, dtype=torch.int32)
+    den = observer.sum(dtype=torch.int32).clamp_min(1)
+    return num.to(torch.float32) / den.to(torch.float32)
+
+
+def _detection_fraction_large(
+    state: LifecycleState,
+    subjects,
+    faults: DeltaFaults = DeltaFaults(),
+    min_status: int = FAULTY,
+) -> torch.Tensor:
+    """Exact large-scale :func:`detection_fraction`: per subject, walk its
+    slots in descending key order, counting observers whose FIRST learned
+    slot is each one (prefix exclusion over [N] columns); observers that
+    learned none fall through to the base.  The quotient is taken in float64
+    and rounded to float32, as the JAX package's ``jnp.asarray`` of its
+    float64 numpy result does."""
+    subjects_np = np.asarray(subjects, np.int64).reshape(-1)
+    r_subject = state.r_subject.cpu().numpy()
+    r_key = (state.r_inc.cpu().numpy().astype(np.int64) << KEY_STATE_BITS) | state.r_status.cpu().numpy()
+    active = r_subject >= 0
+    base_present = state.base_present.cpu().numpy()[subjects_np]
+    base_inc = state.base_inc.cpu().numpy().astype(np.int64)[subjects_np]
+    base_status = state.base_status.cpu().numpy()[subjects_np]
+    base_key = (base_inc << KEY_STATE_BITS) | base_status
+    obs = _observers(state, torch.as_tensor(subjects_np, device=state.learned.device), faults)
+    obs_total = int(obs.sum())
+    frac = np.zeros(len(subjects_np), np.float64)
+    for si, s in enumerate(subjects_np):
+        slots = np.flatnonzero(active & (r_subject == s))
+        order = slots[np.argsort(-r_key[slots], kind="stable")]
+        remaining = obs  # observers not yet governed by a higher-key rumor
+        count = 0
+        for slot in order:
+            if base_present[si] and base_key[si] >= r_key[slot]:
+                break  # the base outranks this and every lower slot
+            col = ((state.learned[:, int(slot) >> 5] >> int(slot & 31)) & 1) != 0
+            got = remaining & col
+            if int(r_key[slot] & (2**KEY_STATE_BITS - 1)) >= min_status:
+                count += int(got.sum())
+            remaining = remaining & ~col
+        # fall-through: governed by the base (an absent subject is detected)
+        if (not base_present[si]) or int(base_status[si]) >= min_status:
+            count += int(remaining.sum())
+        frac[si] = count / max(obs_total, 1)
+    return torch.as_tensor(frac.astype(np.float32), device=state.learned.device)
+
+
+def _slot_covered(state: LifecycleState) -> torch.Tensor:
+    """bool[N]: which subject ids hold at least one in-flight rumor slot."""
+    n = state.learned.shape[0]
+    active = state.r_subject >= 0
+    return _scatter_any(n, torch.where(active, state.r_subject, n), active)
+
+
+def _walk_subject_slots(state: LifecycleState, base_key: torch.Tensor, mode: str,
+                        obs: Optional[torch.Tensor] = None, min_status: int = 0) -> torch.Tensor:
+    """The per-subject slot walk under :func:`detection_complete` and
+    :func:`view_checksums`: the K slots sorted by (subject asc, key desc),
+    free slots last, each node's governing key per covered subject combined
+    by ``mode`` (``ops.lifecycle_kernel.slot_walk``: L1 on the card)."""
+    n = state.learned.shape[0]
+    order, sorted_subj, sorted_key = lifecycle_kernel.walk_order(state.r_subject, _rkey(state), n)
+    return lifecycle_kernel.slot_walk(state.learned, order, sorted_subj, sorted_key, base_key, mode,
+                                      obs, min_status)
+
+
+def detection_complete(
+    state: LifecycleState,
+    subjects,
+    faults: DeltaFaults = DeltaFaults(),
+    min_status: int = FAULTY,
+    *,
+    learned_sharding=None,
+) -> torch.Tensor:
+    """bool 0-d tensor on the state's device: does every live observer
+    believe every subject has reached ``min_status`` (or see it evicted)?
+    Same predicate as ``(detection_fraction(...) >= 1).all()``, including
+    "no live observers → not complete", in O(N·K) through the slot walk.
+    ``learned_sharding`` (a mesh layout hint) is refused: ROADMAP A12."""
+    if learned_sharding is not None:
+        raise NotImplementedError("learned_sharding (a mesh layout hint) is not ported yet (ROADMAP Queue A12)")
+    faults = resolve_faults(faults, state.tick)
+    with record_function("detect-walk"):
+        subjects = _subjects(subjects, state.learned.device)
+        base_bad = state.base_present & (state.base_status < min_status)
+        obs = _observers(state, subjects, faults)
+        anybad = _walk_subject_slots(state, _base_key(state), "detect", obs, min_status)
+        not_detected = torch.where(_slot_covered(state), anybad, base_bad)[subjects]
+        return obs.any() & ~not_detected.any()
+
+
+def view_checksums(state: LifecycleState, faults: DeltaFaults = DeltaFaults()) -> torch.Tensor:
+    """int64[N] holding uint32: an order-invariant checksum of each node's
+    membership view — the wrapping uint32 sum of ``mix32(mix32(s) ^ key)``
+    over every subject ``s`` present in the node's view with its governing
+    key, tombstones excluded (``memberlist.go:106-128``).  Subjects with a
+    slot go through the slot walk (L1 on the card); the rest are the same
+    in every view: one shared term.  ``faults`` is accepted for symmetry
+    with the other queries and not read."""
+    del faults
+    with record_function("view-checksum"):
+        n = state.learned.shape[0]
+        base_key = _base_key(state)
+        acc = _walk_subject_slots(state, base_key, "checksum")
+        i_all = torch.arange(n, dtype=torch.int64, device=state.learned.device)
+        base_terms = torch.where(~_slot_covered(state), lifecycle_kernel.member_term(i_all, base_key), 0)
+        return (acc + base_terms.sum()) & 0xFFFF_FFFF
+
+
+def checksums_converged(state: LifecycleState, faults: DeltaFaults = DeltaFaults()) -> torch.Tensor:
+    """bool 0-d tensor: do all live nodes' view checksums agree (and is any
+    node live)?  The reference's convergence criterion for protocol tests
+    (``swim/test_utils.go:164-199``)."""
+    faults = resolve_faults(faults, state.tick)
+    cs = view_checksums(state, faults)
+    up = faults.up if faults.up is not None else torch.ones(cs.shape[0], dtype=torch.bool, device=cs.device)
+    first = cs[up.to(torch.int32).argmax()]
+    return (torch.where(up, cs, first) == first).all() & up.any()
+
+
+# -- run loops -----------------------------------------------------------------
+
+
+def _run_block(params: LifecycleParams, state: LifecycleState, faults, ticks: int) -> LifecycleState:
+    """``ticks`` steps."""
+    for _ in range(ticks):
+        state = step(params, state, faults)
+    return state
+
+
+def _quiescent(state: LifecycleState, faults) -> torch.Tensor:
+    """No rumor slot in flight and every live view checksum agrees (both
+    sides evaluated, as the JAX package does: no host branch)."""
+    return ~(state.r_subject >= 0).any() & checksums_converged(state, faults)
+
+
+def _run_until_converged_device(params: LifecycleParams, state: LifecycleState, faults, *,
+                                block_ticks: int, max_blocks: int):
+    """Up to ``max_blocks`` blocks of ``block_ticks`` ticks until no change
+    is in flight and all live checksums agree, tested on entry and after
+    each block (``delta.until_loop``: one host sync per block).  Returns
+    (state, blocks_run, converged)."""
+    return until_loop(lambda s: _run_block(params, s, faults, block_ticks), state, max_blocks,
+                      lambda s: _quiescent(s, faults))
+
+
+def _run_until_detected_device(params: LifecycleParams, state: LifecycleState, faults,
+                               subjects: torch.Tensor, *, min_status: int, block_ticks: int,
+                               max_blocks: int):
+    """Up to ``max_blocks`` blocks of ``block_ticks`` ticks until
+    :func:`detection_complete` holds, tested on entry and after each block.
+    Returns (state, blocks_run, detected)."""
+    return until_loop(lambda s: _run_block(params, s, faults, block_ticks), state, max_blocks,
+                      lambda s: detection_complete(s, subjects, faults, min_status))
+
+
+class LifecycleSim:
+    """Host-side wrapper: params, state on ``device`` (the card unless the
+    caller asks for the CPU), ``tick``, ``run`` and the run-until pair with
+    the JAX package's loop and budget contract (:meth:`_run_until`).
+    ``telemetry`` and ``aot`` are refused (ROADMAP A7, A15); the telemetry
+    options ``journal_views`` and ``telemetry_tiers`` come with A7."""
+
+    def __init__(self, n: int, seed: int = 0, telemetry=None, aot: Optional[str] = None,
+                 device: DeviceLike = None, **kw):
+        if telemetry:
+            _refuse_telemetry(telemetry)
+        if aot is not None:
+            raise NotImplementedError("the AOT warm start (util/aot) is not ported yet (ROADMAP Queue A15)")
+        self.params = LifecycleParams(n=n, **kw)
+        _check_supported(self.params)
+        self.state = init_state(self.params, seed=seed, device=device)
+
+    def tick(self, faults: DeltaFaults = DeltaFaults()) -> LifecycleState:
+        self.state = step(self.params, self.state, faults)
+        return self.state
+
+    def run(self, ticks: int, faults: DeltaFaults = DeltaFaults()) -> LifecycleState:
+        self.state = _run_block(self.params, self.state, faults, ticks)
+        return self.state
+
+    def _run_until(self, dispatch, max_ticks: int, check_every: int, blocks_per_dispatch: int,
+                   time_budget_s: Optional[float]):
+        """The JAX package's budgeted run-until loop: ``dispatch(max_blocks)``
+        runs up to that many ``check_every``-tick blocks with the early-exit
+        test between them and returns (blocks, done).  With a time budget the
+        first dispatch runs one block to measure block cost, then dispatch
+        sizes adapt to the remaining budget (up to ``blocks_per_dispatch``);
+        an overrun stops with partial progress.  A zero or exhausted tick
+        budget still dispatches once with 0 blocks: the entry check runs
+        without stepping.  Returns (ticks_used, done)."""
+        deadline = None if time_budget_s is None else time.perf_counter() + time_budget_s
+        bpd = 1 if deadline is not None else blocks_per_dispatch
+        ticks = 0
+        while True:
+            max_blocks = min(bpd, max(0, (max_ticks - ticks) // check_every))
+            t0 = time.perf_counter()
+            n_blocks, done = dispatch(max_blocks)
+            now = time.perf_counter()
+            ticks += n_blocks * check_every
+            if done:
+                return ticks, True
+            if max_blocks == 0 or ticks + check_every > max_ticks:
+                return ticks, False
+            if deadline is not None:
+                if now > deadline:
+                    return ticks, False
+                per_block = (now - t0) / max(n_blocks, 1)
+                bpd = max(1, min(blocks_per_dispatch, int((deadline - now) / max(per_block, 1e-9))))
+
+    def run_until_converged(
+        self,
+        faults: DeltaFaults = DeltaFaults(),
+        max_ticks: int = 5000,
+        check_every: int = 8,
+        blocks_per_dispatch: int = 4,
+        time_budget_s: Optional[float] = None,
+    ):
+        """Tick until no change is in flight and every live node's view
+        checksum agrees (``swim/test_utils.go:164-199``).  Returns
+        (ticks_used, converged)."""
+
+        def dispatch(max_blocks):
+            self.state, blocks, done = _run_until_converged_device(
+                self.params, self.state, faults, block_ticks=check_every, max_blocks=max_blocks)
+            return blocks, done
+
+        return self._run_until(dispatch, max_ticks, check_every, blocks_per_dispatch, time_budget_s)
+
+    def run_until_detected(
+        self,
+        subjects: Sequence[int],
+        faults: DeltaFaults = DeltaFaults(),
+        min_status: int = FAULTY,
+        max_ticks: int = 5000,
+        check_every: int = 8,
+        time_budget_s: Optional[float] = None,
+        blocks_per_dispatch: int = 4,
+        learned_sharding=None,
+    ):
+        """Tick until every live observer believes every subject has reached
+        ``min_status``.  Returns (ticks_used, detected).  ``learned_sharding``
+        is refused (ROADMAP A12)."""
+        if learned_sharding is not None:
+            raise NotImplementedError(
+                "learned_sharding (a mesh layout hint) is not ported yet (ROADMAP Queue A12)")
+        subjects = _subjects(list(subjects), self.state.learned.device)
+
+        def dispatch(max_blocks):
+            self.state, blocks, done = _run_until_detected_device(
+                self.params, self.state, faults, subjects, min_status=min_status,
+                block_ticks=check_every, max_blocks=max_blocks)
+            return blocks, done
+
+        return self._run_until(dispatch, max_ticks, check_every, blocks_per_dispatch, time_budget_s)
+
+
+# -- carrying a JAX state across ------------------------------------------------
+
+_LEAF_DTYPES = {  # leaf -> (JAX numpy dtype, port torch dtype)
+    "r_subject": (np.int32, torch.int32),
+    "r_inc": (np.int32, torch.int32),
+    "r_status": (np.int8, torch.int8),
+    "r_deadline": (np.int32, torch.int32),
+    "learned": (np.uint32, torch.int32),
+    "pcount": (np.int8, torch.int8),
+    "ride_ok": (np.uint32, torch.int32),
+    "base_status": (np.int8, torch.int8),
+    "base_inc": (np.int32, torch.int32),
+    "base_present": (np.bool_, torch.bool),
+    "base_pending": (np.int8, torch.int8),
+    "base_deadline": (np.int32, torch.int32),
+    "self_inc": (np.int32, torch.int32),
+    "tick": (np.int32, torch.int32),
+    "key": (np.uint32, torch.int64),
+}
+
+
+def state_from_numpy(leaves, device: DeviceLike = None) -> LifecycleState:
+    """A ``LifecycleState`` on ``device`` from the JAX package's leaves (a
+    JAX ``LifecycleState`` or any sequence in its field order, as
+    numpy-convertible arrays): uint32 planes cross as their int32 bit
+    pattern, the key as int64."""
+    dev = resolve_device(device)
+    out = []
+    for name, leaf in zip(LifecycleState._fields, leaves):
+        np_dtype, dtype = _LEAF_DTYPES[name]
+        arr = np.asarray(leaf).astype(np_dtype, copy=False)
+        if dtype == torch.int32 and np_dtype == np.uint32:
+            arr = arr.view(np.int32)
+        elif dtype == torch.int64:
+            arr = arr.astype(np.int64)
+        out.append(torch.as_tensor(np.array(arr), device=dev))
+    return LifecycleState(*out)
+
+
+def state_to_numpy(state: LifecycleState) -> LifecycleState:
+    """The leaves as numpy arrays of the JAX package's dtypes."""
+    out = []
+    for name, leaf in zip(LifecycleState._fields, state):
+        np_dtype, _ = _LEAF_DTYPES[name]
+        arr = leaf.detach().cpu().numpy()
+        out.append(arr.view(np_dtype) if arr.dtype.itemsize == np.dtype(np_dtype).itemsize
+                   else arr.astype(np_dtype))
+    return LifecycleState(*out)
+
+
+faults_from_numpy = delta.faults_from_numpy
+

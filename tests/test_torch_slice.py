@@ -78,7 +78,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "ringpop_tpu_torch").rglob("*.py")
     )
-    assert "ringpop_tpu_torch.ops.hash_kernel" in modules
+    for m in ("ops.hash_kernel", "ops.packbits_kernel", "ops.lifecycle_kernel", "sim.delta", "sim.lifecycle",
+              "swim.member"):
+        assert f"ringpop_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
