@@ -56,11 +56,18 @@ keys), the delta engine at ``bench.py``'s delta configuration
 8. build the lifecycle kernels (``ringpop_tpu_torch/csrc/lifecycle.cu``)
    and hold the subject-slot walk (L1: checksum mode, and detect mode at
    three observer masks x SUSPECT/FAULTY) and the first-live-learner select
-   (L2: no mask, a random one, all down) bit-equal against their plain
-   PyTorch versions on the card, at N = 1, 31, 33, 4097, 1,000,000 x
-   K = 40, 64, 256, over sparse, medium and dense planes with empty rows
-   and slot columns and rumor tables with free slots, a subject holding a
-   third of the slots, no free slot and only free slots;
+   (L2: no up mask, a random one, all down, each with ``want`` None, empty,
+   all and random, and a plane whose lone live learner of three slots is
+   the last row) bit-equal against their plain PyTorch versions on the
+   card, at N = 1, 31, 33, 4097, 1,000,000 x K = 40, 64, 256, over sparse,
+   medium and dense planes with empty rows and slot columns and rumor
+   tables where every subject holds one slot, where subjects hold the two
+   or three slots around each word boundary, where one subject holds a
+   third of the slots, with free slots, with none and with only free
+   slots; and both kernels at the widest plane they take
+   (``lifecycle_kernel.MAX_WORDS`` = 219 words, K = 7008), whose shared
+   memory fits a block while L2's at one word more does not, and a refusal
+   one word past it;
 9. the lifecycle engine at 1,000,000 x 256, ``rng="counter"``, shift, from
    ``seed=0`` with bench.py's 1000 victims down: the first 8 ticks on the
    kernels and, side by side, on the plain versions (walk, first learner
@@ -72,14 +79,32 @@ keys), the delta engine at ``bench.py``'s delta configuration
    ``LifecycleSim(...).run_until_detected(max_ticks=4096, check_every=32,
    blocks_per_dispatch=8)``, ``run_until_converged(...)`` and
    ``view_checksums`` reach the JAX package's tick counts, final-leaf
-   digests and checksums (pinned below), with their launch counts and wall
-   times (CUDA events, three runs), and a ``torch.profiler`` breakdown of
-   one 32-tick block by phase and by kernel with the device's busy share.
+   digests and checksums (pinned below), with their launch counts
+   and wall times (CUDA events, three runs); then the same 128 ticks
+   again in four 32-tick blocks under ``torch.profiler`` (by phase and by
+   kernel, the device's busy share, launches a tick in every block — no
+   more than 962 — with the profiler's record of the port's launches equal
+   to the wrappers' own counts, and every L2 launch's device time, split by
+   whether a timer fired, beside its data-dependent bound, each launch ==
+   plain on its inputs), and L1 and L2 alone on the state of each
+   detection check (ticks 32, 64, 96, 128) with its slots in flight and
+   the subjects that hold two or more.
+
+Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
+the profiler drops the device records of the first work a session sees,
+more the longer the process has profiled, so the measured work comes after
+them and a record that still misses any of it is taken again or fails.
 
 ``python3 chip_smoke.py --kernel-profile`` runs step 4's kernel profile
 alone and prints it as one JSON line: run from another checkout's root it
 measures that checkout's kernel, so two versions can be compared on one
-card in one run of the chip machine.
+card in one run of the chip machine.  ``python3 chip_smoke.py
+--lifecycle-kernels`` builds the lifecycle kernels and runs step 8 alone;
+``--learner-planes`` times L2 alone on synthetic 1M x 256 planes (dense,
+sparse, late and empty columns) with each ``want``; ``--detect-wall``
+times the headline's ``run_until_detected`` alone, five runs (run it from
+another checkout's root, with this script copied there, to compare two
+versions in one call).
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
 device is available.  Imports nothing of JAX or of ``ringpop_tpu``.
@@ -180,6 +205,9 @@ PIN_LIFE = {  # after run_until_detected and run_until_converged
     "tick": "50c8ba3a6170f0a2fb6736ece8a603576ef6309a35e810911599bc6211b554a9",
     "key": "af5570f5a1810b7af78caf4bc70a660f0df51e42baf91d4de5b2328de0e83dfc",
 }
+LIFE_LAUNCHES_A_TICK_MAX = 962  # the lifecycle tick's kernel launches before L2 took a want mask
+SMEM_OPTIN = 232_448  # shared memory one H100 block can opt in to, where torch does not report it
+WARMUP_MARKS, MARK_CYCLES, MARK_TAG = 100, 20_000, "spin_kernel"  # torch.cuda._sleep's kernel
 PIN_LIFE_VIEWS_SUM = 1194085248  # view_checksums(...) summed in wrapping uint32
 PIN_LIFE_VIEWS_SHA = "7779b7f65d5d326f6b04c5fba2a49e3582dd02db8bea59052fea5756eed095ce"
 
@@ -232,26 +260,37 @@ def time_ms(fn, reps: int, flush: torch.Tensor) -> float:
     return statistics.median(times)
 
 
-def profile_ms(fn, reps: int, flush, flush_tag: str, lost_ok: int = 0) -> dict[str, tuple[int, float]]:
+def profiler_warmup() -> None:
+    """The opening of a profiler session: WARMUP_MARKS short spin kernels
+    (``torch.cuda._sleep``, named MARK_TAG), each waited for.  The profiler
+    drops the device records of the first work a session sees (up to 6 of
+    20 reps, or ~48 launches of a tick, by the end of a run whose sessions
+    start with the measured work), so that work comes after these."""
+    for _ in range(WARMUP_MARKS):
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+
+
+def profile_ms(fn, reps: int, flush, flush_tag: str) -> dict[str, tuple[int, float]]:
     """Device time of each kernel that ``fn`` launches, by kernel name, from
     ``torch.profiler`` over ``reps`` runs with ``flush()`` (which evicts the
-    L2 cache) before each, after one untimed warm-up run: {name: (recorded
-    launches, mean ms per recorded launch)}.  The flush's own kernels, named
-    with ``flush_tag``, are left out.  A profile whose record misses a flush
-    or a launch (the profiler can drop device records) is run again, twice
-    at most, unless it misses at most ``lost_ok`` flushes (the mean per
-    recorded launch stands)."""
+    L2 cache) before each, after one untimed warm-up run and the session's
+    ``profiler_warmup``: {name: (launches, mean ms per launch)}.  The
+    flush's own kernels, named with ``flush_tag``, and the marks are left
+    out.  A profile whose record misses a flush or a launch of the reps is
+    run again, twice at most, then fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiler_warmup()
             for _ in range(reps):
                 flush()
                 fn()
             torch.cuda.synchronize()
-        flush_kernels = 0
+        flush_kernels = marks = 0
         found = {}
         for evt in prof.key_averages():
             us = evt.self_device_time_total
@@ -259,18 +298,16 @@ def profile_ms(fn, reps: int, flush, flush_tag: str, lost_ok: int = 0) -> dict[s
             # requests, module loading) carry no signature
             if evt.device_type != torch.autograd.DeviceType.CUDA or us <= 0 or "(" not in evt.key:
                 continue
-            if flush_tag in evt.key:
+            if MARK_TAG in evt.key:
+                marks += evt.count
+            elif flush_tag in evt.key:
                 flush_kernels += evt.count
-                continue
-            found[evt.key] = (evt.count, us / evt.count / 1e3)
+            else:
+                found[evt.key] = (evt.count, us / evt.count / 1e3)
         if flush_kernels >= reps and all(n % reps == 0 for n, _ in found.values()):
             return found
-        if reps - lost_ok <= flush_kernels <= reps:
-            log(f"profile: the profiler dropped {reps - flush_kernels} of {reps} flushes' records; "
-                f"kernel times are means over the recorded launches {[n for n, _ in found.values()]}")
-            return found
-        log(f"profile: the profiler recorded {flush_kernels} of {reps} flushes and "
-            f"{[n for n, _ in found.values()]} launches; profiling again")
+        log(f"profile: the profiler recorded {flush_kernels} of {reps} flushes, {marks} of {WARMUP_MARKS} "
+            f"marks and {[n for n, _ in found.values()]} launches; profiling again")
     raise SystemExit(f"chip_smoke FAILED: profiler saw {flush_kernels} of the {reps} flushes")
 
 
@@ -744,13 +781,22 @@ def plain_lifecycle():
 
 def random_rumor_table(gen: torch.Generator, n: int, k: int, dev, kind: str):
     """(r_subject, rkey) for a random K-slot table: about a quarter of the
-    slots free, keys of every status (equal keys included); ``kind`` "many"
-    gives one subject a third of the slots, "full" frees no slot, "free"
-    frees every slot."""
-    subj = torch.randint(0, n, (k,), generator=gen, device=dev, dtype=torch.int32)
+    slots free, keys of every status (equal keys included); ``kind``
+    "single" gives every subject one slot (the headline's shape), "straddle"
+    gives a subject each of the two or three slots around every word
+    boundary, "many" gives one subject a third of the slots, "full" frees
+    no slot, "free" frees every slot."""
+    if kind == "single" and n >= k:
+        subj = torch.randperm(n, generator=gen, device=dev)[:k].to(torch.int32)
+    else:
+        subj = torch.randint(0, n, (k,), generator=gen, device=dev, dtype=torch.int32)
+    if kind == "straddle":
+        for edge in range(32, k, 32):
+            span = 2 + (edge // 32) % 2  # slots 31|32, 63|64|65, 95|96, ...
+            subj[edge - 1: edge - 1 + span] = subj[edge - 1]
     if kind == "many":
         subj[: k // 3] = subj[0]
-    if kind != "full":
+    if kind not in ("full", "straddle"):
         free = torch.rand(k, generator=gen, device=dev) < (1.0 if kind == "free" else 0.25)
         subj = torch.where(free, -1, subj)
     inc = torch.randint(0, 4, (k,), generator=gen, device=dev, dtype=torch.int32)
@@ -775,11 +821,105 @@ def random_learned(gen: torch.Generator, n: int, k: int, dev, density: float) ->
     return packbits.pack_bool(bits)
 
 
+def lone_last_learner(learned: torch.Tensor, up, k: int):
+    """(plane, up, slots): ``learned`` with slots 3, k // 2 and k - 1
+    learned by the last row alone, which is up — the case where L2 reads
+    every row."""
+    n = learned.shape[0]
+    slots = torch.tensor([3, k // 2, k - 1], device=learned.device)
+    bits = packbits.unpack_bits(learned, k)
+    bits[:, slots] = False
+    bits[n - 1, slots] = True
+    up = None if up is None else up.clone()
+    if up is not None:
+        up[n - 1] = True
+    return packbits.pack_bool(bits), up, slots
+
+
+def check_walk(learned, subj, rkey, base_key, obs_masks, what: str, calls: dict,
+               statuses=(SUSPECT, FAULTY)) -> int:
+    """L1 in checksum mode and in detect mode (each observer mask x each
+    of ``statuses``) == its plain version on the card; returns the max abs
+    difference."""
+    n, k = learned.shape[0], rkey.shape[0]
+    order, ss, sk = lifecycle_kernel.walk_order(subj, rkey, n)
+    got = lifecycle_kernel.slot_walk_cuda(learned, order, ss, sk, base_key, "checksum")
+    want = lifecycle_kernel.slot_walk_plain(learned, order, ss, sk, base_key, "checksum")
+    calls["slot_walk"] += 1
+    err = int((got - want).abs().max())
+    check(torch.equal(got, want), f"L1 checksum == plain ({what})")
+    for oname, obs in obs_masks.items():
+        obs = torch.ones(n, dtype=torch.bool, device=learned.device) if obs is None else obs
+        for min_status in statuses:
+            got = lifecycle_kernel.slot_walk_cuda(learned, order, ss, sk, base_key, "detect", obs, min_status)
+            want = lifecycle_kernel.slot_walk_plain(learned, order, ss, sk, base_key, "detect", obs, min_status)
+            calls["slot_walk"] += 1
+            err = max(err, int((got.int() - want.int()).abs().max()))
+            check(torch.equal(got, want), f"L1 detect == plain ({what} {oname} {min_status})")
+    return err
+
+
+def check_learner(learned, up, k: int, want, what: str, calls: dict) -> int:
+    """L2 == its plain version on the card; returns the max abs difference."""
+    got = lifecycle_kernel.first_live_learner_cuda(learned, up, k, want)
+    ref = lifecycle_kernel.first_live_learner_plain(learned, up, k, want)
+    calls["first_live_learner"] += 1
+    check(torch.equal(got, ref), f"L2 == plain ({what})")
+    return int((got - ref).abs().max())
+
+
+WALK_KINDS = ("single", "straddle", "many", "full", "spread", "free")
+WIDEST_ROWS = 8192  # rows at the widest plane: enough for a "single" table of 7008 slots
+
+
+def widest_planes(dev: torch.device, gen: torch.Generator, calls: dict) -> int:
+    """Both kernels at the widest plane they take (MAX_WORDS words, K =
+    32 MAX_WORDS): its shared memory fits one block while L2's at one word
+    more does not, L1 (single-slot and word-straddling tables) and L2
+    (``want`` None and random) == plain, and a plane one word wider is
+    refused by both wrappers with no launch.  Returns the max abs
+    difference."""
+    lib = lifecycle_kernel._library()
+    w = lifecycle_kernel.MAX_WORDS
+    n, k = WIDEST_ROWS, 32 * w
+    optin = getattr(torch.cuda.get_device_properties(dev), "shared_memory_per_block_optin", SMEM_OPTIN)
+    smem = {"L1 checksum": lib.rp_slot_walk_smem(w, k, 0), "L1 detect": lib.rp_slot_walk_smem(w, k, 1),
+            "L2": lib.rp_first_live_learner_smem(w)}
+    check(max(smem.values()) <= optin < lib.rp_first_live_learner_smem(w + 1),
+          f"MAX_WORDS = {w} is the widest plane whose tables fit a block ({optin} bytes): {smem}, L2 at "
+          f"{w + 1} words {lib.rp_first_live_learner_smem(w + 1)}")
+    learned = random_learned(gen, n, k, dev, 0.3)
+    base_key = random_base_key(gen, n, dev)
+    up = torch.rand(n, generator=gen, device=dev) < 0.7
+    err = 0
+    # the plain walk takes ~1 s a call at this K (one step of [N] ops a slot)
+    for kind in ("single", "straddle"):
+        subj, rkey = random_rumor_table(gen, n, k, dev, kind)
+        err = max(err, check_walk(learned, subj, rkey, base_key, {"random up": up}, f"N={n} K={k} {kind}", calls,
+                                  statuses=(FAULTY,)))
+    for wname, want in (("want None", None), ("want random", torch.rand(k, generator=gen, device=dev) < 0.3)):
+        err = max(err, check_learner(learned, up, k, want, f"N={n} K={k} {wname}", calls))
+    wide = torch.zeros((n, w + 1), dtype=torch.int32, device=dev)
+    subj, rkey = random_rumor_table(gen, n, 32 * (w + 1), dev, "single")
+    order, ss, sk = lifecycle_kernel.walk_order(subj, rkey, n)
+    for name, launch in (
+            ("slot_walk_cuda", lambda: lifecycle_kernel.slot_walk_cuda(wide, order, ss, sk, base_key, "checksum")),
+            ("first_live_learner_cuda", lambda: lifecycle_kernel.first_live_learner_cuda(wide, up, 32 * (w + 1)))):
+        try:
+            launch()
+            check(False, f"{name} refuses a plane of {w + 1} words")
+        except ValueError:
+            pass
+    return err
+
+
 def phase8_lifecycle_kernels(dev: torch.device) -> int:
-    """L1 (both modes) and L2 bit-equal to their plain versions on the card
-    at N x K in LIFECYCLE_ROWS x LIFECYCLE_SLOTS; launch counts checked.
-    Returns the max abs difference."""
+    """L1 (both modes) and L2 (want None, empty, all, random, and a lone
+    last-row learner) bit-equal to their plain versions on the card at N x
+    K in LIFECYCLE_ROWS x LIFECYCLE_SLOTS, and at the widest plane they
+    take; launch counts checked.  Returns the max abs difference."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    t0 = time.perf_counter()
     lifecycle_kernel.reset_launches()
     calls = {"slot_walk": 0, "first_live_learner": 0}
     max_err = 0
@@ -788,35 +928,36 @@ def phase8_lifecycle_kernels(dev: torch.device) -> int:
             base_key = random_base_key(gen, n, dev)
             ups = {"every row": None, "random up": torch.rand(n, generator=gen, device=dev) < 0.7,
                    "all down": torch.zeros(n, dtype=torch.bool, device=dev)}
+            wants = {"want None": None, "want empty": torch.zeros(k, dtype=torch.bool, device=dev),
+                     "want all": torch.ones(k, dtype=torch.bool, device=dev),
+                     "want random": torch.rand(k, generator=gen, device=dev) < 0.3}
             for density in (0.002, 0.3, 0.9):
                 learned = random_learned(gen, n, k, dev, density)
-                for kind in ("many", "full", "spread", "free"):
+                for kind in WALK_KINDS:
                     subj, rkey = random_rumor_table(gen, n, k, dev, kind)
-                    order, ss, sk = lifecycle_kernel.walk_order(subj, rkey, n)
-                    got = lifecycle_kernel.slot_walk_cuda(learned, order, ss, sk, base_key, "checksum")
-                    want = lifecycle_kernel.slot_walk_plain(learned, order, ss, sk, base_key, "checksum")
-                    calls["slot_walk"] += 1
-                    max_err = max(max_err, int((got - want).abs().max()))
-                    check(torch.equal(got, want), f"L1 checksum == plain (N={n} K={k} {density} {kind})")
-                    for oname, obs in ups.items():
-                        obs = torch.ones(n, dtype=torch.bool, device=dev) if obs is None else obs
-                        for min_status in (SUSPECT, FAULTY):
-                            got = lifecycle_kernel.slot_walk_cuda(learned, order, ss, sk, base_key, "detect",
-                                                                  obs, min_status)
-                            want = lifecycle_kernel.slot_walk_plain(learned, order, ss, sk, base_key, "detect",
-                                                                    obs, min_status)
-                            calls["slot_walk"] += 1
-                            max_err = max(max_err, int((got.int() - want.int()).abs().max()))
-                            check(torch.equal(got, want),
-                                  f"L1 detect == plain (N={n} K={k} {density} {kind} {oname} {min_status})")
+                    max_err = max(max_err, check_walk(learned, subj, rkey, base_key, ups,
+                                                      f"N={n} K={k} {density} {kind}", calls))
                 for uname, up in ups.items():
-                    got = lifecycle_kernel.first_live_learner_cuda(learned, up, k)
-                    want = lifecycle_kernel.first_live_learner_plain(learned, up, k)
-                    calls["first_live_learner"] += 1
-                    max_err = max(max_err, int((got - want).abs().max()))
-                    check(torch.equal(got, want), f"L2 == plain (N={n} K={k} {density} {uname})")
-            log(f"phase8: N={n} K={k}: L1 (checksum; detect x 3 observer masks x SUSPECT/FAULTY) and L2 "
-                f"(x 3 up masks) == plain over 3 densities x 4 rumor tables (tolerance: none, bit-equal)")
+                    for wname, want in wants.items():
+                        max_err = max(max_err, check_learner(learned, up, k, want,
+                                                             f"N={n} K={k} {density} {uname} {wname}", calls))
+                lone, lone_up, slots = lone_last_learner(learned, ups["random up"], k)
+                only = torch.zeros(k, dtype=torch.bool, device=dev)
+                only[slots] = True
+                for wname, want in (("want None", None), ("want the lone slots", only)):
+                    max_err = max(max_err, check_learner(lone, lone_up, k, want,
+                                                         f"N={n} K={k} {density} lone last-row learner {wname}",
+                                                         calls))
+                ref = lifecycle_kernel.first_live_learner_plain(lone, lone_up, k)
+                check(bool((ref[slots] == n - 1).all()), f"the lone slots' only live learner is row {n - 1}")
+            log(f"phase8: N={n} K={k}: L1 (checksum; detect x 3 observer masks x SUSPECT/FAULTY) over 3 densities "
+                f"x {len(WALK_KINDS)} rumor tables {WALK_KINDS}, L2 (3 up masks x 4 want masks, and a lone "
+                f"last-row learner) == plain (tolerance: none, bit-equal; {time.perf_counter() - t0:.1f} s)")
+    max_err = max(max_err, widest_planes(dev, gen, calls))
+    log(f"phase8: the widest plane, {lifecycle_kernel.MAX_WORDS} words (N={WIDEST_ROWS}, K="
+        f"{32 * lifecycle_kernel.MAX_WORDS}): L1 (checksum, detect; single-slot and straddling tables) and L2 "
+        f"(want None, random) == plain; {lifecycle_kernel.MAX_WORDS + 1} words refused by both "
+        f"({time.perf_counter() - t0:.1f} s)")
     torch.cuda.synchronize()
     check(lifecycle_kernel.launches == calls,
           f"one launch per wrapper call: {lifecycle_kernel.launches} vs {calls}")
@@ -837,42 +978,113 @@ def headline_faults(dev: torch.device, n: int):
     return victims, delta.DeltaFaults(up=torch.from_numpy(up).to(dev))
 
 
-def lifecycle_block_profile(params, state, faults, ticks: int) -> dict:
+@contextlib.contextmanager
+def record_learner_calls(calls: list):
+    """Keep each ``first_live_learner`` call's inputs and output (references:
+    no copy, no launch) in ``calls`` for the duration."""
+    real = lifecycle_kernel.first_live_learner
+
+    def recorded(learned, up, k, want=None):
+        out = real(learned, up, k, want)
+        calls.append((learned, up, k, want, out))
+        return out
+
+    lifecycle_kernel.first_live_learner = recorded
+    try:
+        yield
+    finally:
+        lifecycle_kernel.first_live_learner = real
+
+
+def learner_bound_bytes(learned: torch.Tensor, up, k: int, want) -> int:
+    """The bytes L2 must move for these inputs: the rows up to the largest
+    answer among the wanted slots (every row where a wanted slot has no
+    live learner), their up bytes, the K want bytes and the 4K output
+    bytes."""
+    n, w = learned.shape
+    wanted = torch.ones(k, dtype=torch.bool, device=learned.device) if want is None else want
+    rows = 0
+    if bool(wanted.any()):
+        bits = packbits.unpack_bits(learned, k)
+        if up is not None:
+            bits &= up[:, None]
+        if bool((wanted & ~bits.any(0)).any()):
+            rows = n
+        else:
+            first = lifecycle_kernel.first_live_learner_plain(learned, up, k, wanted)
+            rows = int(first.max()) + 1
+    return rows * (4 * w + (up is not None)) + (k if want is not None else 0) + 4 * k
+
+
+PORT_KERNELS = {"row_reduce": "packbits_row_reduce", "popcount_rows": "packbits_popcount_rows",
+                "slot_walk": "lifecycle_slot_walk", "first_live_learner": "lifecycle_first_live_learner"}
+
+
+def lifecycle_block_profile(params, state, faults, ticks: int):
     """``torch.profiler`` over ``ticks`` ticks from ``state``: device time by
     phase range and by kernel (top 10), the window (CUDA events), the
-    device's busy share of it and kernel launches per tick."""
+    device's busy share of it, kernel launches per tick, and L2's device
+    time per launch in launch order with each launch's inputs.  The record
+    is held against the wrappers' own launch counts, which drop nothing:
+    a record that misses a launch of the port's kernels is taken again from
+    the same state (``step`` leaves its input as it was), twice at most,
+    then fails.  Returns (the state after the ticks, the record)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(ticks):
-            state = lifecycle.step(params, state, faults)
-        end.record()
-        torch.cuda.synchronize()
-    window_ms = start.elapsed_time(end)
-    kernels, phases, spans = {}, {}, {}
-    for evt in prof.key_averages():
-        on_device = evt.device_type == torch.autograd.DeviceType.CUDA
-        if evt.key in lifecycle.PHASES:
-            if on_device:
-                spans[evt.key] = evt.self_device_time_total / 1e3
-            else:
-                phases[evt.key] = evt.device_time_total / 1e3
-        elif on_device and evt.self_device_time_total > 0:
-            kernels[evt.key] = (evt.count, evt.self_device_time_total / 1e3)
+    for _ in range(3):
+        calls = []
+        before = {**packbits_kernel.launches, **lifecycle_kernel.launches}
+        with record_learner_calls(calls), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiler_warmup()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = state
+            for _ in range(ticks):
+                out = lifecycle.step(params, out, faults)
+            end.record()
+            torch.cuda.synchronize()
+        counted = {name: n - before[name] for name, n in {**packbits_kernel.launches,
+                                                          **lifecycle_kernel.launches}.items()}
+        window_ms = start.elapsed_time(end)
+        kernels, phases, spans = {}, {}, {}
+        marks = 0
+        for evt in prof.key_averages():
+            on_device = evt.device_type == torch.autograd.DeviceType.CUDA
+            if evt.key in lifecycle.PHASES:
+                if on_device:
+                    spans[evt.key] = evt.self_device_time_total / 1e3
+                else:
+                    phases[evt.key] = evt.device_time_total / 1e3
+            elif on_device and MARK_TAG in evt.key:
+                marks += evt.count
+            elif on_device and evt.self_device_time_total > 0:
+                kernels[evt.key] = (evt.count, evt.self_device_time_total / 1e3)
+        recorded = {name: sum(c for key, (c, _) in kernels.items() if kname in key)
+                    for name, kname in PORT_KERNELS.items()}
+        if recorded == counted:
+            break
+        log(f"profile: the profiler recorded {recorded} of the port's launches in the block, the wrappers "
+            f"counted {counted} ({marks} of {WARMUP_MARKS} marks); profiling the block again")
+    else:
+        raise SystemExit(f"chip_smoke FAILED: the profiler's record of a {ticks}-tick block misses launches of "
+                         f"the port's kernels: {recorded} recorded, {counted} counted")
+    learner_ms = sorted(
+        ((e.time_range.start, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA and "lifecycle_first_live_learner" in e.name))
     busy_ms = sum(ms for _, ms in kernels.values())
     launches = sum(c for c, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
-    return {
+    return out, {
         "ticks": ticks, "window_ms": window_ms, "device_busy_ms": busy_ms,
         "busy_share": busy_ms / window_ms, "idle_share": 1.0 - busy_ms / window_ms,
         "kernel_launches": launches, "kernel_launches_per_tick": launches / ticks,
+        "port_launches": counted, "warmup_marks_recorded": marks,
         "phases_kernel_ms": phases, "phases_span_ms": spans,
         "port_kernels": {name: {"launches": c, "ms": ms} for name, (c, ms) in kernels.items()
                          if "packbits_" in name or "lifecycle_" in name},
         "top_kernels": [{"name": name[:160], "launches": c, "ms": ms} for name, (c, ms) in top],
+        "learner_ms": [ms for _, ms in learner_ms], "learner_calls": calls,
     }
 
 
@@ -882,10 +1094,20 @@ def one_kernel_ms(found: dict, kname: str) -> float:
     return ms[0]
 
 
+def slot_table_shape(state) -> dict:
+    """Slots in flight, subjects holding two or more of them, and those
+    subjects' slots (L1's multi-slot list)."""
+    live = state.r_subject[state.r_subject >= 0]
+    counts = torch.unique(live, return_counts=True)[1] if live.numel() else live
+    return {"slots_in_flight": int(live.numel()), "multi_slot_subjects": int((counts >= 2).sum()),
+            "multi_slot_entries": int(counts[counts >= 2].sum())}
+
+
 def lifecycle_profile(dev: torch.device, state, victims, faults) -> dict:
-    """L1 (both modes) and L2 alone (profiler, by name) on a headline state
-    after a flush that leaves the L2 cache clean, beside their byte bounds;
-    the wrapper calls, the queries and the plain versions by CUDA events."""
+    """L1 (both modes) and L2 (``want=None``) alone (profiler, by name) on a
+    headline state after a flush that leaves the L2 cache clean, beside
+    their byte bounds; the wrapper calls, the queries and the plain
+    versions by CUDA events; the slot table's shape."""
     n, w = state.learned.shape
     k = state.r_subject.shape[0]
     subjects = torch.as_tensor(victims, dtype=torch.int64, device=dev)
@@ -895,31 +1117,35 @@ def lifecycle_profile(dev: torch.device, state, victims, faults) -> dict:
     up = faults.up
     buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     clean = lambda: buf.sum(dtype=torch.int64)  # noqa: E731
+    out = {**slot_table_shape(state), "tick": int(state.tick)}
     table = 16 * k  # order, subject, key and the base key per slot
+    # L1 reads the plane (and, detecting, the observer bytes) only when a slot is in flight
+    plane = 4 * n * w if out["slots_in_flight"] else 0
+    observers = n if out["slots_in_flight"] else 0
     cases = {
         "slot_walk_detect": (
             lambda: lifecycle_kernel.slot_walk_cuda(state.learned, order, ss, sk, base_key, "detect", obs, FAULTY),
             lambda: lifecycle_kernel.slot_walk_plain(state.learned, order, ss, sk, base_key, "detect", obs, FAULTY),
-            "lifecycle_slot_walk", 4 * n * w + n + table + n),
+            "lifecycle_slot_walk", plane + observers + table + n),
         "slot_walk_checksum": (
             lambda: lifecycle_kernel.slot_walk_cuda(state.learned, order, ss, sk, base_key, "checksum"),
             lambda: lifecycle_kernel.slot_walk_plain(state.learned, order, ss, sk, base_key, "checksum"),
-            "lifecycle_slot_walk", 4 * n * w + table + 8 * n),
+            "lifecycle_slot_walk", plane + table + 8 * n),
         "first_live_learner": (
             lambda: lifecycle_kernel.first_live_learner_cuda(state.learned, up, k),
             lambda: lifecycle_kernel.first_live_learner_plain(state.learned, up, k),
-            "lifecycle_first_live_learner", 4 * n * w + n + 4 * 32 * w),
+            "lifecycle_first_live_learner", learner_bound_bytes(state.learned, up, k, None)),
     }
-    out = {}
     for name, (fn, plain, kname, nbytes) in cases.items():
-        ms = one_kernel_ms(profile_ms(fn, 20, clean, "reduce_kernel", lost_ok=2), kname)
+        check(torch.equal(fn(), plain()), f"{name} == plain at tick {out['tick']}")
+        ms = one_kernel_ms(profile_ms(fn, 20, clean, "reduce_kernel"), kname)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         rec = out[name] = {
             "kernel_ms": ms, "call_ms": time_ms(fn, 20, buf), "plain_ms": time_ms(plain, 3, buf),
             "bound_ms": bound_ms, "share_of_bound": bound_ms / ms, "bytes": nbytes,
         }
-        log(f"profile: {name} N={n} K={k}: kernel alone {ms * 1e3:.2f} us after a clean flush; "
-            f"call {rec['call_ms'] * 1e3:.2f} us; plain {rec['plain_ms']:.3f} ms; bound "
+        log(f"profile: tick {out['tick']} {name} N={n} K={k}: kernel alone {ms * 1e3:.2f} us after a clean "
+            f"flush; call {rec['call_ms'] * 1e3:.2f} us; plain {rec['plain_ms']:.3f} ms; bound "
             f"{bound_ms * 1e3:.2f} us ({bound_ms / ms:.1%})")
     check_fn = lambda: lifecycle.detection_complete(state, subjects, faults)  # noqa: E731
     views_fn = lambda: lifecycle.view_checksums(state, faults)  # noqa: E731
@@ -928,17 +1154,119 @@ def lifecycle_profile(dev: torch.device, state, victims, faults) -> dict:
     with plain_lifecycle():
         out["detection_check_plain_ms"] = time_ms(check_fn, 3, buf)
         out["view_checksums_plain_ms"] = time_ms(views_fn, 3, buf)
-    log(f"profile: detection check {out['detection_check_ms']:.3f} ms (plain walk "
-        f"{out['detection_check_plain_ms']:.3f} ms); view_checksums {out['view_checksums_ms']:.3f} ms "
-        f"(plain {out['view_checksums_plain_ms']:.3f} ms)")
+    log(f"profile: tick {out['tick']}: {out['slots_in_flight']} of {k} slots in flight, "
+        f"{out['multi_slot_subjects']} subjects hold {out['multi_slot_entries']} of them; detection check "
+        f"{out['detection_check_ms']:.3f} ms (plain walk {out['detection_check_plain_ms']:.3f} ms); "
+        f"view_checksums {out['view_checksums_ms']:.3f} ms (plain {out['view_checksums_plain_ms']:.3f} ms)")
     return out
+
+
+def learner_planes(dev: torch.device) -> dict:
+    """L2 alone (profiler, by name, after a clean flush) on synthetic
+    1,000,000 x 256 planes — every slot learned by 30 % or 1 % of the rows,
+    a first learner per slot between rows 100,000 and 300,000, and no
+    learner at all — with ``want`` None, empty and 5 % of the slots, beside
+    the data-dependent byte bound; each launch == plain."""
+    n, k = LIFE_N, LIFE_K
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    up = torch.rand(n, generator=gen, device=dev) < 0.999
+    late = torch.zeros((n, k), dtype=torch.bool, device=dev)
+    late[torch.randint(100_000, 300_000, (k,), generator=gen, device=dev), torch.arange(k, device=dev)] = True
+    planes = {
+        "dense0.3": packbits.pack_bool(torch.rand((n, k), generator=gen, device=dev) < 0.3),
+        "dense0.01": packbits.pack_bool(torch.rand((n, k), generator=gen, device=dev) < 0.01),
+        "late": packbits.pack_bool(late),
+        "none": torch.zeros((n, k // 32), dtype=torch.int32, device=dev),
+    }
+    del late
+    wants = {"None": None, "empty": torch.zeros(k, dtype=torch.bool, device=dev),
+             "5%": torch.rand(k, generator=gen, device=dev) < 0.05}
+    buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    clean = lambda: buf.sum(dtype=torch.int64)  # noqa: E731
+    out = {}
+    for pname, plane in planes.items():
+        for wname, want in wants.items():
+            fn = lambda: lifecycle_kernel.first_live_learner_cuda(plane, up, k, want)  # noqa: E731
+            check(torch.equal(fn(), lifecycle_kernel.first_live_learner_plain(plane, up, k, want)),
+                  f"L2 == plain on the {pname} plane, want {wname}")
+            ms = one_kernel_ms(profile_ms(fn, 20, clean, "reduce_kernel"), "lifecycle_first_live_learner")
+            bound_ms = learner_bound_bytes(plane, up, k, want) / HBM_BYTES_PER_S * 1e3
+            out[f"{pname}/{wname}"] = {"kernel_ms": ms, "bound_ms": bound_ms}
+            log(f"profile: L2 on the {pname} plane, want {wname}: kernel alone {ms * 1e3:.2f} us after a clean "
+                f"flush; bound {bound_ms * 1e3:.2f} us")
+    return out
+
+
+def learner_in_tick(block: dict) -> list[dict]:
+    """Each L2 launch of a profiled block: its device ms, whether a timer
+    fired, its byte bound; every output == the plain version on the same
+    inputs."""
+    calls = block.pop("learner_calls")
+    times = block.pop("learner_ms")
+    check(len(times) == len(calls), f"the profiler timed {len(times)} of the block's {len(calls)} L2 launches")
+    launches = []
+    for ms, (learned, up, k, want, out) in zip(times, calls):
+        check(torch.equal(out, lifecycle_kernel.first_live_learner_plain(learned, up, k, want)),
+              "L2 in the tick == plain on the same inputs")
+        launches.append({"ms": ms, "fired": bool(want.any()),
+                         "bound_ms": learner_bound_bytes(learned, up, k, want) / HBM_BYTES_PER_S * 1e3})
+    return launches
+
+
+def lifecycle_trace(dev: torch.device, params, faults, victims) -> dict:
+    """The main path's ticks again, from ``init_state``, in blocks of
+    LIFE_CHECK_EVERY under the profiler (by phase and kernel, launches a
+    tick, L2 in the tick by launch), and L1/L2 alone on the state of each
+    detection check (ticks 32, 64, 96, 128)."""
+    state = lifecycle.init_state(params, seed=LIFE_SEED, device=dev)
+    blocks, checks, learner = [], [], []
+    plain_inputs = None  # a launch's inputs for the plain version's time: the first where a timer fired
+    for _ in range(PIN_LIFE_DETECT_TICKS // LIFE_CHECK_EVERY):
+        state, block = lifecycle_block_profile(params, state, faults, LIFE_CHECK_EVERY)
+        if plain_inputs is None or not bool(plain_inputs[3].any()):
+            plain_inputs = next((c[:4] for c in block["learner_calls"] if bool(c[3].any())),
+                                plain_inputs or block["learner_calls"][0][:4])
+        learner += learner_in_tick(block)
+        blocks.append(block)
+        log(f"phase9: ticks to {int(state.tick)}: window {block['window_ms']:.3f} ms, device busy "
+            f"{block['device_busy_ms']:.3f} ms ({block['busy_share']:.1%}), "
+            f"{block['kernel_launches_per_tick']:.2f} kernel launches a tick (the port's {block['port_launches']}, "
+            f"== the profiler's record; {block['warmup_marks_recorded']} of {WARMUP_MARKS} marks recorded); "
+            f"kernel ms by phase "
+            f"{block['phases_kernel_ms']}; span ms by phase {block['phases_span_ms']}; this port's kernels "
+            f"{block['port_kernels']}")
+        for rec in block["top_kernels"]:
+            log(f"phase9:   {rec['ms']:.4f} ms  x{rec['launches']}  {rec['name'][:110]}")
+        checks.append(lifecycle_profile(dev, state, victims, faults))
+    buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    plain_ms = time_ms(lambda: lifecycle_kernel.first_live_learner_plain(*plain_inputs), 3, buf)
+    split = {}
+    for name, recs in (("fired", [r for r in learner if r["fired"]]),
+                       ("empty", [r for r in learner if not r["fired"]])):
+        split[name] = {"launches": len(recs), "mean_ms": statistics.fmean(r["ms"] for r in recs) if recs else None,
+                       "mean_bound_ms": statistics.fmean(r["bound_ms"] for r in recs) if recs else None}
+    in_tick = {
+        "launches": len(learner), "ticks_fired": sum(r["fired"] for r in learner),
+        "mean_ms": statistics.fmean(r["ms"] for r in learner), "mean_bound_ms": statistics.fmean(
+            r["bound_ms"] for r in learner), "by_want": split, "plain_ms": plain_ms,
+        "plain_inputs_fired": bool(plain_inputs[3].any()),
+    }
+    log(f"phase9: L2 in the tick: {in_tick['launches']} launches timed, a timer fired in "
+        f"{in_tick['ticks_fired']} ticks; mean {in_tick['mean_ms'] * 1e3:.2f} us a launch (bound "
+        f"{in_tick['mean_bound_ms'] * 1e3:.2f} us); by want {split}; plain {plain_ms:.3f} ms on a "
+        f"{'fired' if in_tick['plain_inputs_fired'] else 'quiet'} tick's inputs; every launch == plain")
+    per_tick = [block["kernel_launches_per_tick"] for block in blocks]
+    check(all(x <= LIFE_LAUNCHES_A_TICK_MAX for x in per_tick),
+          f"launches a tick in every block {per_tick} <= {LIFE_LAUNCHES_A_TICK_MAX}")
+    return {"blocks": blocks, "checks": checks, "learner_in_tick": in_tick}
 
 
 def phase9_lifecycle_headline(dev: torch.device) -> dict:
     """bench.py's headline at 1,000,000 x 256: kernels vs plain for the
     first ticks and the kernels' profile on the state they reach, then the
     counted, timed detection + convergence + view checksum run against the
-    JAX pins, then one block under the profiler."""
+    JAX pins, then the same ticks again under the profiler with L1 and L2
+    alone at each detection check."""
     n, k = LIFE_N, LIFE_K
     victims, faults = headline_faults(dev, n)
     params = lifecycle.LifecycleParams(n=n, k=k, rng="counter", exchange="shift")
@@ -967,10 +1295,7 @@ def phase9_lifecycle_headline(dev: torch.device) -> dict:
         f"on the kernels == on the plain versions at every tick; tick-{LIFE_TWIN_TICKS} digests == JAX "
         f"({time.perf_counter() - t0:.1f} s with the warm-up)")
     # the kernels alone on a state in mid-detection (its slots in flight)
-    active = int((a.r_subject >= 0).sum())
-    log(f"phase9: profiling L1 and L2 on the tick-{LIFE_TWIN_TICKS} state: {active} of {k} slots in flight")
     prof = lifecycle_profile(dev, a, victims, faults)
-    prof["slots_in_flight"] = active
     del a, b, qa, qb
 
     # -- the main path: launch counts are 0 before it and read right after --
@@ -1016,25 +1341,39 @@ def phase9_lifecycle_headline(dev: torch.device) -> dict:
     want_launches = {"row_reduce": 3 * PIN_LIFE_DETECT_TICKS, "popcount_rows": 0,
                      "slot_walk": checks + 2, "first_live_learner": PIN_LIFE_DETECT_TICKS}
     check(launches == want_launches,
-          f"the lifecycle path launched S1 3x a tick, L2 once a tick, L1 once a check + 1: {launches}")
+          f"the lifecycle path launched S1 3x a tick, L2 once a tick, L1 once a check + 2: {launches}")
     log(f"phase9: detected in {ticks} ticks == JAX, converged {cticks} ticks later == JAX; final leaf "
-        f"digests and view_checksums (sum {cs_sum}) == JAX; launches {launches}; runs {runs}")
-
+        f"digests and view_checksums (sum {cs_sum}) == JAX; launches {launches}; "
+        f"runs {runs}")
     del final, final_cs
-    block = lifecycle_block_profile(params, lifecycle.init_state(params, seed=LIFE_SEED, device=dev),
-                                    faults, LIFE_CHECK_EVERY)
-    log(f"phase9: one {LIFE_CHECK_EVERY}-tick block: window {block['window_ms']:.3f} ms, device busy "
-        f"{block['device_busy_ms']:.3f} ms ({block['busy_share']:.1%}), "
-        f"{block['kernel_launches_per_tick']:.1f} kernel launches a tick; kernel ms by phase "
-        f"{block['phases_kernel_ms']}; span ms by phase {block['phases_span_ms']}; this port's kernels "
-        f"{block['port_kernels']}")
-    for rec in block["top_kernels"]:
-        log(f"phase9:   {rec['ms']:.4f} ms  x{rec['launches']}  {rec['name'][:110]}")
+    trace = lifecycle_trace(dev, params, faults, victims)
     return {
-        "launches": launches, "detect_ticks": ticks, "converge_ticks": cticks, "runs": runs,
-        "detect_ms_per_tick": [r["detect_ms"] / ticks for r in runs],
-        "view_checksums_sum": cs_sum, "kernel_profile": prof, "block_profile": block,
+        "launches": launches, "detect_ticks": ticks, "converge_ticks": cticks,
+        "runs": runs, "detect_ms_per_tick": [r["detect_ms"] / ticks for r in runs],
+        "view_checksums_sum": cs_sum, "kernel_profile": prof, **trace,
     }
+
+
+def detect_wall(dev: torch.device, runs: int = 5) -> list[float]:
+    """The headline's ``run_until_detected`` alone, ``runs`` times after
+    one untimed run (CUDA events, ms, the pinned tick count checked): the
+    detection wall without the rest of the script, so that two checkouts
+    can be compared on one card in one call."""
+    victims, faults = headline_faults(dev, LIFE_N)
+    walls = []
+    for _ in range(runs + 1):
+        sim = lifecycle.LifecycleSim(n=LIFE_N, k=LIFE_K, seed=LIFE_SEED, rng="counter", device=dev)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ticks, ok = sim.run_until_detected(victims, faults, max_ticks=LIFE_MAX_TICKS,
+                                           check_every=LIFE_CHECK_EVERY, blocks_per_dispatch=8)
+        end.record()
+        torch.cuda.synchronize()
+        check(ok and ticks == PIN_LIFE_DETECT_TICKS, f"detected in {ticks} ticks (JAX: {PIN_LIFE_DETECT_TICKS})")
+        walls.append(start.elapsed_time(end))
+        del sim
+    return walls[1:]
 
 
 def run_lifecycle(dev: torch.device) -> tuple[list, dict]:
@@ -1042,23 +1381,31 @@ def run_lifecycle(dev: torch.device) -> tuple[list, dict]:
     path's S1/S2 launches and the timings."""
     max_err = phase8_lifecycle_kernels(dev)
     life = phase9_lifecycle_headline(dev)
-    prof = life["kernel_profile"]
     launches = life["launches"]
-    kernels = []
-    for name, key, cases, line in (
-        ("lifecycle_slot_walk", "slot_walk", ("slot_walk_detect", "slot_walk_checksum"),
-         "ringpop_tpu/sim/lifecycle.py:1363"),
-        ("lifecycle_first_live_learner", "first_live_learner", ("first_live_learner",),
-         "ringpop_tpu/sim/lifecycle.py:755"),
-    ):
-        rec = prof[cases[0]]  # L1: the detection check, most of its launches
-        kernels.append({
-            "name": name, "route": "cuda", "source": "ringpop_tpu_torch/csrc/lifecycle.cu",
-            "replaces": line, "launches": launches[key], "max_abs_err": max_err,
-            "ms": rec["kernel_ms"], "call_ms": rec["call_ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": rec["bound_ms"], "share_of_bound": rec["share_of_bound"], "bound_by": "bytes",
-            "library_ms": None, "by_case": {c: prof[c] for c in cases},
-        })
+    full = life["checks"][1]  # tick 64: a full slot table, the detection checks' common case
+    walk = full["slot_walk_detect"]
+    by_case = {f"tick{c['tick']}_{mode}": c[f"slot_walk_{mode}"] for c in life["checks"] for mode in
+               ("detect", "checksum")}
+    by_case.update({f"tick{LIFE_TWIN_TICKS}_{mode}": life["kernel_profile"][f"slot_walk_{mode}"]
+                    for mode in ("detect", "checksum")})
+    in_tick = life["learner_in_tick"]
+    kernels = [{
+        "name": "lifecycle_slot_walk", "route": "cuda", "source": "ringpop_tpu_torch/csrc/lifecycle.cu",
+        "replaces": "ringpop_tpu/sim/lifecycle.py:1363", "launches": launches["slot_walk"],
+        "max_abs_err": max_err,
+        "state": f"tick {full['tick']}, detect mode", "ms": walk["kernel_ms"], "call_ms": walk["call_ms"],
+        "plain_ms": walk["plain_ms"], "bound_ms": walk["bound_ms"], "share_of_bound": walk["share_of_bound"],
+        "bound_by": "bytes", "library_ms": None, "by_case": by_case,
+    }, {
+        "name": "lifecycle_first_live_learner", "route": "cuda", "source": "ringpop_tpu_torch/csrc/lifecycle.cu",
+        "replaces": "ringpop_tpu/sim/lifecycle.py:755", "launches": launches["first_live_learner"],
+        "max_abs_err": max_err, "state": "in the tick, mean over the main path's launches",
+        "ms": in_tick["mean_ms"], "plain_ms": in_tick["plain_ms"], "bound_ms": in_tick["mean_bound_ms"],
+        "share_of_bound": in_tick["mean_bound_ms"] / in_tick["mean_ms"], "bound_by": "bytes",
+        "library_ms": None, "in_tick": in_tick,
+        "by_case": {f"tick{c['tick']}_want_none": c["first_live_learner"]
+                    for c in [life["kernel_profile"], *life["checks"]]},
+    }]
     return kernels, {"lifecycle": life}
 
 
@@ -1087,6 +1434,17 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     if sys.argv[1:] == ["--kernel-profile"]:
         log(json.dumps({"card": card, "profile": kernel_profile(torch.device("cuda"))}))
+        return 0
+    if sys.argv[1:] == ["--lifecycle-kernels"]:
+        lifecycle_kernel.build()
+        log(json.dumps({"card": card, "max_abs_err": phase8_lifecycle_kernels(torch.device("cuda"))}))
+        return 0
+    if sys.argv[1:] == ["--learner-planes"]:
+        lifecycle_kernel.build()
+        log(json.dumps({"card": card, "learner_planes": learner_planes(torch.device("cuda"))}))
+        return 0
+    if sys.argv[1:] == ["--detect-wall"]:
+        log(json.dumps({"card": card, "detect_ms": detect_wall(torch.device("cuda"))}))
         return 0
     build_kernels()
     kernels, timings = run(torch.device("cuda"), N_SERVERS, N_KEYS)

@@ -9,14 +9,17 @@ cannot express in one call:
   into a view checksum (checksum mode) or into a per-subject "some observer
   has not detected it" flag (detect mode); replaces the XLA ``fori_loop``
   of ``ringpop_tpu/sim/lifecycle.py`` (``_walk_subject_slots``);
-* L2 ``first_live_learner`` — per slot, the lowest live row that learned
-  it (0 where none did); replaces ``_first_live_learner``'s argmax over the
-  unpacked [N, K] plane.
+* L2 ``first_live_learner`` — per wanted slot, the lowest live row that
+  learned it (0 where none did, and for the slots not wanted); replaces
+  ``_first_live_learner``'s argmax over the unpacked [N, K] plane and the
+  ``lax.cond`` around it, on the card, with no host sync.
 
 Each has its plain PyTorch version here (:func:`slot_walk_plain`,
 :func:`first_live_learner_plain`); :func:`slot_walk` and
 :func:`first_live_learner` dispatch by device: the plain version for a CPU
-tensor, the kernel for a CUDA tensor (or an error — never a fallback).  The
+tensor, the kernel for a CUDA tensor (or an error — never a fallback).
+Both kernels keep per-word tables in shared memory, so on the card they
+take planes of at most :data:`MAX_WORDS` words (K <= 7008 slots).  The
 source is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``ops/_cuda_build.py``) and loaded with ctypes; nothing is built or loaded
 when this module is imported.  ``launches`` counts each kernel's launches;
@@ -42,13 +45,16 @@ BUILD_DIR = _cuda_build.BUILD_DIR
 
 MODES = {"checksum": 0, "detect": 1}
 INT32_MAX = 2**31 - 1
-_WALK_THREADS = 256
-_SMEM_LIMIT = 232_448  # shared memory one Hopper block can use
+# The widest plane both kernels take: L2's per-warp first-row tables (1060
+# bytes a word, rp_first_live_learner_smem) fill one Hopper block's 227 KB
+# at 219 words; L1's tables fit there at K = 32W too (rp_slot_walk_smem).
+MAX_WORDS = 219
 
 launches = {"slot_walk": 0, "first_live_learner": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
+_learner_scratch: dict = {}
 
 
 def build() -> Path:
@@ -62,14 +68,19 @@ def _library():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.rp_slot_walk.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                         ptr, ptr, ptr]
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.rp_slot_walk.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr,
+                                         ptr]
             lib.rp_slot_walk.restype = i32
             lib.rp_slot_walk_smem.argtypes = [i32, i32, i32]
-            lib.rp_slot_walk_smem.restype = ctypes.c_longlong
-            lib.rp_first_live_learner.argtypes = [ptr, ptr, i32, i32, i32, ptr, ptr]
+            lib.rp_slot_walk_smem.restype = i64
+            lib.rp_first_live_learner.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
             lib.rp_first_live_learner.restype = i32
+            lib.rp_first_live_learner_smem.argtypes = [i32]
+            lib.rp_first_live_learner_smem.restype = i64
+            lib.rp_first_live_learner_scratch.argtypes = [i32]
+            lib.rp_first_live_learner_scratch.restype = i64
+            lib.rp_first_live_learner_best_at.restype = i64
             _lib = lib
         return _lib
 
@@ -83,6 +94,14 @@ def reset_launches() -> None:
 def _require_cuda(t: torch.Tensor, what: str) -> None:
     if not t.is_cuda:
         raise ValueError(f"{what} needs CUDA tensors, got {t.device}")
+
+
+def check_width(w: int, what: str) -> None:
+    """Raise ValueError for a plane of ``w`` words wider than the kernels
+    take (:data:`MAX_WORDS`)."""
+    if w > MAX_WORDS:
+        raise ValueError(f"{what}: a plane of {w} words is wider than the lifecycle kernels take "
+                         f"({MAX_WORDS} words, K <= {32 * MAX_WORDS}: their tables fill a block's shared memory)")
 
 
 # -- L1: the subject-slot walk -------------------------------------------------
@@ -167,6 +186,7 @@ def slot_walk_cuda(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torc
     tensors = [learned, order, sorted_subj, sorted_key, base_key] + ([obs] if mode == "detect" else [])
     if any(t.device != dev for t in tensors):
         raise ValueError("slot_walk_cuda: every tensor must be on the plane's device")
+    check_width(w, "slot_walk_cuda")
     learned = learned.contiguous()
     order32 = order.to(torch.int32).contiguous()
     sorted_subj = sorted_subj.to(torch.int32).contiguous()
@@ -177,16 +197,12 @@ def slot_walk_cuda(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torc
     obs_c = obs.contiguous() if mode == "detect" else None
     if n:
         lib = _library()
-        threads = _WALK_THREADS
-        while threads > 32 and lib.rp_slot_walk_smem(w, k, threads) > _SMEM_LIMIT:
-            threads -= 32
-        if lib.rp_slot_walk_smem(w, k, threads) > _SMEM_LIMIT:
-            raise ValueError(f"slot_walk_cuda: W={w} K={k} needs more shared memory than a block has")
         with torch.cuda.device(dev):
             err = lib.rp_slot_walk(
                 learned.data_ptr(), n, w, k, order32.data_ptr(), sorted_subj.data_ptr(),
                 sorted_key.data_ptr(), base_key.data_ptr(),
-                None if obs_c is None else obs_c.data_ptr(), int(min_status), MODES[mode], threads,
+                None if obs_c is None else obs_c.data_ptr(), int(min_status), MODES[mode],
+                vec_words(w, learned.data_ptr()),
                 sums.data_ptr() if mode == "checksum" else None,
                 anybad.data_ptr() if mode == "detect" else None,
                 torch.cuda.current_stream().cuda_stream,
@@ -216,53 +232,81 @@ def slot_walk(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torch.Ten
 # -- L2: the per-slot first live learner -----------------------------------------
 
 
-def first_live_learner_plain(learned: torch.Tensor, up: Optional[torch.Tensor], k: int) -> torch.Tensor:
+def first_live_learner_plain(learned: torch.Tensor, up: Optional[torch.Tensor], k: int,
+                             want: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version of :func:`first_live_learner`: the lowest row
     index per slot column of the unpacked plane (not ``torch.argmax`` of
-    a bool tensor, which the CPU build refuses)."""
+    a bool tensor, which the CPU build refuses), 0 where ``want`` is
+    False."""
     n = learned.shape[0]
     bits = unpack_bits(learned, k)
     if up is not None:
         bits = bits & up[:, None]
     rows = torch.arange(n, dtype=torch.int32, device=learned.device)[:, None]
     first = torch.where(bits, rows, n).amin(0) if n else torch.zeros(k, dtype=torch.int32, device=learned.device)
-    return torch.where(first == n, 0, first).to(torch.int32)
+    first = torch.where(first == n, 0, first).to(torch.int32)
+    return first if want is None else torch.where(want, first, 0)
 
 
-def first_live_learner_cuda(learned: torch.Tensor, up: Optional[torch.Tensor], k: int) -> torch.Tensor:
+def _scratch_for(lib, dev: torch.device, stream: int, w: int) -> torch.Tensor:
+    """L2's scratch on ``dev`` for launches on ``stream`` at W words (or
+    fewer): int32, its two counters 0 and its best rows INT32_MAX
+    (``rp_first_live_learner_best_at`` in ``csrc/lifecycle.cu``).  Each
+    launch leaves it so; one is kept per device and stream, so launches
+    that may overlap never share one."""
+    key = (dev.index, stream)
+    size = lib.rp_first_live_learner_scratch(w)
+    buf = _learner_scratch.get(key)
+    if buf is None or buf.numel() < size:
+        buf = torch.zeros(size, dtype=torch.int32, device=dev)
+        buf[lib.rp_first_live_learner_best_at():] = INT32_MAX
+        _learner_scratch[key] = buf
+    return buf
+
+
+def first_live_learner_cuda(learned: torch.Tensor, up: Optional[torch.Tensor], k: int,
+                            want: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch L2 on a CUDA plane; same contract as
     :func:`first_live_learner_plain`.  Raises as :func:`slot_walk_cuda`."""
     _require_cuda(learned, "first_live_learner_cuda")
     if learned.dtype != torch.int32 or learned.dim() != 2 or not learned.is_contiguous():
         raise ValueError("first_live_learner_cuda takes a contiguous int32[N, W] plane")
     n, w = learned.shape
+    dev = learned.device
     if n >= 2**31 or not 0 < k <= 32 * w:
         raise ValueError(f"first_live_learner_cuda: unsupported shape N={n} W={w} K={k}")
-    if up is not None:
-        if up.dtype != torch.bool or up.shape != (n,) or up.device != learned.device:
-            raise ValueError(f"up must be bool[{n}] on {learned.device}")
-        up = up.contiguous()
-    out = torch.full((32 * w,), INT32_MAX, dtype=torch.int32, device=learned.device)
-    if n:
-        lib = _library()
-        vec = vec_words(w, learned.data_ptr())
-        with torch.cuda.device(learned.device):
-            err = lib.rp_first_live_learner(
-                learned.data_ptr(), None if up is None else up.data_ptr(), n, w, vec,
-                out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"first_live_learner kernel launch failed: cudaError {err}")
-        launches["first_live_learner"] += 1
-    out = out[:k]
-    return torch.where(out == INT32_MAX, 0, out)
+    check_width(w, "first_live_learner_cuda")
+    for name, mask, size in (("up", up, n), ("want", want, k)):
+        if mask is not None and (mask.dtype != torch.bool or mask.shape != (size,) or mask.device != dev):
+            raise ValueError(f"{name} must be bool[{size}] on {dev}")
+    up = None if up is None else up.contiguous()
+    want = None if want is None else want.contiguous()
+    if not n:
+        return torch.zeros(k, dtype=torch.int32, device=dev)
+    lib = _library()
+    out = torch.empty(k, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        with _lib_lock:
+            scratch = _scratch_for(lib, dev, stream, w)
+        err = lib.rp_first_live_learner(
+            learned.data_ptr(), None if up is None else up.data_ptr(),
+            None if want is None else want.data_ptr(), n, w, k, vec_words(w, learned.data_ptr()),
+            scratch.data_ptr(), out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"first_live_learner kernel launch failed: cudaError {err}")
+    launches["first_live_learner"] += 1
+    return out
 
 
-def first_live_learner(learned: torch.Tensor, up: Optional[torch.Tensor], k: int) -> torch.Tensor:
-    """int32[K]: per slot j < k, the lowest row r with bit j of
-    ``learned[r]`` set and ``up[r]`` (every row when ``up`` is None); 0
-    where there is none, as ``jnp.argmax`` of an all-False column gives.
-    The plain version on a CPU plane, L2 on a CUDA plane."""
+def first_live_learner(learned: torch.Tensor, up: Optional[torch.Tensor], k: int,
+                       want: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """int32[K]: per slot j < k that ``want`` (bool[K]; every slot when
+    None) names, the lowest row r with bit j of ``learned[r]`` set and
+    ``up[r]`` (every row when ``up`` is None); 0 where there is none, as
+    ``jnp.argmax`` of an all-False column gives, and 0 for the slots not
+    wanted.  The plain version on a CPU plane, L2 on a CUDA plane."""
     if learned.device.type == "cpu":
-        return first_live_learner_plain(learned, up, k)
-    return first_live_learner_cuda(learned, up, k)
+        return first_live_learner_plain(learned, up, k, want)
+    return first_live_learner_cuda(learned, up, k, want)

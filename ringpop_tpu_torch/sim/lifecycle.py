@@ -36,8 +36,10 @@ falls back to (``lax.top_k``: value descending, lower index first among
 equals — one ``torch.sort(stable=True)``, not ``torch.topk``, which makes
 no promise on ties), and the two-level ``_gather_rows`` is ``plane[idx]``.
 The first-live-learner argmax, which the JAX package guards with a
-``lax.cond`` on "a timer fired", runs every tick: its value is masked by
-the same condition, and a branch here would cost a host sync a tick.
+``lax.cond`` on "a timer fired", is launched every tick with the tick's
+``fire_s | fire_f`` as its ``want`` mask: the kernel decides on the card
+(a block with no wanted slot exits at once), since a branch here would
+cost a host sync a tick, and its value is masked by the same condition.
 
 Not ported yet, each refused with NotImplementedError: the threefry stream
 (``rng="threefry"``, the JAX package's default — ROADMAP A8), the sharded
@@ -192,9 +194,13 @@ def _refuse_telemetry(telemetry) -> None:
 def init_state(params: LifecycleParams, seed: int = 0, device: DeviceLike = None) -> LifecycleState:
     """The initial state on ``device`` (the card unless the caller asks for
     the CPU); ``key`` is ``prng.prng_key(seed)``, the value
-    ``jax.random.PRNGKey(seed)`` has."""
+    ``jax.random.PRNGKey(seed)`` has.  On the card, K is refused past the
+    widest plane the lifecycle kernels take (``lifecycle_kernel.MAX_WORDS``
+    words) rather than at the first tick."""
     dev = resolve_device(device)
     n, k = params.n, params.k
+    if dev.type == "cuda":
+        lifecycle_kernel.check_width(n_words(k), "lifecycle.init_state")
     i32 = dict(dtype=torch.int32, device=dev)
     return LifecycleState(
         r_subject=torch.full((k,), -1, **i32),
@@ -447,8 +453,9 @@ def step(
         slot_cand = torch.where(fire_sf, _key_of(state.r_inc, slot_next), -1)
         fire_key = _segment_max(slot_cand, subj, n).clamp_min(-1)
         # seed of a fired transition: the first live node that learned the
-        # rumor (L2 on the card), every tick — masked by fire_s | fire_f
-        slot_seed = lifecycle_kernel.first_live_learner(learned2h_w, up_leg, k)
+        # rumor (L2 on the card), for the slots of fire_s | fire_f only — the
+        # JAX package's lax.cond, decided on the card with no host sync
+        slot_seed = lifecycle_kernel.first_live_learner(learned2h_w, up_leg, k, want=fire_sf)
         seed_node = _segment_max(torch.where(fire_sf, slot_seed, -1), subj, n).clamp_min(-1)
         r_deadline = state.r_deadline
 
