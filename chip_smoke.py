@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of ringpop_tpu_torch on one CUDA card: the keyed-ownership path,
-the SWIM dissemination engine and the SWIM failure-detection engine.
+the SWIM dissemination engine, the SWIM failure-detection engine, the
+threefry stream and the headline benchmark record.
 
     python3 chip_smoke.py
 
@@ -9,7 +10,9 @@ calls: the keyed path at the scale of the ring benchmark (``BASELINE.json``
 config 5: a 4096-server ring x 256 vnodes = 1,048,576 tokens, 1,048,576
 keys), the delta engine at ``bench.py``'s delta configuration
 (1,000,000 nodes x 128 rumor slots) and the lifecycle engine at
-``bench.py``'s headline (1,000,000 nodes x 256 rumor slots, 1000 down):
+``bench.py``'s headline (1,000,000 nodes x 256 rumor slots, 1000 down), and
+the port's twin of ``bench.py`` (``ringpop_tpu_torch/bench.py``) at its full
+scale on bench.py's own stream, threefry:
 
 1. build the Fingerprint32 kernel (``ringpop_tpu_torch/csrc/fingerprint32.cu``)
    and hold it bit-equal against its plain PyTorch version on the card and
@@ -88,7 +91,27 @@ keys), the delta engine at ``bench.py``'s delta configuration
    whether a timer fired, beside its data-dependent bound, each launch ==
    plain on its inputs), and L1 and L2 alone on the state of each
    detection check (ticks 32, 64, 96, 128) with its slots in flight and
-   the subjects that hold two or more.
+   the subjects that hold two or more;
+10. build the threefry kernel T1 (``ringpop_tpu_torch/csrc/threefry.cu``) and
+   hold ``split`` (2, 3, 5 keys), ``randint``, ``uniform`` and the raw bits
+   bit-equal against their plain PyTorch versions on the card: keys of
+   three seeds and of chained splits, shapes (), (1,), (n,), (n, 3) at
+   n = 1,000,000, spans 1, 2, n - 1, n, 2**31 - 1 and hi <= lo, and one draw
+   of 2**32 + 2**20 int32 values, whose head, elements around 2**32 and tail
+   equal the plain threefry2x32 on explicit (hi, lo) counters; then T1 alone
+   by profiler name at each shape the main path draws, beside its bound
+   (bytes over 3.35 TB/s, or the SASS instructions of ``cuobjdump -sass``
+   over the card's instruction rate, whichever is larger);
+11. the headline's first 8 ticks at threefry with T1 and, side by side, with
+   the plain draws on the card, every leaf equal and the tick-8 digests
+   equal to the JAX pins; then the main path, ``bench.run_bench`` at full
+   scale and ``rng="threefry"``: its record (printed on a line of its own)
+   reaches the JAX package's detection and convergence ticks, view-checksum
+   sum and digest, final leaf digests, delta ticks and delta digests (pinned
+   below), with T1 launched once a draw; phase 7's uniform exchange with
+   faults at threefry against its pins; a 32-tick block at each stream under
+   the profiler (launches a tick, busy share); detection at both streams in
+   turns (counter, threefry, threefry, counter).
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -104,7 +127,8 @@ card in one run of the chip machine.  ``python3 chip_smoke.py
 sparse, late and empty columns) with each ``want``; ``--detect-wall``
 times the headline's ``run_until_detected`` alone, five runs (run it from
 another checkout's root, with this script copied there, to compare two
-versions in one call).
+versions in one call); ``--threefry`` builds the kernels and runs steps
+10-11 alone.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
 device is available.  Imports nothing of JAX or of ``ringpop_tpu``.
@@ -115,21 +139,24 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from ringpop_tpu_torch import bench
 from ringpop_tpu_torch.hashing.farm import fingerprint32_batch, pack_strings
-from ringpop_tpu_torch.ops import hash_kernel, lifecycle_kernel, packbits_kernel
+from ringpop_tpu_torch.ops import _cuda_build, hash_kernel, lifecycle_kernel, packbits_kernel, threefry_kernel
 from ringpop_tpu_torch.ops.hash_ops import fingerprint32_device, keyed_owner_lookup, upload_keys
 from ringpop_tpu_torch.ops.ring_ops import build_ring_tokens, host_lookup_n, ring_lookup
 from ringpop_tpu_torch.serve.state import RingStore, serve_lookup_fused, serve_lookup_n_fused
-from ringpop_tpu_torch.sim import delta, lifecycle, packbits
+from ringpop_tpu_torch.sim import delta, lifecycle, packbits, prng, threefry
 from ringpop_tpu_torch.swim.member import FAULTY, SUSPECT
 
 SEED = 20261016
@@ -210,6 +237,71 @@ SMEM_OPTIN = 232_448  # shared memory one H100 block can opt in to, where torch 
 WARMUP_MARKS, MARK_CYCLES, MARK_TAG = 100, 20_000, "spin_kernel"  # torch.cuda._sleep's kernel
 PIN_LIFE_VIEWS_SUM = 1194085248  # view_checksums(...) summed in wrapping uint32
 PIN_LIFE_VIEWS_SHA = "7779b7f65d5d326f6b04c5fba2a49e3582dd02db8bea59052fea5756eed095ce"
+# phase 11: bench.py's own stream, threefry — pinned from the JAX package
+# (ringpop_tpu.sim.delta and .lifecycle at their default rng) run on the CPU;
+# tests/test_torch_chip_smoke_pins_threefry.py recomputes them
+PIN_TF_DELTA_TICKS = 16
+PIN_TF_DELTA = {  # delta 1M x 128 shift, after run_until_converged
+    "learned": "d1862c53f4fa3daac39b7969f32c448cd7af87ee59a42fb6dd567fc4be68d3ea",
+    "pcount": "4254f6be605f25c6c800a457eb2ed2a4d2d87976f84d00eca3081b5236ffd067",
+    "ride_ok": "d1862c53f4fa3daac39b7969f32c448cd7af87ee59a42fb6dd567fc4be68d3ea",
+    "tick": "097328e8c957de2428283954f6a1ee8ff7ad7def12e100a600178407f5decf24",
+    "key": "f580307267d35e1dfb16b1f56a1bd2e4383695a9cfc918fe08d51a75a68d8f48",
+}
+PIN_TF_UNIFORM = {  # phase 7's configuration at threefry, after 24 ticks
+    "learned": "2a2ab808e0ccb06a78a9b17715d5cf7aa750454519ce1e1a7d56cc86250f87e6",
+    "pcount": "b4ece4ff55b69f318c80a91c11db5eac7bf5e227c425d424fd24973e16fe3720",
+    "ride_ok": "d1862c53f4fa3daac39b7969f32c448cd7af87ee59a42fb6dd567fc4be68d3ea",
+    "tick": "17fa9c7f5e9039a2d46e73e17d8e094a796ee4c313199bad42db4ee1dc30d865",
+    "key": "737b00b329275070be41247e9f23b00169f6eebbd975d913174d63816ace603f",
+}
+PIN_TF_LIFE_DETECT_TICKS, PIN_TF_LIFE_CONVERGE_TICKS = 128, 0
+PIN_TF_LIFE_TWIN = {  # the headline after the first LIFE_TWIN_TICKS ticks
+    "r_subject": "bd6b75667d5bb0040c85d907733ca6f368bc6644d0d839e30d54e92b4f9f0fe1",
+    "r_inc": "5f70bf18a086007016e948b04aed3b82103a36bea41755b6cddfaf10ace3c6ef",
+    "r_status": "2661920f2409dd6c8adeb0c44972959f232b6429afa913845d0fd95e7e768234",
+    "r_deadline": "a4f141dde60bd5a1235d5be9e1c3b0f02a5afc5090f28d95ffd201de19f608a7",
+    "learned": "8a142967560fd9a7d7dff39014b856cdedfcb9c5fededc940ed4bc983d73a3e2",
+    "pcount": "97fbaea34da8a923aba03c7b13f1b1d6ec97091cc914de8828e0edbf47b608ed",
+    "ride_ok": "90b1c49f30fb1e958e1dbce3cb82a0ec15a9ac18a5dda4f63a91eb41f00acbb2",
+    "base_status": "d29751f2649b32ff572b5e0a9f541ea660a50f94ff0beedfb0b692b924cc8025",
+    "base_inc": "8dbe5f139fd946d4cd84e8cc612cd9f68cbc87e394457884acc0c5dad56dd8dd",
+    "base_present": "1fb6a051d8996888485d47fea0007a88e1e78ea273fa5fb60e1ab00608dbb764",
+    "base_pending": "bfa872a3021d48c84643f831ee5f9358bceccf3ad6a5f8b3a7a00e0b3f22bdbc",
+    "base_deadline": "8475ac20a4d76c1cc91be24ed0ae8df288cccf830bc15d9acb7da81cab0b5110",
+    "self_inc": "8dbe5f139fd946d4cd84e8cc612cd9f68cbc87e394457884acc0c5dad56dd8dd",
+    "tick": "dc765660b06ee03dd16fd7ca5b957e8c805161ac2c4af28c5a100ab2ab432ca1",
+    "key": "26ecd1a992a1f2348f77062978815821f33ddb7b16e73a65f9caad78b136e19d",
+}
+PIN_TF_LIFE = {  # after run_until_detected and run_until_converged
+    "r_subject": "5f4ecdb7b71c3e403983fe405cddcdc2f2576b655fdb3e80d94a6f7c32e58bc2",
+    "r_inc": "5f70bf18a086007016e948b04aed3b82103a36bea41755b6cddfaf10ace3c6ef",
+    "r_status": "f5c22e35d04167e37913e7963ce033b1f3d17a924a4e6fe5fc95af1224051921",
+    "r_deadline": "f978253cfd5ec36193e3dcf2b53b186a2c95f9ae4572bcb99b54bb2bf33fc5da",
+    "learned": "1a100baed95a65f66d01cd08644b28e134783fd0c52ac7e35ad52a452e8b90b2",
+    "pcount": "ff18e8f15bd1b40478433ebafd0b49b46c875ad9e8eabf0cf3747f493ebb6200",
+    "ride_ok": "90b1c49f30fb1e958e1dbce3cb82a0ec15a9ac18a5dda4f63a91eb41f00acbb2",
+    "base_status": "854b1c3e9eab4ebbb97227e0c67dcf6e1679c69e28aac64c6f4f89e5fa4e003e",
+    "base_inc": "8dbe5f139fd946d4cd84e8cc612cd9f68cbc87e394457884acc0c5dad56dd8dd",
+    "base_present": "1fb6a051d8996888485d47fea0007a88e1e78ea273fa5fb60e1ab00608dbb764",
+    "base_pending": "3e272cb77b8338b209212d16b0e490e050c178d18cd221181cc67015cb2a6f3d",
+    "base_deadline": "d2068647d423373d4603351d448f9f3c38bdd6d820be7fe981486584287291be",
+    "self_inc": "8dbe5f139fd946d4cd84e8cc612cd9f68cbc87e394457884acc0c5dad56dd8dd",
+    "tick": "50c8ba3a6170f0a2fb6736ece8a603576ef6309a35e810911599bc6211b554a9",
+    "key": "f4f77a214fcbef6fa64a0ae116b4cf359295719a4821acf7add861fb14457a9d",
+}
+PIN_TF_LIFE_VIEWS_SUM = 1194085248  # view_checksums(...) summed in wrapping uint32
+PIN_TF_LIFE_VIEWS_SHA = "7779b7f65d5d326f6b04c5fba2a49e3582dd02db8bea59052fea5756eed095ce"
+# phase 10: kernel T1 at the main path's shapes, and a draw whose counters pass 2**32
+TF_N = 1_000_000
+TF_SEEDS = (0, 1, SEED)
+TF_BIG = (1 << 32) + (1 << 20)  # int32 outputs: 17.2 GB
+# Hopper SM: 4 schedulers, each issuing one 32-lane warp instruction a clock
+# (white paper); its INT32 pipe alone has 64 lanes, and T1's IMADs go to the
+# FMA pipe, so T1 runs past the INT32 pipe's rate
+DISPATCH_LANES_PER_SM = 128
+T1_KERNELS = {"split": "threefry_split_kernel", "bits": "threefry_bits_kernel",
+              "randint": "threefry_randint_kernel", "uniform": "threefry_uniform_kernel"}
 
 
 def check(ok: bool, what: str) -> None:
@@ -461,12 +553,8 @@ def phase1_kernel_vs_plain(dev: torch.device) -> int:
 def leaf_digests(leaves, fields=delta.DeltaState._fields) -> dict[str, str]:
     """sha256 of each state leaf (numpy, in the JAX package's dtypes:
     uint32 planes and key, int8 counters, int32 tick) over its
-    little-endian bytes."""
-    out = {}
-    for name, leaf in zip(fields, leaves):
-        arr = np.ascontiguousarray(np.asarray(leaf))
-        out[name] = hashlib.sha256(arr.astype(arr.dtype.newbyteorder("<")).tobytes()).hexdigest()
-    return out
+    little-endian bytes (``bench.leaf_digests``)."""
+    return bench.leaf_digests(leaves, fields)
 
 
 def uniform_down_nodes(n: int) -> np.ndarray:
@@ -1017,7 +1105,14 @@ def learner_bound_bytes(learned: torch.Tensor, up, k: int, want) -> int:
 
 
 PORT_KERNELS = {"row_reduce": "packbits_row_reduce", "popcount_rows": "packbits_popcount_rows",
-                "slot_walk": "lifecycle_slot_walk", "first_live_learner": "lifecycle_first_live_learner"}
+                "slot_walk": "lifecycle_slot_walk", "first_live_learner": "lifecycle_first_live_learner",
+                **{f"threefry_{name}": kname for name, kname in T1_KERNELS.items()}}
+
+
+def port_launches() -> dict[str, int]:
+    """The sim kernels' wrapper launch counts, by PORT_KERNELS' names."""
+    return {**packbits_kernel.launches, **lifecycle_kernel.launches,
+            **{f"threefry_{name}": c for name, c in threefry_kernel.launches.items()}}
 
 
 def lifecycle_block_profile(params, state, faults, ticks: int):
@@ -1033,7 +1128,7 @@ def lifecycle_block_profile(params, state, faults, ticks: int):
 
     for _ in range(3):
         calls = []
-        before = {**packbits_kernel.launches, **lifecycle_kernel.launches}
+        before = port_launches()
         with record_learner_calls(calls), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiler_warmup()
             start = torch.cuda.Event(enable_timing=True)
@@ -1044,8 +1139,7 @@ def lifecycle_block_profile(params, state, faults, ticks: int):
                 out = lifecycle.step(params, out, faults)
             end.record()
             torch.cuda.synchronize()
-        counted = {name: n - before[name] for name, n in {**packbits_kernel.launches,
-                                                          **lifecycle_kernel.launches}.items()}
+        counted = {name: n - before[name] for name, n in port_launches().items()}
         window_ms = start.elapsed_time(end)
         kernels, phases, spans = {}, {}, {}
         marks = 0
@@ -1082,7 +1176,7 @@ def lifecycle_block_profile(params, state, faults, ticks: int):
         "port_launches": counted, "warmup_marks_recorded": marks,
         "phases_kernel_ms": phases, "phases_span_ms": spans,
         "port_kernels": {name: {"launches": c, "ms": ms} for name, (c, ms) in kernels.items()
-                         if "packbits_" in name or "lifecycle_" in name},
+                         if any(tag in name for tag in ("packbits_", "lifecycle_", "threefry_"))},
         "top_kernels": [{"name": name[:160], "launches": c, "ms": ms} for name, (c, ms) in top],
         "learner_ms": [ms for _, ms in learner_ms], "learner_calls": calls,
     }
@@ -1320,7 +1414,7 @@ def phase9_lifecycle_headline(dev: torch.device) -> dict:
         detect_ms, converge_ms, views_ms = (events[i].elapsed_time(events[i + 1]) for i in range(3))
         runs.append({"detect_ms": detect_ms, "converge_ms": converge_ms, "view_checksums_ms": views_ms})
         if run_i == 0:
-            launches = {**packbits_kernel.launches, **lifecycle_kernel.launches}
+            launches = port_launches()
             final, final_cs = sim.state, cs
             check(ok and ticks == PIN_LIFE_DETECT_TICKS,
                   f"detected in {ticks} ticks (JAX: {PIN_LIFE_DETECT_TICKS})")
@@ -1339,9 +1433,11 @@ def phase9_lifecycle_headline(dev: torch.device) -> dict:
           f"view_checksums: sum {cs_sum} and digest == the JAX package's")
     checks = 1 + PIN_LIFE_DETECT_TICKS // LIFE_CHECK_EVERY
     want_launches = {"row_reduce": 3 * PIN_LIFE_DETECT_TICKS, "popcount_rows": 0,
-                     "slot_walk": checks + 2, "first_live_learner": PIN_LIFE_DETECT_TICKS}
+                     "slot_walk": checks + 2, "first_live_learner": PIN_LIFE_DETECT_TICKS,
+                     **{f"threefry_{name}": 0 for name in T1_KERNELS}}
     check(launches == want_launches,
-          f"the lifecycle path launched S1 3x a tick, L2 once a tick, L1 once a check + 2: {launches}")
+          f"the lifecycle path launched S1 3x a tick, L2 once a tick, L1 once a check + 2 (and no T1 on the "
+          f"counter stream): {launches}")
     log(f"phase9: detected in {ticks} ticks == JAX, converged {cticks} ticks later == JAX; final leaf "
         f"digests and view_checksums (sum {cs_sum}) == JAX; launches {launches}; "
         f"runs {runs}")
@@ -1409,11 +1505,350 @@ def run_lifecycle(dev: torch.device) -> tuple[list, dict]:
     return kernels, {"lifecycle": life}
 
 
+# -- the threefry stream: kernel T1, and bench.py's record on its own stream --
+
+
+@contextlib.contextmanager
+def plain_threefry():
+    """Route ``sim/threefry``'s draws on CUDA keys to their plain versions (on
+    the card) for the duration: the threefry stream with no T1 launch."""
+    names = ("split_cuda", "bits_cuda", "randint_cuda", "uniform_cuda")
+    saved = [getattr(threefry_kernel, name) for name in names]
+    plain = (threefry.split_plain, threefry.random_bits32_plain, threefry.randint_plain, threefry.uniform_plain)
+    for name, fn in zip(names, plain):
+        setattr(threefry_kernel, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in zip(names, saved):
+            setattr(threefry_kernel, name, fn)
+
+
+def t1_keys(dev: torch.device) -> dict[str, torch.Tensor]:
+    """Raw keys on the card: ``PRNGKey`` of several seeds, and keys three
+    splits deep from each (the engines split keys that came from splits)."""
+    keys = {}
+    for seed in TF_SEEDS:
+        key = prng.prng_key(seed, dev)
+        keys[f"seed {seed}"] = key
+        for depth in range(1, 4):
+            key = threefry.split_plain(key, 5)[depth]
+            keys[f"seed {seed}, split depth {depth}"] = key
+    return keys
+
+
+def check_t1(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """One T1 launch == its plain version, bit for bit; returns the max abs
+    difference."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"T1 {what}: {got.dtype}{list(got.shape)} vs plain {want.dtype}{list(want.shape)}")
+    err = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+    check(torch.equal(got, want), f"T1 == plain ({what})")
+    return err
+
+
+def phase10_threefry(dev: torch.device) -> float:
+    """T1 (split, randint, uniform, bits) bit-equal to its plain version on
+    the card: keys of several seeds and chained splits; shapes (), (1,),
+    (n,) and (n, 3) at n = 1,000,000; spans 1, 2, n - 1, n, 2**31 - 1 and
+    hi <= lo; and one draw of more than 2**32 values, its head against the
+    plain draw and the elements around 2**32 and its tail against the plain
+    threefry2x32 on explicit (hi, lo) counters.  Returns the max abs
+    difference."""
+    n = TF_N
+    t0 = time.perf_counter()
+    threefry_kernel.reset_launches()
+    calls = dict.fromkeys(threefry_kernel.launches, 0)
+    spans = ((0, 1), (0, 2), (0, n - 1), (1, n), (0, n), (0, 2**31 - 1), (7, 7), (9, 3))
+    err = 0.0
+    for what, key in t1_keys(dev).items():
+        for num in (2, 3, 5):
+            err = max(err, check_t1(threefry_kernel.split_cuda(key, num), threefry.split_plain(key, num),
+                                    f"split {num}, {what}"))
+            calls["split"] += 1
+        for shape in ((), (1,), (n,), (n, 3)):
+            for lo, hi in spans:
+                err = max(err, check_t1(threefry_kernel.randint_cuda(key, shape, lo, hi),
+                                        threefry.randint_plain(key, shape, lo, hi),
+                                        f"randint {shape} [{lo}, {hi}), {what}"))
+                calls["randint"] += 1
+            err = max(err, check_t1(threefry_kernel.uniform_cuda(key, shape), threefry.uniform_plain(key, shape),
+                                    f"uniform {shape}, {what}"))
+            err = max(err, check_t1(threefry_kernel.bits_cuda(key, shape), threefry.random_bits32_plain(key, shape),
+                                    f"bits {shape}, {what}"))
+            calls["uniform"] += 1
+            calls["bits"] += 1
+    log(f"phase10: split (2, 3, 5), randint ({len(spans)} spans), uniform and bits at (), (1,), ({n},), ({n}, 3) "
+        f"over {len(t1_keys(dev))} keys: T1 == plain (tolerance: none, bit-equal; {time.perf_counter() - t0:.1f} s)")
+
+    # counters past 2**32: the high word is 1 for the last 2**20 outputs
+    key = prng.prng_key(SEED, dev)
+    big = threefry_kernel.randint_cuda(key, (TF_BIG,), 0, 1000)
+    calls["randint"] += 1
+    err = max(err, check_t1(big[:n], threefry.randint_plain(key, (n,), 0, 1000), f"randint ({TF_BIG},) head"))
+    ka, kb = threefry.split_plain(key, 2)
+    for lo_i, hi_i in (((1 << 32) - 4096, (1 << 32) + 4096), (TF_BIG - 4096, TF_BIG)):
+        idx = torch.arange(lo_i, hi_i, dtype=torch.int64, device=dev)
+        c_hi, c_lo = idx >> 32, idx & 0xFFFF_FFFF
+        h1, h2 = threefry.threefry2x32(ka[0], ka[1], c_hi, c_lo)
+        l1, l2 = threefry.threefry2x32(kb[0], kb[1], c_hi, c_lo)
+        want = threefry.randint_from_bits(h1 ^ h2, l1 ^ l2, 0, 1000)
+        err = max(err, check_t1(big[lo_i:hi_i], want, f"randint ({TF_BIG},) elements [{lo_i}, {hi_i})"))
+    del big
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    check(threefry_kernel.launches == calls, f"one launch per wrapper call: {threefry_kernel.launches} vs {calls}")
+    log(f"phase10: a draw of {TF_BIG} int32 values (counters past 2**32): head, the elements around 2**32 and the "
+        f"tail == plain threefry2x32 on explicit (hi, lo) counters; launches {threefry_kernel.launches}; "
+        f"max abs err {err} ({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
+def t1_sass_counts() -> dict[str, int]:
+    """Instructions (NOPs left out) of each T1 kernel in the built library,
+    from ``cuobjdump -sass``: each is straight-line code that every thread
+    runs once for its one output element."""
+    lib = threefry_kernel.build()
+    tool = Path(_cuda_build.find_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"cuobjdump -sass {lib.name}: {proc.stderr[-500:]}")
+    counts, cur = {}, None
+    for line in proc.stdout.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            cur = next((name for name, kname in T1_KERNELS.items() if kname in fn.group(1)), None)
+            if cur:
+                counts[cur] = 0
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
+        if cur and ins and not ins.group(1).strip().startswith("NOP"):
+            counts[cur] += 1
+    check(set(counts) == set(T1_KERNELS) and all(counts.values()), f"SASS of every T1 kernel: {counts}")
+    return counts
+
+
+def instruction_rate(dev: torch.device) -> tuple[float, float]:
+    """(the lane instructions the card can dispatch a second at its maximum SM
+    clock, that clock in MHz): DISPATCH_LANES_PER_SM x SMs x clock."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi clocks.max.sm: {smi.stderr[-200:]}")
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return DISPATCH_LANES_PER_SM * sms * mhz * 1e6, mhz
+
+
+def t1_profile(dev: torch.device) -> dict:
+    """T1 alone (profiler, by name, after a flush that leaves the L2 cache
+    clean) at each shape the main path draws, the wrapper call and the plain
+    version (CUDA events), beside the bound: the larger of the bytes (the
+    key read, the output written) over 3.35 TB/s and the instructions over
+    the card's instruction rate.  A thread's instructions are its kernel's SASS
+    count; randint's thread also repeats the key split (two threefry2x32),
+    so the split kernel's count is taken off twice for the function's
+    work."""
+    sass = t1_sass_counts()
+    rate, mhz = instruction_rate(dev)
+    per_element = {"split": sass["split"], "bits": sass["bits"], "uniform": sass["uniform"],
+                   "randint": sass["randint"] - 2 * sass["split"]}
+    n = TF_N
+    key = prng.prng_key(LIFE_SEED, dev)
+    buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    clean = lambda: buf.sum(dtype=torch.int64)  # noqa: E731
+    cases = {  # name: (kernel, draw arguments, elements, output bytes an element)
+        "randint_n_by_3": ("randint", ((n, 3), 0, n), 3 * n, 4),  # the lifecycle's ping-req peers
+        "randint_n": ("randint", ((n,), 0, n - 1), n, 4),  # the uniform exchange's targets
+        "uniform_n": ("uniform", ((n,),), n, 4),  # the drop coin
+        "randint_scalar": ("randint", ((), 1, n), 1, 4),  # the shift, the healer's pair
+        "uniform_scalar": ("uniform", ((),), 1, 4),  # the healer's coin
+        "split_5": ("split", (5,), 5, 16),  # the tick's keys
+    }
+    launcher = {"split": threefry_kernel.split_cuda, "randint": threefry_kernel.randint_cuda,
+                "uniform": threefry_kernel.uniform_cuda}
+    plain = {"split": threefry.split_plain, "randint": threefry.randint_plain, "uniform": threefry.uniform_plain}
+    out = {"sass_instructions": sass, "instructions_per_element": per_element, "instruction_rate": rate,
+           "max_sm_clock_mhz": mhz}
+    for name, (kind, args, elements, width) in cases.items():
+        fn = lambda: launcher[kind](key, *args)  # noqa: E731
+        ref = lambda: plain[kind](key, *args)  # noqa: E731
+        check(torch.equal(fn(), ref()), f"T1 {name} == plain")
+        ms = one_kernel_ms(profile_ms(fn, 20, clean, "reduce_kernel"), T1_KERNELS[kind])
+        nbytes = 16 + elements * width
+        ops = elements * per_element[kind]
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        rec = out[name] = {
+            "kernel_ms": ms, "call_ms": time_ms(fn, 20, buf), "plain_ms": time_ms(ref, 5, buf),
+            "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "bytes_ms": bytes_ms, "operations_ms": ops_ms, "bytes": nbytes, "operations": ops,
+            "share_of_bound": bound_ms / ms,
+        }
+        log(f"profile: T1 {name}: kernel alone {ms * 1e3:.2f} us after a clean flush; call "
+            f"{rec['call_ms'] * 1e3:.2f} us; plain {rec['plain_ms']:.4f} ms; bound {bound_ms * 1e3:.2f} us "
+            f"({rec['bound_by']}: {nbytes} bytes {bytes_ms * 1e3:.2f} us, {ops} instructions {ops_ms * 1e3:.2f} us; "
+            f"{rec['share_of_bound']:.1%})")
+    log(f"profile: T1 SASS instructions a thread {sass} (a randint element's own {per_element['randint']}); "
+        f"instruction rate {rate:.4g} lane instructions/s at {mhz:.0f} MHz")
+    return out
+
+
+def interleaved_detect(dev: torch.device, victims, faults) -> dict[str, list[float]]:
+    """The headline's ``run_until_detected`` at both streams in turns
+    (counter, threefry, threefry, counter; CUDA events, ms), each held to
+    its pinned tick count."""
+    walls = {"counter": [], "threefry": []}
+    pins = {"counter": PIN_LIFE_DETECT_TICKS, "threefry": PIN_TF_LIFE_DETECT_TICKS}
+    for rng in ("counter", "threefry", "threefry", "counter"):
+        sim = lifecycle.LifecycleSim(n=LIFE_N, k=LIFE_K, seed=LIFE_SEED, rng=rng, device=dev)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ticks, ok = sim.run_until_detected(victims, faults, max_ticks=LIFE_MAX_TICKS,
+                                           check_every=LIFE_CHECK_EVERY, blocks_per_dispatch=8)
+        end.record()
+        torch.cuda.synchronize()
+        check(ok and ticks == pins[rng], f"{rng}: detected in {ticks} ticks (JAX: {pins[rng]})")
+        walls[rng].append(start.elapsed_time(end))
+        del sim
+    return walls
+
+
+def phase11_bench_twin(dev: torch.device) -> dict:
+    """bench.py's record on its own stream: the headline's first ticks with
+    T1 and with its plain version, the twin (``bench.run_bench``) at full
+    scale against the JAX threefry pins with its launch counts, the uniform
+    exchange with faults at threefry, a 32-tick block at each stream under
+    the profiler, and detection at both streams in turns."""
+    n, k = LIFE_N, LIFE_K
+    victims, faults = headline_faults(dev, n)
+    params = lifecycle.LifecycleParams(n=n, k=k)
+    check(params.rng == "threefry" and params.exchange == "shift", "the engines' default is bench.py's stream")
+    t0 = time.perf_counter()
+    a = lifecycle.init_state(params, seed=LIFE_SEED, device=dev)
+    b = a
+    for t in range(LIFE_TWIN_TICKS):
+        a = lifecycle.step(params, a, faults)
+        before = dict(threefry_kernel.launches)
+        with plain_threefry():
+            b = lifecycle.step(params, b, faults)
+        check(threefry_kernel.launches == before, "the plain twin launched no T1")
+        for name, x, y in zip(lifecycle.LifecycleState._fields, a, b):
+            check(torch.equal(x, y), f"threefry tick {t + 1}: {name} with T1 == with the plain draws")
+    digests = leaf_digests(lifecycle.state_to_numpy(a), lifecycle.LifecycleState._fields)
+    for name, want in PIN_TF_LIFE_TWIN.items():
+        check(digests[name] == want, f"threefry tick {LIFE_TWIN_TICKS}: {name} digest == the JAX package's")
+    del a, b
+    log(f"phase11: {LIFE_TWIN_TICKS} threefry ticks at {n} x {k}: every leaf with T1 == with the plain draws "
+        f"at every tick; tick-{LIFE_TWIN_TICKS} digests == JAX ({time.perf_counter() - t0:.1f} s)")
+
+    # -- the main path: the bench twin; launch counts are 0 before it and read right after --
+    bench.reset_launch_counts()
+    t0 = time.perf_counter()
+    record = bench.run_bench(dev, "threefry", fast=False, runs=LIFE_RUNS)
+    launches = port_launches()
+    wall_s = time.perf_counter() - t0
+    log(f"phase11: bench twin record {json.dumps(record)}")
+    check(record["detected"] and record["ticks"] == PIN_TF_LIFE_DETECT_TICKS,
+          f"twin detected in {record['ticks']} ticks (JAX: {PIN_TF_LIFE_DETECT_TICKS})")
+    check(record["converged"] and record["converge_extra_ticks"] == PIN_TF_LIFE_CONVERGE_TICKS,
+          f"twin converged {record['converge_extra_ticks']} ticks later (JAX: {PIN_TF_LIFE_CONVERGE_TICKS})")
+    check(record["view_checksum_sum"] == PIN_TF_LIFE_VIEWS_SUM and record["view_checksum_sha256"] ==
+          PIN_TF_LIFE_VIEWS_SHA, f"twin view_checksums: sum {record['view_checksum_sum']} and digest == JAX")
+    check(record["lifecycle_final_digests"] == PIN_TF_LIFE, "twin lifecycle final leaf digests == JAX")
+    check(record["delta_converged"] and record["delta_ticks"] == PIN_TF_DELTA_TICKS,
+          f"twin delta converged in {record['delta_ticks']} ticks (JAX: {PIN_TF_DELTA_TICKS})")
+    check(record["delta_final_digests"] == PIN_TF_DELTA, "twin delta final leaf digests == JAX")
+    check(record["rng"] == "threefry" and record["platform"] == "cuda" and len(record["detect_s_runs"]) == LIFE_RUNS,
+          "the record names its stream, platform and every timed run")
+    # each timed run detects from a fresh state, the convergence leg runs once,
+    # after the last, and each engine's warm-up steps one tick
+    life_ticks = LIFE_RUNS * PIN_TF_LIFE_DETECT_TICKS + PIN_TF_LIFE_CONVERGE_TICKS + 1
+    dticks = LIFE_RUNS * PIN_TF_DELTA_TICKS + 1
+    want_t1 = {"threefry_split": 3 * life_ticks + dticks, "threefry_bits": 0,
+               "threefry_randint": 4 * life_ticks + dticks, "threefry_uniform": life_ticks}
+    check({name: launches[name] for name in want_t1} == want_t1,
+          f"T1 once a draw: a lifecycle tick 3 splits, 4 randints, 1 uniform; a delta tick 1 split, 1 randint "
+          f"({LIFE_RUNS} runs): {launches}")
+    check(all(launches[name] > 0 for name in ("row_reduce", "slot_walk", "first_live_learner")),
+          f"the twin's legs launched S1, L1 and L2: {launches}")
+    log(f"phase11: the twin matched the JAX threefry pins (detection {record['ticks']} ticks, converged "
+        f"{record['converge_extra_ticks']} later, checksum sum {record['view_checksum_sum']}, delta "
+        f"{record['delta_ticks']} ticks, final digests); launches {launches}; {wall_s:.1f} s")
+
+    # -- phase 7's configuration at threefry: the uniform targets and the drop coin --
+    dparams = delta.DeltaParams(n=DELTA_N, k=DELTA_K, exchange="uniform")
+    up = np.ones(DELTA_N, bool)
+    up[uniform_down_nodes(DELTA_N)] = False
+    dfaults = delta.DeltaFaults(up=torch.from_numpy(up).to(dev),
+                                drop_rate=torch.tensor(UNIFORM_DROP, dtype=torch.float32, device=dev))
+    state = delta.init_state(dparams, seed=DELTA_SEED, device=dev)
+    before = dict(threefry_kernel.launches)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(UNIFORM_TICKS):
+        state = delta.step(dparams, state, dfaults)
+    end.record()
+    torch.cuda.synchronize()
+    uniform_ms = start.elapsed_time(end)
+    digests = leaf_digests(delta.state_to_numpy(state))
+    for name, want in PIN_TF_UNIFORM.items():
+        check(digests[name] == want, f"threefry uniform: final {name} digest == the JAX package's")
+    drawn = {name: threefry_kernel.launches[name] - before[name] for name in before}
+    check(drawn == {"split": UNIFORM_TICKS, "bits": 0, "randint": UNIFORM_TICKS, "uniform": UNIFORM_TICKS},
+          f"the uniform exchange drew targets and the drop coin through T1 once a tick: {drawn}")
+    log(f"phase11: uniform, {UNIFORM_DOWN} down, drop {UNIFORM_DROP}, threefry: {UNIFORM_TICKS} ticks in "
+        f"{uniform_ms:.3f} ms; final leaf digests == JAX; T1 {drawn}")
+    del state
+
+    # -- launches a tick and the busy share at both streams, then detection in turns --
+    blocks = {}
+    for rng in ("counter", "threefry"):
+        p = lifecycle.LifecycleParams(n=n, k=k, rng=rng)
+        _, block = lifecycle_block_profile(p, lifecycle.init_state(p, seed=LIFE_SEED, device=dev), faults,
+                                           LIFE_CHECK_EVERY)
+        block.pop("learner_calls")
+        block.pop("learner_ms")
+        blocks[rng] = block
+        log(f"phase11: {rng}, ticks 1-{LIFE_CHECK_EVERY} under the profiler: window {block['window_ms']:.3f} ms, "
+            f"device busy {block['device_busy_ms']:.3f} ms ({block['busy_share']:.1%}), "
+            f"{block['kernel_launches_per_tick']:.2f} kernel launches a tick (the port's {block['port_launches']}); "
+            f"kernel ms by phase {block['phases_kernel_ms']}")
+    walls = interleaved_detect(dev, victims, faults)
+    log(f"phase11: detection in turns (counter, threefry, threefry, counter), ms: {walls}; ms a tick: counter "
+        f"{[w / PIN_LIFE_DETECT_TICKS for w in walls['counter']]}, threefry "
+        f"{[w / PIN_TF_LIFE_DETECT_TICKS for w in walls['threefry']]}")
+    return {"record": record, "launches": launches, "twin_wall_s": wall_s,
+            "uniform_threefry": {"ticks": UNIFORM_TICKS, "wall_ms": uniform_ms, "ms_per_tick": uniform_ms / UNIFORM_TICKS},
+            "blocks": blocks, "detect_ms_in_turns": walls}
+
+
+def run_threefry(dev: torch.device) -> tuple[list, dict]:
+    """Phases 10-11 on ``dev``; returns T1's record and the timings."""
+    max_err = phase10_threefry(dev)
+    prof = t1_profile(dev)
+    twin = phase11_bench_twin(dev)
+    main = prof["randint_n_by_3"]
+    t1_launches = {name: twin["launches"][f"threefry_{name}"] for name in T1_KERNELS}
+    kernels = [{
+        "name": "threefry", "route": "cuda", "source": "ringpop_tpu_torch/csrc/threefry.cu",
+        "replaces": "ringpop_tpu/sim/lifecycle.py:446 (jax.random split/randint/uniform at the engines' draw "
+                    "sites, lowered by XLA's _threefry2x32_lowering; no Pallas kernel)",
+        "launches": sum(t1_launches.values()), "launches_by_kernel": t1_launches, "max_abs_err": max_err,
+        "state": "randint (1000000, 3), the lifecycle's ping-req peers", "ms": main["kernel_ms"],
+        "call_ms": main["call_ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "share_of_bound": main["share_of_bound"], "bound_by": main["bound_by"], "library_ms": None,
+        "library": "none: torch.randint (Philox) computes a different function", "by_case": prof,
+    }]
+    return kernels, {"threefry": twin}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
-        libs = list(ex.map(lambda m: m.build(), (hash_kernel, packbits_kernel, lifecycle_kernel)))
+    modules = (hash_kernel, packbits_kernel, lifecycle_kernel, threefry_kernel)
+    with ThreadPoolExecutor(len(modules)) as ex:
+        libs = list(ex.map(lambda m: m.build(), modules))
     log(f"build: {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
         for line in lib.with_suffix(".log").read_text().splitlines():
@@ -1443,6 +1878,11 @@ def main() -> int:
         lifecycle_kernel.build()
         log(json.dumps({"card": card, "learner_planes": learner_planes(torch.device("cuda"))}))
         return 0
+    if sys.argv[1:] == ["--threefry"]:
+        build_kernels()
+        kernels, timings = run_threefry(torch.device("cuda"))
+        log(json.dumps({"card": card, "kernels": kernels, **timings}))
+        return 0
     if sys.argv[1:] == ["--detect-wall"]:
         log(json.dumps({"card": card, "detect_ms": detect_wall(torch.device("cuda"))}))
         return 0
@@ -1450,14 +1890,16 @@ def main() -> int:
     kernels, timings = run(torch.device("cuda"), N_SERVERS, N_KEYS)
     delta_kernels, delta_timings = run_delta(torch.device("cuda"))
     life_kernels, life_timings = run_lifecycle(torch.device("cuda"))
+    tf_kernels, tf_timings = run_threefry(torch.device("cuda"))
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
     for rec, key in zip(delta_kernels, ("row_reduce", "popcount_rows")):
         rec["launches_by_path"] = {"delta_shift": rec["launches"], "lifecycle": life_launches[key]}
         rec["launches"] += life_launches[key]
-    kernels += delta_kernels + life_kernels
+    kernels += delta_kernels + life_kernels + tf_kernels
     timings.update(delta_timings)
     timings.update(life_timings)
+    timings.update(tf_timings)
     timings["card"] = card
     log(json.dumps(timings))
     log(card)

@@ -12,7 +12,9 @@ Ported so far: the keyed-ownership path — ``hashing`` (numpy farm copy),
 ``hashring``, ``events``, ``ops.hash_ops`` / ``ops.hash_kernel`` (the
 Fingerprint32 kernel, ``csrc/fingerprint32.cu``), ``ops.ring_ops`` and
 ``serve.state``; the sim plane — ``sim.packbits`` / ``ops.packbits_kernel``
-(``csrc/packbits.cu``), ``sim.prng``, ``sim.delta`` and ``sim.lifecycle`` /
-``ops.lifecycle_kernel`` (``csrc/lifecycle.cu``), with ``swim.member``'s
-key lattice.
+(``csrc/packbits.cu``), ``sim.prng``, ``sim.threefry`` /
+``ops.threefry_kernel`` (``csrc/threefry.cu``), ``sim.delta`` and
+``sim.lifecycle`` / ``ops.lifecycle_kernel`` (``csrc/lifecycle.cu``), with
+``swim.member``'s key lattice; and ``bench``, the twin of the repository's
+``bench.py`` (``python -m ringpop_tpu_torch.bench``).
 """

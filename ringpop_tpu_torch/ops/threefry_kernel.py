@@ -1,0 +1,133 @@
+"""Kernel T1 for Hopper — the jax.random threefry draws: build, bind, launch.
+
+``csrc/threefry.cu`` computes the draws of ``sim/threefry.py`` in one
+launch each, on the card, from a key that stays there:
+
+* ``split`` — int64[num, 2], the fold-like ``jax.random.split``;
+* ``bits`` — int64 holding uint32, ``bits1 ^ bits2`` of threefry2x32;
+* ``randint`` — int32, the key split in the thread, two bit streams and
+  the wrapping uint32 span arithmetic of ``jax.random.randint``;
+* ``uniform`` — float32, ``jax.random.uniform``.
+
+They replace XLA's lowering of threefry2x32 (``jax/_src/prng.py``,
+``_threefry2x32_lowering``) at the engines' draw sites; no Pallas kernel.
+The plain versions live in ``sim/threefry.py``, which dispatches by the
+key's device.  The launchers take CUDA tensors only and raise on anything
+else.  The source is compiled with ``nvcc`` for ``sm_90a`` at first use
+(``ops/_cuda_build.py``) and loaded with ctypes; nothing is built or loaded
+when this module is imported.  ``launches`` counts each kernel's launches
+(one per launcher call that reaches the card); :func:`reset_launches` sets
+them to 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+
+import torch
+
+from ringpop_tpu_torch.ops import _cuda_build
+
+SOURCE = _cuda_build.CSRC / "threefry.cu"
+BUILD_DIR = _cuda_build.BUILD_DIR
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+
+launches = {"split": 0, "bits": 0, "randint": 0, "uniform": 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build() -> Path:
+    """Compile ``csrc/threefry.cu`` unless the library for this source is
+    already built.  Raises RuntimeError on failure."""
+    return _cuda_build.build(SOURCE, BUILD_DIR)
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            ptr, i32, u32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_float
+            lib.rp_threefry_split.argtypes = [ptr, i64, ptr, ptr]
+            lib.rp_threefry_bits.argtypes = [ptr, i64, ptr, ptr]
+            lib.rp_threefry_randint.argtypes = [ptr, i64, i32, u32, u32, ptr, ptr]
+            lib.rp_threefry_uniform.argtypes = [ptr, i64, f32, f32, ptr, ptr]
+            for fn in (lib.rp_threefry_split, lib.rp_threefry_bits, lib.rp_threefry_randint,
+                       lib.rp_threefry_uniform):
+                fn.restype = i32
+            _lib = lib
+        return _lib
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for name in launches:
+        launches[name] = 0
+
+
+def span_multiplier(lo: int, hi: int) -> tuple[int, int]:
+    """randint's (span, multiplier) for int32 bounds: the span is
+    ``hi - lo`` as uint32, or 1 when ``hi <= lo``; the multiplier is JAX's
+    ``((2**16 mod span)**2) mod span`` with the square in wrapping uint32,
+    so it is 0 for every span above 2**16 (where 2**16 mod span is 2**16)."""
+    if not (INT32_MIN <= lo <= INT32_MAX and INT32_MIN <= hi <= INT32_MAX):
+        raise ValueError(f"randint bounds [{lo}, {hi}) must be int32 values")
+    span = (hi - lo) & 0xFFFF_FFFF if hi > lo else 1
+    return span, (((2**16 % span) ** 2) & 0xFFFF_FFFF) % span
+
+
+def _check_key(key: torch.Tensor, what: str) -> None:
+    if not key.is_cuda:
+        raise ValueError(f"{what} needs a CUDA key, got {key.device}")
+    if key.dtype != torch.int64 or key.shape != (2,):
+        raise ValueError(f"{what} takes a raw key int64[2], got {key.dtype}{list(key.shape)}")
+
+
+def _launch(name: str, key: torch.Tensor, out: torch.Tensor, *args) -> torch.Tensor:
+    """Launch kernel ``name`` over ``out``'s elements (none for an empty
+    draw) on the current stream of the key's device."""
+    count = out.numel() // 2 if name == "split" else out.numel()
+    if count:
+        lib = _library()
+        key = key.contiguous()
+        with torch.cuda.device(key.device):
+            err = getattr(lib, f"rp_threefry_{name}")(
+                key.data_ptr(), count, *args, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"threefry {name} kernel launch failed: cudaError {err}")
+        launches[name] += 1
+    return out
+
+
+def split_cuda(key: torch.Tensor, num: int) -> torch.Tensor:
+    """Launch T1 (split): int64[num, 2] keys on the key's device."""
+    _check_key(key, "split_cuda")
+    out = torch.empty((num, 2), dtype=torch.int64, device=key.device)
+    return _launch("split", key, out)
+
+
+def bits_cuda(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """Launch T1 (bits): int64[*shape] holding uint32."""
+    _check_key(key, "bits_cuda")
+    return _launch("bits", key, torch.empty(shape, dtype=torch.int64, device=key.device))
+
+
+def randint_cuda(key: torch.Tensor, shape: tuple[int, ...], lo: int, hi: int) -> torch.Tensor:
+    """Launch T1 (randint): int32[*shape] in [lo, hi), int32 bounds."""
+    _check_key(key, "randint_cuda")
+    span, mult = span_multiplier(lo, hi)
+    out = torch.empty(shape, dtype=torch.int32, device=key.device)
+    return _launch("randint", key, out, lo, span, mult)
+
+
+def uniform_cuda(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,
+                 maxval: float = 1.0) -> torch.Tensor:
+    """Launch T1 (uniform): float32[*shape] in [minval, maxval); the bounds
+    are rounded to float32 first, as the JAX call converts them."""
+    _check_key(key, "uniform_cuda")
+    out = torch.empty(shape, dtype=torch.float32, device=key.device)
+    return _launch("uniform", key, out, ctypes.c_float(minval), ctypes.c_float(maxval))

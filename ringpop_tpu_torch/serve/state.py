@@ -6,7 +6,11 @@ serving ring's sorted token/owner tensors at a fixed CAPACITY on the device
 counter as device tensors.  Updates are value swaps at constant shape:
 ``ring_commit`` copies a new generation IN PLACE into a retired ring's
 tensors, and ``RingStore`` ping-pongs two such buffer sets, so churn never
-allocates and a snapshot stays valid across one concurrent commit.
+allocates and a snapshot stays valid across one concurrent commit.  A
+snapshot two commits old, whose tensors now hold a newer generation, is
+refused by every lookup with :class:`StaleRingError` (the JAX version's
+donated buffers raise "deleted buffer" there): each buffer set carries a
+host-side commit count, so the check costs no device sync.
 
 ``serve_lookup`` returns the generation alongside the owners, read from the
 same device state in the same stream order — the answer and the membership
@@ -38,6 +42,22 @@ from ringpop_tpu_torch.ops.ring_ops import (
 )
 
 
+class RingEpoch:
+    """The host-side commit count of one buffer set: :func:`ring_commit`
+    adds one each time it overwrites the set's tensors."""
+
+    __slots__ = ("commits",)
+
+    def __init__(self) -> None:
+        self.commits = 0
+
+
+class StaleRingError(RuntimeError):
+    """A lookup through a ``DeviceRing`` view whose tensors a later
+    :func:`ring_commit` has overwritten with a newer generation.  Take a
+    fresh ``RingStore.snapshot()`` and retry."""
+
+
 class DeviceRing(NamedTuple):
     """The device-resident serving ring (capacity-padded)."""
 
@@ -45,6 +65,18 @@ class DeviceRing(NamedTuple):
     owners: torch.Tensor  # int32[C], -1 past count
     count: torch.Tensor  # int32[1] live tokens
     gen: torch.Tensor  # int64[1] membership generation (a uint32 value)
+    # (the buffer set's RingEpoch, its commit count when this view was made)
+    epoch: Optional[tuple[RingEpoch, int]] = None
+
+
+def check_current(ring: DeviceRing) -> None:
+    """Raise :class:`StaleRingError` when a commit has overwritten the
+    tensors of this view since it was made (a host-side check)."""
+    if ring.epoch is not None and ring.epoch[0].commits != ring.epoch[1]:
+        raise StaleRingError(
+            f"this ring view is stale: its buffers were recommitted {ring.epoch[0].commits - ring.epoch[1]} "
+            "time(s) since it was taken and now hold a newer generation; take a fresh snapshot"
+        )
 
 
 def device_ring_from_numpy(tokens, owners, count, gen, device: DeviceLike = None) -> DeviceRing:
@@ -61,6 +93,7 @@ def device_ring_from_numpy(tokens, owners, count, gen, device: DeviceLike = None
         owners=leaf(owners, np.int32),
         count=leaf(np.asarray(count).reshape(1), np.int32),
         gen=leaf(np.asarray(gen).reshape(1), np.int64),
+        epoch=(RingEpoch(), 0),
     )
 
 
@@ -76,26 +109,31 @@ def ring_commit(
     gen: torch.Tensor,
 ) -> DeviceRing:
     """Copy a new generation IN PLACE into ``ring``'s tensors (full length,
-    offset 0) and return it.  ``RingStore`` ping-pongs two buffer sets
-    through this: commit N overwrites generation N-2's tensors, so a reader
-    holding the previous snapshot stays valid across one concurrent commit
-    (peak device memory is two rings, and churn never allocates).
+    offset 0) and return a view of them at the new generation.
+    ``RingStore`` ping-pongs two buffer sets through this: commit N
+    overwrites generation N-2's tensors, so a reader holding the previous
+    snapshot stays valid across one concurrent commit (peak device memory
+    is two rings, and churn never allocates).
 
-    Unlike the JAX version, which donates the old buffers and makes a read
-    of them raise "deleted buffer", a snapshot TWO generations old is not
-    invalidated here: it silently reads the new generation's values (its
-    ``gen`` leaf included, so a generation check still tells)."""
+    The JAX version donates the old buffers, so a read of a snapshot TWO
+    generations old raises "deleted buffer".  Here the tensors live on,
+    holding the new generation; the commit advances their buffer set's
+    host-side count instead, so every lookup through an older view raises
+    :class:`StaleRingError` rather than reading the newer ring."""
+    epoch = ring.epoch[0] if ring.epoch is not None else RingEpoch()
     ring.tokens.copy_(tokens)
     ring.owners.copy_(owners)
     ring.count.copy_(count)
     ring.gen.copy_(gen)
-    return ring
+    epoch.commits += 1
+    return ring._replace(epoch=(epoch, epoch.commits))
 
 
 def serve_lookup(ring: DeviceRing, key_hashes) -> tuple[torch.Tensor, torch.Tensor]:
     """Single-owner lookup + the generation it was answered against:
     (int32[B] owners, int64[1] gen — a copy, so a later commit into this
     ring's buffers cannot change it)."""
+    check_current(ring)
     return (
         ring_lookup_padded(ring.tokens, ring.owners, ring.count[0], key_hashes),
         ring.gen.clone(),
@@ -106,6 +144,7 @@ def serve_lookup_fused(ring: DeviceRing, key_hashes) -> torch.Tensor:
     """:func:`serve_lookup` with the generation FUSED into the owner vector
     (int32[B+1], generation in the last slot) — one device tensor, one host
     transfer."""
+    check_current(ring)
     owners = ring_lookup_padded(ring.tokens, ring.owners, ring.count[0], key_hashes)
     return torch.cat([owners, ring.gen.to(torch.int32)])
 
@@ -113,6 +152,7 @@ def serve_lookup_fused(ring: DeviceRing, key_hashes) -> torch.Tensor:
 def serve_lookup_n(ring: DeviceRing, num_servers, key_hashes, n: int):
     """N-owner preference-list lookup against the padded ring (exact — the
     window-doubling rescue of ``ring_lookup_n_padded``)."""
+    check_current(ring)
     return (
         ring_lookup_n_padded(
             ring.tokens, ring.owners, ring.count[0], num_servers, key_hashes, n
@@ -125,6 +165,7 @@ def _serve_lookup_n_window_fused(ring: DeviceRing, num_servers, key_hashes, n: i
     """One fused window pass of the LookupN serve dispatch: the padded
     windowed scan with the generation CONCATENATED into the flattened owner
     matrix.  Returns ``(int32[B*n + 1] fused, bool tensor satisfied)``."""
+    check_current(ring)
     out, found = _lookup_n_window_padded(
         ring.tokens, ring.owners, ring.count[0], key_hashes, n, w
     )
@@ -139,6 +180,7 @@ def serve_lookup_n_fused(ring: DeviceRing, num_servers, key_hashes, n: int) -> t
     slot.  EXACT: the same window-doubling rescue as
     ``ring_lookup_n_padded``, decided on the host with one ``bool`` read per
     window."""
+    check_current(ring)
     c = int(ring.tokens.shape[0])
     b = int(torch.as_tensor(key_hashes).shape[0])
     if c == 0 or n <= 0:

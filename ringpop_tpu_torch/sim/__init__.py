@@ -8,11 +8,15 @@ Counterpart of ``ringpop_tpu/sim``.  Ported so far:
   ``csrc/packbits.cu`` on a CUDA tensor;
 * :mod:`ringpop_tpu_torch.sim.prng` — the partition-invariant counter
   stream (``rng="counter"``), a pure function of (seed, tick, site, lane);
+* :mod:`ringpop_tpu_torch.sim.threefry` — the ``jax.random`` threefry
+  stream (``rng="threefry"``, the engines' default): split, randint,
+  uniform and raw bits, one launch of the Hopper kernel of
+  ``csrc/threefry.cu`` a draw on a CUDA key;
 * :mod:`ringpop_tpu_torch.sim.delta` — the O(N·K) rumor-dissemination
-  engine (``DeltaSim``) at ``rng="counter"``;
+  engine (``DeltaSim``) at either stream;
 * :mod:`ringpop_tpu_torch.sim.lifecycle` — the O(N·K) failure-detection
   engine (``LifecycleSim``: probe, ping-req, Suspect, Faulty, Tombstone,
-  evict, refutation) at ``rng="counter"``; its slot walk and
+  evict, refutation) at either stream; its slot walk and
   first-live-learner select launch the Hopper kernels of
   ``csrc/lifecycle.cu`` on a CUDA tensor.
 

@@ -1,10 +1,12 @@
 """Scalable delta-dissemination simulator: O(N·K) state for million-node
 clusters.
 
-Counterpart of ``ringpop_tpu/sim/delta.py``, bit for bit at
-``rng="counter"``.  A SWIM view is ``converged base ⊔ set of applied
-changes``, and change application is a lattice max, so a node's view is
-exactly determined by which of the K in-flight changes it has learned.  The
+Counterpart of ``ringpop_tpu/sim/delta.py``, bit for bit under both of its
+streams: ``rng="threefry"`` (the default, the ``jax.random`` draws of
+``sim/threefry``) and ``rng="counter"`` (``sim/prng``).  A SWIM view is
+``converged base ⊔ set of applied changes``, and change application is a
+lattice max, so a node's view is exactly determined by which of the K
+in-flight changes it has learned.  The
 cluster state is:
 
 * ``learned[N, W]`` — which rumors each node has absorbed, bit-packed 32
@@ -19,14 +21,14 @@ whose counters all expired short of full coverage is re-seeded (the
 full-sync analog).  Convergence: every live node has learned every rumor.
 
 On the card, the per-tick row reduces and the convergence test run the
-Hopper kernels of ``csrc/packbits.cu`` (through ``sim/packbits``); the rest
-of the tick is plain PyTorch.  ``run_until_converged`` is a Python loop over
+Hopper kernels of ``csrc/packbits.cu`` (through ``sim/packbits``) and each
+threefry draw the kernel of ``csrc/threefry.cu``; the rest of the tick is
+plain PyTorch.  ``run_until_converged`` is a Python loop over
 blocks of ``check_every`` ticks with one host sync per block.
 
-Not ported yet, each refused with NotImplementedError: the threefry stream
-(``rng="threefry"``, still the default of :class:`DeltaParams` as in the
-JAX package — ROADMAP A8), the sharded exchange (``exchange_mesh``, A12)
-and ``DeltaSim(telemetry_sink=...)`` (A7).  There is no ``FaultPlan`` in the
+Not ported yet, each refused with NotImplementedError: the sharded
+exchange (``exchange_mesh``, ROADMAP A12) and
+``DeltaSim(telemetry_sink=...)`` (A7).  There is no ``FaultPlan`` in the
 port yet; :func:`resolve_faults` passes through any object with an
 ``at_tick`` method.
 """
@@ -41,7 +43,7 @@ import torch
 from torch.profiler import record_function
 
 from ringpop_tpu_torch.device import DeviceLike, resolve_device
-from ringpop_tpu_torch.sim import prng
+from ringpop_tpu_torch.sim import prng, threefry
 from ringpop_tpu_torch.sim.packbits import (
     and_reduce_rows,
     or_reduce_rows,
@@ -98,8 +100,8 @@ class DeltaParams:
     # a fresh random shift s each tick (every node pings and is pinged once);
     # "uniform" — an independent uniform target per node (collisions merge)
     exchange: str = "shift"
-    # PRNG family: "counter" (sim/prng.py) is the one the port runs;
-    # "threefry", the JAX package's default, is refused until ROADMAP A8
+    # PRNG family: "threefry" = the jax.random draws (sim/threefry.py) the
+    # frozen goldens pin; "counter" = the stateless stream of sim/prng.py
     rng: str = "threefry"
     # the sharded exchange of the JAX package, refused until ROADMAP A12
     # (its exchange_h / exchange_pipelined tuning fields come with it)
@@ -248,11 +250,6 @@ def init_state(
 def _check_supported(params: DeltaParams) -> None:
     if params.rng not in ("threefry", "counter"):
         raise ValueError(f"unknown rng family {params.rng!r}")
-    if params.rng == "threefry":
-        raise NotImplementedError(
-            "rng='threefry' (the jax.random stream) is not ported yet "
-            "(ROADMAP Queue A8); pass rng='counter'"
-        )
     if params.exchange_mesh is not None:
         raise NotImplementedError(
             "exchange_mesh (the sharded shift exchange) is not ported yet "
@@ -262,7 +259,7 @@ def _check_supported(params: DeltaParams) -> None:
 
 def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaults()) -> DeltaState:
     """One protocol period for all N nodes, bit-equal to the JAX package's
-    ``step`` at ``rng="counter"``.  ``faults`` may be a ``DeltaFaults`` or a
+    ``step`` under either stream.  ``faults`` may be a ``DeltaFaults`` or a
     plan with ``at_tick`` (evaluated at ``state.tick``).  The profiler
     ranges name the protocol phases as the JAX package's scopes do."""
     _check_supported(params)
@@ -271,27 +268,41 @@ def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaul
     dev = state.learned.device
     max_p = clamped_max_p(params)
     shift_mode = params.exchange == "shift"
+    use_counter = params.rng == "counter"
 
     with record_function("ping-target"):
-        # stateless counter stream: the key leaf carries the seed material
-        # unchanged and the tick counter advances the stream
-        cseed = prng.fold_key(state.key)
-        ctick = state.tick
+        if use_counter:
+            # stateless counter stream: the key leaf carries the seed
+            # material unchanged and the tick counter advances the stream
+            key = state.key
+            cseed = prng.fold_key(state.key)
+            ctick = state.tick
+        else:
+            key, k_target, k_drop = threefry.split(state.key, 3)
         i_all = torch.arange(n, dtype=torch.int64, device=dev)
         if shift_mode:
             # the shift stays on the device: index vectors, no roll by a host int
-            s = prng.draw_randint(cseed, ctick, prng.D_SHIFT, 0, 1, n).to(torch.int64)
+            s = (prng.draw_randint(cseed, ctick, prng.D_SHIFT, 0, 1, n) if use_counter
+                 else threefry.randint(k_target, (), 1, n)).to(torch.int64)
             targets = (i_all + s) % n
         else:
-            targets = prng.draw_randint(cseed, ctick, prng.D_TARGET, i_all, 0, n - 1).to(torch.int64)
+            targets = (prng.draw_randint(cseed, ctick, prng.D_TARGET, i_all, 0, n - 1) if use_counter
+                       else threefry.randint(k_target, (n,), 0, n - 1)).to(torch.int64)
             targets = torch.where(targets >= i_all, targets + 1, targets)
 
         up = faults.up
         conn = pair_connected(faults, i_all, targets)
         if has_drop(faults):
-            drop_u = prng.draw_uniform(cseed, ctick, prng.D_DROP, i_all)
+            drop_u = (prng.draw_uniform(cseed, ctick, prng.D_DROP, i_all) if use_counter
+                      else threefry.uniform(k_drop, (n,)))
             conn &= leg_survives(faults, drop_u, i_all, targets)
         if check_tier_legs(faults):
+            if not use_counter:
+                raise ValueError(
+                    "topology tier legs need rng='counter': their loss coin is an "
+                    "extra stateless draw site; under threefry the extra split would "
+                    "shift every other draw"
+                )
             # a separate stateless coin per leg: an all-zero table passes every draw
             topo_u = prng.draw_uniform(cseed, ctick, prng.D_TOPO, i_all)
             conn &= topo_u >= tier_pair_drop(faults, i_all, targets)
@@ -360,7 +371,7 @@ def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaul
         ride_ok_next = mid_ride_w | reset_w
 
     return DeltaState(
-        learned=learned2_w, pcount=pcount, ride_ok=ride_ok_next, tick=state.tick + 1, key=state.key
+        learned=learned2_w, pcount=pcount, ride_ok=ride_ok_next, tick=state.tick + 1, key=key
     )
 
 

@@ -1,10 +1,11 @@
 """Scalable full-lifecycle SWIM simulator: failure detection at O(N·K).
 
-Counterpart of ``ringpop_tpu/sim/lifecycle.py``, bit for bit at
-``rng="counter"``.  The delta engine (``sim/delta.py``) measures pure
-dissemination; this engine adds the failure-detection dynamics of the
-reference — probe → indirect probe → Suspect → deadline → Faulty →
-Tombstone → evict, and refutation by reincarnation
+Counterpart of ``ringpop_tpu/sim/lifecycle.py``, bit for bit under both of
+its streams: ``rng="threefry"`` (the default, ``sim/threefry``) and
+``rng="counter"`` (``sim/prng``).  The delta engine (``sim/delta.py``)
+measures pure dissemination; this engine adds the failure-detection
+dynamics of the reference — probe → indirect probe → Suspect → deadline →
+Faulty → Tombstone → evict, and refutation by reincarnation
 (``swim/node.go:470-513``, ``swim/state_transitions.go:90-117``,
 ``swim/memberlist.go:337-354``) — at O(N·K) memory.
 
@@ -25,8 +26,9 @@ state`` (``swim/member.py``), so a node's belief about subject ``s`` is
 On the card, three packed row reduces a tick run S1 (``csrc/packbits.cu``),
 the per-slot first live learner runs L2 and the subject-slot walk under
 :func:`detection_complete` and :func:`view_checksums` runs L1
-(``csrc/lifecycle.cu``, ``ops/lifecycle_kernel.py``); the rest of the tick
-is plain PyTorch.  The run loops are Python loops over blocks of
+(``csrc/lifecycle.cu``, ``ops/lifecycle_kernel.py``), and each threefry
+draw runs T1 (``csrc/threefry.cu``, one launch a draw, the key kept on the
+card); the rest of the tick is plain PyTorch.  The run loops are Python loops over blocks of
 ``check_every`` ticks with one host sync per block (``delta.until_loop``).
 
 Where the JAX package's code is shaped by its SPMD partitioner, the port
@@ -41,8 +43,7 @@ The first-live-learner argmax, which the JAX package guards with a
 (a block with no wanted slot exits at once), since a branch here would
 cost a host sync a tick, and its value is masked by the same condition.
 
-Not ported yet, each refused with NotImplementedError: the threefry stream
-(``rng="threefry"``, the JAX package's default — ROADMAP A8), the sharded
+Not ported yet, each refused with NotImplementedError: the sharded
 exchange and layout hints (``exchange_mesh``, ``learned_sharding``,
 ``state_shardings`` — A12), telemetry (A7) and the AOT warm start (A15).
 """
@@ -59,7 +60,7 @@ from torch.profiler import record_function
 
 from ringpop_tpu_torch.device import DeviceLike, resolve_device
 from ringpop_tpu_torch.ops import lifecycle_kernel
-from ringpop_tpu_torch.sim import delta, prng
+from ringpop_tpu_torch.sim import delta, prng, threefry
 from ringpop_tpu_torch.sim.delta import (
     DeltaFaults,
     check_tier_legs,
@@ -149,8 +150,8 @@ class LifecycleParams:
     # partition-healer attempt rate, cluster-wide per tick (~one attempt per
     # 10 s in the reference: swim/node.go:59-67, heal_via_discover_provider.go)
     heal_prob: float = 0.02
-    # PRNG family: "counter" (sim/prng.py) is the one the port runs;
-    # "threefry", the JAX package's default, is refused until ROADMAP A8
+    # PRNG family: "threefry" = the jax.random draws (sim/threefry.py) the
+    # frozen goldens pin; "counter" = the stateless stream of sim/prng.py
     rng: str = "threefry"
     # the sharded exchange of the JAX package and its tuning fields, refused
     # until ROADMAP A12 (exchange_h and exchange_pipelined are read only with
@@ -166,17 +167,12 @@ class LifecycleParams:
 def _check_supported(params: LifecycleParams) -> None:
     if params.rng not in ("threefry", "counter"):
         raise ValueError(f"unknown rng family {params.rng!r}")
-    if params.rng == "threefry":
-        raise NotImplementedError(
-            "rng='threefry' (the jax.random stream) is not ported yet "
-            "(ROADMAP Queue A8); pass rng='counter'"
-        )
     if params.exchange_mesh is not None:
         raise NotImplementedError(
             "exchange_mesh (the sharded shift exchange) is not ported yet "
             "(ROADMAP Queue A12)"
         )
-    if params.ping_req_size >= prng.D_COLUMN_SPAN:
+    if params.rng == "counter" and params.ping_req_size >= prng.D_COLUMN_SPAN:
         raise ValueError(
             f"ping_req_size={params.ping_req_size} overflows the counter RNG's "
             f"per-site column span ({prng.D_COLUMN_SPAN}): column draws would "
@@ -285,7 +281,7 @@ def step(
     telemetry=None,
 ) -> LifecycleState:
     """One protocol period for all N nodes, bit-equal to the JAX package's
-    ``step`` at ``rng="counter"``.  ``faults`` may be a ``DeltaFaults`` or a
+    ``step`` under either stream.  ``faults`` may be a ``DeltaFaults`` or a
     plan with ``at_tick`` (evaluated at ``state.tick``).  The profiler
     ranges name the protocol phases as the JAX package's scopes do
     (:data:`PHASES`).  ``telemetry`` must be None (not ported: A7)."""
@@ -297,16 +293,27 @@ def step(
     with record_function("tick-prologue"):
         m = min(params.alloc_per_tick, params.k, params.n)
         maxp = clamped_max_p(params)
-        # stateless counter stream: the key leaf carries the seed material
-        # and the tick counter advances the stream
-        cseed = prng.fold_key(state.key)
-        ctick = state.tick
+        use_counter = params.rng == "counter"
+        if use_counter:
+            # stateless counter stream: the key leaf carries the seed
+            # material and the tick counter advances the stream
+            key = state.key
+            cseed = prng.fold_key(state.key)
+            ctick = state.tick
+        else:
+            key, k_target, k_drop, k_peers, k_heal = threefry.split(state.key, 5)
         now = state.tick + 1
         i_all = torch.arange(n, dtype=torch.int64, device=dev)
         up_leg = faults.up
         up = up_leg if up_leg is not None else torch.ones(n, dtype=torch.bool, device=dev)
 
         has_topo = check_tier_legs(faults)
+        if has_topo and not use_counter:
+            raise ValueError(
+                "topology tier legs need rng='counter': their loss coin is an extra "
+                "stateless draw site; under threefry the extra split would shift every "
+                "other draw"
+            )
         # suspicion timeout: the static param unless the fault model carries
         # the override leg (-1 = "use the param")
         if faults.suspect_ticks is None:
@@ -327,7 +334,8 @@ def step(
     with record_function("ping-target"):
         shift_mode = params.exchange == "shift"
         if shift_mode:
-            shift = prng.draw_randint(cseed, ctick, prng.D_SHIFT, 0, 1, n).to(torch.int64)
+            shift = (prng.draw_randint(cseed, ctick, prng.D_SHIFT, 0, 1, n) if use_counter
+                     else threefry.randint(k_target, (), 1, n)).to(torch.int64)
             targets = (i_all + shift) % n
             # each subject has exactly one prober (s - shift) mod n: K bit
             # gathers + one scatter-max instead of the O(N·K) masked reduce
@@ -337,7 +345,8 @@ def step(
             bel_rumor = torch.full((n + 1,), -1, dtype=torch.int32, device=dev).scatter_reduce_(
                 0, torch.where(active, prober, n), bel_vals, "amax", include_self=True)[:n]
         else:
-            targets = prng.draw_randint(cseed, ctick, prng.D_TARGET, i_all, 0, n - 1).to(torch.int64)
+            targets = (prng.draw_randint(cseed, ctick, prng.D_TARGET, i_all, 0, n - 1) if use_counter
+                       else threefry.randint(k_target, (n,), 0, n - 1)).to(torch.int64)
             targets = torch.where(targets >= i_all, targets + 1, targets)
             learned0_b = unpack_bits(state.learned, k)
             bel_rumor = _bel_rumor_dense(learned0_b, state.r_subject, rkey, active, targets)
@@ -349,7 +358,8 @@ def step(
     with record_function("rumor-exchange"):
         conn = pair_connected(faults, i_all, targets)
         if has_drop(faults):
-            drop_u = prng.draw_uniform(cseed, ctick, prng.D_DROP, i_all)
+            drop_u = (prng.draw_uniform(cseed, ctick, prng.D_DROP, i_all) if use_counter
+                      else threefry.uniform(k_drop, (n,)))
             conn &= leg_survives(faults, drop_u, i_all, targets)
         if has_topo:
             topo_u = prng.draw_uniform(cseed, ctick, prng.D_TOPO, i_all)
@@ -391,9 +401,15 @@ def step(
         # one probabilistic attempt per tick: a random connected pair swaps
         # its full rumor set (AttemptHeal's join + membership merge)
         if params.heal_prob > 0:
-            h = prng.draw_randint(cseed, ctick, prng.D_HEAL_A, 0, 0, n).to(torch.int64)
-            p = prng.draw_randint(cseed, ctick, prng.D_HEAL_B, 0, 0, n).to(torch.int64)
-            heal_u = prng.draw_uniform(cseed, ctick, prng.D_HEAL_U, 0)
+            if use_counter:
+                h = prng.draw_randint(cseed, ctick, prng.D_HEAL_A, 0, 0, n).to(torch.int64)
+                p = prng.draw_randint(cseed, ctick, prng.D_HEAL_B, 0, 0, n).to(torch.int64)
+                heal_u = prng.draw_uniform(cseed, ctick, prng.D_HEAL_U, 0)
+            else:
+                kh1, kh2, kh3 = threefry.split(k_heal, 3)
+                h = threefry.randint(kh1, (), 0, n).to(torch.int64)
+                p = threefry.randint(kh2, (), 0, n).to(torch.int64)
+                heal_u = threefry.uniform(kh3, ())
             attempt = (
                 (heal_u < torch.tensor(params.heal_prob, dtype=torch.float32, device=dev))
                 & (h != p)
@@ -519,10 +535,17 @@ def step(
         # the [N, P] indirect-probe draws: elementwise in (node, column)
         pcols = torch.arange(params.ping_req_size, dtype=torch.int64, device=dev)[None, :]
         lanes = i_all[:, None]
-        peer_choices = prng.draw_randint(cseed, ctick, prng.D_PEER + pcols, lanes, 0, n).to(torch.int64)
-        if has_drop(faults):
-            pd_req_u = prng.draw_uniform(cseed, ctick, prng.D_PEER_DROP_REQ + pcols, lanes)
-            pd_ack_u = prng.draw_uniform(cseed, ctick, prng.D_PEER_DROP_ACK + pcols, lanes)
+        if use_counter:
+            peer_choices = prng.draw_randint(cseed, ctick, prng.D_PEER + pcols, lanes, 0, n).to(torch.int64)
+            if has_drop(faults):
+                pd_req_u = prng.draw_uniform(cseed, ctick, prng.D_PEER_DROP_REQ + pcols, lanes)
+                pd_ack_u = prng.draw_uniform(cseed, ctick, prng.D_PEER_DROP_ACK + pcols, lanes)
+        else:
+            k_peers, k_pd1, k_pd2 = threefry.split(k_peers, 3)
+            peer_choices = threefry.randint(k_peers, (n, params.ping_req_size), 0, n).to(torch.int64)
+            if has_drop(faults):
+                pd_req_u = threefry.uniform(k_pd1, peer_choices.shape)
+                pd_ack_u = threefry.uniform(k_pd2, peer_choices.shape)
         if has_topo:
             topo_req_u = prng.draw_uniform(cseed, ctick, prng.D_TOPO_PEER_REQ + pcols, lanes)
             topo_ack_u = prng.draw_uniform(cseed, ctick, prng.D_TOPO_PEER_ACK + pcols, lanes)
@@ -651,7 +674,7 @@ def step(
         base_deadline=base_deadline,
         self_inc=self_inc,
         tick=state.tick + 1,
-        key=state.key,
+        key=key,
     )
 
 
@@ -1043,8 +1066,14 @@ def state_from_numpy(leaves, device: DeviceLike = None) -> LifecycleState:
     """A ``LifecycleState`` on ``device`` from the JAX package's leaves (a
     JAX ``LifecycleState`` or any sequence in its field order, as
     numpy-convertible arrays): uint32 planes cross as their int32 bit
-    pattern, the key as int64."""
+    pattern, the key as int64.  On the card, a plane wider than the
+    lifecycle kernels take (``lifecycle_kernel.MAX_WORDS`` words) is refused
+    here, before anything is uploaded, as :func:`init_state` refuses it."""
     dev = resolve_device(device)
+    leaves = list(leaves)
+    if dev.type == "cuda":
+        learned = leaves[LifecycleState._fields.index("learned")]
+        lifecycle_kernel.check_width(int(np.shape(learned)[-1]), "lifecycle.state_from_numpy")
     out = []
     for name, leaf in zip(LifecycleState._fields, leaves):
         np_dtype, dtype = _LEAF_DTYPES[name]

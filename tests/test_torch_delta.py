@@ -8,8 +8,13 @@ from a JAX state in mid-run (``state_from_numpy``); ``converged`` and the
 convergence tick of ``run_until_converged``; ``converged_fraction`` within
 1e-6 relative (both sum float32 per-row counts, in different orders, over
 more than 2**24 bits); the full 1,000,000 x 128 shift configuration of
-``bench.py`` for its 16 ticks to convergence.  Also the refusals (threefry,
-``exchange_mesh``, ``telemetry_sink``) and the hazards the port meets:
+``bench.py`` for its 16 ticks to convergence.  At ``rng="threefry"``, the
+default (``tests/test_torch_golden.py`` holds the small configurations to
+the frozen goldens): both exchanges with ``up`` and ``drop_rate`` at 4096 and
+50,000 nodes, and the default parameters through ``step``,
+``run_until_converged`` and ``DeltaSim``.  Also the refusals
+(``exchange_mesh``, ``telemetry_sink``, the topology legs under threefry)
+and the hazards the port meets:
 ``%`` against ``fmod`` for the shift's index, the int8 ``pcount + bump``
 at the cap, ``scatter_reduce_`` over duplicate targets, and the float32
 order of the survival product.
@@ -189,12 +194,18 @@ def test_refusals_name_their_roadmap_item():
     default = td.DeltaParams(n=64, k=32)
     assert default.rng == "threefry"  # the JAX default, kept so a call means the same
     state = td.init_state(default, device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        td.step(default, state)
-    with pytest.raises(NotImplementedError, match="A8"):
-        td.run_until_converged(default, state)
-    with pytest.raises(NotImplementedError, match="A8"):
-        td.DeltaSim(64, 32, device="cpu").tick()
+    # the default stream runs: step, the run loop and DeltaSim match the JAX package's
+    jdefault = jd.DeltaParams(n=64, k=32)
+    assert_same_state(jd.step(jdefault, jd.init_state(jdefault)), td.step(default, state), "threefry step")
+    jrun, trun = jd.run_until_converged(jdefault, jd.init_state(jdefault)), td.run_until_converged(default, state)
+    assert jrun[1:] == trun[1:]
+    assert_same_state(jrun[0], trun[0], "threefry run_until_converged")
+    jsim, tsim = jd.DeltaSim(64, 32), td.DeltaSim(64, 32, device="cpu")
+    assert_same_state(jsim.tick(), tsim.tick(), "DeltaSim")
+    jf, tf = _faults("tier", 64, seed=3)
+    for step in (lambda: jd.step(jdefault, jd.init_state(jdefault), jf), lambda: td.step(default, state, tf)):
+        with pytest.raises(ValueError, match="tier legs need rng='counter'"):
+            step()
     meshed = td.DeltaParams(n=64, k=32, rng="counter", exchange_mesh=object())
     with pytest.raises(NotImplementedError, match="A12"):
         td.step(meshed, state)
@@ -202,6 +213,23 @@ def test_refusals_name_their_roadmap_item():
         td.DeltaSim(64, 32, rng="counter", telemetry_sink=print, device="cpu")
     with pytest.raises(ValueError, match="unknown rng"):
         td.step(td.DeltaParams(n=64, k=32, rng="philox"), state)
+
+
+@pytest.mark.parametrize("n,k,exchange,faults,ticks", [
+    (4096, 64, "shift", "up drop", 20),
+    (4096, 40, "uniform", "up drop", 16),
+    (4096, 128, "uniform", "group reach up node", 12),
+    (50_000, 64, "uniform", "up drop", 10),
+])
+def test_threefry_matches_jax(n, k, exchange, faults, ticks):
+    """The JAX default stream: the split, the shift or the uniform targets
+    and the drop coin are ``jax.random``'s draws, every leaf equal at every
+    tick."""
+    jp = jd.DeltaParams(n=n, k=k, exchange=exchange)
+    tp = td.DeltaParams(n=n, k=k, exchange=exchange)
+    assert jp.rng == tp.rng == "threefry"
+    jf, tf = _faults(faults, n, seed=n + k)
+    _run_both(jp, tp, jf, tf, ticks, seed=5)
 
 
 def test_state_entry_points_raise_without_a_card(monkeypatch):

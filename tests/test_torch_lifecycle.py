@@ -12,7 +12,11 @@ candidate select against every branch of the JAX package's hierarchical
 ``_top_m_sparse``.  Also the queries (``believed_key``/``believed_status``,
 ``detection_fraction`` on both paths, ``detection_complete``,
 ``view_checksums``, ``checksums_converged``), the run-until pair's tick
-counts with the time-budget and zero-budget paths, the refusals, the slot
+counts with the time-budget and zero-budget paths; at ``rng="threefry"``,
+the default (``tests/test_torch_golden.py`` holds the small configurations
+to the frozen goldens), both exchanges with drops, a partition with the
+healer firing, ``heal_prob`` 0 and the default parameters through
+``LifecycleSim``; the refusals, the slot
 walk and first-live-learner plain versions against the JAX expressions
 they replace, and the hazards the port meets (segment identities, dropped
 scatter writes, the argmax of a bool, float32 division).
@@ -170,6 +174,29 @@ def test_every_leaf_every_tick_matches_jax(n, k, exchange, kind, n_down, ticks, 
     js, ts = _run_both(jp, tp, jf, tf, ticks, seed=k)
     if "drop" in kind:  # the queries read only ``up`` of the fault legs
         _assert_same_queries(js, ts, jf, tf, down[:6], f"{kind} final")
+
+
+THREEFRY_CONFIGS = [
+    # (n, k, exchange, faults, victims, ticks, params)
+    (2048, 40, "shift", "drop", 20, 30, {"suspect_ticks": 5}),
+    (2048, 64, "uniform", "drop node", 20, 24, {"suspect_ticks": 5}),
+    (2048, 40, "shift", "group", 8, 30, {"heal_prob": 0.6, "suspect_ticks": 4}),
+    (2048, 32, "shift", "drop", 16, 24, {"heal_prob": 0.0, "suspect_ticks": 3}),
+]
+
+
+@pytest.mark.parametrize("n,k,exchange,kind,n_down,ticks,kw", THREEFRY_CONFIGS)
+def test_threefry_every_leaf_every_tick_matches_jax(n, k, exchange, kind, n_down, ticks, kw):
+    """The JAX default stream: the five-way split, the shift or targets,
+    the drop coin, the healer's split and draws (skipped at ``heal_prob``
+    0) and the peers' split, [N, 3] randint and ping-req coins."""
+    jp = jl.LifecycleParams(n=n, k=k, exchange=exchange, **kw)
+    tp = tl.LifecycleParams(n=n, k=k, exchange=exchange, **kw)
+    assert jp.rng == tp.rng == "threefry"
+    down = _victims(n, n_down, seed=n + k)
+    jf, tf = _faults(kind, n, down, seed=k)
+    js, ts = _run_both(jp, tp, jf, tf, ticks, seed=k)
+    _assert_same_queries(js, ts, jf, tf, down[:6], f"{kind} final")
 
 
 def test_bench_fast_config_detects_like_jax():
@@ -476,10 +503,17 @@ def test_detection_fraction_is_float32_division():
 def test_refusals_name_their_roadmap_item():
     default = tl.LifecycleParams(n=64, k=32)
     assert default.rng == "threefry"  # the JAX default, kept so a call means the same
-    with pytest.raises(NotImplementedError, match="A8"):
-        tl.step(default, tl.init_state(default, device="cpu"))
-    with pytest.raises(NotImplementedError, match="A8"):
-        tl.LifecycleSim(64, k=32, device="cpu")
+    # the default stream runs: step and LifecycleSim match the JAX package's
+    jdefault = jl.LifecycleParams(n=64, k=32)
+    assert_same_state(jl.step(jdefault, jl.init_state(jdefault)),
+                      tl.step(default, tl.init_state(default, device="cpu")), "threefry step")
+    jsim, tsim = jl.LifecycleSim(64, k=32), tl.LifecycleSim(64, k=32, device="cpu")
+    assert_same_state(jsim.run(3), tsim.run(3), "LifecycleSim")
+    jf, tf = _faults("tier", 64, [], seed=1)
+    for step in (lambda: jl.step(jdefault, jl.init_state(jdefault), jf),
+                 lambda: tl.step(default, tl.init_state(default, device="cpu"), tf)):
+        with pytest.raises(ValueError, match="tier legs need rng='counter'"):
+            step()
     with pytest.raises(ValueError, match="rng"):
         tl.LifecycleSim(64, k=32, rng="philox", device="cpu")
     counter = tl.LifecycleParams(n=64, k=32, rng="counter")

@@ -233,6 +233,25 @@ def test_width_limit_is_one_number_for_both_kernels(monkeypatch):
         tl.init_state(tl.LifecycleParams(n=64, k=32 * lk.MAX_WORDS + 1, rng="counter"))
 
 
+def test_state_from_numpy_holds_the_load_to_the_width_limit(monkeypatch):
+    """Loading a state onto the card takes the same ``MAX_WORDS`` limit as
+    ``init_state``: a plane one word wider is refused at load, before any
+    leaf is uploaded, not at its first tick.  The CPU takes any width."""
+    def leaves(w):
+        shapes = {"learned": (4, w), "ride_ok": (4, w), "pcount": (4, 32 * w), "tick": (), "key": (2,)}
+        return [np.zeros(shapes.get(name, (4,) if name.startswith(("base_", "self_")) else (32 * w,)),
+                         tl._LEAF_DTYPES[name][0]) for name in tl.LifecycleState._fields]
+
+    wide = leaves(lk.MAX_WORDS + 1)
+    assert tl.state_from_numpy(wide, device="cpu").learned.shape == (4, lk.MAX_WORDS + 1)
+    monkeypatch.setattr(tl, "resolve_device", lambda device: torch.device("cuda"))
+    monkeypatch.setattr(torch, "as_tensor", lambda *a, **k: pytest.fail("uploaded a leaf of a refused state"))
+    with pytest.raises(ValueError, match="state_from_numpy: a plane of 220 words is wider"):
+        tl.state_from_numpy(wide)
+    with pytest.raises(pytest.fail.Exception, match="uploaded a leaf"):
+        tl.state_from_numpy(leaves(lk.MAX_WORDS))  # the widest plane passes the check
+
+
 def test_learner_launcher_refuses_a_bad_want(monkeypatch):
     """``want`` is the tick's bool[K] mask on the plane's device: anything
     else is refused before any kernel is built.  A meta tensor stands in

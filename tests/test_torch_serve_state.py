@@ -146,8 +146,9 @@ def test_device_ring_from_numpy_answers_like_jax():
 def test_snapshot_survives_one_commit():
     """Ping-pong: a snapshot taken before a commit still answers, at ITS
     generation, after that commit; commit N overwrites generation N-2's
-    tensors in place, so two commits later the old snapshot reads the new
-    generation (documented on ``ring_commit``)."""
+    tensors in place, so two commits later the old snapshot's tensors hold
+    the new generation (and a lookup through it is refused: see
+    ``test_snapshot_two_commits_old_is_refused``)."""
     servers = _servers(4, 12)
     store = tst.RingStore(servers, replica_points=10, device="cpu")
     probe = _t(_hashes(128, seed=21))
@@ -166,6 +167,40 @@ def test_snapshot_survives_one_commit():
     idx[idx == ht.shape[0]] = 0
     assert np.array_equal(tst.serve_lookup_fused(ring2, probe)[:-1].numpy(), ho[idx])
     assert int(tst.serve_lookup_fused(ring1, probe)[-1]) == gen1  # one commit old: intact
+
+
+@pytest.mark.parametrize("read", [
+    lambda ring, ns, keys: tst.serve_lookup(ring, keys),
+    lambda ring, ns, keys: tst.serve_lookup_fused(ring, keys),
+    lambda ring, ns, keys: tst.serve_lookup_n(ring, ns, keys, 3),
+    lambda ring, ns, keys: tst.serve_lookup_n_fused(ring, ns, keys, 3),
+], ids=["serve_lookup", "serve_lookup_fused", "serve_lookup_n", "serve_lookup_n_fused"])
+def test_snapshot_two_commits_old_is_refused(read):
+    """A snapshot held across two commits would read the newer ring, sized
+    by its stale ``n_servers``; every lookup through it raises the named
+    ``StaleRingError`` instead (the JAX version raises "deleted buffer"),
+    while the snapshot one commit old and the current one still answer, and
+    a fresh snapshot after the error reads the current generation."""
+    servers = _servers(4, 12)
+    store = tst.RingStore(servers, replica_points=10, device="cpu")
+    probe = _t(_hashes(64, seed=22))
+    ring0, _, ns0 = store.snapshot()
+    store.update(add=["race:1"])
+    read(ring0, ns0, probe)  # one commit old: still valid
+    ring1, gen1, ns1 = store.snapshot()
+    store.update(remove=servers[:3])
+    with pytest.raises(tst.StaleRingError, match="stale"):
+        read(ring0, ns0, probe)
+    assert issubclass(tst.StaleRingError, RuntimeError)
+    read(ring1, ns1, probe)
+    ring2, gen2, ns2 = store.snapshot()
+    assert gen2 == gen1 + 1 == 2 and ns2 == ns1 - 3
+    fused = tst.serve_lookup_fused(ring2, probe)
+    assert int(fused[-1]) == gen2
+    ht, ho, _, _ = store.snapshot_host()
+    idx = np.searchsorted(ht, probe.numpy().astype(np.uint32))
+    idx[idx == ht.shape[0]] = 0
+    assert np.array_equal(fused[:-1].numpy(), ho[idx])
 
 
 def test_listen_to_commits_each_ring_change():

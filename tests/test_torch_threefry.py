@@ -1,0 +1,211 @@
+"""The port's threefry stream against ``jax.random``, bit for bit.
+
+``ringpop_tpu_torch.sim.threefry`` reproduces the draws the JAX package's
+engines make (``rng="threefry"``): ``split`` (2, 3, 5 keys, chained),
+``randint`` and ``uniform`` over seeds and shapes ``()``, ``(7,)``,
+``(5, 3)`` and ``(1000, 3)``, the span edge cases (1, 2, n - 1, n, 2**31 - 1
+and ``hi <= lo``), a span of 1,000,000 (where the span arithmetic's uint32
+square wraps), the raw threefry2x32 on counters whose high word is not zero
+(a draw of more than 2**32 values) and random keys and bounds under
+hypothesis.  All on the CPU, the plain PyTorch path; the tolerance is
+none.  Also: the CUDA launchers refuse a CPU key and a key that is not on
+the CPU goes to the kernel, never to the plain version.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+from jax.extend.random import threefry2x32_p
+
+from ringpop_tpu_torch.ops import threefry_kernel as tk
+from ringpop_tpu_torch.sim import prng
+from ringpop_tpu_torch.sim import threefry as tf
+
+SEEDS = (0, 1, 7, 2**31 + 5, 2**32 - 1)
+SHAPES = ((), (7,), (5, 3), (1000, 3))
+N = 1_000_000
+# (lo, hi): spans 1, 2, n - 1, n, 2**31 - 1, empty and inverted ranges, negatives
+BOUNDS = ((0, 1), (0, 2), (0, N - 1), (1, N), (0, N), (0, 2**31 - 1), (5, 5), (10, 3),
+          (-(2**31), 2**31 - 1), (-7, 100), (0, 65536), (0, 65537))
+
+
+def _keys(seed):
+    return jax.random.PRNGKey(seed), prng.prng_key(seed, "cpu")
+
+
+def _u32(a) -> np.ndarray:
+    return np.asarray(a).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_split_matches_jax_and_chains(seed):
+    jk, tkey = _keys(seed)
+    assert np.array_equal(_u32(jk), tkey.numpy())
+    for num in (2, 3, 5):
+        js, ts = jax.random.split(jk, num), tf.split(tkey, num)
+        assert ts.dtype == torch.int64 and ts.shape == (num, 2)
+        assert np.array_equal(_u32(js), ts.numpy()), num
+    # chained splits: the engines split a key that came out of a split
+    for _ in range(4):
+        jk = jax.random.split(jk, 5)[4]
+        tkey = tf.split(tkey, 5)[4]
+        assert np.array_equal(_u32(jk), tkey.numpy())
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_randint_matches_jax(seed, shape):
+    jk, tkey = _keys(seed)
+    for lo, hi in BOUNDS:
+        want = np.asarray(jax.random.randint(jk, shape, lo, hi, dtype=jnp.int32))
+        got = tf.randint(tkey, shape, lo, hi)
+        assert got.dtype == torch.int32 and got.shape == want.shape
+        assert np.array_equal(want, got.numpy()), (lo, hi)
+        if hi <= lo:
+            assert (got == lo).all()
+
+
+def test_randint_span_of_a_million_wraps_in_uint32():
+    """At a span of 1,000,000, ``2**16 mod span`` squared is 2**32, which
+    wraps to 0 in uint32, so the multiplier is 0 and the draw is
+    ``lower % span``; an unwrapped square would give other peers."""
+    assert tk.span_multiplier(0, N) == (N, 0)
+    assert tk.span_multiplier(0, 1000) == (1000, (65536 % 1000) ** 2 % 1000)
+    jk, tkey = _keys(3)
+    want = np.asarray(jax.random.randint(jk, (1000, 3), 0, N, dtype=jnp.int32))
+    got = tf.randint(tkey, (1000, 3), 0, N).numpy()
+    assert np.array_equal(want, got)
+    keys = tf.split(tkey, 2)
+    lower = tf.random_bits32(keys[1], (1000, 3))
+    assert np.array_equal(got, (lower % N).numpy())
+    higher = tf.random_bits32(keys[0], (1000, 3))
+    unwrapped = ((higher % N) * ((65536 % N) ** 2 % N) + lower % N) % N
+    assert not np.array_equal(got, unwrapped.numpy())
+
+
+def test_randint_refuses_bounds_outside_int32():
+    _, tkey = _keys(0)
+    for lo, hi in ((0, 2**31), (-(2**31) - 1, 0)):
+        with pytest.raises(ValueError, match="int32"):
+            tf.randint(tkey, (3,), lo, hi)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_uniform_and_bits_match_jax(seed, shape):
+    jk, tkey = _keys(seed)
+    want = np.asarray(jax.random.uniform(jk, shape))
+    got = tf.uniform(tkey, shape)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.array_equal(want, got.numpy())
+    assert float(got.min()) >= 0.0 and float(got.max()) < 1.0
+    # XLA fuses the scale and shift into one multiply-add
+    for mn, mx in ((0.25, 3.7), (-1.3, 0.1)):
+        want = np.asarray(jax.random.uniform(jk, shape, minval=mn, maxval=mx))
+        assert np.array_equal(want, tf.uniform(tkey, shape, mn, mx).numpy()), (mn, mx)
+    want = _u32(jax.random.bits(jk, shape, jnp.uint32))
+    assert np.array_equal(want, tf.random_bits32(tkey, shape).numpy())
+
+
+def test_threefry2x32_on_counters_past_two_to_the_32():
+    """A draw of more than 2**32 values has counters whose high word is not
+    zero: the raw block cipher on explicit (hi, lo) words, held against the
+    JAX primitive, and the flat-index split of the counters."""
+    hi = np.array([0, 1, 1, 2, 7, 0xFFFF_FFFF], np.uint32)
+    lo = np.array([0, 0, 5, 0xFFFF_FFFF, 123456, 0xFFFF_FFFF], np.uint32)
+    for seed in SEEDS:
+        jk, tkey = _keys(seed)
+        k1, k2 = np.asarray(jk)
+        want = threefry2x32_p.bind(jnp.uint32(k1), jnp.uint32(k2), jnp.asarray(hi), jnp.asarray(lo))
+        got = tf.threefry2x32(tkey[0], tkey[1], torch.from_numpy(hi.astype(np.int64)),
+                              torch.from_numpy(lo.astype(np.int64)))
+        for w, g in zip(want, got):
+            assert np.array_equal(_u32(w), g.numpy())
+    c_hi, c_lo = tf.counters((3, 5))
+    assert (c_hi == 0).all() and np.array_equal(c_lo.numpy(), np.arange(15).reshape(3, 5))
+
+
+def test_counters_split_the_flat_index_into_words():
+    flat = torch.tensor([0, 2**32 - 1, 2**32, 2**32 + 17, 5 * 2**32 + 3])
+    hi, lo = flat >> 32, flat & 0xFFFF_FFFF
+    assert hi.tolist() == [0, 0, 1, 1, 5] and lo.tolist() == [0, 2**32 - 1, 0, 17, 3]
+    _, tkey = _keys(9)
+    # the plain randint from bits at explicit counters equals the draw's own elements
+    keys = tf.split(tkey, 2)
+    h = tf.threefry2x32(keys[0][0], keys[0][1], torch.zeros(4, dtype=torch.int64), torch.arange(4))
+    l_ = tf.threefry2x32(keys[1][0], keys[1][1], torch.zeros(4, dtype=torch.int64), torch.arange(4))
+    assert torch.equal(tf.randint_from_bits(h[0] ^ h[1], l_[0] ^ l_[1], 0, 77), tf.randint(tkey, (4,), 0, 77))
+
+
+@settings(max_examples=60, deadline=None)
+@given(k1=st.integers(0, 2**32 - 1), k2=st.integers(0, 2**32 - 1),
+       lo=st.integers(-(2**31), 2**31 - 1), span=st.integers(-5, 2**32 + 5),
+       size=st.integers(0, 40))
+def test_random_keys_and_bounds_match_jax(k1, k2, lo, span, size):
+    hi = max(-(2**31), min(2**31 - 1, lo + span))
+    jk = jnp.asarray([k1, k2], jnp.uint32)
+    tkey = torch.tensor([k1, k2], dtype=torch.int64)
+    want = np.asarray(jax.random.randint(jk, (size,), lo, hi, dtype=jnp.int32))
+    assert np.array_equal(want, tf.randint(tkey, (size,), lo, hi).numpy())
+    assert np.array_equal(np.asarray(jax.random.uniform(jk, (size,))), tf.uniform(tkey, (size,)).numpy())
+    assert np.array_equal(_u32(jax.random.split(jk, 3)), tf.split(tkey, 3).numpy())
+
+
+def test_draws_refuse_a_key_that_is_not_raw():
+    for bad in (torch.zeros(3, dtype=torch.int64), torch.zeros(2, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="raw key"):
+            tf.split(bad, 2)
+        with pytest.raises(ValueError, match="raw key"):
+            tf.randint(bad, (), 0, 5)
+
+
+@pytest.mark.parametrize("call", [
+    lambda key: tk.split_cuda(key, 3),
+    lambda key: tk.bits_cuda(key, (4,)),
+    lambda key: tk.randint_cuda(key, (4,), 0, 10),
+    lambda key: tk.uniform_cuda(key, (4,)),
+], ids=["split", "bits", "randint", "uniform"])
+def test_launchers_refuse_non_cuda_and_never_fall_back(call, monkeypatch, tmp_path):
+    """A CPU key is refused by the launcher; a key that is not on the CPU
+    goes to the kernel, never to the plain version: here (no card, no nvcc)
+    that is an error, and nothing is counted.  A meta tensor stands in for
+    a CUDA one."""
+    with pytest.raises(ValueError, match="CUDA"):
+        call(torch.zeros(2, dtype=torch.int64))
+    key = torch.empty(2, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        call(key)
+    monkeypatch.setattr(tk, "_check_key", lambda key, what: None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(tk, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tk, "_lib", None)
+    before = dict(tk.launches)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        call(key)
+    assert tk.launches == before
+    assert not (tmp_path / "build").exists()
+
+
+def test_dispatch_goes_by_the_key_device(monkeypatch):
+    """A key off the CPU is handed to the launcher (and never to the plain
+    version); a CPU key never reaches a launcher."""
+    seen = []
+    for name in ("split_cuda", "bits_cuda", "randint_cuda", "uniform_cuda"):
+        monkeypatch.setattr(tk, name, lambda key, *a, _n=name: seen.append(_n) or "kernel")
+    for name in ("split_plain", "random_bits32_plain", "randint_plain", "uniform_plain"):
+        monkeypatch.setattr(tf, name, lambda *a, _n=name: pytest.fail(f"{_n} on a card key"))
+    meta = torch.empty(2, dtype=torch.int64, device="meta")
+    assert tf.split(meta, 3) == tf.random_bits32(meta, (2,)) == tf.randint(meta, (), 0, 4) == \
+        tf.uniform(meta, ()) == "kernel"
+    assert seen == ["split_cuda", "bits_cuda", "randint_cuda", "uniform_cuda"]
+
+
+def test_reset_launches():
+    tk.launches["randint"] = 3
+    tk.reset_launches()
+    assert tk.launches == {"split": 0, "bits": 0, "randint": 0, "uniform": 0}
