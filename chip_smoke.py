@@ -96,12 +96,19 @@ scale on bench.py's own stream, threefry:
    hold ``split`` (2, 3, 5 keys), ``randint``, ``uniform`` and the raw bits
    bit-equal against their plain PyTorch versions on the card: keys of
    three seeds and of chained splits, shapes (), (1,), (n,), (n, 3) at
-   n = 1,000,000, spans 1, 2, n - 1, n, 2**31 - 1 and hi <= lo, and one draw
-   of 2**32 + 2**20 int32 values, whose head, elements around 2**32 and tail
-   equal the plain threefry2x32 on explicit (hi, lo) counters; then T1 alone
-   by profiler name at each shape the main path draws, beside its bound
-   (bytes over 3.35 TB/s, or the SASS instructions of ``cuobjdump -sass``
-   over the card's instruction rate, whichever is larger);
+   n = 1,000,000, spans 1, 2, 3, 1000, 1024, 65535, 65536, 65537, n - 1, n,
+   2**31 - 1, 2**31, 2**32 - 1 and hi <= lo (randint's one- and two-stream
+   variants, with and without the reciprocal's add indicator), every
+   kernel at the ragged element counts 1-9, 4095, 4097 and 3,000,001, and
+   two draws of 2**32 + 2**20 int32 values (spans 1000 and n: two streams
+   and one), whose heads, elements around 2**32 and tails equal the plain
+   threefry2x32 on explicit (hi, lo) counters; then T1 alone by profiler
+   name at each shape the main path draws, beside its bound: the larger of
+   the bytes over 3.35 TB/s and the function's own instructions (the least
+   an element needs, counted from its definition, ``T1_OPS``, and held to
+   no more than each kernel's SASS an element: the difference between
+   builds of 8 and 4 elements a thread, over 4) over the card's
+   instruction rate;
 11. the headline's first 8 ticks at threefry with T1 and, side by side, with
    the plain draws on the card, every leaf equal and the tick-8 digests
    equal to the JAX pins; then the main path, ``bench.run_bench`` at full
@@ -124,11 +131,12 @@ measures that checkout's kernel, so two versions can be compared on one
 card in one run of the chip machine.  ``python3 chip_smoke.py
 --lifecycle-kernels`` builds the lifecycle kernels and runs step 8 alone;
 ``--learner-planes`` times L2 alone on synthetic 1M x 256 planes (dense,
-sparse, late and empty columns) with each ``want``; ``--detect-wall``
-times the headline's ``run_until_detected`` alone, five runs (run it from
-another checkout's root, with this script copied there, to compare two
-versions in one call); ``--threefry`` builds the kernels and runs steps
-10-11 alone.
+sparse, late and empty columns) with each ``want``; ``--detect-wall
+[counter|threefry]`` times the headline's ``run_until_detected`` alone at
+that stream (counter unless named), five runs (run it from another
+checkout's root, with this script copied there, to compare two versions
+in one call); ``--threefry`` builds the kernels and runs steps 10-11
+alone.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
 device is available.  Imports nothing of JAX or of ``ringpop_tpu``.
@@ -296,12 +304,46 @@ PIN_TF_LIFE_VIEWS_SHA = "7779b7f65d5d326f6b04c5fba2a49e3582dd02db8bea59052fea575
 TF_N = 1_000_000
 TF_SEEDS = (0, 1, SEED)
 TF_BIG = (1 << 32) + (1 << 20)  # int32 outputs: 17.2 GB
+TF_TAILS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 4095, 4097, 3_000_001)  # T1 stores runs of 8 and writes tails element by element
+# spans (lo, hi) of phase 10: 1, 2, n - 1, n, 2**31 - 1, hi <= lo, then randint's
+# two-stream spans (3, 7, 1000, 65535), one-stream spans beside 2**16 (1024,
+# 65536, 65537) and the reciprocal's corners 2**31 and 2**32 - 1
+TF_SPANS = ((0, 1), (0, 2), (0, TF_N - 1), (1, TF_N), (0, TF_N), (0, 2**31 - 1), (7, 7), (9, 3), (0, 3), (0, 7),
+            (0, 1000), (0, 1024), (0, 65535), (0, 65536), (0, 65537), (-1, 2**31 - 1), (-(2**31), 2**31 - 1))
 # Hopper SM: 4 schedulers, each issuing one 32-lane warp instruction a clock
 # (white paper); its INT32 pipe alone has 64 lanes, and T1's IMADs go to the
 # FMA pipe, so T1 runs past the INT32 pipe's rate
 DISPATCH_LANES_PER_SM = 128
 T1_KERNELS = {"split": "threefry_split_kernel", "bits": "threefry_bits_kernel",
               "randint": "threefry_randint_kernel", "uniform": "threefry_uniform_kernel"}
+# randint's instantiations <kTwoStreams, kAdd>, by their mangled template arguments
+T1_RANDINT_VARIANTS = {"randint_one_stream": "ILb0ELb0E", "randint_one_stream_add": "ILb0ELb1E",
+                       "randint_two_streams": "ILb1ELb0E", "randint_two_streams_add": "ILb1ELb1E"}
+# The least instructions an element of each draw needs, counted from the
+# function's definition (jax/_src/prng.py _threefry2x32_lowering,
+# jax/_src/random.py _randint and _uniform), whatever implements it.  The
+# elements of a run share the key and their counter's high word, so the
+# count leaves out what a thread computes once for its run: x0's initial
+# add (high word + k0), each injection's key word plus round constant, the
+# key schedule, the index and the addresses.  Four of the five x0
+# injections fold into the next round's add (one three-input add).
+THREEFRY2X32_OPS = 1 + 20 * 3 + 5 + 1  # x1's initial add; 20 rounds of add, rotate, xor; 5 x1 injections; the last x0 one
+XOR_OPS = 1  # the bits of an element: the xor of the cipher's two words
+REMAINDER_OPS = 3  # x % span by the span's reciprocal: high multiply, shift, multiply-subtract (a 32-bit magic)
+T1_OPS = {
+    "split": THREEFRY2X32_OPS,  # a key is the cipher's two words
+    "bits": THREEFRY2X32_OPS + XOR_OPS,
+    # mantissa: shift and or as one shift-and-add (their bits do not overlap); subtract 1, fused multiply-add, max
+    "uniform": THREEFRY2X32_OPS + XOR_OPS + 1 + 3,
+    # multiplier 0: lo + lower % span, one stream
+    "randint_one_stream": THREEFRY2X32_OPS + XOR_OPS + REMAINDER_OPS + 1,
+    # lo + ((higher % span) * mult + lower % span) % span: two streams, three remainders, a multiply-add, an add
+    "randint_two_streams": 2 * (THREEFRY2X32_OPS + XOR_OPS) + 3 * REMAINDER_OPS + 1 + 1,
+}
+# The first T1 design's yardstick for a randint element, logged beside the
+# function's count: that kernel's SASS, 330 a thread, less its split
+# kernel's 90 twice (the key split each of its threads repeated)
+SASS_YARDSTICK_RANDINT_OPS = 150
 
 
 def check(ok: bool, what: str) -> None:
@@ -1450,15 +1492,16 @@ def phase9_lifecycle_headline(dev: torch.device) -> dict:
     }
 
 
-def detect_wall(dev: torch.device, runs: int = 5) -> list[float]:
-    """The headline's ``run_until_detected`` alone, ``runs`` times after
-    one untimed run (CUDA events, ms, the pinned tick count checked): the
-    detection wall without the rest of the script, so that two checkouts
-    can be compared on one card in one call."""
+def detect_wall(dev: torch.device, rng: str = "counter", runs: int = 5) -> list[float]:
+    """The headline's ``run_until_detected`` at stream ``rng`` alone,
+    ``runs`` times after one untimed run (CUDA events, ms, the pinned tick
+    count checked): the detection wall without the rest of the script, so
+    that two checkouts can be compared on one card in one call."""
+    pin = {"counter": PIN_LIFE_DETECT_TICKS, "threefry": PIN_TF_LIFE_DETECT_TICKS}[rng]
     victims, faults = headline_faults(dev, LIFE_N)
     walls = []
     for _ in range(runs + 1):
-        sim = lifecycle.LifecycleSim(n=LIFE_N, k=LIFE_K, seed=LIFE_SEED, rng="counter", device=dev)
+        sim = lifecycle.LifecycleSim(n=LIFE_N, k=LIFE_K, seed=LIFE_SEED, rng=rng, device=dev)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1466,7 +1509,7 @@ def detect_wall(dev: torch.device, runs: int = 5) -> list[float]:
                                            check_every=LIFE_CHECK_EVERY, blocks_per_dispatch=8)
         end.record()
         torch.cuda.synchronize()
-        check(ok and ticks == PIN_LIFE_DETECT_TICKS, f"detected in {ticks} ticks (JAX: {PIN_LIFE_DETECT_TICKS})")
+        check(ok and ticks == pin, f"{rng}: detected in {ticks} ticks (JAX: {pin})")
         walls.append(start.elapsed_time(end))
         del sim
     return walls[1:]
@@ -1550,16 +1593,19 @@ def check_t1(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
 def phase10_threefry(dev: torch.device) -> float:
     """T1 (split, randint, uniform, bits) bit-equal to its plain version on
     the card: keys of several seeds and chained splits; shapes (), (1,),
-    (n,) and (n, 3) at n = 1,000,000; spans 1, 2, n - 1, n, 2**31 - 1 and
-    hi <= lo; and one draw of more than 2**32 values, its head against the
-    plain draw and the elements around 2**32 and its tail against the plain
-    threefry2x32 on explicit (hi, lo) counters.  Returns the max abs
-    difference."""
+    (n,) and (n, 3) at n = 1,000,000; the spans of TF_SPANS; every kernel at
+    the ragged counts of TF_TAILS; and two draws of more than 2**32 values,
+    one at a two-stream span (1000) and one at a one-stream span (n), each
+    head against the plain draw and the elements around 2**32 and the tail
+    against the plain threefry2x32 on explicit (hi, lo) counters.  Returns
+    the max abs difference."""
     n = TF_N
     t0 = time.perf_counter()
     threefry_kernel.reset_launches()
     calls = dict.fromkeys(threefry_kernel.launches, 0)
-    spans = ((0, 1), (0, 2), (0, n - 1), (1, n), (0, n), (0, 2**31 - 1), (7, 7), (9, 3))
+    spans = TF_SPANS
+    variants = {threefry_kernel.randint_variant(lo, hi)[2:] for lo, hi in spans}
+    check(len({(two, rec[1]) for two, rec in variants}) == 4, f"TF_SPANS reach the four randint variants: {variants}")
     err = 0.0
     for what, key in t1_keys(dev).items():
         for num in (2, 3, 5):
@@ -1581,34 +1627,64 @@ def phase10_threefry(dev: torch.device) -> float:
     log(f"phase10: split (2, 3, 5), randint ({len(spans)} spans), uniform and bits at (), (1,), ({n},), ({n}, 3) "
         f"over {len(t1_keys(dev))} keys: T1 == plain (tolerance: none, bit-equal; {time.perf_counter() - t0:.1f} s)")
 
+    # ragged tails: T1 writes a thread's run of 8 with vector stores, a tail element by element
+    for seed in TF_SEEDS:
+        key = prng.prng_key(seed, dev)
+        for count in TF_TAILS:
+            shape = (count,)
+            err = max(err, check_t1(threefry_kernel.split_cuda(key, count), threefry.split_plain(key, count),
+                                    f"split {count}, seed {seed}"))
+            err = max(err, check_t1(threefry_kernel.bits_cuda(key, shape), threefry.random_bits32_plain(key, shape),
+                                    f"bits {shape}, seed {seed}"))
+            err = max(err, check_t1(threefry_kernel.uniform_cuda(key, shape), threefry.uniform_plain(key, shape),
+                                    f"uniform {shape}, seed {seed}"))
+            for lo, hi in ((0, n), (0, 1000), (0, 7), (0, 2**31 - 1)):
+                err = max(err, check_t1(threefry_kernel.randint_cuda(key, shape, lo, hi),
+                                        threefry.randint_plain(key, shape, lo, hi),
+                                        f"randint {shape} [{lo}, {hi}), seed {seed}"))
+            calls["split"] += 1
+            calls["bits"] += 1
+            calls["uniform"] += 1
+            calls["randint"] += 4
+    log(f"phase10: every kernel at the ragged counts {TF_TAILS} over {len(TF_SEEDS)} keys: T1 == plain "
+        f"({time.perf_counter() - t0:.1f} s)")
+
     # counters past 2**32: the high word is 1 for the last 2**20 outputs
     key = prng.prng_key(SEED, dev)
-    big = threefry_kernel.randint_cuda(key, (TF_BIG,), 0, 1000)
-    calls["randint"] += 1
-    err = max(err, check_t1(big[:n], threefry.randint_plain(key, (n,), 0, 1000), f"randint ({TF_BIG},) head"))
     ka, kb = threefry.split_plain(key, 2)
-    for lo_i, hi_i in (((1 << 32) - 4096, (1 << 32) + 4096), (TF_BIG - 4096, TF_BIG)):
-        idx = torch.arange(lo_i, hi_i, dtype=torch.int64, device=dev)
-        c_hi, c_lo = idx >> 32, idx & 0xFFFF_FFFF
-        h1, h2 = threefry.threefry2x32(ka[0], ka[1], c_hi, c_lo)
-        l1, l2 = threefry.threefry2x32(kb[0], kb[1], c_hi, c_lo)
-        want = threefry.randint_from_bits(h1 ^ h2, l1 ^ l2, 0, 1000)
-        err = max(err, check_t1(big[lo_i:hi_i], want, f"randint ({TF_BIG},) elements [{lo_i}, {hi_i})"))
-    del big
-    torch.cuda.empty_cache()
+    for hi in (1000, n):  # two streams, one stream
+        big = threefry_kernel.randint_cuda(key, (TF_BIG,), 0, hi)
+        calls["randint"] += 1
+        err = max(err, check_t1(big[:n], threefry.randint_plain(key, (n,), 0, hi), f"randint ({TF_BIG},) [0, {hi}) head"))
+        for lo_i, hi_i in (((1 << 32) - 4096, (1 << 32) + 4096), (TF_BIG - 4096, TF_BIG)):
+            idx = torch.arange(lo_i, hi_i, dtype=torch.int64, device=dev)
+            c_hi, c_lo = idx >> 32, idx & 0xFFFF_FFFF
+            h1, h2 = threefry.threefry2x32(ka[0], ka[1], c_hi, c_lo)
+            l1, l2 = threefry.threefry2x32(kb[0], kb[1], c_hi, c_lo)
+            want = threefry.randint_from_bits(h1 ^ h2, l1 ^ l2, 0, hi)
+            err = max(err, check_t1(big[lo_i:hi_i], want, f"randint ({TF_BIG},) [0, {hi}) elements [{lo_i}, {hi_i})"))
+        del big
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     check(threefry_kernel.launches == calls, f"one launch per wrapper call: {threefry_kernel.launches} vs {calls}")
-    log(f"phase10: a draw of {TF_BIG} int32 values (counters past 2**32): head, the elements around 2**32 and the "
-        f"tail == plain threefry2x32 on explicit (hi, lo) counters; launches {threefry_kernel.launches}; "
-        f"max abs err {err} ({time.perf_counter() - t0:.1f} s)")
+    log(f"phase10: two draws of {TF_BIG} int32 values (counters past 2**32), spans 1000 and {n}: heads, the elements "
+        f"around 2**32 and the tails == plain threefry2x32 on explicit (hi, lo) counters; launches "
+        f"{threefry_kernel.launches}; max abs err {err} ({time.perf_counter() - t0:.1f} s)")
     return err
 
 
-def t1_sass_counts() -> dict[str, int]:
-    """Instructions (NOPs left out) of each T1 kernel in the built library,
-    from ``cuobjdump -sass``: each is straight-line code that every thread
-    runs once for its one output element."""
-    lib = threefry_kernel.build()
+def t1_kernel_of(symbol: str) -> str | None:
+    """The T1_KERNELS name of a mangled kernel symbol, randint's by its
+    instantiation (T1_RANDINT_VARIANTS); None for another kernel."""
+    name = next((name for name, kname in T1_KERNELS.items() if kname in symbol), None)
+    if name == "randint":
+        name = next((v for v, args in T1_RANDINT_VARIANTS.items() if args in symbol), name)
+    return name
+
+
+def t1_sass_counts(lib: Path) -> dict[str, int]:
+    """Instructions (NOPs left out) of each T1 kernel in the library
+    ``lib``, from ``cuobjdump -sass``, by t1_kernel_of's names."""
     tool = Path(_cuda_build.find_nvcc()).with_name("cuobjdump")
     proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, timeout=120)
     check(proc.returncode == 0, f"cuobjdump -sass {lib.name}: {proc.stderr[-500:]}")
@@ -1616,15 +1692,39 @@ def t1_sass_counts() -> dict[str, int]:
     for line in proc.stdout.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            cur = next((name for name, kname in T1_KERNELS.items() if kname in fn.group(1)), None)
+            cur = t1_kernel_of(fn.group(1))
             if cur:
                 counts[cur] = 0
             continue
         ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
         if cur and ins and not ins.group(1).strip().startswith("NOP"):
             counts[cur] += 1
-    check(set(counts) == set(T1_KERNELS) and all(counts.values()), f"SASS of every T1 kernel: {counts}")
+    want = {"split", "bits", "uniform", *T1_RANDINT_VARIANTS}
+    check(set(counts) == want and all(counts.values()), f"SASS of every T1 kernel and randint variant: {counts}")
     return counts
+
+
+def t1_per_thread() -> int:
+    """The elements a T1 thread draws (``RP_THREEFRY_PER_THREAD`` in its
+    source)."""
+    found = re.search(r"#define RP_THREEFRY_PER_THREAD (\d+)", threefry_kernel.SOURCE.read_text())
+    check(found is not None, "RP_THREEFRY_PER_THREAD in csrc/threefry.cu")
+    return int(found.group(1))
+
+
+def t1_sass_per_element() -> tuple[dict[str, float], dict]:
+    """Each T1 kernel's SASS instructions an element, as the difference
+    between the built library (kPerThread elements a thread) and a build of
+    half as many, over the elements between: what one more element of a
+    run executes, without the thread's own work or the ragged tail's
+    element.  Returns it and the two builds' counts."""
+    per_thread = t1_per_thread()
+    half = per_thread // 2
+    check(half % 4 == 0, f"a build of {half} elements a thread stores runs of four")
+    full = t1_sass_counts(threefry_kernel.build())
+    halved = t1_sass_counts(threefry_kernel.build((f"RP_THREEFRY_PER_THREAD={half}",)))
+    return ({name: (full[name] - halved[name]) / (per_thread - half) for name in full},
+            {per_thread: full, half: halved})
 
 
 def instruction_rate(dev: torch.device) -> tuple[float, float]:
@@ -1640,17 +1740,21 @@ def instruction_rate(dev: torch.device) -> tuple[float, float]:
 
 def t1_profile(dev: torch.device) -> dict:
     """T1 alone (profiler, by name, after a flush that leaves the L2 cache
-    clean) at each shape the main path draws, the wrapper call and the plain
-    version (CUDA events), beside the bound: the larger of the bytes (the
-    key read, the output written) over 3.35 TB/s and the instructions over
-    the card's instruction rate.  A thread's instructions are its kernel's SASS
-    count; randint's thread also repeats the key split (two threefry2x32),
-    so the split kernel's count is taken off twice for the function's
-    work."""
-    sass = t1_sass_counts()
+    clean) at each shape the main path draws, and at a two-stream span, the
+    wrapper call and the plain version (CUDA events), beside the bound: the
+    larger of the bytes (the key read, the output written) over 3.35 TB/s
+    and the function's instructions (T1_OPS an element) over the card's
+    instruction rate.  T1_OPS comes from the function's definition, not
+    from the kernel measured; each count is held to no more than its
+    kernel's SASS an element (t1_sass_per_element), and the cipher's to the
+    ``bits`` kernel's, so no share reads over 100 %.  The first design's
+    SASS yardstick (SASS_YARDSTICK_RANDINT_OPS) is logged beside."""
+    per_element, sass = t1_sass_per_element()
+    check(THREEFRY2X32_OPS + XOR_OPS <= per_element["bits"] and REMAINDER_OPS <= per_element["bits"],
+          f"the function's counts {T1_OPS} are no more than the bits kernel's SASS an element {per_element}")
+    for name, ops in T1_OPS.items():
+        check(ops <= per_element[name], f"T1_OPS[{name}] {ops} <= its kernel's SASS an element {per_element}")
     rate, mhz = instruction_rate(dev)
-    per_element = {"split": sass["split"], "bits": sass["bits"], "uniform": sass["uniform"],
-                   "randint": sass["randint"] - 2 * sass["split"]}
     n = TF_N
     key = prng.prng_key(LIFE_SEED, dev)
     buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -1662,33 +1766,44 @@ def t1_profile(dev: torch.device) -> dict:
         "randint_scalar": ("randint", ((), 1, n), 1, 4),  # the shift, the healer's pair
         "uniform_scalar": ("uniform", ((),), 1, 4),  # the healer's coin
         "split_5": ("split", (5,), 5, 16),  # the tick's keys
+        "randint_n_span_1000": ("randint", ((n,), 0, 1000), n, 4),  # two streams: no main-path draw
     }
     launcher = {"split": threefry_kernel.split_cuda, "randint": threefry_kernel.randint_cuda,
                 "uniform": threefry_kernel.uniform_cuda}
     plain = {"split": threefry.split_plain, "randint": threefry.randint_plain, "uniform": threefry.uniform_plain}
-    out = {"sass_instructions": sass, "instructions_per_element": per_element, "instruction_rate": rate,
-           "max_sm_clock_mhz": mhz}
+    out = {"sass_instructions": sass, "sass_per_element": per_element, "instructions_per_element": T1_OPS,
+           "instruction_rate": rate, "max_sm_clock_mhz": mhz}
     for name, (kind, args, elements, width) in cases.items():
+        ops_kind = kind
+        if kind == "randint":
+            _, _, two_streams, (_, add, _, _) = threefry_kernel.randint_variant(*args[1:])
+            check(not add, f"{name}: the span's reciprocal is a 32-bit magic (REMAINDER_OPS)")
+            ops_kind = "randint_two_streams" if two_streams else "randint_one_stream"
         fn = lambda: launcher[kind](key, *args)  # noqa: E731
         ref = lambda: plain[kind](key, *args)  # noqa: E731
         check(torch.equal(fn(), ref()), f"T1 {name} == plain")
         ms = one_kernel_ms(profile_ms(fn, 20, clean, "reduce_kernel"), T1_KERNELS[kind])
         nbytes = 16 + elements * width
-        ops = elements * per_element[kind]
+        ops = elements * T1_OPS[ops_kind]
         bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         rec = out[name] = {
             "kernel_ms": ms, "call_ms": time_ms(fn, 20, buf), "plain_ms": time_ms(ref, 5, buf),
             "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "bytes_ms": bytes_ms, "operations_ms": ops_ms, "bytes": nbytes, "operations": ops,
-            "share_of_bound": bound_ms / ms,
+            "variant": ops_kind, "share_of_bound": bound_ms / ms,
         }
-        log(f"profile: T1 {name}: kernel alone {ms * 1e3:.2f} us after a clean flush; call "
+        yardstick = ""
+        if ops_kind == "randint_one_stream" and elements > 1:
+            old_ms = max(bytes_ms, elements * SASS_YARDSTICK_RANDINT_OPS / rate * 1e3)
+            yardstick = (f"; the first design's SASS yardstick ({SASS_YARDSTICK_RANDINT_OPS} an element) "
+                         f"{old_ms * 1e3:.2f} us, {old_ms / ms:.1%}")
+        log(f"profile: T1 {name} ({ops_kind}): kernel alone {ms * 1e3:.2f} us after a clean flush; call "
             f"{rec['call_ms'] * 1e3:.2f} us; plain {rec['plain_ms']:.4f} ms; bound {bound_ms * 1e3:.2f} us "
-            f"({rec['bound_by']}: {nbytes} bytes {bytes_ms * 1e3:.2f} us, {ops} instructions {ops_ms * 1e3:.2f} us; "
-            f"{rec['share_of_bound']:.1%})")
-    log(f"profile: T1 SASS instructions a thread {sass} (a randint element's own {per_element['randint']}); "
-        f"instruction rate {rate:.4g} lane instructions/s at {mhz:.0f} MHz")
+            f"({rec['bound_by']}: {nbytes} bytes {bytes_ms * 1e3:.2f} us, {ops} instructions ({T1_OPS[ops_kind]} an "
+            f"element) {ops_ms * 1e3:.2f} us; {rec['share_of_bound']:.1%}){yardstick}")
+    log(f"profile: T1 SASS instructions a thread by elements a thread {sass}: {per_element} an element; the "
+        f"function's {T1_OPS} an element; instruction rate {rate:.4g} lane instructions/s at {mhz:.0f} MHz")
     return out
 
 
@@ -1830,6 +1945,7 @@ def run_threefry(dev: torch.device) -> tuple[list, dict]:
     twin = phase11_bench_twin(dev)
     main = prof["randint_n_by_3"]
     t1_launches = {name: twin["launches"][f"threefry_{name}"] for name in T1_KERNELS}
+    measured = ("kernel_ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "share_of_bound", "variant")
     kernels = [{
         "name": "threefry", "route": "cuda", "source": "ringpop_tpu_torch/csrc/threefry.cu",
         "replaces": "ringpop_tpu/sim/lifecycle.py:446 (jax.random split/randint/uniform at the engines' draw "
@@ -1838,9 +1954,11 @@ def run_threefry(dev: torch.device) -> tuple[list, dict]:
         "state": "randint (1000000, 3), the lifecycle's ping-req peers", "ms": main["kernel_ms"],
         "call_ms": main["call_ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "share_of_bound": main["share_of_bound"], "bound_by": main["bound_by"], "library_ms": None,
-        "library": "none: torch.randint (Philox) computes a different function", "by_case": prof,
+        "library": "none: torch.randint (Philox) computes a different function",
+        "by_case": {name: {k: rec[k] for k in measured} for name, rec in prof.items()
+                    if isinstance(rec, dict) and "kernel_ms" in rec},
     }]
-    return kernels, {"threefry": twin}
+    return kernels, {"threefry": twin, "t1_profile": prof}
 
 
 def build_kernels() -> None:
@@ -1883,8 +2001,9 @@ def main() -> int:
         kernels, timings = run_threefry(torch.device("cuda"))
         log(json.dumps({"card": card, "kernels": kernels, **timings}))
         return 0
-    if sys.argv[1:] == ["--detect-wall"]:
-        log(json.dumps({"card": card, "detect_ms": detect_wall(torch.device("cuda"))}))
+    if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
+        rng = (sys.argv[2:] or ["counter"])[0]
+        log(json.dumps({"card": card, "rng": rng, "detect_ms": detect_wall(torch.device("cuda"), rng)}))
         return 0
     build_kernels()
     kernels, timings = run(torch.device("cuda"), N_SERVERS, N_KEYS)

@@ -37,24 +37,27 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(source: Path, build_dir: Path) -> Path:
-    """Where the library built from ``source`` with ``NVCC_FLAGS`` lives."""
-    key = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def library_path(source: Path, build_dir: Path, defines: tuple[str, ...] = ()) -> Path:
+    """Where the library built from ``source`` with ``NVCC_FLAGS`` and the
+    macros ``defines`` (``NAME=VALUE``) lives."""
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
+    key = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
     return build_dir / f"lib{source.stem}_{key[:16]}.so"
 
 
-def build(source: Path, build_dir: Path) -> Path:
-    """Compile ``source`` unless the library for this source is already
-    built.  The compiler's report (registers, spills) is kept beside it as
+def build(source: Path, build_dir: Path, defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``source``, with the macros ``defines`` (``NAME=VALUE``, for
+    measurement builds), unless that library is already built.  The
+    compiler's report (registers, spills) is kept beside it as
     ``<library>.log``.  Raises RuntimeError on failure."""
-    path = library_path(source, build_dir)
+    path = library_path(source, build_dir, defines)
     if path.exists():
         return path
     nvcc = find_nvcc()
     build_dir.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
     path.with_suffix(".log").write_text(proc.stdout + proc.stderr)

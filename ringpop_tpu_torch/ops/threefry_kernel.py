@@ -5,8 +5,11 @@ launch each, on the card, from a key that stays there:
 
 * ``split`` — int64[num, 2], the fold-like ``jax.random.split``;
 * ``bits`` — int64 holding uint32, ``bits1 ^ bits2`` of threefry2x32;
-* ``randint`` — int32, the key split in the thread, two bit streams and
-  the wrapping uint32 span arithmetic of ``jax.random.randint``;
+* ``randint`` — int32, ``jax.random.randint``: the key split once a
+  block, and one bit stream where the span arithmetic makes the other dead
+  (``span_multiplier`` is 0), else both and the wrapping uint32 span
+  arithmetic, with every remainder by the span a multiply by its
+  :func:`reciprocal`;
 * ``uniform`` — float32, ``jax.random.uniform``.
 
 They replace XLA's lowering of threefry2x32 (``jax/_src/prng.py``,
@@ -40,26 +43,32 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def build() -> Path:
+def build(defines: tuple[str, ...] = ()) -> Path:
     """Compile ``csrc/threefry.cu`` unless the library for this source is
-    already built.  Raises RuntimeError on failure."""
-    return _cuda_build.build(SOURCE, BUILD_DIR)
+    already built; ``defines`` (``RP_THREEFRY_THREADS=...``,
+    ``RP_THREEFRY_PER_THREAD=...``) make a measurement build of another
+    block size or run length.  Raises RuntimeError on failure."""
+    return _cuda_build.build(SOURCE, BUILD_DIR, defines)
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """The built library at ``path`` with its entry points' signatures."""
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, u32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_float
+    lib.rp_threefry_split.argtypes = [ptr, i64, ptr, ptr]
+    lib.rp_threefry_bits.argtypes = [ptr, i64, ptr, ptr]
+    lib.rp_threefry_randint.argtypes = [ptr, i64, i32, u32, u32, i32, u32, i32, i32, i32, ptr, ptr]
+    lib.rp_threefry_uniform.argtypes = [ptr, i64, f32, f32, ptr, ptr]
+    for fn in (lib.rp_threefry_split, lib.rp_threefry_bits, lib.rp_threefry_randint, lib.rp_threefry_uniform):
+        fn.restype = i32
+    return lib
 
 
 def _library():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            ptr, i32, u32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_float
-            lib.rp_threefry_split.argtypes = [ptr, i64, ptr, ptr]
-            lib.rp_threefry_bits.argtypes = [ptr, i64, ptr, ptr]
-            lib.rp_threefry_randint.argtypes = [ptr, i64, i32, u32, u32, ptr, ptr]
-            lib.rp_threefry_uniform.argtypes = [ptr, i64, f32, f32, ptr, ptr]
-            for fn in (lib.rp_threefry_split, lib.rp_threefry_bits, lib.rp_threefry_randint,
-                       lib.rp_threefry_uniform):
-                fn.restype = i32
-            _lib = lib
+            _lib = load(build())
         return _lib
 
 
@@ -78,6 +87,37 @@ def span_multiplier(lo: int, hi: int) -> tuple[int, int]:
         raise ValueError(f"randint bounds [{lo}, {hi}) must be int32 values")
     span = (hi - lo) & 0xFFFF_FFFF if hi > lo else 1
     return span, (((2**16 % span) ** 2) & 0xFFFF_FFFF) % span
+
+
+def reciprocal(d: int) -> tuple[int, bool, int, int]:
+    """``(magic, add, shift1, shift2)`` such that, in uint32 arithmetic,
+    ``t = (magic * a) >> 32``, ``q = t + ((a - t) >> shift1)`` when
+    ``add`` else ``t``, then ``q >> shift2`` is ``a // d`` for every uint32
+    ``a``: Granlund and Montgomery's round-up multiplier, as libdivide
+    builds it, for a divisor ``1 <= d < 2**32``.  ``add`` marks a magic
+    number of 33 bits, whose top bit (``a`` itself) is added back halved;
+    ``d = 1`` takes the same route with no halving.  A power of two ``2**l``
+    is the multiply by ``2**(32 - l)``."""
+    if not 1 <= d < 2**32:
+        raise ValueError(f"divisor {d} is not a uint32 value above 0")
+    if d == 1:
+        return 1, True, 0, 0
+    log2 = d.bit_length() - 1
+    if d & (d - 1) == 0:
+        return 1 << (32 - log2), False, 0, 0
+    magic, rem = divmod(1 << (32 + log2), d)
+    if d - rem < 1 << log2:  # the 32-bit magic number is exact at every dividend
+        return magic + 1, False, 0, log2
+    return (1 << (33 + log2)) // d - (1 << 32) + 1, True, 1, log2
+
+
+def randint_variant(lo: int, hi: int) -> tuple[int, int, bool, tuple[int, bool, int, int]]:
+    """The launch parameters of randint for int32 bounds: ``(span,
+    multiplier, two_streams, reciprocal(span))``.  One stream (``lower``)
+    when the multiplier is 0, since ``higher`` then does not reach the
+    output."""
+    span, mult = span_multiplier(lo, hi)
+    return span, mult, mult != 0, reciprocal(span)
 
 
 def _check_key(key: torch.Tensor, what: str) -> None:
@@ -119,9 +159,9 @@ def bits_cuda(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
 def randint_cuda(key: torch.Tensor, shape: tuple[int, ...], lo: int, hi: int) -> torch.Tensor:
     """Launch T1 (randint): int32[*shape] in [lo, hi), int32 bounds."""
     _check_key(key, "randint_cuda")
-    span, mult = span_multiplier(lo, hi)
+    span, mult, two_streams, (magic, add, shift1, shift2) = randint_variant(lo, hi)
     out = torch.empty(shape, dtype=torch.int32, device=key.device)
-    return _launch("randint", key, out, lo, span, mult)
+    return _launch("randint", key, out, lo, span, mult, two_streams, magic, add, shift1, shift2)
 
 
 def uniform_cuda(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,

@@ -9,8 +9,15 @@ square wraps), the raw threefry2x32 on counters whose high word is not zero
 (a draw of more than 2**32 values) and random keys and bounds under
 hypothesis.  All on the CPU, the plain PyTorch path; the tolerance is
 none.  Also: the CUDA launchers refuse a CPU key and a key that is not on
-the CPU goes to the kernel, never to the plain version.
+the CPU goes to the kernel, never to the plain version; the kernel's
+remainder by a precomputed reciprocal, emulated step by step in numpy
+uint64, is ``a % d``; the one-stream randint that the kernel draws when
+the multiplier is 0 equals ``jax.random.randint``; the launcher hands the
+kernel the variant and the reciprocal of the call's bounds.
 """
+
+import contextlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -203,6 +210,97 @@ def test_dispatch_goes_by_the_key_device(monkeypatch):
     assert tf.split(meta, 3) == tf.random_bits32(meta, (2,)) == tf.randint(meta, (), 0, 4) == \
         tf.uniform(meta, ()) == "kernel"
     assert seen == ["split_cuda", "bits_cuda", "randint_cuda", "uniform_cuda"]
+
+
+M32 = np.uint64(0xFFFF_FFFF)
+DIVISORS = (1, 2, 3, 7, 1000, 65535, 65536, 65537, 999999, 1000000, 2**31 - 1, 2**31, 2**32 - 1)
+
+
+def _remainder_as_the_kernel(a, d) -> np.ndarray:
+    """``a % d`` through the integer steps of ``remainder`` in
+    ``csrc/threefry.cu``, each wrapped to uint32 as the card does, with
+    ``d``'s :func:`reciprocal` (``a`` and ``d`` broadcast together)."""
+    a, d = np.broadcast_arrays(np.asarray(a, np.uint64), np.asarray(d, np.uint64))
+    magic, add, shift1, shift2 = (np.array(v, np.uint64).reshape(d.shape)
+                                  for v in zip(*map(tk.reciprocal, d.ravel().tolist())))
+    q = (magic * a) >> np.uint64(32)  # __umulhi
+    q = np.where(add.astype(bool), (q + (((a - q) & M32) >> shift1)) & M32, q)
+    return (a - (((q >> shift2) * d) & M32)) & M32
+
+
+@pytest.mark.parametrize("d", DIVISORS)
+def test_reciprocal_remainder_at_the_corner_dividends(d):
+    # the largest multiple of d in uint32 less 1: where a 32-bit magic number
+    # too short for d (one that needs the add indicator) first errs
+    top = (2**32 - 1) // d * d
+    a = np.array([0, 1, d - 1, d, d + 1, 2**32 - 1, top - 1, top], np.uint64) & M32
+    assert np.array_equal(_remainder_as_the_kernel(a, d), a % np.uint64(d))
+    magic, add, shift1, shift2 = tk.reciprocal(d)
+    assert 0 <= magic < 2**32 and 0 <= shift1 <= 1 and 0 <= shift2 < 32
+
+
+def test_reciprocal_remainder_at_random_pairs():
+    rng = np.random.default_rng(20261017)
+    a = rng.integers(0, 2**32, 100_000, dtype=np.uint64)
+    d = rng.integers(1, 2**32, 100_000, dtype=np.uint64)
+    # a third of the divisors below 2**16, where randint's two-stream variant lives
+    d[::3] = rng.integers(1, 2**16 + 1, d[::3].size, dtype=np.uint64)
+    assert np.array_equal(_remainder_as_the_kernel(a, d), a % d)
+
+
+@settings(max_examples=300, deadline=None)
+@given(a=st.integers(0, 2**32 - 1), d=st.integers(1, 2**32 - 1))
+def test_reciprocal_remainder_hypothesis(a, d):
+    assert int(_remainder_as_the_kernel(a, d)) == a % d
+
+
+def test_reciprocal_refuses_divisors_outside_uint32():
+    for d in (0, 2**32, -1):
+        with pytest.raises(ValueError, match="divisor"):
+            tk.reciprocal(d)
+
+
+@pytest.mark.parametrize("lo,hi,dead", [
+    (0, 65536, True), (0, 65537, True), (0, 1024, True), (0, N - 1, True), (0, N, True),
+    (0, 1000, False), (0, 65535, False),
+])
+def test_one_stream_randint_where_the_multiplier_is_zero(lo, hi, dead):
+    """Where ``span_multiplier`` gives 0, ``higher`` does not reach the
+    output: ``lo + lower % span`` from the second subkey alone equals
+    ``jax.random.randint``, which is what the kernel's one-stream variant
+    draws.  Spans 1000 and 65535 keep both streams."""
+    span, mult, two_streams, _ = tk.randint_variant(lo, hi)
+    assert (mult == 0) == dead and two_streams == (not dead)
+    for seed in (0, 5):
+        jk, tkey = _keys(seed)
+        for shape in ((7,), (40, 3)):
+            want = np.asarray(jax.random.randint(jk, shape, lo, hi, dtype=jnp.int32))
+            lower = tf.random_bits32(tf.split(tkey, 2)[1], shape)
+            one_stream = (lo + lower % span).to(torch.int32)
+            assert np.array_equal(want, one_stream.numpy()) == dead, (seed, shape)
+
+
+@pytest.mark.parametrize("lo,hi", [(0, N), (0, N - 1), (0, 1000), (0, 7), (9, 3), (-(2**31), 2**31 - 1)])
+def test_randint_launcher_passes_the_variant_and_reciprocal(lo, hi, monkeypatch):
+    """The launcher hands the kernel the call's bounds, its multiplier, the
+    variant (two streams only where the multiplier is not 0) and the span's
+    reciprocal; a stub library stands in for the built one."""
+    calls = []
+
+    def rp_threefry_randint(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(tk, "_library", lambda: types.SimpleNamespace(rp_threefry_randint=rp_threefry_randint))
+    monkeypatch.setattr(tk, "_check_key", lambda key, what: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    before = tk.launches["randint"]
+    out = tk.randint_cuda(torch.empty(2, dtype=torch.int64, device="meta"), (5, 3), lo, hi)
+    assert out.shape == (5, 3) and out.dtype == torch.int32 and tk.launches["randint"] == before + 1
+    (args,) = calls
+    span, mult = tk.span_multiplier(lo, hi)
+    assert args[1:-2] == (15, lo, span, mult, mult != 0, *tk.reciprocal(span))
 
 
 def test_reset_launches():
