@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of ringpop_tpu_torch on one CUDA card: the keyed-ownership path,
 the SWIM dissemination engine, the SWIM failure-detection engine, the
-threefry stream and the headline benchmark record.
+threefry stream, the headline benchmark record, and the exact full-view
+engine with its lockstep conformance gate.
 
     python3 chip_smoke.py
 
@@ -118,7 +119,31 @@ scale on bench.py's own stream, threefry:
    below), with T1 launched once a draw; phase 7's uniform exchange with
    faults at threefry against its pins; a 32-tick block at each stream under
    the profiler (launches a tick, busy share); detection at both streams in
-   turns (counter, threefry, threefry, counter).
+   turns (counter, threefry, threefry, counter);
+12. hold the fullview kernels bit-equal against their plain versions on the
+   card: C1, the masked categorical draw (``csrc/threefry.cu``), over
+   random masks at densities 0.01, 0.5 and 0.99 with rows that allow
+   nothing, everything and only the last entry, at N = 1, 31, 33, 1000,
+   4097, 8192, reps None and 3, keys of three seeds and chained splits, and
+   one [1432, 3, 1,000,000] draw whose counters pass 2**32, at the rows
+   around the crossing on explicit counters; T1's ``fold_in`` at d = 0, 1,
+   5, 2**31 - 1, 2**32 - 1; F1, the change application
+   (``csrc/fullview.cu``), on random states and candidate batches, every
+   plane;
+13. a) BASELINE's north-star gate on the card: the port's
+   ``LockstepRunner(n=1000, seed=7)`` with nodes 99, 499, 999 down for 12
+   ticks and 8 healed, checked every 4 and at the end, the host oracle
+   against the CUDA engine, with its wall time and the engine's share;
+   b) the main path, BASELINE config 2's shape on fullview: N = 1000, 10
+   victims, 5 % loss, free-running on threefry until every live node
+   holds every victim Faulty, checked every tick — the JAX package's tick
+   count (pinned below) and final-leaf digests, with C1 twice, F1 five
+   times and fold_in once a tick; c) the same recipe at N = 4096 (41
+   victims, 268 MB of state), 16 ticks against the pinned digests; then
+   an 8-tick block at each size under the profiler (ms and launches a
+   tick, busy share, device time by ``fullview.PHASES``), and the same
+   block with C1 and F1 swapped for their plain versions; C1 and F1 alone
+   on the calls of one tick at each size beside their bounds.
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -136,7 +161,7 @@ sparse, late and empty columns) with each ``want``; ``--detect-wall
 that stream (counter unless named), five runs (run it from another
 checkout's root, with this script copied there, to compare two versions
 in one call); ``--threefry`` builds the kernels and runs steps 10-11
-alone.
+alone; ``--fullview`` builds them and runs steps 12-13 alone.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
 device is available.  Imports nothing of JAX or of ``ringpop_tpu``.
@@ -160,11 +185,18 @@ import torch
 
 from ringpop_tpu_torch import bench
 from ringpop_tpu_torch.hashing.farm import fingerprint32_batch, pack_strings
-from ringpop_tpu_torch.ops import _cuda_build, hash_kernel, lifecycle_kernel, packbits_kernel, threefry_kernel
+from ringpop_tpu_torch.ops import (
+    _cuda_build,
+    fullview_kernel,
+    hash_kernel,
+    lifecycle_kernel,
+    packbits_kernel,
+    threefry_kernel,
+)
 from ringpop_tpu_torch.ops.hash_ops import fingerprint32_device, keyed_owner_lookup, upload_keys
 from ringpop_tpu_torch.ops.ring_ops import build_ring_tokens, host_lookup_n, ring_lookup
 from ringpop_tpu_torch.serve.state import RingStore, serve_lookup_fused, serve_lookup_n_fused
-from ringpop_tpu_torch.sim import delta, lifecycle, packbits, prng, threefry
+from ringpop_tpu_torch.sim import conformance, delta, fullview, lifecycle, packbits, prng, threefry
 from ringpop_tpu_torch.swim.member import FAULTY, SUSPECT
 
 SEED = 20261016
@@ -344,6 +376,50 @@ T1_OPS = {
 # function's count: that kernel's SASS, 330 a thread, less its split
 # kernel's 90 twice (the key split each of its threads repeated)
 SASS_YARDSTICK_RANDINT_OPS = 150
+
+# phases 12-13: the exact full-view engine (sim/fullview.py) and the lockstep
+# gate (sim/conformance.py) with kernels C1 (csrc/threefry.cu) and F1
+# (csrc/fullview.cu); pinned from the JAX package (ringpop_tpu.sim.fullview)
+# run on the CPU; tests/test_torch_chip_smoke_pins_fullview.py recomputes them
+FV_ROWS = (1, 31, 33, 1000, 4097, 8192)
+FV_DENSITIES = (0.01, 0.5, 0.99)
+FV_FOLD_DATA = (0, 1, 5, 2**31 - 1, 2**32 - 1)
+C1_BIG = (1432, 3, 1_000_000)  # a [1432, 3, 1M] draw: its counters pass 2**32 in row 1431
+# the compare-and-select of a C1 element beyond its bits: the shift to the
+# top 23 bits and the compare with the thread's largest (a new largest, and
+# its index, is taken about log N times a row, not once an element)
+C1_SELECT_OPS = 2
+FV_GATE = dict(n=1000, seed=7, suspect_ticks=4, faulty_ticks=30, tombstone_ticks=8)
+FV_GATE_DOWN = (99, 499, 999)
+FV_GATE_TICKS, FV_GATE_HEALED, FV_GATE_CHECK_EVERY = 12, 8, 4
+# BASELINE config 2's shape (ringpop_tpu/cli/simbench.py:bench_loss1k) on fullview
+FV_LOSS_N, FV_LOSS_VICTIMS, FV_LOSS_DROP, FV_SUSPECT_TICKS = 1000, 10, 0.05, 25
+FV_MAX_TICKS = 200
+PIN_FV_LOSS_TICKS = 35
+PIN_FV_LOSS = {
+    "status": "84dc9f899ddf84805f3585751abcf4d5c610825928e021eacc1297447688fe92",
+    "incarnation": "8dbe5f139fd946d4cd84e8cc612cd9f68cbc87e394457884acc0c5dad56dd8dd",
+    "present": "1fb6a051d8996888485d47fea0007a88e1e78ea273fa5fb60e1ab00608dbb764",
+    "has_change": "4d366612294e36cd2f13740d8ca6608516723b773f9355410bd27bf013dff84b",
+    "pcount": "72cb252dda2257b3bd409fae17876d1ec8aaf4b6897d8c042150806b44c69b2f",
+    "pending": "da989cf925f1570c64a6186574e3da79f6ed9536b8a617b2d0747c1ce2d45e5b",
+    "deadline": "1e24b17100ceeca67eeb297b0d5f37a5da4973a1c4ef39106a253dcf342867e5",
+    "tick": "d2d27d69fc0a2c6cc0aabec462ce665aa8a92766844f081b672588acdf8a2c71",
+    "key": "eb1ea1a81e08ceab8969c4b8e950bb6412dc22084777557c0f8343e1ca16bb2c",
+}
+# the same recipe at a size that loads the card: 41 victims of 4096, 16 ticks
+FV_BIG_N, FV_BIG_VICTIMS, FV_BIG_TICKS, FV_BLOCK_TICKS = 4096, 41, 16, 8
+PIN_FV_BIG = {
+    "status": "990d384f762c3a3800d24ef9368c5b80af22d488da72d94952812fca8c31e927",
+    "incarnation": "969c6c4a1b47e5f57c25c37ed7ac4b7e87ef885fab94a0e71454c6b979d82b46",
+    "present": "b70a752bfdf8d3446d286dc7562cc34093f611be1c88867c062b35b442b0bd04",
+    "has_change": "53df6ebf2e5e044504c01a8d6b1fa6b536e9f39e573ea073b772f0abbd635ba0",
+    "pcount": "9d8aac10ae0c4a108987c9aa3dd81e59575446a3f7c12bdec34daf2b9e08d237",
+    "pending": "aae2b56426bbdb96b9430345ec09632194c6f5aa9f4b9d74a8002743565626ca",
+    "deadline": "ea3ef7149b02092d11217f8fc35cf3c1bd60f4d31f075fefc82802cdd3de9a31",
+    "tick": "097328e8c957de2428283954f6a1ee8ff7ad7def12e100a600178407f5decf24",
+    "key": "68b08a4e5cbe2cc2769ee30a8a99b8f43c1a72e7cd8e2ed54a1bd837199a36f2",
+}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1148,7 +1224,8 @@ def learner_bound_bytes(learned: torch.Tensor, up, k: int, want) -> int:
 
 PORT_KERNELS = {"row_reduce": "packbits_row_reduce", "popcount_rows": "packbits_popcount_rows",
                 "slot_walk": "lifecycle_slot_walk", "first_live_learner": "lifecycle_first_live_learner",
-                **{f"threefry_{name}": kname for name, kname in T1_KERNELS.items()}}
+                **{f"threefry_{name}": kname for name, kname in T1_KERNELS.items()},
+                "threefry_categorical": "threefry_categorical_kernel", "threefry_fold_in": "threefry_fold_in_kernel"}
 
 
 def port_launches() -> dict[str, int]:
@@ -1476,7 +1553,7 @@ def phase9_lifecycle_headline(dev: torch.device) -> dict:
     checks = 1 + PIN_LIFE_DETECT_TICKS // LIFE_CHECK_EVERY
     want_launches = {"row_reduce": 3 * PIN_LIFE_DETECT_TICKS, "popcount_rows": 0,
                      "slot_walk": checks + 2, "first_live_learner": PIN_LIFE_DETECT_TICKS,
-                     **{f"threefry_{name}": 0 for name in T1_KERNELS}}
+                     **{f"threefry_{name}": 0 for name in threefry_kernel.launches}}
     check(launches == want_launches,
           f"the lifecycle path launched S1 3x a tick, L2 once a tick, L1 once a check + 2 (and no T1 on the "
           f"counter stream): {launches}")
@@ -1910,7 +1987,8 @@ def phase11_bench_twin(dev: torch.device) -> dict:
     for name, want in PIN_TF_UNIFORM.items():
         check(digests[name] == want, f"threefry uniform: final {name} digest == the JAX package's")
     drawn = {name: threefry_kernel.launches[name] - before[name] for name in before}
-    check(drawn == {"split": UNIFORM_TICKS, "bits": 0, "randint": UNIFORM_TICKS, "uniform": UNIFORM_TICKS},
+    check(drawn == {"split": UNIFORM_TICKS, "bits": 0, "randint": UNIFORM_TICKS, "uniform": UNIFORM_TICKS,
+                    "fold_in": 0, "categorical": 0},
           f"the uniform exchange drew targets and the drop coin through T1 once a tick: {drawn}")
     log(f"phase11: uniform, {UNIFORM_DOWN} down, drop {UNIFORM_DROP}, threefry: {UNIFORM_TICKS} ticks in "
         f"{uniform_ms:.3f} ms; final leaf digests == JAX; T1 {drawn}")
@@ -1961,10 +2039,523 @@ def run_threefry(dev: torch.device) -> tuple[list, dict]:
     return kernels, {"threefry": twin, "t1_profile": prof}
 
 
+# -- the exact full-view engine: kernels C1 and F1, the lockstep gate, loss1k --
+
+C1_F1_KERNELS = {"categorical": "threefry_categorical_kernel", "fold_in": "threefry_fold_in_kernel",
+                 "apply": "fullview_apply_kernel"}
+# the kernels of the fullview tick, by profiler name
+FV_KERNELS = {**C1_F1_KERNELS, "split": "threefry_split_kernel", "uniform": "threefry_uniform_kernel"}
+
+
+def fv_launches() -> dict[str, int]:
+    """The launch counts of the fullview tick's kernels, by FV_KERNELS' names."""
+    return {**{name: threefry_kernel.launches[name] for name in ("categorical", "fold_in", "split", "uniform")},
+            "apply": fullview_kernel.launches["apply"]}
+
+
+@contextlib.contextmanager
+def plain_fullview():
+    """Route C1 and F1 (and fold_in) on CUDA tensors to their plain versions
+    (on the card) for the duration: the fullview tick without its kernels."""
+    saved = threefry_kernel.categorical_cuda, threefry_kernel.fold_in_cuda, fullview_kernel.apply_cuda
+    threefry_kernel.categorical_cuda = threefry.categorical_masked_plain
+    threefry_kernel.fold_in_cuda = threefry.fold_in_plain
+    fullview_kernel.apply_cuda = fullview_kernel.apply_plain
+    try:
+        yield
+    finally:
+        threefry_kernel.categorical_cuda, threefry_kernel.fold_in_cuda, fullview_kernel.apply_cuda = saved
+
+
+@contextlib.contextmanager
+def record_fullview_calls(calls: list):
+    """Record (a copy of) the inputs of every C1 and F1 call for the
+    duration, in call order: ("categorical", key, mask, reps) and ("apply",
+    planes, cand_key, tick, now_ms, timeouts)."""
+    c1, f1 = threefry_kernel.categorical_cuda, fullview_kernel.apply_cuda
+
+    def categorical(key, mask, reps=None):
+        calls.append(("categorical", key.clone(), mask.clone(), reps))
+        return c1(key, mask, reps)
+
+    def apply(planes, cand_key, tick, now_ms, timeouts):
+        calls.append(("apply", [p.clone() for p in planes], cand_key.clone(), tick.clone(), now_ms.clone(), timeouts))
+        return f1(planes, cand_key, tick, now_ms, timeouts)
+
+    threefry_kernel.categorical_cuda, fullview_kernel.apply_cuda = categorical, apply
+    try:
+        yield
+    finally:
+        threefry_kernel.categorical_cuda, fullview_kernel.apply_cuda = c1, f1
+
+
+def random_mask(gen: torch.Generator, rows: int, cols: int, density: float, dev) -> torch.Tensor:
+    """A random bool mask whose rows 0-2, where it has them, allow nothing,
+    everything and only the last entry."""
+    m = torch.rand((rows, cols), generator=gen, device=dev) < density
+    if rows >= 3:
+        m[0] = False
+        m[1] = True
+        m[2] = False
+        m[2, -1] = True
+    return m
+
+
+def random_fullview_batch(gen: torch.Generator, n: int, density: float, dev, tick: int = 37):
+    """Seven random planes (every status, pending -1..4, deadlines around
+    ``tick``, incarnations with ties, absent cells) and a candidate batch
+    near each cell's own incarnation, so that wins, losses, ties,
+    refutations and first-seen tombstones occur."""
+    def ints(lo, hi, dtype):
+        return torch.randint(lo, hi, (n, n), generator=gen, device=dev, dtype=torch.int64).to(dtype)
+
+    inc = ints(0, 6, torch.int32) * 200
+    planes = [ints(0, 5, torch.int8), inc, torch.rand((n, n), generator=gen, device=dev) < 0.7,
+              torch.rand((n, n), generator=gen, device=dev) < 0.4, ints(0, 40, torch.int32), ints(-1, 5, torch.int8),
+              ints(tick - 5, tick + 30, torch.int32)]
+    cand_inc = (inc + ints(-1, 2, torch.int32) * 200).clamp_min(0)
+    cand = torch.where(torch.rand((n, n), generator=gen, device=dev) < density,
+                       (cand_inc << 3) | ints(0, 5, torch.int32), -1).to(torch.int32)
+    return planes, cand
+
+
+def phase12_fullview_kernels(dev: torch.device) -> dict:
+    """C1, fold_in and F1 bit-equal to their plain versions on the card:
+    C1 over masks at densities FV_DENSITIES (rows allowing nothing,
+    everything and only the last entry) at N = FV_ROWS, reps None and 3,
+    keys of three seeds and chained splits (every key below 4097 rows, the
+    seeds' own above); one C1 draw of C1_BIG whose counters pass 2**32,
+    held at its first rows and the rows around the crossing against the
+    plain version on explicit counters; fold_in at FV_FOLD_DATA; F1 on
+    random states and candidate batches.  Returns each kernel's max abs
+    difference and calls."""
+    t0 = time.perf_counter()
+    keys = t1_keys(dev)
+    seed_keys = {name: k for name, k in keys.items() if "split" not in name}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    err = {"categorical": 0, "fold_in": 0, "apply": 0}
+    calls = dict.fromkeys(err, 0)
+
+    def held(name, got, want, what):
+        check(got.dtype == want.dtype and got.shape == want.shape, f"{name} {what}: {got.dtype}{list(got.shape)} "
+              f"vs plain {want.dtype}{list(want.shape)}")
+        err[name] = max(err[name], int((got.long() - want.long()).abs().max()) if got.numel() else 0)
+        check(torch.equal(got, want), f"{name} == plain ({what})")
+        calls[name] += 1
+
+    for name, key in keys.items():
+        for d in FV_FOLD_DATA:
+            held("fold_in", threefry_kernel.fold_in_cuda(key, d), threefry.fold_in_plain(key, d), f"{name}, d = {d}")
+    for n in FV_ROWS:
+        for name, key in (keys if n <= 1000 else seed_keys).items():
+            for density in FV_DENSITIES:
+                mask = random_mask(gen, n, n, density, dev)
+                for reps in (None, 3):
+                    held("categorical", threefry_kernel.categorical_cuda(key, mask, reps),
+                         threefry.categorical_masked_plain(key, mask, reps), f"N={n} {name} {density} reps={reps}")
+        log(f"phase12: C1 at N={n}: == plain over {len(FV_DENSITIES)} densities x reps None/3 x "
+            f"{len(keys if n <= 1000 else seed_keys)} keys")
+
+    rows, reps, cols = C1_BIG
+    key = keys[f"seed {SEED}, split depth 2"]
+    mask = torch.empty((rows, cols), dtype=torch.bool, device=dev)
+    for r0 in range(0, rows, 256):  # in slices: the float draw of the whole mask would take 5.7 GB
+        mask[r0:r0 + 256] = torch.rand((min(256, rows - r0), cols), generator=gen, device=dev) < 0.5
+    crossing = (1 << 32) // cols  # the (row, rep) whose counters pass 2**32
+    check(crossing // reps < rows, f"the {rows} x {reps} x {cols} draw passes 2**32")
+    cross_row = min(crossing // reps, rows - 1)
+    mask[cross_row - 1] = True
+    mask[cross_row - 2] = False
+    got = threefry_kernel.categorical_cuda(key, mask, reps)
+    check_rows = torch.tensor([0, 1, cross_row - 2, cross_row - 1, cross_row, rows - 1], device=dev)
+    check_rows = torch.unique(check_rows.clamp_max(rows - 1))
+    held("categorical", got[check_rows], threefry.categorical_masked_plain(key, mask, reps, rows=check_rows),
+         f"{rows} x {reps} x {cols} at rows {check_rows.tolist()}")
+    del mask, got
+
+    for n in (1, 31, 1000, FV_BIG_N + 1):
+        for density in (0.01, 0.5, 1.0):
+            planes, cand = random_fullview_batch(gen, n, density, dev)
+            tick = torch.tensor(37, dtype=torch.int32, device=dev)
+            now = torch.tensor(7400, dtype=torch.int32, device=dev)
+            a, b = [p.clone() for p in planes], [p.clone() for p in planes]
+            fullview_kernel.apply_cuda(a, cand, tick, now, (5, 20, 6))
+            fullview_kernel.apply_plain(b, cand, tick, now, (5, 20, 6))
+            for name, x, y in zip(fullview.PLANES, a, b):
+                check(torch.equal(x, y), f"F1 == plain on {name} (N={n}, density {density})")
+            err["apply"] = max(err["apply"], max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b)))
+            calls["apply"] += 1
+            changed = sum(int((x != p).sum()) for x, p in zip(a, planes))
+            check(n == 1 or changed > 0, f"F1 changed cells at N={n}, density {density}")
+    planes, _ = random_fullview_batch(gen, 33, 0.5, dev)
+    shifted = torch.full((33 * 33 + 1,), -1, dtype=torch.int32, device=dev)[1:].view(33, 33)
+    try:
+        fullview_kernel.apply_cuda(planes, shifted, tick, now, (5, 20, 6))
+        check(False, "F1 refuses candidates that are not 16-byte aligned")
+    except ValueError as e:
+        check("16-byte" in str(e), f"F1's refusal of misaligned candidates names why: {e}")
+    torch.cuda.synchronize()
+    log(f"phase12: F1 == plain on every plane over N = 1, 31, 1000, {FV_BIG_N + 1} x 3 densities; fold_in == plain "
+        f"at {FV_FOLD_DATA} over {len(keys)} keys; the {rows} x {reps} x {cols} C1 draw == plain at rows "
+        f"{check_rows.tolist()} (draw {crossing}, row {cross_row}, crosses 2**32); calls {calls}; max abs err {err} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"max_abs_err": err, "calls": calls}
+
+
+def fullview_victims(n: int, count: int) -> list[int]:
+    """The recipe of BASELINE config 2 (``bench_loss1k``): ``count`` victims
+    of ``default_rng(0)``."""
+    return sorted(np.random.default_rng(0).choice(n, count, replace=False).tolist())
+
+
+def fullview_faults(dev: torch.device, n: int, victims, drop: float):
+    up = np.ones(n, bool)
+    up[victims] = False
+    return up, fullview.Faults(up=torch.as_tensor(up, device=dev), drop_rate=drop)
+
+
+def fv_detected(state, victims, up: np.ndarray) -> bool:
+    """Every live observer believes every victim >= FAULTY or has evicted it
+    (``tests/engine_agreement.py:fv_detected``, in numpy)."""
+    observers = up.copy()
+    observers[list(victims)] = False
+    obs = torch.as_tensor(np.flatnonzero(observers), device=state.status.device)
+    vic = torch.as_tensor(list(victims), device=state.status.device)
+    sub = state.status[obs][:, vic]
+    gone = ~state.present[obs][:, vic]
+    return bool(((sub >= FAULTY) | gone).all())
+
+
+def phase13a_gate(dev: torch.device) -> dict:
+    """BASELINE's north-star gate on the card: the port's LockstepRunner (the
+    host oracle against the CUDA engine) at 1000 nodes, three down, in
+    test_1k_node_conformance_gate's schedule.  Returns its wall time and
+    the engine's share of it."""
+    before = fv_launches()
+    t0 = time.perf_counter()
+    r = conformance.LockstepRunner(device=dev, **FV_GATE)
+    engine_s = 0.0
+    tick = r.vec.tick
+
+    def timed_tick(*args, **kw):
+        nonlocal engine_s
+        t = time.perf_counter()
+        out = tick(*args, **kw)
+        torch.cuda.synchronize()
+        engine_s += time.perf_counter() - t
+        return out
+
+    r.vec.tick = timed_tick
+    up, faults = fullview_faults(dev, FV_GATE["n"], list(FV_GATE_DOWN), 0.0)
+    r.run(FV_GATE_TICKS, faults=faults, check_every=FV_GATE_CHECK_EVERY)
+    detected = [d for d in FV_GATE_DOWN if any(node.view.get(d, (0, 0))[0] != 0 for node in r.seq.nodes)]
+    r.run(FV_GATE_HEALED, check_every=FV_GATE_CHECK_EVERY)
+    t1 = time.perf_counter()
+    r.assert_identical()
+    wall = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in fv_launches().items()}
+    ticks = FV_GATE_TICKS + FV_GATE_HEALED
+    check(detected == list(FV_GATE_DOWN), f"the oracle suspected every node that was down: {detected}")
+    check(launches["apply"] == 5 * ticks and launches["categorical"] == 0,
+          f"the gate's engine applied F1 five times a tick and drew no target: {launches}")
+    log(f"phase13a: the 1k lockstep gate holds on the card: {ticks} ticks (nodes {FV_GATE_DOWN} down for "
+        f"{FV_GATE_TICKS}), checked every {FV_GATE_CHECK_EVERY} and at the end; wall {wall:.2f} s, the CUDA "
+        f"engine {engine_s:.3f} s ({engine_s / wall:.2%}), the last assert_identical {time.perf_counter() - t1:.2f} s; "
+        f"launches {launches}")
+    return {"ticks": ticks, "wall_s": wall, "engine_s": engine_s, "engine_share": engine_s / wall,
+            "launches": launches}
+
+
+def fullview_block_profile(params, state, faults, ticks: int) -> dict:
+    """``torch.profiler`` over ``ticks`` ticks from ``state``:
+    device time by phase range and by kernel, the window (CUDA events), the
+    device's busy share of it and kernel launches a tick.  The record is
+    held against the wrappers' own counts: a record that misses a launch of
+    the tick's kernels is taken again, twice at most, then fails."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        s = state
+        torch.cuda.synchronize()
+        before = fv_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiler_warmup()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(ticks):
+                s = fullview.step(params, s, faults)
+            end.record()
+            torch.cuda.synchronize()
+        counted = {name: n - before[name] for name, n in fv_launches().items()}
+        kernels, phases = {}, {}
+        for evt in prof.key_averages():
+            on_device = evt.device_type == torch.autograd.DeviceType.CUDA
+            if evt.key in fullview.PHASES and not on_device:
+                phases[evt.key] = evt.device_time_total / 1e3
+            elif on_device and MARK_TAG not in evt.key and evt.self_device_time_total > 0 and "(" in evt.key:
+                kernels[evt.key] = (evt.count, evt.self_device_time_total / 1e3)
+        recorded = {name: sum(c for key, (c, _) in kernels.items() if kname in key)
+                    for name, kname in FV_KERNELS.items()}
+        if recorded == counted:
+            break
+        log(f"profile: the profiler recorded {recorded} of the fullview kernels' launches, the wrappers counted "
+            f"{counted}; profiling the block again")
+    else:
+        raise SystemExit(f"chip_smoke FAILED: the profiler's record of a {ticks}-tick fullview block misses "
+                         f"launches: {recorded} recorded, {counted} counted")
+    window_ms = start.elapsed_time(end)
+    busy_ms = sum(ms for _, ms in kernels.values())
+    launches = sum(c for c, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"ticks": ticks, "window_ms": window_ms, "ms_a_tick": window_ms / ticks, "device_busy_ms": busy_ms,
+            "busy_share": busy_ms / window_ms, "kernel_launches_per_tick": launches / ticks,
+            "port_launches": counted, "phases_kernel_ms": phases,
+            "top_kernels": [{"name": name[:120], "launches": c, "ms": ms} for name, (c, ms) in top]}
+
+
+def fullview_profiles(params, state, faults, what: str) -> dict:
+    """An FV_BLOCK_TICKS block from ``state`` with the kernels and the same
+    block with C1 and F1 swapped for their plain versions (timing only)."""
+    out = {}
+    for mode in ("kernels", "plain"):
+        with plain_fullview() if mode == "plain" else contextlib.nullcontext():
+            rec = out[mode] = fullview_block_profile(params, state, faults, FV_BLOCK_TICKS)
+        log(f"phase13: {what}, {FV_BLOCK_TICKS} ticks on {'C1 and F1' if mode == 'kernels' else 'the plain versions'}:"
+            f" window {rec['window_ms']:.3f} ms ({rec['ms_a_tick']:.3f} ms a tick), device busy "
+            f"{rec['device_busy_ms']:.3f} ms ({rec['busy_share']:.1%}), {rec['kernel_launches_per_tick']:.2f} launches "
+            f"a tick; kernel ms by phase {rec['phases_kernel_ms']}; the tick's kernels {rec['port_launches']}")
+        for k in rec["top_kernels"]:
+            log(f"phase13:   {k['ms']:.4f} ms  x{k['launches']}  {k['name']}")
+    return out
+
+
+def c1_alone(calls: list, rate: float, buf: torch.Tensor) -> dict:
+    """C1 alone (profiler, after a clean L2 flush) on each recorded draw,
+    beside its plain version (CUDA events) and its bound: the larger of the
+    bytes (the mask and key read, the indices written) and the draws'
+    operations (a cipher and xor, T1_OPS["bits"], and C1_SELECT_OPS an
+    element) over the instruction rate.  The function draws only the
+    elements it may pick: a row's allowed entries, or the whole row where it
+    allows none, once a rep."""
+    clean = lambda: buf.sum(dtype=torch.int64)  # noqa: E731
+    out = {}
+    for _, key, mask, reps in (c for c in calls if c[0] == "categorical"):
+        rows, cols = mask.shape
+        name = f"{'peers' if reps else 'targets'}_{rows}"
+        fn = lambda: threefry_kernel.categorical_cuda(key, mask, reps)  # noqa: E731
+        ref = lambda: threefry.categorical_masked_plain(key, mask, reps)  # noqa: E731
+        check(torch.equal(fn(), ref()), f"C1 {name} == plain")
+        ms = one_kernel_ms(profile_ms(fn, 20, clean, "reduce_kernel"), C1_F1_KERNELS["categorical"])
+        # the elements a draw of a row must cipher: its allowed ones, or all
+        # of it where none is allowed (the draw over the whole row)
+        empty_rows = int((~mask.any(dim=1)).sum())
+        draws = (reps or 1) * (int(mask.sum()) + empty_rows * cols)
+        nbytes = mask.numel() + 4 * rows * (reps or 1) + 16
+        ops = draws * (T1_OPS["bits"] + C1_SELECT_OPS)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        rec = out[name] = {"kernel_ms": ms, "plain_ms": time_ms(ref, 3, buf), "bound_ms": bound_ms,
+                           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "bytes": nbytes,
+                           "operations": ops, "draws": draws, "share_of_bound": bound_ms / ms}
+        log(f"profile: C1 {name} ([{rows}, {reps or 1}, {cols}] draw): kernel alone {ms * 1e3:.2f} us after a clean "
+            f"flush; {draws} draws ({empty_rows} rows allow none); plain {rec['plain_ms']:.4f} ms; bound "
+            f"{bound_ms * 1e3:.2f} us ({rec['bound_by']}: {nbytes} bytes "
+            f"{bytes_ms * 1e3:.2f} us, {ops} instructions ({T1_OPS['bits'] + C1_SELECT_OPS} an element) "
+            f"{ops_ms * 1e3:.2f} us; {rec['share_of_bound']:.1%})")
+    return out
+
+
+LEGS = ("request", "response", "reverse-full-sync", "suspect", "timers")
+
+
+def f1_needed_bytes(planes, after, cand, tick, now, timeouts) -> tuple:
+    """The bytes one change application must move on these inputs, each
+    input read once and each output written once where it changes:
+
+    * the candidate plane, 4 bytes a cell, and tick and now_ms, 8;
+    * a cell with a candidate reads its key's three planes — status (1),
+      incarnation (4) and present (1) — 6 bytes: the refutation and the key
+      order need nothing else;
+    * a cell where a Suspect, Faulty or Tombstone applies off the diagonal
+      reads its pending state (1 byte), as the same-state check needs it;
+    * every plane byte that changes is written once (``after`` against
+      ``planes``); has_change, pcount and deadline are only written.
+
+    Applied cells are found by running the plain version on a copy whose
+    pcount is -1 everywhere: an applied change resets pcount to 0."""
+    n = cand.shape[0]
+    marked = [p.clone() for p in planes]
+    marked[4].fill_(-1)
+    fullview_kernel.apply_plain(marked, cand, tick, now, timeouts)
+    applied = marked[4] == 0
+    detraction = (marked[0] == fullview.SUSPECT) | (marked[0] == fullview.FAULTY) | (marked[0] == fullview.TOMBSTONE)
+    timer_reads = int((applied & detraction).sum() - (applied & detraction).diagonal().sum())
+    cands = int((cand >= 0).sum())
+    written = sum(int((a != p).sum()) * p.element_size() for a, p in zip(after, planes))
+    return 4 * n * n + 8 + 6 * cands + timer_reads + written, cands, timer_reads, written
+
+
+def f1_alone(calls: list, buf: torch.Tensor) -> dict:
+    """F1 alone (profiler; the planes restored, then a clean L2 flush, before
+    each run) on each recorded application of one tick, beside its plain
+    version and its bound: the bytes these inputs need
+    (:func:`f1_needed_bytes`) over 3.35 TB/s."""
+    applies = [c for c in calls if c[0] == "apply"]
+    check(len(applies) == 5, f"one tick records five F1 applications: {len(applies)}")
+    out = {}
+    for leg, (_, planes, cand, tick, now, timeouts) in zip(LEGS, applies):
+        work = [p.clone() for p in planes]
+
+        def restore_and_flush():
+            for w, p in zip(work, planes):
+                w.copy_(p)
+            return buf.sum(dtype=torch.int64)
+
+        fn = lambda: fullview_kernel.apply_cuda(work, cand, tick, now, timeouts)  # noqa: E731
+        after = [p.clone() for p in planes]
+        fullview_kernel.apply_plain(after, cand, tick, now, timeouts)
+        restore_and_flush()
+        fn()
+        check(all(torch.equal(w, a) for w, a in zip(work, after)), f"F1 {leg} == plain")
+        ms = one_kernel_ms(profile_ms(fn, 20, restore_and_flush, "reduce_kernel"), C1_F1_KERNELS["apply"])
+        n = cand.shape[0]
+        nbytes, cands, timer_reads, written = f1_needed_bytes(planes, after, cand, tick, now, timeouts)
+        scratch = [p.clone() for p in planes]
+        plain_ms = time_ms(lambda: fullview_kernel.apply_plain(scratch, cand, tick, now, timeouts), 3, buf)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rec = out[leg] = {"kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                          "bytes": nbytes, "candidates": cands, "timer_checks": timer_reads, "bytes_written": written,
+                          "share_of_bound": bound_ms / ms}
+        log(f"profile: F1 {leg} at N={n}: {cands} candidates, {timer_reads} timer checks, {written} bytes change; "
+            f"kernel alone "
+            f"{ms * 1e3:.2f} us after a clean flush; plain {plain_ms:.4f} ms; bound {bound_ms * 1e3:.2f} us "
+            f"({nbytes} bytes; {rec['share_of_bound']:.1%})")
+    return out
+
+
+def record_one_tick(params, state, faults) -> list:
+    """The C1 and F1 calls of one tick from ``state``."""
+    calls = []
+    with record_fullview_calls(calls):
+        fullview.step(params, state, faults)
+    torch.cuda.synchronize()
+    return calls
+
+
+def phase13_fullview(dev: torch.device) -> dict:
+    """13b: BASELINE config 2's shape on fullview (N = 1000, 10 victims of
+    ``default_rng(0)``, 5 % loss, suspect_ticks 25), free-running on
+    threefry until every live node holds every victim Faulty, checked every
+    tick: the pinned tick and final-leaf digests.  Its launches are the main
+    path's.  13c: the same recipe at N = 4096 (41 victims), 16 ticks, the
+    pinned digests.  Then an 8-tick block at each size under the profiler,
+    with the kernels and with C1 and F1 swapped for their plain versions,
+    and C1 and F1 alone on one tick's calls at each size."""
+    out = {}
+    rate, _ = instruction_rate(dev)
+    buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+    # -- the main path: launch counts are 0 before it and read right after --
+    n = FV_LOSS_N
+    victims = fullview_victims(n, FV_LOSS_VICTIMS)
+    up, faults = fullview_faults(dev, n, victims, FV_LOSS_DROP)
+    threefry_kernel.reset_launches()
+    fullview_kernel.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim = fullview.FullViewSim(n=n, seed=0, device=dev, suspect_ticks=FV_SUSPECT_TICKS)
+    ticks = 0
+    while ticks < FV_MAX_TICKS and not fv_detected(sim.state, victims, up):
+        sim.tick(faults)
+        ticks += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fv_launches()
+    check(ticks == PIN_FV_LOSS_TICKS, f"loss1k on fullview detected in {ticks} ticks (JAX: {PIN_FV_LOSS_TICKS})")
+    digests = leaf_digests(fullview.state_to_numpy(sim.state), fullview.FullViewState._fields)
+    for name, want in PIN_FV_LOSS.items():
+        check(digests[name] == want, f"loss1k final {name} digest == the JAX package's")
+    want = {"categorical": 2 * ticks, "fold_in": ticks, "split": 2 * ticks, "uniform": 3 * ticks, "apply": 5 * ticks}
+    check(launches == want, f"the loss1k run launched C1 twice, F1 five times, fold_in once, split twice and "
+                            f"uniform three times a tick: {launches}")
+    log(f"phase13b: loss1k on fullview (N={n}, victims {victims}, drop {FV_LOSS_DROP}) detected in {ticks} ticks "
+        f"== JAX, final leaf digests == JAX; wall {wall:.3f} s with a check every tick "
+        f"({wall / ticks * 1e3:.3f} ms a tick); launches {launches}")
+    out["loss1k"] = {"n": n, "ticks": ticks, "wall_s": wall, "ms_a_tick": wall / ticks * 1e3, "launches": launches}
+    small_calls = record_one_tick(sim.params, sim.state, faults)
+    out["loss1k"]["profiles"] = fullview_profiles(sim.params, sim.state, faults, f"N={n} from tick {ticks}")
+    del sim
+
+    # -- 13c: the engine at a size that loads the card --
+    n = FV_BIG_N
+    victims = fullview_victims(n, FV_BIG_VICTIMS)
+    up, faults = fullview_faults(dev, n, victims, FV_LOSS_DROP)
+    sim = fullview.FullViewSim(n=n, seed=0, device=dev, suspect_ticks=FV_SUSPECT_TICKS)
+    state_bytes = sum(t.numel() * t.element_size() for t in sim.state)
+    before = fv_launches()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    sim.run(FV_BIG_TICKS, faults)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    big_launches = {k: v - before[k] for k, v in fv_launches().items()}
+    digests = leaf_digests(fullview.state_to_numpy(sim.state), fullview.FullViewState._fields)
+    for name, want in PIN_FV_BIG.items():
+        check(digests[name] == want, f"N={n} tick-{FV_BIG_TICKS} {name} digest == the JAX package's")
+    log(f"phase13c: N={n} ({state_bytes / 1e6:.1f} MB of state), {len(victims)} victims, drop {FV_LOSS_DROP}: "
+        f"{FV_BIG_TICKS} ticks in {ms:.3f} ms ({ms / FV_BIG_TICKS:.3f} ms a tick), leaf digests == JAX; launches "
+        f"{big_launches}")
+    out["n4096"] = {"n": n, "ticks": FV_BIG_TICKS, "ms": ms, "ms_a_tick": ms / FV_BIG_TICKS,
+                    "state_bytes": state_bytes, "launches": big_launches}
+    big_calls = record_one_tick(sim.params, sim.state, faults)
+    out["n4096"]["profiles"] = fullview_profiles(sim.params, sim.state, faults, f"N={n} from tick {FV_BIG_TICKS}")
+    del sim
+    out["c1_alone"] = c1_alone(big_calls + small_calls, rate, buf)
+    out["f1_alone"] = f1_alone(big_calls, buf)
+    out["f1_alone_1000"] = f1_alone(small_calls, buf)
+    return out
+
+
+def run_fullview(dev: torch.device) -> tuple[list, dict]:
+    """Phases 12-13 on ``dev``; returns the records of C1 and F1 and the
+    timings."""
+    p12 = phase12_fullview_kernels(dev)
+    gate = phase13a_gate(dev)
+    fv = phase13_fullview(dev)
+    main = fv["loss1k"]["launches"]
+    c1, f1 = fv["c1_alone"][f"targets_{FV_BIG_N}"], fv["f1_alone"]
+    f1_ms = statistics.fmean(r["kernel_ms"] for r in f1.values())
+    f1_bound = statistics.fmean(r["bound_ms"] for r in f1.values())
+    kernels = [{
+        "name": "threefry_categorical", "route": "cuda", "source": "ringpop_tpu_torch/csrc/threefry.cu",
+        "replaces": "ringpop_tpu/sim/fullview.py:296 (jax.random.categorical: XLA's Gumbel draw, add and argmax; "
+                    "also :375, the ping-req peers; no Pallas kernel)",
+        "launches": main["categorical"], "max_abs_err": p12["max_abs_err"]["categorical"],
+        "state": f"targets [{FV_BIG_N}, {FV_BIG_N}] on tick {FV_BIG_TICKS + 1} of phase 13c",
+        "ms": c1["kernel_ms"], "plain_ms": c1["plain_ms"], "bound_ms": c1["bound_ms"], "bound_by": c1["bound_by"],
+        "share_of_bound": c1["share_of_bound"], "library_ms": None,
+        "library": "none: torch.multinomial draws from Philox, another function",
+        "by_case": fv["c1_alone"],
+    }, {
+        "name": "fullview_apply", "route": "cuda", "source": "ringpop_tpu_torch/csrc/fullview.cu",
+        "replaces": "ringpop_tpu/sim/fullview.py:171 (_apply_batch: XLA's fused elementwise passes; no Pallas "
+                    "kernel)",
+        "launches": main["apply"], "max_abs_err": p12["max_abs_err"]["apply"],
+        "state": f"the five applications of tick {FV_BIG_TICKS + 1} of phase 13c (N={FV_BIG_N}), mean a launch",
+        "ms": f1_ms, "plain_ms": statistics.fmean(r["plain_ms"] for r in f1.values()), "bound_ms": f1_bound,
+        "bound_by": "bytes", "share_of_bound": f1_bound / f1_ms, "library_ms": None,
+        "library": "none", "by_leg": f1,
+    }]
+    return kernels, {"fullview_kernels": p12, "fullview_gate": gate, "fullview": fv}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
-    modules = (hash_kernel, packbits_kernel, lifecycle_kernel, threefry_kernel)
+    modules = (hash_kernel, packbits_kernel, lifecycle_kernel, threefry_kernel, fullview_kernel)
     with ThreadPoolExecutor(len(modules)) as ex:
         libs = list(ex.map(lambda m: m.build(), modules))
     log(f"build: {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f} s")
@@ -2001,6 +2592,11 @@ def main() -> int:
         kernels, timings = run_threefry(torch.device("cuda"))
         log(json.dumps({"card": card, "kernels": kernels, **timings}))
         return 0
+    if sys.argv[1:] == ["--fullview"]:
+        build_kernels()
+        kernels, timings = run_fullview(torch.device("cuda"))
+        log(json.dumps({"card": card, "kernels": kernels, **timings}))
+        return 0
     if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
         rng = (sys.argv[2:] or ["counter"])[0]
         log(json.dumps({"card": card, "rng": rng, "detect_ms": detect_wall(torch.device("cuda"), rng)}))
@@ -2010,15 +2606,19 @@ def main() -> int:
     delta_kernels, delta_timings = run_delta(torch.device("cuda"))
     life_kernels, life_timings = run_lifecycle(torch.device("cuda"))
     tf_kernels, tf_timings = run_threefry(torch.device("cuda"))
+    fv_kernels, fv_timings = run_fullview(torch.device("cuda"))
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
     for rec, key in zip(delta_kernels, ("row_reduce", "popcount_rows")):
         rec["launches_by_path"] = {"delta_shift": rec["launches"], "lifecycle": life_launches[key]}
         rec["launches"] += life_launches[key]
-    kernels += delta_kernels + life_kernels + tf_kernels
+    # fold_in is a T1 entry that only the fullview path draws
+    tf_kernels[0]["fold_in_launches_on_fullview"] = fv_timings["fullview"]["loss1k"]["launches"]["fold_in"]
+    kernels += delta_kernels + life_kernels + tf_kernels + fv_kernels
     timings.update(delta_timings)
     timings.update(life_timings)
     timings.update(tf_timings)
+    timings.update(fv_timings)
     timings["card"] = card
     log(json.dumps(timings))
     log(card)

@@ -15,6 +15,8 @@ Fingerprint32 kernel, ``csrc/fingerprint32.cu``), ``ops.ring_ops`` and
 (``csrc/packbits.cu``), ``sim.prng``, ``sim.threefry`` /
 ``ops.threefry_kernel`` (``csrc/threefry.cu``), ``sim.delta`` and
 ``sim.lifecycle`` / ``ops.lifecycle_kernel`` (``csrc/lifecycle.cu``), with
-``swim.member``'s key lattice; and ``bench``, the twin of the repository's
+``swim.member``'s key lattice, ``sim.fullview`` / ``ops.fullview_kernel``
+(``csrc/fullview.cu``) and ``sim.conformance``, the exact engine and the
+lockstep conformance gate; and ``bench``, the twin of the repository's
 ``bench.py`` (``python -m ringpop_tpu_torch.bench``).
 """

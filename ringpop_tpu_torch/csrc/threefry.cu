@@ -16,7 +16,25 @@
 //   rp_threefry_uniform: f = bits as float32 mantissa in [1, 2) less 1,
 //                        out[i] = max(minval, fma(f, maxval - minval,
 //                        minval)): XLA contracts the scale and shift into
-//                        one fused multiply-add.
+//                        one fused multiply-add;
+//   rp_threefry_fold_in: jax.random.fold_in(key, d) = threefry2x32(key, (0,
+//                        d)) as int64[2]: one thread, one cipher.
+//
+// Kernel C1, rp_threefry_categorical_rows, shares the cipher: the masked
+// categorical draw jax.random.categorical(key, where(mask, 0, -inf)) of
+// each row of a bool mask [R, N] (ringpop_tpu_torch/sim/threefry.py:
+// categorical_masked has the plain version and why it is exact): out[q] is
+// the first j of row q / reps that maximises bits(q * N + j) >> 9 among the
+// entries the mask allows, or over the whole row where it allows none.  It
+// replaces XLA's Gumbel draw, add and argmax of jax.random.categorical at
+// ringpop_tpu/sim/fullview.py:296 (targets, [N, N]) and :375 (ping-req
+// peers, [N, 3, N]).  Bound: operations, one cipher an element (68 lane
+// instructions with the xor) and a compare-and-select, against one mask
+// byte read.  Design: one block a (row, rep); its threads stride over the
+// row, each keeping (largest, first index) for the allowed entries and for
+// the whole row in registers, then a warp shuffle and a shared-memory
+// reduce write one int32.  The mask is read once and the draw is never
+// written to memory.
 // It replaces no Pallas kernel: the JAX package reaches threefry through
 // jax.random at its engines' draw sites (ringpop_tpu/sim/delta.py:334,373-
 // 404; ringpop_tpu/sim/lifecycle.py:195,446-652,888-894), which XLA lowers
@@ -235,6 +253,79 @@ threefry_uniform_kernel(const int64_t* __restrict__ key, long long count, float 
   });
 }
 
+__global__ void threefry_fold_in_kernel(const int64_t* __restrict__ key, uint32_t data, longlong2* __restrict__ out) {
+  const Words w = threefry2x32(schedule(load_key(key)), 0u, data);
+  *out = make_longlong2(w.a, w.b);
+}
+
+constexpr int kCategoricalThreads = 256;
+constexpr int kNoIndex = 0x7FFFFFFF;
+
+// (best, at) takes (value, index) when it is larger, or as large at a
+// smaller index: the first index of the largest value wins
+__device__ __forceinline__ void take_first_max(int& best, int& at, int value, int index) {
+  if (value > best || (value == best && index < at)) {
+    best = value;
+    at = index;
+  }
+}
+
+__device__ __forceinline__ void warp_first_max(int& best, int& at) {
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const int value = __shfl_down_sync(0xFFFFFFFFu, best, offset);
+    const int index = __shfl_down_sync(0xFFFFFFFFu, at, offset);
+    take_first_max(best, at, value, index);
+  }
+}
+
+// one block a (row, rep) q = row * reps + rep: out[q] is the first index of
+// the largest 23-bit draw of the allowed entries of mask row q / reps, or of
+// the whole row where none is allowed
+__global__ void __launch_bounds__(kCategoricalThreads)
+threefry_categorical_kernel(const int64_t* __restrict__ key, const uint8_t* __restrict__ mask, int n, int reps,
+                            int32_t* __restrict__ out) {
+  constexpr int kWarps = kCategoricalThreads / 32;
+  __shared__ int warp_best[2][kWarps], warp_at[2][kWarps];
+  const long long q = blockIdx.x;
+  const uint8_t* row = mask + (q / reps) * static_cast<long long>(n);
+  const unsigned long long base = static_cast<unsigned long long>(q) * static_cast<unsigned long long>(n);
+  const Schedule ks = schedule(load_key(key));
+  int best_allowed = -1, at_allowed = kNoIndex, best_any = -1, at_any = kNoIndex;
+  // j rises within a thread, so a strict compare keeps the first index
+  for (int j = threadIdx.x; j < n; j += kCategoricalThreads) {
+    const unsigned long long c = base + static_cast<unsigned long long>(j);
+    const int value = static_cast<int>(bits32(ks, static_cast<uint32_t>(c >> 32), static_cast<uint32_t>(c)) >> 9);
+    if (value > best_any) {
+      best_any = value;
+      at_any = j;
+    }
+    if (__ldg(row + j) && value > best_allowed) {
+      best_allowed = value;
+      at_allowed = j;
+    }
+  }
+  warp_first_max(best_allowed, at_allowed);
+  warp_first_max(best_any, at_any);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    warp_best[0][warp] = best_allowed;
+    warp_at[0][warp] = at_allowed;
+    warp_best[1][warp] = best_any;
+    warp_at[1][warp] = at_any;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    best_allowed = lane < kWarps ? warp_best[0][lane] : -1;
+    at_allowed = lane < kWarps ? warp_at[0][lane] : kNoIndex;
+    best_any = lane < kWarps ? warp_best[1][lane] : -1;
+    at_any = lane < kWarps ? warp_at[1][lane] : kNoIndex;
+    warp_first_max(best_allowed, at_allowed);
+    warp_first_max(best_any, at_any);
+    if (lane == 0) out[q] = best_allowed >= 0 ? at_allowed : at_any;
+  }
+}
+
 // threads: one a whole run, one an element left over
 unsigned int blocks_for(long long count) {
   const long long threads = count / kPerThread + count % kPerThread;
@@ -274,6 +365,20 @@ int rp_threefry_uniform(const int64_t* key, long long count, float minval, float
                         void* stream) {
   threefry_uniform_kernel<<<blocks_for(count), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       key, count, minval, maxval, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rp_threefry_fold_in(const int64_t* key, unsigned int data, int64_t* out, void* stream) {
+  threefry_fold_in_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(key, data, reinterpret_cast<longlong2*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// mask: bool [rows, n], contiguous; out: int32 [rows * reps], one a (row,
+// rep); rows * reps < 2**31 and n >= 1 (the wrapper checks)
+int rp_threefry_categorical_rows(const int64_t* key, const uint8_t* mask, long long rows, long long n, int reps,
+                                 int32_t* out, void* stream) {
+  threefry_categorical_kernel<<<static_cast<unsigned int>(rows * reps), kCategoricalThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(key, mask, static_cast<int>(n), reps, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,9 +10,17 @@ launch each, on the card, from a key that stays there:
   (``span_multiplier`` is 0), else both and the wrapping uint32 span
   arithmetic, with every remainder by the span a multiply by its
   :func:`reciprocal`;
-* ``uniform`` — float32, ``jax.random.uniform``.
+* ``uniform`` — float32, ``jax.random.uniform``;
+* ``fold_in`` — int64[2], ``jax.random.fold_in``: one thread, one cipher.
 
-They replace XLA's lowering of threefry2x32 (``jax/_src/prng.py``,
+The same source holds kernel C1, ``categorical``: int32[R] or int32[R, r],
+``jax.random.categorical`` over the logits 0 / -inf of a bool mask
+(``sim/threefry.py:categorical_masked``), the draw and the first argmax of
+a row in one block, so the ``[R, N]`` or ``[R, r, N]`` draw is never
+written.  It replaces XLA's Gumbel draw and argmax at
+``ringpop_tpu/sim/fullview.py:296,375``.
+
+T1 replaces XLA's lowering of threefry2x32 (``jax/_src/prng.py``,
 ``_threefry2x32_lowering``) at the engines' draw sites; no Pallas kernel.
 The plain versions live in ``sim/threefry.py``, which dispatches by the
 key's device.  The launchers take CUDA tensors only and raise on anything
@@ -37,7 +45,7 @@ SOURCE = _cuda_build.CSRC / "threefry.cu"
 BUILD_DIR = _cuda_build.BUILD_DIR
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
-launches = {"split": 0, "bits": 0, "randint": 0, "uniform": 0}
+launches = {"split": 0, "bits": 0, "randint": 0, "uniform": 0, "fold_in": 0, "categorical": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -59,7 +67,10 @@ def load(path: Path) -> ctypes.CDLL:
     lib.rp_threefry_bits.argtypes = [ptr, i64, ptr, ptr]
     lib.rp_threefry_randint.argtypes = [ptr, i64, i32, u32, u32, i32, u32, i32, i32, i32, ptr, ptr]
     lib.rp_threefry_uniform.argtypes = [ptr, i64, f32, f32, ptr, ptr]
-    for fn in (lib.rp_threefry_split, lib.rp_threefry_bits, lib.rp_threefry_randint, lib.rp_threefry_uniform):
+    lib.rp_threefry_fold_in.argtypes = [ptr, u32, ptr, ptr]
+    lib.rp_threefry_categorical_rows.argtypes = [ptr, ptr, i64, i64, i32, ptr, ptr]
+    for fn in (lib.rp_threefry_split, lib.rp_threefry_bits, lib.rp_threefry_randint, lib.rp_threefry_uniform,
+               lib.rp_threefry_fold_in, lib.rp_threefry_categorical_rows):
         fn.restype = i32
     return lib
 
@@ -127,19 +138,25 @@ def _check_key(key: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} takes a raw key int64[2], got {key.dtype}{list(key.shape)}")
 
 
+def _call(name: str, entry: str, key: torch.Tensor, *args) -> None:
+    """Call the library's entry point ``entry`` with the key, ``args`` and
+    the current stream of the key's device; raise if the launch failed,
+    else count it under ``name``."""
+    lib = _library()
+    key = key.contiguous()
+    with torch.cuda.device(key.device):
+        err = getattr(lib, entry)(key.data_ptr(), *args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"threefry {name} kernel launch failed: cudaError {err}")
+    launches[name] += 1
+
+
 def _launch(name: str, key: torch.Tensor, out: torch.Tensor, *args) -> torch.Tensor:
     """Launch kernel ``name`` over ``out``'s elements (none for an empty
     draw) on the current stream of the key's device."""
     count = out.numel() // 2 if name == "split" else out.numel()
     if count:
-        lib = _library()
-        key = key.contiguous()
-        with torch.cuda.device(key.device):
-            err = getattr(lib, f"rp_threefry_{name}")(
-                key.data_ptr(), count, *args, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"threefry {name} kernel launch failed: cudaError {err}")
-        launches[name] += 1
+        _call(name, f"rp_threefry_{name}", key, count, *args, out.data_ptr())
     return out
 
 
@@ -171,3 +188,35 @@ def uniform_cuda(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0,
     _check_key(key, "uniform_cuda")
     out = torch.empty(shape, dtype=torch.float32, device=key.device)
     return _launch("uniform", key, out, ctypes.c_float(minval), ctypes.c_float(maxval))
+
+
+def fold_in_cuda(key: torch.Tensor, data: int) -> torch.Tensor:
+    """Launch T1 (fold_in): the key int64[2] ``threefry2x32(key, (0, data))``
+    for ``0 <= data < 2**32``."""
+    _check_key(key, "fold_in_cuda")
+    if not 0 <= data < 2**32:
+        raise ValueError(f"fold_in takes data in [0, 2**32), got {data}")
+    out = torch.empty(2, dtype=torch.int64, device=key.device)
+    _call("fold_in", "rp_threefry_fold_in", key, data, out.data_ptr())
+    return out
+
+
+def categorical_cuda(key: torch.Tensor, mask: torch.Tensor, reps=None) -> torch.Tensor:
+    """Launch C1 (categorical): int32[R] (``reps`` None) or int32[R, reps],
+    the masked categorical draw of each row of the bool ``mask[R, N]``."""
+    _check_key(key, "categorical_cuda")
+    if mask.dtype != torch.bool or mask.dim() != 2:
+        raise ValueError(f"categorical_cuda takes a bool mask [R, N], got {mask.dtype}{list(mask.shape)}")
+    if mask.device != key.device:
+        raise ValueError(f"the mask ({mask.device}) and the key ({key.device}) are on different devices")
+    n_rows, n = mask.shape
+    r = 1 if reps is None else int(reps)
+    if r < 1 or r * n_rows >= 2**31:
+        raise ValueError(f"categorical_cuda draws up to 2**31 - 1 rows x reps, got {n_rows} x {r}")
+    out = torch.empty((n_rows, r), dtype=torch.int32, device=key.device)
+    if out.numel() and not n:
+        raise ValueError("categorical_cuda needs at least one column to draw from")
+    if out.numel():
+        mask = mask.contiguous()
+        _call("categorical", "rp_threefry_categorical_rows", key, mask.data_ptr(), n_rows, n, r, out.data_ptr())
+    return out[:, 0] if reps is None else out

@@ -10,15 +10,24 @@ Counterpart of ``ringpop_tpu/sim``.  Ported so far:
   stream (``rng="counter"``), a pure function of (seed, tick, site, lane);
 * :mod:`ringpop_tpu_torch.sim.threefry` — the ``jax.random`` threefry
   stream (``rng="threefry"``, the engines' default): split, randint,
-  uniform and raw bits, one launch of the Hopper kernel of
-  ``csrc/threefry.cu`` a draw on a CUDA key;
+  uniform, raw bits, fold_in and the masked categorical draw, one launch
+  of a Hopper kernel of ``csrc/threefry.cu`` a draw on a CUDA key;
 * :mod:`ringpop_tpu_torch.sim.delta` — the O(N·K) rumor-dissemination
   engine (``DeltaSim``) at either stream;
 * :mod:`ringpop_tpu_torch.sim.lifecycle` — the O(N·K) failure-detection
   engine (``LifecycleSim``: probe, ping-req, Suspect, Faulty, Tombstone,
   evict, refutation) at either stream; its slot walk and
   first-live-learner select launch the Hopper kernels of
-  ``csrc/lifecycle.cu`` on a CUDA tensor.
+  ``csrc/lifecycle.cu`` on a CUDA tensor;
+* :mod:`ringpop_tpu_torch.sim.fullview` — the exact full-view engine
+  (``FullViewSim``: the whole cluster as [N, N] planes, every node's view
+  of every member); each change application is the Hopper kernel of
+  ``csrc/fullview.cu`` and the ping-target and ping-req peer draws the
+  masked categorical kernel of ``csrc/threefry.cu`` on the card;
+* :mod:`ringpop_tpu_torch.sim.conformance` — the lockstep conformance
+  gate: ``SequentialSwim``, a change-at-a-time interpreter of the SWIM
+  rules, and ``LockstepRunner``, which drives it and ``FullViewSim``
+  through the same injected draws and demands bit-identical state.
 
 This module imports none of them, so importing the package costs nothing.
 """

@@ -21,14 +21,26 @@ configures it (``jax_threefry_partitionable=True``):
   two, draws ``higher`` and ``lower`` from the halves and reduces them with
   the span in wrapping uint32 arithmetic;
 * :func:`uniform` sets the top 23 bits of a draw as a float32 mantissa in
-  [1, 2), subtracts 1 and scales.
+  [1, 2), subtracts 1 and scales;
+* :func:`fold_in` is ``threefry2x32(key, (0, d))``, which is also
+  ``split(key, d + 1)[d]``;
+* :func:`categorical_masked` is ``jax.random.categorical`` over logits of
+  0 where a mask is true and -inf where it is false: Gumbel noise
+  ``-log(-log(u))`` plus the logits, then the first argmax.  ``u`` is
+  ``uniform(minval=tiny)``, a strictly increasing function of the draw's
+  top 23 bits, and XLA's ``-log(-log(u))`` is strictly increasing over all
+  2**23 values ``u`` takes (``tests/test_torch_threefry.py`` checks it), so
+  the draw is the first index of the largest ``bits >> 9`` among the
+  allowed entries, and no logarithm is taken.  Float logarithms differ
+  between XLA and torch (and the card), so that is the only exact route.
 
 Values are int64 tensors holding uint32 (``sim/packbits`` explains why);
 :func:`randint` returns int32 and :func:`uniform` float32, as the JAX calls
 the engines make do.  Each draw follows its key's device: a CPU key takes
 the plain PyTorch version in this module, a CUDA key launches the
 hand-written Hopper kernel T1 (``ops/threefry_kernel.py``,
-``csrc/threefry.cu``) once per call or raises — never a fallback.  The
+``csrc/threefry.cu``) once per call or raises — never a fallback; the
+categorical draw is that file's kernel C1.  The
 plain version of one threefry2x32 is about 150 launches; the kernel reads
 the key on the card, so a draw adds no host sync.
 """
@@ -177,3 +189,71 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0, maxval: f
     if key.device.type == "cpu":
         return uniform_plain(key, shape, minval, maxval)
     return threefry_kernel.uniform_cuda(key, _shape(shape), minval, maxval)
+
+
+def fold_in_plain(key: torch.Tensor, data: int) -> torch.Tensor:
+    """The plain version of :func:`fold_in`."""
+    return torch.stack(threefry2x32(key[0], key[1], 0, data))
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for a uint32 ``data``: the key
+    int64[2] ``threefry2x32(key, (0, data))``."""
+    _check_key(key, "fold_in")
+    if not 0 <= data < 2**32:
+        raise ValueError(f"fold_in takes data in [0, 2**32), got {data}")
+    if key.device.type == "cpu":
+        return fold_in_plain(key, data)
+    return threefry_kernel.fold_in_cuda(key, data)
+
+
+# elements of one chunk of the plain categorical draw
+CATEGORICAL_CHUNK = 1 << 22
+
+
+def _check_mask(mask: torch.Tensor, reps) -> None:
+    if mask.dtype != torch.bool:
+        raise TypeError(
+            "categorical_masked takes a bool mask: logits of 0 where it is true "
+            f"and -inf where it is false; general logits ({mask.dtype}) are not supported")
+    if mask.dim() != 2:
+        raise ValueError(f"categorical_masked takes a mask [R, N], got {list(mask.shape)}")
+    if reps is not None and int(reps) < 1:
+        raise ValueError(f"reps must be at least 1, got {reps}")
+
+
+def categorical_masked_plain(key: torch.Tensor, mask: torch.Tensor, reps=None, rows=None) -> torch.Tensor:
+    """The plain version of :func:`categorical_masked`.  The bits are drawn
+    a chunk of rows at a time on explicit (hi, lo) counters, the flat index
+    of each element in the whole ``[R, N]`` or ``[R, reps, N]`` draw, so
+    ``rows`` (int64 row indices) draws only those rows of it."""
+    n_rows, n = mask.shape
+    r = 1 if reps is None else int(reps)
+    dev = mask.device
+    rows = torch.arange(n_rows, device=dev) if rows is None else torch.as_tensor(rows, dtype=torch.int64, device=dev)
+    out = torch.empty((rows.numel(), r), dtype=torch.int32, device=dev)
+    step = max(1, CATEGORICAL_CHUNK // max(1, r * n))
+    cols = torch.arange(n, dtype=torch.int64, device=dev)
+    for start in range(0, rows.numel(), step):
+        rc = rows[start:start + step]
+        flat = ((rc[:, None, None] * r + torch.arange(r, device=dev)[None, :, None]) * n + cols)
+        b1, b2 = threefry2x32(key[0], key[1], flat >> 32, flat & M32)
+        allowed = mask[rc]
+        allowed = (allowed | ~allowed.any(dim=1, keepdim=True))[:, None, :]
+        val = torch.where(allowed, (b1 ^ b2) >> 9, -1)
+        out[start:start + step] = val.argmax(dim=-1).to(torch.int32)
+    return out[:, 0] if reps is None else out
+
+
+def categorical_masked(key: torch.Tensor, mask: torch.Tensor, reps=None) -> torch.Tensor:
+    """``jax.random.categorical(key, where(mask, 0, -inf), axis=-1)`` for a
+    bool ``mask[R, N]``: int32[R], one index a row drawn among its true
+    entries (a row with none draws over the whole row, as the engines' safe
+    logits do), ties to the first index.  With ``reps=r`` it is
+    ``categorical(key, logits[:, None, :], shape=(R, r))``: int32[R, r]
+    from the ``[R, r, N]`` draw."""
+    _check_key(key, "categorical_masked")
+    _check_mask(mask, reps)
+    if key.device.type == "cpu":
+        return categorical_masked_plain(key, mask, reps)
+    return threefry_kernel.categorical_cuda(key, mask, reps)

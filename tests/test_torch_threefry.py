@@ -13,7 +13,14 @@ the CPU goes to the kernel, never to the plain version; the kernel's
 remainder by a precomputed reciprocal, emulated step by step in numpy
 uint64, is ``a % d``; the one-stream randint that the kernel draws when
 the multiplier is 0 equals ``jax.random.randint``; the launcher hands the
-kernel the variant and the reciprocal of the call's bounds.
+kernel the variant and the reciprocal of the call's bounds.  ``fold_in``
+equals ``jax.random.fold_in`` and ``split(key, d + 1)[d]``;
+``categorical_masked`` equals ``jax.random.categorical`` over logits 0 /
+-inf in the 2-D form and the ``(n, 3)``-from-``[n, 1, n]`` form, rows
+with no allowed entry and ties included, drawn whole and a chunk of rows
+at a time; and the premise of its exactness, that XLA's
+``-log(-log(u))`` is strictly increasing over every uniform ``u`` the
+draw takes, is checked where it can fail.
 """
 
 import contextlib
@@ -175,7 +182,9 @@ def test_draws_refuse_a_key_that_is_not_raw():
     lambda key: tk.bits_cuda(key, (4,)),
     lambda key: tk.randint_cuda(key, (4,), 0, 10),
     lambda key: tk.uniform_cuda(key, (4,)),
-], ids=["split", "bits", "randint", "uniform"])
+    lambda key: tk.fold_in_cuda(key, 1),
+    lambda key: tk.categorical_cuda(key, torch.ones((3, 5), dtype=torch.bool, device=key.device), 3),
+], ids=["split", "bits", "randint", "uniform", "fold_in", "categorical"])
 def test_launchers_refuse_non_cuda_and_never_fall_back(call, monkeypatch, tmp_path):
     """A CPU key is refused by the launcher; a key that is not on the CPU
     goes to the kernel, never to the plain version: here (no card, no nvcc)
@@ -306,4 +315,171 @@ def test_randint_launcher_passes_the_variant_and_reciprocal(lo, hi, monkeypatch)
 def test_reset_launches():
     tk.launches["randint"] = 3
     tk.reset_launches()
-    assert tk.launches == {"split": 0, "bits": 0, "randint": 0, "uniform": 0}
+    assert tk.launches == {"split": 0, "bits": 0, "randint": 0, "uniform": 0, "fold_in": 0, "categorical": 0}
+
+
+FOLD_DATA = (0, 1, 5, 2**31 - 1, 2**32 - 1)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fold_in_matches_jax_and_split(seed):
+    jk, tkey = _keys(seed)
+    for depth in range(3):
+        for d in FOLD_DATA:
+            got = tf.fold_in(tkey, d)
+            assert got.dtype == torch.int64 and got.shape == (2,)
+            assert np.array_equal(_u32(jax.random.fold_in(jk, d)), got.numpy()), (depth, d)
+            if d < 8:
+                assert torch.equal(got, tf.split(tkey, d + 1)[d])
+        jk, tkey = jax.random.split(jk, 4)[3], tf.split(tkey, 4)[3]
+    for bad in (-1, 2**32):
+        with pytest.raises(ValueError, match="fold_in takes data"):
+            tf.fold_in(tkey, bad)
+
+
+def _jax_categorical(jk, mask, reps=None):
+    """The JAX package's draw sites: safe logits (a row with nothing allowed
+    draws over the whole row), then ``jax.random.categorical``."""
+    mask = jnp.asarray(mask)
+    logits = jnp.where(mask, 0.0, -jnp.inf)
+    logits = jnp.where(mask.any(axis=1)[:, None], logits, 0.0)
+    if reps is None:
+        return np.asarray(jax.random.categorical(jk, logits, axis=1))
+    n = mask.shape[0]
+    return np.asarray(jax.random.categorical(jk, logits[:, None, :], axis=-1, shape=(n, reps)))
+
+
+def _masks(n, cols, seed):
+    rng = np.random.default_rng(seed)
+    out = {}
+    for density in (0.01, 0.5, 0.99):
+        m = rng.random((n, cols)) < density
+        m[0] = False  # nothing allowed: the whole row
+        m[1] = True
+        m[2] = False
+        m[2, -1] = True  # one allowed entry, the last
+        out[density] = m
+    return out
+
+
+@pytest.mark.parametrize("reps", [None, 3])
+@pytest.mark.parametrize("cols", [1, 31, 33, 257])
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_categorical_masked_matches_jax(seed, cols, reps):
+    jk, tkey = _keys(seed)
+    jk, tkey = jax.random.split(jk, 4)[2], tf.split(tkey, 4)[2]
+    for density, mask in _masks(40, cols, seed).items():
+        want = _jax_categorical(jk, mask, reps)
+        got = tf.categorical_masked(tkey, torch.as_tensor(mask), reps)
+        assert got.dtype == torch.int32 and got.shape == want.shape, (got.shape, want.shape)
+        assert np.array_equal(want, got.numpy()), density
+        allowed = mask | ~mask.any(axis=1, keepdims=True)
+        picked = got.numpy() if reps is None else got.numpy()[:, 0]
+        assert allowed[np.arange(40), picked].all()
+
+
+def test_categorical_masked_ties_go_to_the_first_index():
+    """Two allowed entries whose 23-bit draws are equal: both the port and
+    jax.random.categorical take the first."""
+    jk, tkey = _keys(3)
+    n = 16384  # ~16 equal pairs a row among 2**23 values
+    bits = (tf.random_bits32(tkey, (2, n)) >> 9).numpy()
+    found = 0
+    for row in range(2):
+        vals, first, counts = np.unique(bits[row], return_index=True, return_counts=True)
+        for v in vals[counts > 1][:3]:
+            j1, j2 = np.flatnonzero(bits[row] == v)[:2]
+            mask = np.zeros((2, n), bool)
+            mask[row, [j1, j2]] = True
+            mask[1 - row, 7] = True
+            got = tf.categorical_masked(tkey, torch.as_tensor(mask)).numpy()
+            assert got[row] == j1 and np.array_equal(_jax_categorical(jk, mask), got)
+            found += 1
+    assert found >= 2
+
+
+def test_categorical_masked_in_chunks_and_by_rows(monkeypatch):
+    """Chunks of one row and of a few rows, and ``rows=`` drawing rows of
+    the whole draw alone, give the whole draw's answers."""
+    jk, tkey = _keys(1)
+    mask = _masks(30, 50, 1)[0.5]
+    want = _jax_categorical(jk, mask, 3)
+    for chunk in (1, 150, 449):
+        monkeypatch.setattr(tf, "CATEGORICAL_CHUNK", chunk)
+        assert np.array_equal(want, tf.categorical_masked(tkey, torch.as_tensor(mask), 3).numpy()), chunk
+    rows = torch.tensor([29, 0, 13])
+    got = tf.categorical_masked_plain(tkey, torch.as_tensor(mask), 3, rows=rows)
+    assert np.array_equal(want[rows.numpy()], got.numpy())
+    got1 = tf.categorical_masked_plain(tkey, torch.as_tensor(mask), None, rows=rows)
+    assert np.array_equal(_jax_categorical(jk, mask)[rows.numpy()], got1.numpy())
+
+
+def test_categorical_masked_refuses_logits_and_bad_shapes():
+    key = prng.prng_key(0, "cpu")
+    with pytest.raises(TypeError, match="bool mask.*general logits"):
+        tf.categorical_masked(key, torch.zeros((3, 4)))
+    with pytest.raises(ValueError, match=r"mask \[R, N\]"):
+        tf.categorical_masked(key, torch.zeros(4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="reps"):
+        tf.categorical_masked(key, torch.zeros((3, 4), dtype=torch.bool), 0)
+
+
+def test_gumbel_is_strictly_increasing_over_every_uniform():
+    """The premise of C1's exactness: jax.random.categorical's Gumbel noise
+    ``-log(-log(u))``, with ``u = uniform(minval=tiny)`` (mode "low", the
+    default), is strictly increasing in the draw's top 23 bits over all
+    2**23 values they take, so its argmax is the argmax of those bits."""
+    from jax._src import random as jrandom
+
+    tiny = jnp.finfo(jnp.float32).tiny
+
+    @jax.jit
+    def gumbel_of(mantissa):
+        floats = jax.lax.bitcast_convert_type(mantissa | jnp.uint32(0x3F800000), jnp.float32) - 1.0
+        u = jax.lax.max(tiny, floats * (jnp.float32(1.0) - tiny) + tiny)
+        return -jnp.log(-jnp.log(u))
+
+    g = np.asarray(gumbel_of(jnp.arange(2**23, dtype=jnp.uint32)))
+    assert np.isfinite(g).all() and (np.diff(g) > 0).all()
+    # and the formula above is the one the library draws with
+    key = jax.random.PRNGKey(5)
+    bits = jax.random.bits(key, (1000,), jnp.uint32)
+    assert np.array_equal(np.asarray(jrandom.gumbel(key, (1000,))), np.asarray(gumbel_of(bits >> 9)))
+
+
+def test_new_draws_dispatch_by_the_key_device(monkeypatch):
+    seen = []
+    monkeypatch.setattr(tk, "fold_in_cuda", lambda key, d: seen.append("fold_in") or "kernel")
+    monkeypatch.setattr(tk, "categorical_cuda", lambda key, m, r: seen.append("categorical") or "kernel")
+    monkeypatch.setattr(tf, "fold_in_plain", lambda *a: pytest.fail("plain fold_in on a card key"))
+    monkeypatch.setattr(tf, "categorical_masked_plain", lambda *a: pytest.fail("plain categorical on a card key"))
+    meta = torch.empty(2, dtype=torch.int64, device="meta")
+    mask = torch.empty((2, 3), dtype=torch.bool, device="meta")
+    assert tf.fold_in(meta, 1) == tf.categorical_masked(meta, mask, 3) == "kernel"
+    assert seen == ["fold_in", "categorical"]
+
+
+@pytest.mark.parametrize("reps", [None, 3])
+def test_categorical_launcher_passes_the_mask_and_shape(reps, monkeypatch):
+    calls = []
+    monkeypatch.setattr(tk, "_library", lambda: types.SimpleNamespace(
+        rp_threefry_categorical_rows=lambda *args: calls.append(args) or 0,
+        rp_threefry_fold_in=lambda *args: calls.append(args) or 0))
+    monkeypatch.setattr(tk, "_check_key", lambda key, what: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    key = torch.empty(2, dtype=torch.int64, device="meta")
+    mask = torch.empty((7, 11), dtype=torch.bool, device="meta")
+    before = dict(tk.launches)
+    out = tk.categorical_cuda(key, mask, reps)
+    assert out.dtype == torch.int32 and out.shape == ((7,) if reps is None else (7, reps))
+    assert tk.fold_in_cuda(key, 2**32 - 1).shape == (2,)
+    assert tk.launches["categorical"] == before["categorical"] + 1
+    assert tk.launches["fold_in"] == before["fold_in"] + 1
+    (cat, fold) = calls
+    assert cat[2:5] == (7, 11, reps or 1) and len(cat) == 7
+    assert fold[1] == 2**32 - 1 and len(fold) == 4
+    with pytest.raises(ValueError, match="bool mask"):
+        tk.categorical_cuda(key, mask.to(torch.int32), reps)
+    with pytest.raises(ValueError, match="column"):
+        tk.categorical_cuda(key, torch.empty((3, 0), dtype=torch.bool, device="meta"), reps)
