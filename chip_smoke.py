@@ -124,12 +124,16 @@ scale on bench.py's own stream, threefry:
    card: C1, the masked categorical draw (``csrc/threefry.cu``), over
    random masks at densities 0.01, 0.5 and 0.99 with rows that allow
    nothing, everything and only the last entry, at N = 1, 31, 33, 1000,
-   4097, 8192, reps None and 3, keys of three seeds and chained splits, and
-   one [1432, 3, 1,000,000] draw whose counters pass 2**32, at the rows
-   around the crossing on explicit counters; T1's ``fold_in`` at d = 0, 1,
-   5, 2**31 - 1, 2**32 - 1; F1, the change application
-   (``csrc/fullview.cu``), on random states and candidate batches, every
-   plane;
+   4097, 8192, reps None and 3, keys of three seeds and chained splits;
+   long rows ([7, 16385], [64, 20003]); masks whose base lies 1..7 bytes
+   past alignment; three draws whose counters pass 2**32, at the rows
+   around the crossing on explicit counters: [1432, 3, 1,000,000] and two
+   whose crossing falls inside one of C1's runs, [1432, 3, 1,000,003] and
+   [143152, 3, 10,001]; T1's ``fold_in`` at d = 0, 1, 5, 2**31 - 1,
+   2**32 - 1; F1, the change application
+   (``csrc/fullview.cu``), on random states and candidate batches at N =
+   1, 3, 31, 33, 1000, 4097 and densities 0.01, 0.5, 1.0, every plane, and
+   its refusal of candidates and planes its word loads cannot take;
 13. a) BASELINE's north-star gate on the card: the port's
    ``LockstepRunner(n=1000, seed=7)`` with nodes 99, 499, 999 down for 12
    ticks and 8 healed, checked every 4 and at the end, the host oracle
@@ -385,6 +389,12 @@ FV_ROWS = (1, 31, 33, 1000, 4097, 8192)
 FV_DENSITIES = (0.01, 0.5, 0.99)
 FV_FOLD_DATA = (0, 1, 5, 2**31 - 1, 2**32 - 1)
 C1_BIG = (1432, 3, 1_000_000)  # a [1432, 3, 1M] draw: its counters pass 2**32 in row 1431
+# draws whose counters pass 2**32 inside one of C1's runs (N not a multiple
+# of the run): at rows 1431 and 143151
+C1_MIDRUN = ((1432, 3, 1_000_003), (143_152, 3, 10_001))
+# long rows: a warp draws thousands of runs of each (row, rep)
+FV_WIDE = ((7, 16_385), (64, 20_003))
+FV_F1_ROWS = (1, 3, 31, 33, 1000)  # F1's phase-12 planes, and FV_BIG_N + 1
 # the compare-and-select of a C1 element beyond its bits: the shift to the
 # top 23 bits and the compare with the thread's largest (a new largest, and
 # its index, is taken about log N times a row, not once an element)
@@ -1759,23 +1769,49 @@ def t1_kernel_of(symbol: str) -> str | None:
     return name
 
 
-def t1_sass_counts(lib: Path) -> dict[str, int]:
-    """Instructions (NOPs left out) of each T1 kernel in the library
-    ``lib``, from ``cuobjdump -sass``, by t1_kernel_of's names."""
+def ptxas_registers(lib: Path, name_of) -> dict[str, int]:
+    """Registers a thread of each kernel of the built library ``lib``, from
+    its ptxas report (``lib``'s ``.log``), under ``name_of(mangled
+    symbol)``; kernels it names None are left out."""
+    regs, cur = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        fn = re.search(r"Compiling entry function '(\S+)'", line)
+        if fn:
+            cur = name_of(fn.group(1))
+        used = re.search(r"Used (\d+) registers", line)
+        if cur and used:
+            regs[cur] = int(used.group(1))
+    return regs
+
+
+def sass_opcodes(lib: Path, name_of) -> dict[str, dict[str, int]]:
+    """The SASS opcodes (NOPs left out) of each kernel of the library
+    ``lib``, from ``cuobjdump -sass``, most frequent first, under
+    ``name_of(mangled symbol)``; kernels it names None are left out."""
     tool = Path(_cuda_build.find_nvcc()).with_name("cuobjdump")
     proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True, timeout=120)
     check(proc.returncode == 0, f"cuobjdump -sass {lib.name}: {proc.stderr[-500:]}")
-    counts, cur = {}, None
+    mix, cur = {}, None
     for line in proc.stdout.splitlines():
         fn = re.search(r"Function : (\S+)", line)
         if fn:
-            cur = t1_kernel_of(fn.group(1))
+            cur = name_of(fn.group(1))
             if cur:
-                counts[cur] = 0
+                mix[cur] = {}
             continue
         ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+([^;]*);", line)
-        if cur and ins and not ins.group(1).strip().startswith("NOP"):
-            counts[cur] += 1
+        if cur and ins:
+            words = ins.group(1).split()
+            op = words[1] if words[0].startswith("@") else words[0]  # past a predicate
+            if op != "NOP":
+                mix[cur][op] = mix[cur].get(op, 0) + 1
+    return {name: dict(sorted(ops.items(), key=lambda kv: -kv[1])) for name, ops in mix.items()}
+
+
+def t1_sass_counts(lib: Path) -> dict[str, int]:
+    """Instructions (NOPs left out) of each T1 kernel in the library
+    ``lib``, from ``cuobjdump -sass``, by t1_kernel_of's names."""
+    counts = {name: sum(ops.values()) for name, ops in sass_opcodes(lib, t1_kernel_of).items()}
     want = {"split", "bits", "uniform", *T1_RANDINT_VARIANTS}
     check(set(counts) == want and all(counts.values()), f"SASS of every T1 kernel and randint variant: {counts}")
     return counts
@@ -2119,15 +2155,53 @@ def random_fullview_batch(gen: torch.Generator, n: int, density: float, dev, tic
     return planes, cand
 
 
+def c1_run() -> int:
+    """The elements of one C1 run (``kRun`` in its source)."""
+    found = re.search(r"constexpr int kRun = (\d+);", threefry_kernel.SOURCE.read_text())
+    check(found is not None, "kRun in csrc/threefry.cu")
+    return int(found.group(1))
+
+
+def c1_crossing(gen: torch.Generator, key: torch.Tensor, rows: int, reps: int, cols: int, held) -> tuple[int, bool]:
+    """One C1 draw of a random [rows, cols] mask with ``reps`` whose counters
+    pass 2**32, held (``held``) at its first rows and the rows around the
+    crossing against the plain version on explicit counters; the row before
+    the crossing allows everything and the one before that nothing.
+    Returns the crossing's row and whether the crossing falls inside one of
+    C1's runs (which are aligned to the mask's address)."""
+    dev = key.device
+    mask = torch.empty((rows, cols), dtype=torch.bool, device=dev)
+    step = max(1, (1 << 28) // cols)  # in slices: the float draw of the whole mask would take 4 bytes a cell
+    for r0 in range(0, rows, step):
+        mask[r0:r0 + step] = torch.rand((min(step, rows - r0), cols), generator=gen, device=dev) < 0.5
+    crossing = (1 << 32) // cols  # the (row, rep) whose counters pass 2**32
+    check(crossing // reps < rows, f"the {rows} x {reps} x {cols} draw passes 2**32")
+    cross_row = crossing // reps
+    mask[cross_row - 1] = True
+    mask[cross_row - 2] = False
+    got = threefry_kernel.categorical_cuda(key, mask, reps)
+    check_rows = torch.tensor([0, 1, cross_row - 2, cross_row - 1, cross_row, rows - 1], device=dev)
+    check_rows = torch.unique(check_rows.clamp_max(rows - 1))
+    held("categorical", got[check_rows], threefry.categorical_masked_plain(key, mask, reps, rows=check_rows),
+         f"{rows} x {reps} x {cols} at rows {check_rows.tolist()}")
+    first_past = (1 << 32) - crossing * cols  # the column whose counter is 2**32
+    mid_run = (mask.data_ptr() + cross_row * cols + first_past) % c1_run() != 0
+    del mask, got
+    return cross_row, mid_run
+
+
 def phase12_fullview_kernels(dev: torch.device) -> dict:
     """C1, fold_in and F1 bit-equal to their plain versions on the card:
     C1 over masks at densities FV_DENSITIES (rows allowing nothing,
     everything and only the last entry) at N = FV_ROWS, reps None and 3,
     keys of three seeds and chained splits (every key below 4097 rows, the
-    seeds' own above); one C1 draw of C1_BIG whose counters pass 2**32,
-    held at its first rows and the rows around the crossing against the
-    plain version on explicit counters; fold_in at FV_FOLD_DATA; F1 on
-    random states and candidate batches.  Returns each kernel's max abs
+    seeds' own above); draws of C1_BIG and C1_MIDRUN whose counters pass
+    2**32 (C1_MIDRUN's inside a run), held at their first rows and the rows
+    around the crossing against the plain version on explicit counters
+    (:func:`c1_crossing`); long rows (FV_WIDE); masks whose base
+    lies 1..7 bytes past alignment; fold_in at FV_FOLD_DATA; F1 on random
+    states and candidate batches at N = FV_F1_ROWS and FV_BIG_N + 1, and
+    its refusal of misaligned planes.  Returns each kernel's max abs
     difference and calls."""
     t0 = time.perf_counter()
     keys = t1_keys(dev)
@@ -2157,24 +2231,27 @@ def phase12_fullview_kernels(dev: torch.device) -> dict:
         log(f"phase12: C1 at N={n}: == plain over {len(FV_DENSITIES)} densities x reps None/3 x "
             f"{len(keys if n <= 1000 else seed_keys)} keys")
 
-    rows, reps, cols = C1_BIG
     key = keys[f"seed {SEED}, split depth 2"]
-    mask = torch.empty((rows, cols), dtype=torch.bool, device=dev)
-    for r0 in range(0, rows, 256):  # in slices: the float draw of the whole mask would take 5.7 GB
-        mask[r0:r0 + 256] = torch.rand((min(256, rows - r0), cols), generator=gen, device=dev) < 0.5
-    crossing = (1 << 32) // cols  # the (row, rep) whose counters pass 2**32
-    check(crossing // reps < rows, f"the {rows} x {reps} x {cols} draw passes 2**32")
-    cross_row = min(crossing // reps, rows - 1)
-    mask[cross_row - 1] = True
-    mask[cross_row - 2] = False
-    got = threefry_kernel.categorical_cuda(key, mask, reps)
-    check_rows = torch.tensor([0, 1, cross_row - 2, cross_row - 1, cross_row, rows - 1], device=dev)
-    check_rows = torch.unique(check_rows.clamp_max(rows - 1))
-    held("categorical", got[check_rows], threefry.categorical_masked_plain(key, mask, reps, rows=check_rows),
-         f"{rows} x {reps} x {cols} at rows {check_rows.tolist()}")
-    del mask, got
+    crossings = [c1_crossing(gen, key, *shape, held) for shape in (C1_BIG, *C1_MIDRUN)]
+    for (rows, reps, cols), (cross_row, mid_run) in zip(C1_MIDRUN, crossings[1:]):
+        check(mid_run, f"the {rows} x {reps} x {cols} draw passes 2**32 inside a run of row {cross_row}")
+    for rows, cols in FV_WIDE:
+        for density in FV_DENSITIES:
+            mask = random_mask(gen, rows, cols, density, dev)
+            for reps in (None, 3):
+                held("categorical", threefry_kernel.categorical_cuda(key, mask, reps),
+                     threefry.categorical_masked_plain(key, mask, reps), f"[{rows}, {cols}] {density} reps={reps}")
+    # masks whose base lies 1..7 bytes past an 8-byte boundary: partial head runs
+    for cols in (33, 1000, 20_003):
+        base = random_mask(gen, 9, cols, 0.5, dev)
+        for skip in range(1, 8):
+            mask = base.view(-1)[skip:skip + 8 * cols].view(8, cols)
+            for reps in (None, 3):
+                held("categorical", threefry_kernel.categorical_cuda(key, mask, reps),
+                     threefry.categorical_masked_plain(key, mask, reps), f"[8, {cols}] at +{skip} B reps={reps}")
+    log(f"phase12: C1 == plain on long rows {FV_WIDE} and on masks 1..7 bytes past alignment")
 
-    for n in (1, 31, 1000, FV_BIG_N + 1):
+    for n in (*FV_F1_ROWS, FV_BIG_N + 1):
         for density in (0.01, 0.5, 1.0):
             planes, cand = random_fullview_batch(gen, n, density, dev)
             tick = torch.tensor(37, dtype=torch.int32, device=dev)
@@ -2187,7 +2264,8 @@ def phase12_fullview_kernels(dev: torch.device) -> dict:
             err["apply"] = max(err["apply"], max(int((x.long() - y.long()).abs().max()) for x, y in zip(a, b)))
             calls["apply"] += 1
             changed = sum(int((x != p).sum()) for x, p in zip(a, planes))
-            check(n == 1 or changed > 0, f"F1 changed cells at N={n}, density {density}")
+            # a batch of a few expected candidates (N = 1, 3) may change nothing
+            check(n * n * density < 4 or changed > 0, f"F1 changed cells at N={n}, density {density}")
     planes, _ = random_fullview_batch(gen, 33, 0.5, dev)
     shifted = torch.full((33 * 33 + 1,), -1, dtype=torch.int32, device=dev)[1:].view(33, 33)
     try:
@@ -2195,11 +2273,21 @@ def phase12_fullview_kernels(dev: torch.device) -> dict:
         check(False, "F1 refuses candidates that are not 16-byte aligned")
     except ValueError as e:
         check("16-byte" in str(e), f"F1's refusal of misaligned candidates names why: {e}")
+    for i, nbytes in ((0, 1), (2, 2), (1, 4), (6, 8)):  # byte planes 4-byte, int32 planes 16-byte aligned
+        raw = torch.empty(33 * 33 * planes[i].element_size() + 16, dtype=torch.uint8, device=dev)
+        moved = list(planes)
+        moved[i] = raw[nbytes:nbytes + planes[i].numel() * planes[i].element_size()].view(planes[i].dtype).view(33, 33)
+        try:
+            fullview_kernel.apply_cuda(moved, torch.full((33, 33), -1, dtype=torch.int32, device=dev), tick, now,
+                                       (5, 20, 6))
+            check(False, f"F1 refuses a {fullview.PLANES[i]} plane {nbytes} bytes past alignment")
+        except ValueError as e:
+            check("aligned" in str(e), f"F1's refusal of a misaligned {fullview.PLANES[i]} plane names why: {e}")
     torch.cuda.synchronize()
-    log(f"phase12: F1 == plain on every plane over N = 1, 31, 1000, {FV_BIG_N + 1} x 3 densities; fold_in == plain "
-        f"at {FV_FOLD_DATA} over {len(keys)} keys; the {rows} x {reps} x {cols} C1 draw == plain at rows "
-        f"{check_rows.tolist()} (draw {crossing}, row {cross_row}, crosses 2**32); calls {calls}; max abs err {err} "
-        f"({time.perf_counter() - t0:.1f} s)")
+    log(f"phase12: F1 == plain on every plane over N = {FV_F1_ROWS + (FV_BIG_N + 1,)} x 3 densities, misaligned "
+        f"planes refused; fold_in == plain at {FV_FOLD_DATA} over {len(keys)} keys; C1 == plain at the rows around "
+        f"each 2**32 crossing of {(C1_BIG, *C1_MIDRUN)} (rows, mid-run: {crossings}); calls {calls}; max abs err "
+        f"{err} ({time.perf_counter() - t0:.1f} s)")
     return {"max_abs_err": err, "calls": calls}
 
 

@@ -30,11 +30,33 @@
 // ringpop_tpu/sim/fullview.py:296 (targets, [N, N]) and :375 (ping-req
 // peers, [N, 3, N]).  Bound: operations, one cipher an element (68 lane
 // instructions with the xor) and a compare-and-select, against one mask
-// byte read.  Design: one block a (row, rep); its threads stride over the
-// row, each keeping (largest, first index) for the allowed entries and for
-// the whole row in registers, then a warp shuffle and a shared-memory
-// reduce write one int32.  The mask is read once and the draw is never
-// written to memory.
+// byte read.  Design, so that a lane runs little beyond the function's own
+// work:
+// - a warp draws one (row, rep), eight warps a block: a butterfly of warp
+//   shuffles leaves every lane with the warp's (largest, first index), with
+//   no shared memory and no barrier.  (A warp drawing every rep of its row,
+//   which read the mask once, and units of 2, 4 or 8 warps a row drew the
+//   fullview tick's draws at N = 1000 and 4096 slower: PERF.md);
+// - a lane draws runs of kRun = 8 consecutive elements: independent cipher
+//   chains, written round by round across the run so that they interleave,
+//   one key schedule, one counter high word and one 8-byte load of the
+//   run's mask bytes, issued while the lane's run before draws.  Runs are
+//   aligned to the mask's address, so a row's first and last run may be
+//   partial; a run whose counters carry into the high word mid-run takes
+//   the generic path, which adds the carry per element;
+// - an element's key is its top 23 bits in place with kRun - k in the low
+//   9 bits, 0 where barred: one unsigned max an element picks the run's
+//   largest draw at its first index, and a lane carries one (largest,
+//   first index) pair across its runs;
+// - a run whose mask bytes are all 0 runs no cipher; where every lane's
+//   run has all its bytes set, the warp runs no mask test.  The path is a
+//   warp vote: a warp split between the two runs both, and at the loss1k
+//   detection state ~9 % of runs are mixed, so nearly every warp was
+//   split (C1 at N = 1000 took 1.5-1.6 times as long).  A row that
+//   allows nothing is found by the warp's pass, which drew no run: the
+//   warp then draws the row whole.  (A ballot over the mask before the
+//   pass cost a dependent round trip to memory for each of a lane's runs.)
+// The draw is never written to memory.
 // It replaces no Pallas kernel: the JAX package reaches threefry through
 // jax.random at its engines' draw sites (ringpop_tpu/sim/delta.py:334,373-
 // 404; ringpop_tpu/sim/lifecycle.py:195,446-652,888-894), which XLA lowers
@@ -258,8 +280,101 @@ __global__ void threefry_fold_in_kernel(const int64_t* __restrict__ key, uint32_
   *out = make_longlong2(w.a, w.b);
 }
 
-constexpr int kCategoricalThreads = 256;
+constexpr int kC1Threads = 256;  // eight warps, a warp a (row, rep)
+constexpr int kRun = 8;          // elements a run: its mask bytes are one 8-byte load
 constexpr int kNoIndex = 0x7FFFFFFF;
+constexpr uint32_t kCodeBits = 0x1FFu;  // an element's key: its draw's top 23 bits in place, kRun - k below
+
+// the mask bytes of one run, four to a word
+struct RunMask {
+  uint32_t w[kRun / 4];
+};
+
+// one aligned load of a run that lies inside its row
+__device__ __forceinline__ RunMask load_run(const uint8_t* p) {
+  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+  return RunMask{{v.x, v.y}};
+}
+
+// the mask of the run from column j0 of a row: its bytes, or 1 for every
+// column where the row allows none (whole), and 0 outside [0, n)
+__device__ __forceinline__ RunMask run_mask(const uint8_t* row, int j0, int n, bool whole) {
+  RunMask m;
+  if (j0 >= 0 && j0 + kRun <= n) {
+    if (whole) {
+#pragma unroll
+      for (int i = 0; i < kRun / 4; ++i) m.w[i] = 0x01010101u;
+      return m;
+    }
+    return load_run(row + j0);
+  }
+#pragma unroll
+  for (int i = 0; i < kRun / 4; ++i) m.w[i] = 0;
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    const int j = j0 + k;
+    if (j >= 0 && j < n) m.w[k / 4] |= static_cast<uint32_t>(whole || __ldg(row + j) != 0) << (8 * (k % 4));
+  }
+  return m;
+}
+
+__device__ __forceinline__ bool run_none(const RunMask& m) {
+  uint32_t any = 0;
+#pragma unroll
+  for (int i = 0; i < kRun / 4; ++i) any |= m.w[i];
+  return any == 0;
+}
+
+// every byte set (a byte may hold any non-zero value)
+__device__ __forceinline__ bool run_all(const RunMask& m) {
+  uint32_t zero = 0;
+#pragma unroll
+  for (int i = 0; i < kRun / 4; ++i) zero |= __vcmpeq4(m.w[i], 0u);
+  return zero == 0;
+}
+
+// the largest key of the run whose first counter is (hi, lo): element k
+// draws bits(hi, lo + k), and its key is those bits with the low 9 set to
+// kRun - k, so the largest key is the largest draw at its first index.
+// The cipher runs round by round across the run's kRun chains, so each
+// chain's next step sits kRun independent instructions after its last.
+// kGeneric: barred elements (mask byte 0) key 0, and the carry of lo + k
+// into the high word; else every element is drawn on one high word.
+template <bool kGeneric>
+__device__ __forceinline__ uint32_t draw_run(const Schedule& ks, uint32_t hi, uint32_t lo, const RunMask& m) {
+  constexpr int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  uint32_t x0[kRun], x1[kRun];
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    const uint32_t c = lo + k;
+    x0[k] = (kGeneric ? hi + (c < lo) : hi) + ks.k[0];
+    x1[k] = c + ks.k[1];
+  }
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        x0[k] += x1[k];
+        x1[k] = rotl(x1[k], kRot[i & 1][j]) ^ x0[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) {
+      x0[k] += ks.k[(i + 1) % 3];
+      x1[k] += ks.k[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+    }
+  }
+  uint32_t best = 0;
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    uint32_t key = ((x0[k] ^ x1[k]) & ~kCodeBits) | static_cast<uint32_t>(kRun - k);
+    if (kGeneric && !((m.w[k / 4] >> (8 * (k % 4))) & 0xFFu)) key = 0;
+    best = max(best, key);
+  }
+  return best;
+}
 
 // (best, at) takes (value, index) when it is larger, or as large at a
 // smaller index: the first index of the largest value wins
@@ -270,60 +385,70 @@ __device__ __forceinline__ void take_first_max(int& best, int& at, int value, in
   }
 }
 
+// a butterfly over the warp: every lane ends with the warp's first max
 __device__ __forceinline__ void warp_first_max(int& best, int& at) {
 #pragma unroll
   for (int offset = 16; offset > 0; offset >>= 1) {
-    const int value = __shfl_down_sync(0xFFFFFFFFu, best, offset);
-    const int index = __shfl_down_sync(0xFFFFFFFFu, at, offset);
+    const int value = __shfl_xor_sync(0xFFFFFFFFu, best, offset);
+    const int index = __shfl_xor_sync(0xFFFFFFFFu, at, offset);
     take_first_max(best, at, value, index);
   }
 }
 
-// one block a (row, rep) q = row * reps + rep: out[q] is the first index of
-// the largest 23-bit draw of the allowed entries of mask row q / reps, or of
-// the whole row where none is allowed
-__global__ void __launch_bounds__(kCategoricalThreads)
-threefry_categorical_kernel(const int64_t* __restrict__ key, const uint8_t* __restrict__ mask, int n, int reps,
-                            int32_t* __restrict__ out) {
-  constexpr int kWarps = kCategoricalThreads / 32;
-  __shared__ int warp_best[2][kWarps], warp_at[2][kWarps];
-  const long long q = blockIdx.x;
-  const uint8_t* row = mask + (q / reps) * static_cast<long long>(n);
-  const unsigned long long base = static_cast<unsigned long long>(q) * static_cast<unsigned long long>(n);
+// one pass of a warp over its row for one (row, rep), the row's draws on
+// counters base + j: every lane returns the warp's (largest draw, first
+// index), (-1, kNoIndex) where it drew nothing
+__device__ __forceinline__ void warp_draw(const Schedule& ks, const uint8_t* m, int off, int runs, int n,
+                                          unsigned long long base, bool whole, int lane, int& best, int& at) {
+  best = -1;
+  at = kNoIndex;
+  // each run's mask is loaded one run ahead, while the run before draws
+  RunMask next = run_mask(m, lane * kRun - off, n, whole);
+  // runs rise within a lane, so a strict compare keeps the first index
+  for (int t = lane; t < runs; t += 32) {
+    const RunMask mk = next;
+    if (t + 32 < runs) next = run_mask(m, (t + 32) * kRun - off, n, whole);
+    if (run_none(mk)) continue;
+    const int j0 = t * kRun - off;
+    // a head run's counters before column 0 wrap below base; they are barred
+    const unsigned long long c0 = base + static_cast<unsigned long long>(static_cast<long long>(j0));
+    const uint32_t hi = static_cast<uint32_t>(c0 >> 32), lo = static_cast<uint32_t>(c0);
+    // the warp takes one path: where one lane's run is mixed or carries,
+    // every lane of the warp takes the generic one (a warp split between
+    // the two would run both)
+    const bool fast = __all_sync(__activemask(), run_all(mk) && lo <= 0xFFFFFFFFu - (kRun - 1));
+    const uint32_t top = fast ? draw_run<false>(ks, hi, lo, mk) : draw_run<true>(ks, hi, lo, mk);
+    const int value = static_cast<int>(top >> 9);
+    if (top && value > best) {
+      best = value;
+      at = j0 + kRun - static_cast<int>(top & kCodeBits);
+    }
+  }
+  warp_first_max(best, at);
+}
+
+// C1: warp q of the grid draws (row, rep) = (q / reps, q % reps) of mask
+// [rows, n]: out[q] is the first index of the largest 23-bit draw
+// bits(q * n + j) >> 9 among the row's allowed entries, or over the whole
+// row where it allows none
+__global__ void __launch_bounds__(kC1Threads)
+threefry_categorical_kernel(const int64_t* __restrict__ key, const uint8_t* __restrict__ mask, int units, int n,
+                            int reps, int32_t* __restrict__ out) {
+  const int q = blockIdx.x * (kC1Threads / 32) + threadIdx.x / 32;
+  if (q >= units) return;  // the whole warp
+  const int lane = threadIdx.x % 32;
+  const uint8_t* m = mask + static_cast<long long>(q / reps) * n;
+  // runs are aligned to the mask's address: run t covers columns
+  // [t * kRun - off, (t + 1) * kRun - off) of the row
+  const int off = static_cast<int>(reinterpret_cast<uintptr_t>(m) % kRun);
+  const int runs = (off + n + kRun - 1) / kRun;
   const Schedule ks = schedule(load_key(key));
-  int best_allowed = -1, at_allowed = kNoIndex, best_any = -1, at_any = kNoIndex;
-  // j rises within a thread, so a strict compare keeps the first index
-  for (int j = threadIdx.x; j < n; j += kCategoricalThreads) {
-    const unsigned long long c = base + static_cast<unsigned long long>(j);
-    const int value = static_cast<int>(bits32(ks, static_cast<uint32_t>(c >> 32), static_cast<uint32_t>(c)) >> 9);
-    if (value > best_any) {
-      best_any = value;
-      at_any = j;
-    }
-    if (__ldg(row + j) && value > best_allowed) {
-      best_allowed = value;
-      at_allowed = j;
-    }
-  }
-  warp_first_max(best_allowed, at_allowed);
-  warp_first_max(best_any, at_any);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    warp_best[0][warp] = best_allowed;
-    warp_at[0][warp] = at_allowed;
-    warp_best[1][warp] = best_any;
-    warp_at[1][warp] = at_any;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    best_allowed = lane < kWarps ? warp_best[0][lane] : -1;
-    at_allowed = lane < kWarps ? warp_at[0][lane] : kNoIndex;
-    best_any = lane < kWarps ? warp_best[1][lane] : -1;
-    at_any = lane < kWarps ? warp_at[1][lane] : kNoIndex;
-    warp_first_max(best_allowed, at_allowed);
-    warp_first_max(best_any, at_any);
-    if (lane == 0) out[q] = best_allowed >= 0 ? at_allowed : at_any;
-  }
+  const unsigned long long base = static_cast<unsigned long long>(q) * static_cast<unsigned>(n);
+  int best, at;
+  warp_draw(ks, m, off, runs, n, base, false, lane, best, at);
+  // the pass drew nothing: the row allows nothing, so the warp draws all of it
+  if (best < 0) warp_draw(ks, m, off, runs, n, base, true, lane, best, at);
+  if (lane == 0) out[q] = at;
 }
 
 // threads: one a whole run, one an element left over
@@ -374,11 +499,14 @@ int rp_threefry_fold_in(const int64_t* key, unsigned int data, int64_t* out, voi
 }
 
 // mask: bool [rows, n], contiguous; out: int32 [rows * reps], one a (row,
-// rep); rows * reps < 2**31 and n >= 1 (the wrapper checks)
+// rep); rows * reps < 2**31 and 1 <= n <= 2**30 (the wrapper checks)
 int rp_threefry_categorical_rows(const int64_t* key, const uint8_t* mask, long long rows, long long n, int reps,
                                  int32_t* out, void* stream) {
-  threefry_categorical_kernel<<<static_cast<unsigned int>(rows * reps), kCategoricalThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(key, mask, static_cast<int>(n), reps, out);
+  constexpr long long kWarps = kC1Threads / 32;
+  const long long units = rows * reps;
+  threefry_categorical_kernel<<<static_cast<unsigned int>((units + kWarps - 1) / kWarps), kC1Threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(key, mask, static_cast<int>(units),
+                                                                     static_cast<int>(n), reps, out);
   return static_cast<int>(cudaGetLastError());
 }
 

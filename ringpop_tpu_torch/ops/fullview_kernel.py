@@ -12,6 +12,10 @@ tensors, the kernel for CUDA tensors (or an error — never a fallback).
 Both update the planes in place.  A candidate is a key ``(incarnation <<
 3) | state`` >= 0, or -1 for none, so incarnations must stay below 2**28
 (the engine's ms clock reaches that after ~74 hours of simulated time).
+The kernel reads and writes four cells at once as words, so it takes
+int32 planes at 16-byte and byte planes at 4-byte aligned bases, and
+finds a cell's row by a 32-bit quotient (:func:`reciprocal` of N), so it
+takes N up to :data:`MAX_N`; :func:`apply_cuda` refuses anything else.
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``ops/_cuda_build.py``) and loaded with ctypes; nothing is built or loaded
 when this module is imported.  ``launches`` counts the kernel's launches;
@@ -28,6 +32,7 @@ from typing import Sequence
 import torch
 
 from ringpop_tpu_torch.ops import _cuda_build
+from ringpop_tpu_torch.ops.threefry_kernel import reciprocal
 from ringpop_tpu_torch.swim.member import (
     ALIVE,
     FAULTY,
@@ -44,6 +49,8 @@ BUILD_DIR = _cuda_build.BUILD_DIR
 
 # the planes' dtypes, in FullViewState's field order
 PLANE_DTYPES = (torch.int8, torch.int32, torch.bool, torch.bool, torch.int32, torch.int8, torch.int32)
+# a cell's row is a 32-bit quotient: the kernel takes N * N < 2**32 cells
+MAX_N = 65535
 
 launches = {"apply": 0}
 
@@ -62,8 +69,8 @@ def _library():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.rp_fullview_apply.argtypes = [ptr] * 10 + [i64, i32, i32, i32, ptr]
+            ptr, i32, u32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong
+            lib.rp_fullview_apply.argtypes = [ptr] * 10 + [i64, u32, i32, i32, i32, i32, i32, i32, ptr]
             lib.rp_fullview_apply.restype = i32
             _lib = lib
         return _lib
@@ -138,8 +145,14 @@ def _check(planes: Sequence[torch.Tensor], cand_key: torch.Tensor, tick: torch.T
                              f"{t.dtype}{list(t.shape)}")
         if t.device != cand_key.device:
             raise ValueError("apply_cuda takes every tensor on one device")
-    if cand_key.data_ptr() % 16:
-        raise ValueError("apply_cuda reads the candidates in 16-byte loads: their base must be 16-byte aligned")
+        # four cells' bytes in one word, four int32 cells in one 16-byte load
+        align = 4 * t.element_size()
+        if t.data_ptr() % align:
+            raise ValueError(f"apply_cuda reads {dtype} planes in {align}-byte words: their base must be "
+                             f"{align}-byte aligned, got an address {t.data_ptr() % align} past it")
+    if n > MAX_N:
+        raise ValueError(f"apply_cuda takes N <= {MAX_N} (N * N < 2**32 cells: a cell's row is a 32-bit "
+                         f"quotient), got {n}")
     for t in (tick, now_ms):
         if t.dtype != torch.int32 or t.numel() != 1 or t.device != cand_key.device:
             raise ValueError(f"apply_cuda takes tick and now_ms as int32 scalars on {cand_key.device}")
@@ -155,10 +168,11 @@ def apply_cuda(planes: Sequence[torch.Tensor], cand_key: torch.Tensor, tick: tor
     if n == 0:
         return
     lib = _library()
+    magic, add, shift1, shift2 = reciprocal(n)
     with torch.cuda.device(cand_key.device):
         err = lib.rp_fullview_apply(
             cand_key.data_ptr(), *(p.data_ptr() for p in planes), tick.data_ptr(), now_ms.data_ptr(), n,
-            *(int(t) for t in timeouts), torch.cuda.current_stream().cuda_stream)
+            magic, add, shift1, shift2, *(int(t) for t in timeouts), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fullview apply kernel launch failed: cudaError {err}")
     launches["apply"] += 1

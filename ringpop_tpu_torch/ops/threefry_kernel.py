@@ -15,10 +15,10 @@ launch each, on the card, from a key that stays there:
 
 The same source holds kernel C1, ``categorical``: int32[R] or int32[R, r],
 ``jax.random.categorical`` over the logits 0 / -inf of a bool mask
-(``sim/threefry.py:categorical_masked``), the draw and the first argmax of
-a row in one block, so the ``[R, N]`` or ``[R, r, N]`` draw is never
-written.  It replaces XLA's Gumbel draw and argmax at
-``ringpop_tpu/sim/fullview.py:296,375``.
+(``sim/threefry.py:categorical_masked``): the draw and the first argmax of
+a (row, rep) in one warp, in runs of eight elements a lane, so the ``[R,
+N]`` or ``[R, r, N]`` draw is never written.  It replaces XLA's Gumbel draw
+and argmax at ``ringpop_tpu/sim/fullview.py:296,375``.
 
 T1 replaces XLA's lowering of threefry2x32 (``jax/_src/prng.py``,
 ``_threefry2x32_lowering``) at the engines' draw sites; no Pallas kernel.
@@ -44,6 +44,8 @@ from ringpop_tpu_torch.ops import _cuda_build
 SOURCE = _cuda_build.CSRC / "threefry.cu"
 BUILD_DIR = _cuda_build.BUILD_DIR
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+# C1 indexes a row's columns and runs in int32
+CATEGORICAL_MAX_COLS = 2**30
 
 launches = {"split": 0, "bits": 0, "randint": 0, "uniform": 0, "fold_in": 0, "categorical": 0}
 
@@ -213,6 +215,8 @@ def categorical_cuda(key: torch.Tensor, mask: torch.Tensor, reps=None) -> torch.
     r = 1 if reps is None else int(reps)
     if r < 1 or r * n_rows >= 2**31:
         raise ValueError(f"categorical_cuda draws up to 2**31 - 1 rows x reps, got {n_rows} x {r}")
+    if n > CATEGORICAL_MAX_COLS:
+        raise ValueError(f"categorical_cuda draws rows of at most 2**30 columns, got {n}")
     out = torch.empty((n_rows, r), dtype=torch.int32, device=key.device)
     if out.numel() and not n:
         raise ValueError("categorical_cuda needs at least one column to draw from")

@@ -25,6 +25,7 @@ import torch
 from ringpop_tpu.sim import fullview as jfv
 from ringpop_tpu.sim.delta import DeltaFaults as JDeltaFaults
 from ringpop_tpu_torch.ops import fullview_kernel as fk
+from ringpop_tpu_torch.ops import threefry_kernel as tk
 from ringpop_tpu_torch.sim import fullview as tfv
 from ringpop_tpu_torch.sim.delta import DeltaFaults
 
@@ -300,7 +301,7 @@ def test_apply_launcher_passes_planes_scalars_and_timeouts(monkeypatch):
     fk.apply_cuda(planes, cand, tick, now, (5, 20, 6))
     assert fk.launches["apply"] == before + 1
     (args,) = calls
-    assert len(args) == 15 and args[10:] == (n, 5, 20, 6, 0)
+    assert len(args) == 19 and args[10:] == (n, *tk.reciprocal(n), 5, 20, 6, 0)
     with pytest.raises(ValueError, match="int32"):
         fk.apply_cuda(planes[:1] + [planes[1].to(torch.int64)] + planes[2:], cand, tick, now, (5, 20, 6))
     with pytest.raises(ValueError, match="scalars"):

@@ -483,3 +483,5 @@ def test_categorical_launcher_passes_the_mask_and_shape(reps, monkeypatch):
         tk.categorical_cuda(key, mask.to(torch.int32), reps)
     with pytest.raises(ValueError, match="column"):
         tk.categorical_cuda(key, torch.empty((3, 0), dtype=torch.bool, device="meta"), reps)
+    with pytest.raises(ValueError, match="2\\*\\*30 columns"):
+        tk.categorical_cuda(key, torch.empty((1, 2**30 + 1), dtype=torch.bool, device="meta"), reps)

@@ -19,7 +19,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -34,20 +33,6 @@ from ringpop_tpu_torch.sim import prng, threefry
 CONFIGS = ((128, 8), (64, 8), (256, 8), (128, 4), (256, 4), (512, 4))
 N = 1_000_000
 SEED = 0
-
-
-def registers(lib: Path) -> dict[str, int]:
-    """Registers a thread of each T1 kernel of a build, from its ptxas
-    report, by chip_smoke.t1_kernel_of's names."""
-    regs, cur = {}, None
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        fn = re.search(r"Compiling entry function '(\S+)'", line)
-        if fn:
-            cur = chip_smoke.t1_kernel_of(fn.group(1))
-        used = re.search(r"Used (\d+) registers", line)
-        if cur and used:
-            regs[cur] = int(used.group(1))
-    return regs
 
 
 def draw(lib: ctypes.CDLL, key: torch.Tensor, kind: str, shape: tuple[int, ...], *bounds) -> torch.Tensor:
@@ -101,7 +86,8 @@ def main() -> int:
         libs = dict(zip(defines, ex.map(threefry_kernel.build, defines.values())))
     draws = {"randint_n_by_3": ("randint", (N, 3), 0, N), "uniform_n": ("uniform", (N,))}
     times = time_builds(libs, draws, torch.device("cuda"))
-    result = {label: {"registers": registers(lib), **times[label]} for label, lib in libs.items()}
+    result = {label: {"registers": chip_smoke.ptxas_registers(lib, chip_smoke.t1_kernel_of), **times[label]}
+              for label, lib in libs.items()}
     for label, rec in result.items():
         chip_smoke.log(f"tuning: T1 at {label} (threads x elements): {rec}")
     print(json.dumps({"card": card, "t1_tuning": result}), flush=True)
