@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of ringpop_tpu_torch on one CUDA card: the keyed-ownership path,
 the SWIM dissemination engine, the SWIM failure-detection engine, the
-threefry stream, the headline benchmark record, and the exact full-view
-engine with its lockstep conformance gate.
+threefry stream, the headline benchmark record, the exact full-view
+engine with its lockstep conformance gate, and the telemetry plane with
+the chaos and topology fault plans.
 
     python3 chip_smoke.py
 
@@ -147,7 +148,26 @@ scale on bench.py's own stream, threefry:
    an 8-tick block at each size under the profiler (ms and launches a
    tick, busy share, device time by ``fullview.PHASES``), and the same
    block with C1 and F1 swapped for their plain versions; C1 and F1 alone
-   on the calls of one tick at each size beside their bounds.
+   on the calls of one tick at each size beside their bounds;
+14. a) hold the telemetry kernels (``csrc/telemetry.cu``) bit-equal against
+   their plain versions on the card: D1, the state digest, over
+   lifecycle-shaped leaf sets at N = 1, 31, 33, 4097, 1,000,000 x K = 40,
+   64, 256 (random and all-negative int8 planes) at flat offsets 0, 5 and
+   2**32 - 3, leaves 1..7 elements past alignment, both engines' states
+   and an int8 plane of 2**32 + 256 elements, whose flat index wraps; P1,
+   the per-tick accumulate, at N up to 1,000,000 x W = 1, 2, 8 on random,
+   empty and full planes; then each alone by profiler name at the main
+   path's shapes beside its bound; b) the main path, phase 9's headline
+   with a ``TelemetrySink`` journal and ``journal_views=True``: phase 9's
+   tick counts and final digests, the JAX package's block records (pinned
+   below), P1 once a tick and D1 once a record; detection with telemetry
+   off and on in turns and a 32-tick block each way under the profiler;
+   c) simbench's churn100k (100,000 x 256, the churn plan, 256 ticks),
+   d) ``topo_scenario_plan("zone_loss")`` at 4096 x 32 with the per-tier
+   counters, e) BASELINE config 4, partition1m (1,000,000 x 128 on the
+   delta engine): their journals and verdicts == the JAX pins, with their
+   wall times.  Phase 14's journals and the whole record go to
+   ``chip_smoke_out/``.
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -165,7 +185,8 @@ sparse, late and empty columns) with each ``want``; ``--detect-wall
 that stream (counter unless named), five runs (run it from another
 checkout's root, with this script copied there, to compare two versions
 in one call); ``--threefry`` builds the kernels and runs steps 10-11
-alone; ``--fullview`` builds them and runs steps 12-13 alone.
+alone; ``--fullview`` builds them and runs steps 12-13 alone;
+``--telemetry`` builds them and runs step 14 alone.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
 device is available.  Imports nothing of JAX or of ``ringpop_tpu``.
@@ -195,12 +216,24 @@ from ringpop_tpu_torch.ops import (
     hash_kernel,
     lifecycle_kernel,
     packbits_kernel,
+    telemetry_kernel,
     threefry_kernel,
 )
 from ringpop_tpu_torch.ops.hash_ops import fingerprint32_device, keyed_owner_lookup, upload_keys
 from ringpop_tpu_torch.ops.ring_ops import build_ring_tokens, host_lookup_n, ring_lookup
 from ringpop_tpu_torch.serve.state import RingStore, serve_lookup_fused, serve_lookup_n_fused
-from ringpop_tpu_torch.sim import conformance, delta, fullview, lifecycle, packbits, prng, threefry
+from ringpop_tpu_torch.sim import (
+    chaos,
+    conformance,
+    delta,
+    fullview,
+    lifecycle,
+    packbits,
+    prng,
+    telemetry,
+    threefry,
+    topology,
+)
 from ringpop_tpu_torch.swim.member import FAULTY, SUSPECT
 
 SEED = 20261016
@@ -610,13 +643,14 @@ def random_strings(rng: np.random.Generator, n: int, max_len: int) -> tuple[np.n
     return pack_strings([rng.integers(0, 256, size=n_, dtype=np.uint8).tobytes() for n_ in lengths])
 
 
-def at_offset(dmat: torch.Tensor, offset: int) -> torch.Tensor:
-    """A contiguous copy of ``dmat`` that starts ``offset`` bytes into its
-    storage, so its base is not 16-byte aligned for offset % 16 != 0."""
-    b, w = dmat.shape
-    flat = torch.zeros(b * w + 32, dtype=torch.uint8, device=dmat.device)
-    view = flat[offset: offset + b * w].view(b, w)
-    view.copy_(dmat)
+def at_offset(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts ``offset`` bytes (a multiple
+    of its element size) into its storage, so its base is not 16-byte
+    aligned for offset % 16 != 0."""
+    nbytes = x.numel() * x.element_size()
+    flat = torch.zeros(offset + nbytes + 16, dtype=torch.uint8, device=x.device)
+    view = flat[offset: offset + nbytes].view(x.dtype).view(x.shape)
+    view.copy_(x)
     check(view.is_contiguous() and view.data_ptr() % 16 == offset % 16, "offset view")
     return view
 
@@ -2640,10 +2674,630 @@ def run_fullview(dev: torch.device) -> tuple[list, dict]:
     return kernels, {"fullview_kernels": p12, "fullview_gate": gate, "fullview": fv}
 
 
+# -- phase 14: the telemetry plane, the chaos and topology plans, D1 and P1 --
+
+OUT_DIR = Path("chip_smoke_out")  # phase 14's journals and the whole record, beside the log (git ignores it)
+TEL_ROWS = (1, 31, 33, 4097, 1_000_000)
+TEL_SLOTS = (40, 64, 256)
+TEL_WORDS = (1, 2, 8)
+TEL_WIDE_ROWS = (1 << 24) + 1  # an int8 [TEL_WIDE_ROWS, 256] plane: 2**32 + 256 elements, 4.3 GB
+# the float32 record keys that are N·T-scaling sums: exact below 2**24 in
+# both packages, the order of summation deciding the last bits above it
+TEL_SUM_KEYS = frozenset(
+    ["ping_send", "ping_req_send", "ping_timeout", "refuted", "rumors_piggybacked", "rumors_expired", "timer_fired",
+     "refuted_unreachable_dir", "refuted_reachable_dir"]
+    + [f"{pre}_{key}" for pre in ("suspects", "false_suspects") for key in telemetry.TIER_KEYS])
+TEL_SUM_EXACT_BELOW = 2.0**24
+TEL_SUM_RTOL = 2.0**-20
+# D1's least work an element: two fmix32 (shift, xor, multiply, shift, xor,
+# multiply, shift, xor: 8 each; the value's xor folds into the inner mix's
+# last three-input xor) and the wrapping add
+FMIX32_OPS = 8
+D1_OPS = 2 * FMIX32_OPS + 1
+# the chaos and topology runs (cli/simbench.py:_run_chaos_scenario): the
+# lifecycle engine at suspect_ticks 10 on the counter stream, 16-tick blocks
+TEL_SEED, TEL_HORIZON, TEL_BLOCK, TEL_SUSPECT_TICKS = 0, 256, 16, 10
+TEL_CHURN_N, TEL_CHURN_K = 100_000, 256  # simbench churn100k (cli/simbench.py:1888-1894)
+TEL_TOPO_N, TEL_TOPO_K = 4096, 32  # bench_topo_chaos's width (cli/simbench.py:1939-1941)
+# BASELINE config 4 (cli/simbench.py:752-788): the delta engine, a 30 % partition, then the heal
+TEL_PART_N, TEL_PART_K, TEL_PART_MINORITY = 1_000_000, 128, 0.3
+TEL_PART_TICKS, TEL_HEAL_TICKS = 256, 4096
+
+
+def tel_records(keys: tuple, rows: list) -> list[dict]:
+    """Pinned journal records, stored as rows of values in ``keys``' order."""
+    return [dict(zip(keys, row)) for row in rows]
+
+
+# pinned from the JAX package (ringpop_tpu.sim.telemetry, .chaos, .topology)
+# run on the CPU; tests/test_torch_chip_smoke_pins_telemetry.py recomputes them
+PIN_TEL_HEADLINE = {  # phase 9's recipe with a TelemetrySink and journal_views=True
+    'detect': [128, True],
+    'converge': [0, True],
+    'records': tel_records(('census_alive', 'census_faulty', 'census_suspect', 'census_tombstone', 'decl_alive', 'decl_faulty',
+                   'decl_suspect', 'decl_tombstone', 'detect_frac', 'heal_attempts', 'num_members', 'ping_req_send',
+                   'ping_send', 'ping_timeout', 'refuted', 'rumors_active', 'rumors_expired', 'rumors_piggybacked',
+                   'state_digest', 'tick', 'ticks', 'timer_fired', 'views_agree', 'views_sum'), [
+        (999000, 1000, 0, 0, 0, 1000, 1000, 0, 1.0, 1, 1000000, 249958.0, 127744136.0, 83406.0, 0.0, 0, 0.0, 12302178304.0,
+         2244873187, 128, 128, 1000.0, True, 1194085248),
+        (999000, 1000, 0, 0, 0, 0, 0, 0, 1.0, 0, 1000000, 0.0, 0.0, 0.0, 0.0, 0, 0.0, 0.0, 2244873187, 128, 0, 0.0, True,
+         1194085248),
+    ]),
+}
+PIN_TEL_CHURN = {  # churn100k: the block records and the verdict
+    'score': {'kind': 'score',
+     'scenario': 'churn100k',
+     'n': 100000,
+     'ticks': 256,
+     'blocks': 16,
+     'block_granularity_ticks': 16,
+     'events': [{'kind': 'crash', 'tick': 8, 'nodes': 250}, {'kind': 'crash', 'tick': 16, 'nodes': 250},
+                {'kind': 'crash', 'tick': 24, 'nodes': 250}, {'kind': 'crash', 'tick': 32, 'nodes': 250},
+                {'kind': 'restart', 'tick': 72, 'nodes': 187}, {'kind': 'restart', 'tick': 80, 'nodes': 187},
+                {'kind': 'restart', 'tick': 88, 'nodes': 188}, {'kind': 'restart', 'tick': 96, 'nodes': 188}],
+     'time_to_detect': [[8, 136], [16, 128], [24, 120], [32, 112]],
+     'time_to_detect_median': 128,
+     'rumor_half_life': [[8, 88], [16, 80], [24, 72], [32, 64]],
+     'rumor_half_life_median': 80,
+     'refutations': 552,
+     'false_positive_suspects': 0,
+     'suspects_declared': 802,
+     'faulty_declared': 677,
+     'heal_attempts': 4,
+     'final_detect_frac': 1.0,
+     'rejoin_convergence_ticks': 48},
+    'records': tel_records(('census_alive', 'census_faulty', 'census_suspect', 'census_tombstone', 'decl_alive', 'decl_faulty',
+                   'decl_suspect', 'decl_tombstone', 'detect_frac', 'heal_attempts', 'num_members', 'ping_req_send',
+                   'ping_send', 'ping_timeout', 'refuted', 'rumors_active', 'rumors_expired', 'rumors_piggybacked',
+                   'state_digest', 'tick', 'ticks', 'timer_fired'), [
+        (100000, 0, 0, 0, 0, 0, 250, 0, 0.0, 0, 100000, 5977.0, 1596003.0, 1997.0, 0.0, 250, 0.0, 305210.0, 1733536778, 16,
+         16, 0.0),
+        (99746, 0, 254, 0, 0, 254, 6, 0, 0.0, 0, 100000, 29508.0, 1580066.0, 9902.0, 0.0, 256, 0.0, 157241632.0,
+         1315632472, 32, 16, 5.0),
+        (99744, 254, 2, 0, 0, 2, 254, 0, 0.254, 0, 100000, 36753.0, 1568165.0, 12373.0, 0.0, 256, 0.0, 190946224.0,
+         1411297407, 48, 16, 2.0),
+        (99491, 413, 96, 0, 0, 254, 158, 0, 0.413, 1, 100000, 33145.0, 1568133.0, 11158.0, 0.0, 256, 0.0, 285694048.0,
+         2521764500, 64, 16, 111.0),
+        (99265, 510, 225, 0, 187, 63, 73, 0, 0.432907, 0, 100000, 23808.0, 1569634.0, 8003.0, 187.0, 256, 0.0, 181015040.0,
+         3623333920, 80, 16, 63.0),
+        (99446, 380, 174, 0, 245, 5, 0, 0, 0.588, 0, 100000, 13556.0, 1579780.0, 4544.0, 245.0, 256, 0.0, 166687072.0,
+         1096924057, 96, 16, 90.0),
+        (99697, 224, 79, 0, 120, 38, 61, 0, 0.604, 0, 100000, 4808.0, 1589966.0, 1606.0, 120.0, 214, 0.0, 170455424.0,
+         1484307973, 112, 16, 78.0),
+        (99811, 189, 0, 0, 0, 61, 0, 0, 0.756, 0, 100000, 3151.0, 1591782.0, 1052.0, 0.0, 122, 0.0, 252492736.0,
+         2693672935, 128, 16, 61.0),
+        (99750, 250, 0, 0, 0, 0, 0, 0, 1.0, 0, 100000, 30.0, 1592007.0, 10.0, 0.0, 0, 0.0, 35472732.0, 3995203184, 144, 16,
+         0.0),
+        (99750, 250, 0, 0, 0, 0, 0, 0, 1.0, 0, 100000, 0.0, 1592014.0, 0.0, 0.0, 0, 0.0, 0.0, 1453683169, 160, 16, 0.0),
+        (99750, 250, 0, 0, 0, 0, 0, 0, 1.0, 1, 100000, 0.0, 1592006.0, 0.0, 0.0, 0, 0.0, 0.0, 3721052117, 176, 16, 0.0),
+        (99750, 250, 0, 0, 0, 0, 0, 0, 1.0, 0, 100000, 0.0, 1592018.0, 0.0, 0.0, 0, 0.0, 0.0, 1879082517, 192, 16, 0.0),
+        (99750, 250, 0, 0, 0, 0, 0, 0, 1.0, 0, 100000, 0.0, 1592009.0, 0.0, 0.0, 0, 0.0, 0.0, 3904409273, 208, 16, 0.0),
+        (99750, 250, 0, 0, 0, 0, 0, 0, 1.0, 0, 100000, 0.0, 1592012.0, 0.0, 0.0, 0, 0.0, 0.0, 2095685515, 224, 16, 0.0),
+        (99750, 250, 0, 0, 0, 0, 0, 0, 1.0, 2, 100000, 0.0, 1592008.0, 0.0, 0.0, 0, 0.0, 0.0, 3899533600, 240, 16, 0.0),
+        (99750, 250, 0, 0, 0, 0, 0, 0, 1.0, 0, 100000, 0.0, 1592011.0, 0.0, 0.0, 0, 0.0, 0.0, 3403783422, 256, 16, 0.0),
+    ]),
+}
+PIN_TEL_TOPO = {  # zone_loss at 4096 x 32 with the per-tier counters
+    'score': {'kind': 'score',
+     'scenario': 'topo_zone_loss',
+     'n': 4096,
+     'ticks': 256,
+     'blocks': 16,
+     'block_granularity_ticks': 16,
+     'events': [{'kind': 'crash', 'tick': 8, 'nodes': 1024}, {'kind': 'restart', 'tick': 128, 'nodes': 1024}],
+     'time_to_detect': [[8, 120]],
+     'time_to_detect_median': 120,
+     'rumor_half_life': [[8, 120]],
+     'rumor_half_life_median': 120,
+     'refutations': 163,
+     'false_positive_suspects': 0,
+     'suspects_declared': 163,
+     'faulty_declared': 137,
+     'heal_attempts': 3,
+     'final_detect_frac': 1.0,
+     'rejoin_convergence_ticks': None,
+     'suspects_by_tier': {'same_rack': 0, 'cross_rack': 0, 'cross_zone': 56, 'cross_region': 107},
+     'false_positive_by_tier': {'same_rack': 0, 'cross_rack': 0, 'cross_zone': 0, 'cross_region': 19},
+     'time_to_detect_by_tier': {'same_rack': None, 'cross_rack': None, 'cross_zone': 8, 'cross_region': 8}},
+    'records': tel_records(('census_alive', 'census_faulty', 'census_suspect', 'census_tombstone', 'decl_alive', 'decl_faulty',
+                   'decl_suspect', 'decl_tombstone', 'detect_frac', 'false_suspects_cross_rack',
+                   'false_suspects_cross_region', 'false_suspects_cross_zone', 'false_suspects_same_rack',
+                   'heal_attempts', 'num_members', 'ping_req_send', 'ping_send', 'ping_timeout', 'refuted',
+                   'rumors_active', 'rumors_expired', 'rumors_piggybacked', 'state_digest', 'suspects_cross_rack',
+                   'suspects_cross_region', 'suspects_cross_zone', 'suspects_same_rack', 'tick', 'ticks',
+                   'timer_fired'), [
+        (4095, 0, 1, 0, 1, 0, 32, 0, 0.0, 0.0, 3.0, 0.0, 0.0, 0, 4096, 24271.0, 46604.0, 10740.0, 1.0, 32, 0.0, 36194.0,
+         1540743063, 0.0, 3.0, 29.0, 0.0, 16, 16, 0.0),
+        (4069, 0, 27, 0, 2, 26, 0, 0, 0.0, 0.0, 0.0, 0.0, 0.0, 0, 4096, 31485.0, 34495.0, 14650.0, 2.0, 32, 0.0, 798668.0,
+         2041507727, 0.0, 0.0, 0.0, 0.0, 32, 16, 6.0),
+        (4066, 29, 1, 0, 0, 7, 29, 0, 0.02832, 0.0, 0.0, 0.0, 0.0, 0, 4096, 28585.0, 35624.0, 13226.0, 0.0, 32, 0.0,
+         902290.0, 1623492751, 0.0, 28.0, 1.0, 0.0, 48, 16, 6.0),
+        (4038, 54, 4, 0, 0, 25, 28, 0, 0.052734, 0.0, 3.0, 0.0, 0.0, 1, 4096, 31303.0, 34158.0, 14512.0, 0.0, 32, 0.0,
+         1033806.0, 1118186243, 0.0, 26.0, 2.0, 0.0, 64, 16, 8.0),
+        (4013, 58, 25, 0, 4, 24, 1, 0, 0.056641, 0.0, 1.0, 0.0, 0.0, 0, 4096, 26359.0, 36246.0, 12268.0, 4.0, 32, 0.0,
+         688117.0, 272985130, 0.0, 1.0, 0.0, 0.0, 80, 16, 1.0),
+        (4008, 83, 5, 0, 0, 7, 31, 0, 0.081055, 0.0, 0.0, 0.0, 0.0, 0, 4096, 26328.0, 36134.0, 12178.0, 0.0, 32, 0.0,
+         702587.0, 2719203180, 0.0, 7.0, 24.0, 0.0, 96, 16, 4.0),
+        (3989, 89, 18, 0, 0, 25, 0, 0, 0.086914, 0.0, 0.0, 0.0, 0.0, 0, 4096, 31195.0, 33680.0, 14471.0, 0.0, 32, 0.0,
+         1005781.0, 212731181, 0.0, 0.0, 0.0, 0.0, 112, 16, 21.0),
+        (3959, 114, 23, 0, 1, 23, 31, 0, 1.0, 0.0, 1.0, 0.0, 0.0, 0, 4096, 22873.0, 37294.0, 10557.0, 1.0, 32, 0.0,
+         787369.0, 2526429339, 0.0, 31.0, 0.0, 0.0, 128, 16, 0.0),
+        (3952, 137, 7, 0, 32, 0, 0, 0, 1.0, 0.0, 0.0, 0.0, 0.0, 0, 4096, 8790.0, 60435.0, 3074.0, 32.0, 32, 0.0, 1006740.0,
+         3521778933, 0.0, 0.0, 0.0, 0.0, 144, 16, 0.0),
+        (3998, 91, 7, 0, 46, 0, 0, 0, 1.0, 0.0, 0.0, 0.0, 0.0, 0, 4096, 6035.0, 61749.0, 2108.0, 46.0, 32, 0.0, 1394755.0,
+         3775032008, 0.0, 0.0, 0.0, 0.0, 160, 16, 0.0),
+        (4048, 43, 5, 0, 50, 0, 0, 0, 1.0, 0.0, 0.0, 0.0, 0.0, 1, 4096, 7770.0, 61868.0, 2717.0, 50.0, 32, 0.0, 1010040.0,
+         1720716603, 0.0, 0.0, 0.0, 0.0, 176, 16, 7.0),
+        (4084, 12, 0, 0, 16, 0, 1, 0, 1.0, 0.0, 1.0, 0.0, 0.0, 0, 4096, 7047.0, 62699.0, 2467.0, 16.0, 13, 0.0, 1030902.0,
+         568165163, 0.0, 1.0, 0.0, 0.0, 192, 16, 0.0),
+        (4096, 0, 0, 0, 3, 0, 3, 0, 1.0, 0.0, 3.0, 0.0, 0.0, 0, 4096, 9610.0, 62185.0, 3351.0, 3.0, 5, 0.0, 346755.0,
+         3885126873, 0.0, 3.0, 0.0, 0.0, 208, 16, 0.0),
+        (4096, 0, 0, 0, 3, 0, 4, 0, 1.0, 0.0, 4.0, 0.0, 0.0, 0, 4096, 7663.0, 62856.0, 2680.0, 3.0, 6, 0.0, 256693.0,
+         761142671, 0.0, 4.0, 0.0, 0.0, 224, 16, 0.0),
+        (4096, 0, 0, 0, 3, 0, 1, 0, 1.0, 0.0, 1.0, 0.0, 0.0, 1, 4096, 7924.0, 62770.0, 2766.0, 3.0, 4, 0.0, 400650.0,
+         2023134662, 0.0, 1.0, 0.0, 0.0, 240, 16, 0.0),
+        (4096, 0, 0, 0, 2, 0, 2, 0, 1.0, 0.0, 2.0, 0.0, 0.0, 0, 4096, 9756.0, 62138.0, 3398.0, 2.0, 4, 0.0, 144112.0,
+         1542879955, 0.0, 2.0, 0.0, 0.0, 256, 16, 0.0),
+    ]),
+}
+PIN_TEL_PARTITION = {  # partition1m: the delta journal's (tick, coverage, digest) records
+    'partition_ticks': 256,
+    'heal_ticks': 8,
+    'converged': True,
+    'records': tel_records(('coverage', 'digest', 'tick'), [
+        (0.3, 2651896, 64),
+        (0.3, 1361611419, 128),
+        (0.3, 3525348601, 192),
+        (0.3, 3039263630, 256),
+        (1.0, 4194064686, 264),
+    ]),
+}
+
+
+def records_match(got: list, want: list) -> bool:
+    """Are two journals' records equal?  Every key and value exactly,
+    except a float32 N·T sum (TEL_SUM_KEYS) above 2**24, which may differ
+    by TEL_SUM_RTOL relative: the port takes each sum exactly and rounds
+    once, the JAX package sums in float32 in its own order."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if set(g) != set(w):
+            return False
+        for key, wv in w.items():
+            gv = g[key]
+            if key in TEL_SUM_KEYS and isinstance(wv, float) and abs(wv) > TEL_SUM_EXACT_BELOW:
+                if not isinstance(gv, float) or abs(gv - wv) > TEL_SUM_RTOL * abs(wv):
+                    return False
+            elif type(gv) is not type(wv) or gv != wv:
+                return False
+    return True
+
+
+def record_diff(got: list, want: list) -> list:
+    """The first differing records, for a failure's message."""
+    out = [(i, {k: (g.get(k), w.get(k)) for k in set(g) | set(w) if g.get(k) != w.get(k)})
+           for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    return out[:3] + ([f"{len(got)} records, {len(want)} pinned"] if len(got) != len(want) else [])
+
+
+def tel_headline_run(dev, n: int = LIFE_N, k: int = LIFE_K, journal=None):
+    """The headline with telemetry: phase 9's recipe (``LifecycleSim(n, k,
+    seed=0, rng="counter")``, bench.py's victims down,
+    ``run_until_detected(max_ticks=4096, check_every=32,
+    blocks_per_dispatch=8)``, then ``run_until_converged``) with a
+    ``TelemetrySink`` (journalled when ``journal`` is given) and
+    ``journal_views=True``.  Returns (the result, the sim)."""
+    victims, faults = headline_faults(dev, n)
+    sink = telemetry.TelemetrySink(journal=journal)
+    sim = lifecycle.LifecycleSim(n=n, k=k, seed=LIFE_SEED, rng="counter", telemetry=sink, journal_views=True,
+                                 device=dev)
+    detect = sim.run_until_detected(victims, faults, max_ticks=LIFE_MAX_TICKS, check_every=LIFE_CHECK_EVERY,
+                                    blocks_per_dispatch=8)
+    converge = sim.run_until_converged(faults, max_ticks=LIFE_MAX_TICKS, check_every=LIFE_CHECK_EVERY,
+                                       blocks_per_dispatch=8)
+    return {"detect": list(detect), "converge": list(converge), "records": sink.records}, sim
+
+
+def tel_chaos_run(dev, plan, n: int, k: int, scenario: str, tiers: bool = False, journal=None):
+    """A chaos or topology scenario as simbench runs it
+    (``_run_chaos_scenario``): the lifecycle engine under ``plan`` for
+    TEL_HORIZON ticks in TEL_BLOCK-tick blocks with telemetry on (the
+    per-tier counters with ``tiers``), then ``score_blocks``.  Returns
+    ({"records", "score"}, the sim)."""
+    sink = telemetry.TelemetrySink(journal=journal)
+    sim = lifecycle.LifecycleSim(n=n, k=k, seed=TEL_SEED, suspect_ticks=TEL_SUSPECT_TICKS, rng="counter",
+                                 telemetry=sink, telemetry_tiers=tiers, device=dev)
+    for _ in range(TEL_HORIZON // TEL_BLOCK):
+        sim.run(TEL_BLOCK, plan)
+    score = chaos.score_blocks(sink.records, plan, n=n, scenario=scenario)
+    if journal is not None:
+        journal.score(score)
+    return {"records": sink.records, "score": score}, sim
+
+
+def tel_partition_run(dev, n: int = TEL_PART_N, k: int = TEL_PART_K, journal=None) -> dict:
+    """BASELINE config 4 (``bench_partition1m``): ``DeltaSim(n, k, seed=0,
+    rng="counter", telemetry_sink=...)``, the first 30 % of the nodes
+    partitioned off until converged (TEL_PART_TICKS at most), then healed
+    (TEL_HEAL_TICKS at most), one (tick, coverage, digest) record a 64-tick
+    block."""
+    group = np.zeros(n, np.int32)
+    group[: int(TEL_PART_MINORITY * n)] = 1
+    up = torch.ones(n, dtype=torch.bool, device=dev)
+    part = delta.DeltaFaults(up=up, group=torch.from_numpy(group).to(dev))
+    heal = delta.DeltaFaults(up=up)
+    sink = telemetry.TelemetrySink(journal=journal)
+    sim = delta.DeltaSim(n=n, k=k, seed=TEL_SEED, rng="counter", telemetry_sink=sink, device=dev)
+    t_part, _ = sim.run_until_converged(part, max_ticks=TEL_PART_TICKS)
+    t_heal, ok = sim.run_until_converged(heal, max_ticks=TEL_HEAL_TICKS)
+    return {"partition_ticks": t_part, "heal_ticks": t_heal, "converged": ok, "records": sink.records}
+
+
+def digest_leaves(gen: torch.Generator, n: int, k: int, dev, kind: str = "random") -> list:
+    """A lifecycle-shaped leaf set: 0-d int32, int32[K], int8[K], int32
+    [N, W] and int8 [N, K] planes (full of negatives), bool[N], int8[N],
+    int64[2]."""
+    w = packbits.n_words(k)
+    i32 = lambda *s: torch.randint(-(2**31), 2**31 - 1, s, generator=gen, dtype=torch.int32, device=dev)  # noqa
+    i8 = lambda *s: torch.randint(-128, 0 if kind == "negative" else 128, s, generator=gen,  # noqa: E731
+                                  dtype=torch.int8, device=dev)
+    return [torch.tensor(7, dtype=torch.int32, device=dev), i32(k), i8(k), i32(n, w), i8(n, k),
+            torch.randint(0, 2, (n,), generator=gen, device=dev).to(torch.bool), i8(n),
+            torch.randint(0, 2**32, (2,), generator=gen, dtype=torch.int64, device=dev)]
+
+
+def check_digest(leaves, what: str, offset: int = 0) -> None:
+    got = telemetry_kernel.state_digest_cuda(leaves)
+    want = telemetry.tree_digest_plain(leaves)
+    check(torch.equal(got, want), f"D1 {what}: tree digest {int(got)} == plain {int(want)}")
+    for leaf in leaves[:1] + leaves[3:5]:
+        got = telemetry_kernel.state_digest_cuda([leaf], offset=offset, final=False)
+        want = telemetry.leaf_digest_sum_plain(leaf, offset)
+        check(torch.equal(got, want), f"D1 {what}: leaf sum of {leaf.dtype}{list(leaf.shape)} at offset {offset}")
+
+
+def random_accumulate_inputs(gen: torch.Generator, n: int, w: int, dev, kind: str) -> dict:
+    """P1's inputs at [N, W]: random, empty (all zero) or full (all ones)
+    planes and masks, over accumulators already holding random counts."""
+    def plane():
+        if kind == "empty":
+            return torch.zeros((n, w), dtype=torch.int32, device=dev)
+        if kind == "full":
+            return torch.full((n, w), -1, dtype=torch.int32, device=dev)
+        return torch.randint(-(2**31), 2**31 - 1, (n, w), generator=gen, dtype=torch.int32, device=dev)
+
+    def mask(*s):
+        if kind in ("empty", "full"):
+            return torch.full(s, kind == "full", dtype=torch.bool, device=dev)
+        return torch.rand(s, generator=gen, device=dev) < 0.5
+
+    counts = lambda *s: torch.randint(0, 1000, s, generator=gen, dtype=torch.int32, device=dev)  # noqa: E731
+    acc = {"piggybacked": counts(n, w), "expired": counts(n, w), "pings": counts(n), "ping_reqs": counts(n),
+           "probes_failed": counts(n), "incarnation_bumps": counts(n), "base_timer_fires": counts(n)}
+    legs = dict(sent_w=plane(), resp_w=plane(), ride_ok=plane(), mid_ride_w=plane(), delivered=mask(n),
+                probing=mask(n), peer_ok=mask(n, 3), refute=mask(n), placed=mask(n), base_fired=mask(n))
+    return {"acc": acc, "legs": legs}
+
+
+def phase14a_telemetry_kernels(dev: torch.device) -> dict:
+    """D1 and P1 == their plain versions on the card: D1 on lifecycle-shaped
+    leaf sets at N = 1, 31, 33, 4097, 1,000,000 x K = 40, 64, 256 (random
+    and all-negative int8 planes), with leaf sums at offsets 0, 5 and
+    2**32 - 3, leaves 1..7 elements past alignment (bytes for int8 and
+    bool), both engines' full states,
+    and one int8 plane of 2**32 + 256 elements, whose flat index wraps
+    (== its two halves' leaf sums at their offsets); P1 at N = 1, 31, 33,
+    4097, 1,000,000 x W = 1, 2, 8 on random, empty and full planes."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    t0 = time.perf_counter()
+    cases = 0
+    for n in TEL_ROWS:
+        for k in TEL_SLOTS:
+            for kind in ("random", "negative"):
+                leaves = digest_leaves(gen, n, k, dev, kind)
+                for offset in (0, 5, 2**32 - 3):
+                    check_digest(leaves, f"N={n} K={k} {kind}", offset)
+                cases += 1
+    base = digest_leaves(gen, 4097, 64, dev, "negative")
+    for off in range(1, 8):
+        shifted = [at_offset(x, off * x.element_size()) for x in base]
+        check_digest(shifted, f"bases {off} elements past alignment", offset=off)
+        cases += 1
+    params = lifecycle.LifecycleParams(n=LIFE_N, k=LIFE_K, rng="counter")
+    life = lifecycle.init_state(params, seed=LIFE_SEED, device=dev)
+    victims, faults = headline_faults(dev, LIFE_N)
+    for _ in range(3):
+        life = lifecycle.step(params, life, faults)
+    dparams = delta.DeltaParams(n=DELTA_N, k=DELTA_K, rng="counter")
+    dstate = delta.init_state(dparams, seed=DELTA_SEED, device=dev)
+    for state, what in ((life, "the lifecycle headline's state at tick 3"), (dstate, "the delta 1M x 128 state")):
+        got, want = telemetry.tree_digest(list(state)), telemetry.tree_digest_plain(list(state))
+        check(torch.equal(got, want), f"D1 on {what}: {int(got)} == plain {int(want)}")
+        cases += 1
+    del life, dstate
+    torch.cuda.empty_cache()
+    wide = torch.randint(-128, 0, (TEL_WIDE_ROWS, LIFE_K), generator=gen, dtype=torch.int8, device=dev)
+    got = telemetry_kernel.state_digest_cuda([wide], final=False)
+    want = telemetry.leaf_digest_sum_plain(wide)
+    halves = (telemetry_kernel.state_digest_cuda([wide[: TEL_WIDE_ROWS - 1]], final=False)
+              + telemetry_kernel.state_digest_cuda([wide[TEL_WIDE_ROWS - 1:]], offset=(TEL_WIDE_ROWS - 1) * LIFE_K,
+                                                   final=False)) & 0xFFFF_FFFF
+    check(torch.equal(got, want) and torch.equal(got, halves),
+          f"D1 over {wide.numel()} elements (the flat index wraps): {int(got)} == plain {int(want)} == halves")
+    del wide
+    torch.cuda.empty_cache()
+    log(f"phase14a: D1 == plain over {cases} leaf sets (3 offsets each) and the {TEL_WIDE_ROWS} x {LIFE_K} int8 "
+        f"plane ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    p1_cases = 0
+    for n in TEL_ROWS:
+        for w in TEL_WORDS:
+            for kind in ("random", "empty", "full"):
+                inp = random_accumulate_inputs(gen, n, w, dev, kind)
+                got = {name: x.clone() for name, x in inp["acc"].items()}
+                want = {name: x.clone() for name, x in inp["acc"].items()}
+                telemetry_kernel.accumulate_cuda(got, **inp["legs"])
+                telemetry.accumulate_plain(want, **inp["legs"])
+                for name in got:
+                    check(torch.equal(got[name], want[name]), f"P1 N={n} W={w} {kind}: {name} == plain")
+                p1_cases += 1
+    log(f"phase14a: P1 == plain over {p1_cases} cases ({time.perf_counter() - t0:.1f} s)")
+    return {"d1_cases": cases, "p1_cases": p1_cases, "max_abs_err": 0}
+
+
+def d1_bound(leaves, rate: float) -> dict:
+    nbytes = sum(x.numel() * x.element_size() for x in leaves) + 4 * (len(leaves) + 1) + 8
+    elements = sum(x.numel() for x in leaves)
+    ops = elements * D1_OPS
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return {"bytes": nbytes, "elements": elements, "operations": ops, "bytes_ms": bytes_ms, "operations_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def p1_bound(n: int, w: int, p: int) -> dict:
+    # six planes read, two written; five counters read and written; five
+    # [N] masks and peer_ok [N, P] read
+    nbytes = 8 * 4 * n * w + 10 * 4 * n + (5 + p) * n
+    return {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def telemetry_alone(dev: torch.device, life_state, delta_state) -> dict:
+    """D1 and P1 alone (profiler, by name, after a flush that leaves the L2
+    cache clean) at the main path's shapes: D1 on the headline's state (1M
+    x 256) and on the delta 1M x 128 state, P1 on the headline's tick (1M x
+    8 words, 3 peers), each beside its bound, with its wrapper call (CUDA
+    events) and its plain version."""
+    rate, _ = instruction_rate(dev)
+    buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    clean = lambda: buf.sum(dtype=torch.int64)  # noqa: E731
+    out = {}
+    for name, state in (("d1_lifecycle_1m_256", life_state), ("d1_delta_1m_128", delta_state)):
+        leaves = list(state)
+        fn = lambda: telemetry_kernel.state_digest_cuda(leaves)  # noqa: E731
+        ref = lambda: telemetry.tree_digest_plain(leaves)  # noqa: E731
+        check(torch.equal(fn(), ref()), f"{name}: D1 == plain")
+        ms = one_kernel_ms(profile_ms(fn, 20, clean, "reduce_kernel"), "telemetry_state_digest")
+        rec = out[name] = {"kernel_ms": ms, "call_ms": time_ms(fn, 20, buf), "plain_ms": time_ms(ref, 3, buf),
+                           **d1_bound(leaves, rate)}
+        rec["share_of_bound"] = rec["bound_ms"] / ms
+        log(f"profile: D1 {name}: kernel alone {ms * 1e3:.2f} us after a clean flush; call {rec['call_ms'] * 1e3:.2f} "
+            f"us; plain {rec['plain_ms']:.3f} ms; bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}: "
+            f"{rec['bytes']} bytes {rec['bytes_ms'] * 1e3:.2f} us, {rec['elements']} elements x {D1_OPS} "
+            f"{rec['operations_ms'] * 1e3:.2f} us; {rec['share_of_bound']:.1%})")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    n, w = LIFE_N, packbits.n_words(LIFE_K)
+    inp = random_accumulate_inputs(gen, n, w, dev, "random")
+    acc = inp["acc"]
+    fn = lambda: telemetry_kernel.accumulate_cuda(acc, **inp["legs"])  # noqa: E731
+    ref = lambda: telemetry.accumulate_plain(acc, **inp["legs"])  # noqa: E731
+    ms = one_kernel_ms(profile_ms(fn, 20, clean, "reduce_kernel"), "telemetry_accumulate")
+    rec = out["p1_lifecycle_1m_8"] = {"kernel_ms": ms, "call_ms": time_ms(fn, 20, buf),
+                                      "plain_ms": time_ms(ref, 5, buf), **p1_bound(n, w, 3)}
+    rec["share_of_bound"] = rec["bound_ms"] / ms
+    log(f"profile: P1 at {n} x {w} words: kernel alone {ms * 1e3:.2f} us after a clean flush; call "
+        f"{rec['call_ms'] * 1e3:.2f} us; plain {rec['plain_ms']:.3f} ms; bound {rec['bound_ms'] * 1e3:.2f} us "
+        f"({rec['bytes']} bytes; {rec['share_of_bound']:.1%})")
+    return out
+
+
+def tick_profile(params, state, faults, tel, ticks: int) -> dict:
+    """``ticks`` lifecycle ticks from ``state`` under ``torch.profiler``,
+    with the telemetry accumulator ``tel`` or without (None): the window
+    (CUDA events), kernel launches a tick and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_warmup()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = state
+        for _ in range(ticks):
+            if tel is None:
+                out = lifecycle.step(params, out, faults)
+            else:
+                out, tel = lifecycle.step(params, out, faults, tel)
+        end.record()
+        torch.cuda.synchronize()
+    window_ms = start.elapsed_time(end)
+    launches, busy, p1 = 0, 0.0, (0, 0.0)
+    for evt in prof.key_averages():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA and evt.key not in lifecycle.PHASES
+                and evt.key != "telemetry" and MARK_TAG not in evt.key and evt.self_device_time_total > 0):
+            launches += evt.count
+            busy += evt.self_device_time_total / 1e3
+            if "telemetry_accumulate" in evt.key:
+                p1 = (evt.count, evt.self_device_time_total / 1e3)
+    return {"ticks": ticks, "window_ms": window_ms, "ms_a_tick": window_ms / ticks,
+            "launches_a_tick": launches / ticks, "busy_share": busy / window_ms,
+            "p1_launches": p1[0], "p1_ms_a_launch": p1[1] / max(p1[0], 1)}
+
+
+def phase14b_headline(dev: torch.device) -> dict:
+    """The headline with telemetry on, at full width: the main path's run
+    (counts at 0 before it), its ticks and final-leaf digests == phase 9's
+    pins, its block records (with state_digest, views_sum, views_agree) ==
+    the JAX pins; detection in turns with telemetry off and on, and a
+    32-tick block on and off under the profiler (ms and launches a tick)."""
+    path = OUT_DIR / "phase14_headline.jsonl"
+    path.parent.mkdir(exist_ok=True)
+    packbits_kernel.reset_launches()
+    lifecycle_kernel.reset_launches()
+    threefry_kernel.reset_launches()
+    telemetry_kernel.reset_launches()
+    torch.cuda.synchronize()
+    with telemetry.TelemetryJournal(str(path)) as journal:
+        journal.header("lifecycle", "headline-telemetry", {"n": LIFE_N, "k": LIFE_K, "seed": LIFE_SEED})
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res, sim = tel_headline_run(dev, journal=journal)
+        end.record()
+        torch.cuda.synchronize()
+    launches = {**port_launches(), **{f"telemetry_{k}": v for k, v in telemetry_kernel.launches.items()}}
+    check(res["detect"] == [PIN_LIFE_DETECT_TICKS, True] and res["converge"] == [PIN_LIFE_CONVERGE_TICKS, True],
+          f"telemetry on: detected {res['detect']}, converged {res['converge']} == phase 9's pins")
+    digests = leaf_digests(lifecycle.state_to_numpy(sim.state), lifecycle.LifecycleState._fields)
+    for name, want in PIN_LIFE.items():
+        check(digests[name] == want, f"telemetry on: final {name} digest == phase 9's pin (transparency)")
+    check(records_match(res["records"], PIN_TEL_HEADLINE["records"]),
+          f"headline block records == the JAX pins: {record_diff(res['records'], PIN_TEL_HEADLINE['records'])}")
+    flushes = len(res["records"])
+    check(launches["telemetry_accumulate"] == PIN_LIFE_DETECT_TICKS and launches["telemetry_state_digest"] == flushes
+          and launches["row_reduce"] == 3 * PIN_LIFE_DETECT_TICKS
+          and not any(v for k, v in launches.items() if k.startswith("threefry_")),
+          f"P1 once a tick ({PIN_LIFE_DETECT_TICKS}), D1 once a block record ({flushes}), S1 3x a tick and no T1 "
+          f"on the counter stream: {launches}")
+    check(len(telemetry.read_journal(str(path))) == 1 + flushes, "the journal holds the header and every block")
+    log(f"phase14b: telemetry on, detected in {res['detect'][0]} ticks and converged {res['converge'][0]} later == "
+        f"phase 9's pins, final digests == PIN_LIFE, {flushes} block records == JAX; launches {launches}; "
+        f"{start.elapsed_time(end):.1f} ms with the views")
+    victims, faults = headline_faults(dev, LIFE_N)
+    walls = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        s = lifecycle.LifecycleSim(n=LIFE_N, k=LIFE_K, seed=LIFE_SEED, rng="counter", device=dev,
+                                   telemetry=telemetry.TelemetrySink() if mode == "on" else None)
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        ticks, ok = s.run_until_detected(victims, faults, max_ticks=LIFE_MAX_TICKS, check_every=LIFE_CHECK_EVERY,
+                                         blocks_per_dispatch=8)
+        b.record()
+        torch.cuda.synchronize()
+        check(ok and ticks == PIN_LIFE_DETECT_TICKS, f"telemetry {mode}: detected in {ticks} ticks")
+        walls[mode].append(a.elapsed_time(b))
+        del s
+    params = lifecycle.LifecycleParams(n=LIFE_N, k=LIFE_K, rng="counter")
+    state = lifecycle.init_state(params, seed=LIFE_SEED, device=dev)
+    for _ in range(LIFE_TWIN_TICKS):
+        state = lifecycle.step(params, state, faults)
+    blocks = {"off": tick_profile(params, state, faults, None, LIFE_CHECK_EVERY),
+              "on": tick_profile(params, state, faults, telemetry.zeros(params, device=dev), LIFE_CHECK_EVERY)}
+    log(f"phase14b: detection ms telemetry off {walls['off']}, on {walls['on']}; 32-tick block from tick "
+        f"{LIFE_TWIN_TICKS}: off {blocks['off']}, on {blocks['on']}")
+    delta_state = delta.init_state(delta.DeltaParams(n=DELTA_N, k=DELTA_K, rng="counter"), seed=DELTA_SEED,
+                                   device=dev)
+    alone = telemetry_alone(dev, sim.state, delta_state)
+    return {"launches": launches, "records": len(res["records"]), "detect_ms": walls, "blocks": blocks,
+            "alone": alone}
+
+
+def phase14cde_scenarios(dev: torch.device) -> dict:
+    """14c: simbench's churn100k (100,000 x 256, churn plan, horizon 256,
+    16-tick blocks, suspect_ticks 10); 14d: the topology plane at
+    bench_topo_chaos's width (4096 x 32, ``topo_scenario_plan("zone_loss")``
+    solo, the per-tier counters armed); 14e: BASELINE config 4,
+    ``partition1m`` at 1,000,000 x 128 on the delta engine.  Each run's
+    records and verdict == the JAX pins, with its wall time."""
+    out = {}
+    for name, plan_fn, n, k, tiers, pin in (
+            ("churn100k", lambda: chaos.scenario_plan("churn", TEL_CHURN_N, seed=TEL_SEED, horizon=TEL_HORIZON,
+                                                      device=dev), TEL_CHURN_N, TEL_CHURN_K, False, PIN_TEL_CHURN),
+            ("topo_zone_loss", lambda: topology.topo_scenario_plan("zone_loss", TEL_TOPO_N, seed=TEL_SEED,
+                                                                   horizon=TEL_HORIZON, device=dev),
+             TEL_TOPO_N, TEL_TOPO_K, True, PIN_TEL_TOPO)):
+        plan = plan_fn()
+        path = OUT_DIR / f"phase14_{name}.jsonl"
+        telemetry_kernel.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with telemetry.TelemetryJournal(str(path)) as journal:
+            journal.header("lifecycle", name, {"n": n, "k": k, "seed": TEL_SEED})
+            res, sim = tel_chaos_run(dev, plan, n, k, name, tiers=tiers, journal=journal)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(telemetry_kernel.launches)
+        check(records_match(res["records"], pin["records"]),
+              f"{name}: block records == the JAX pins: {record_diff(res['records'], pin['records'])}")
+        check(res["score"] == pin["score"], f"{name}: the verdict == the JAX pin: {res['score']}")
+        check(launches == {"accumulate": TEL_HORIZON, "state_digest": TEL_HORIZON // TEL_BLOCK},
+              f"{name}: P1 once a tick, D1 once a block: {launches}")
+        journaled = telemetry.read_journal(str(path))
+        check(journaled[-1] == json.loads(json.dumps(res["score"])) and len(journaled) == 2 + len(res["records"]),
+              f"{name}: the scored journal round-trips")
+        log(f"phase14: {name} at {n} x {k}: {len(res['records'])} block records and the verdict == JAX "
+            f"(ttd median {res['score']['time_to_detect_median']}, fp {res['score']['false_positive_suspects']}, "
+            f"rejoin {res['score']['rejoin_convergence_ticks']}); wall {wall:.3f} s host clock to a synchronize; "
+            f"launches {launches}")
+        out[name] = {"n": n, "k": k, "wall_s": wall, "launches": launches, "score": res["score"]}
+        del sim
+    telemetry_kernel.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tel_partition_run(dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(telemetry_kernel.launches)
+    got = [telemetry._to_host(r) for r in res["records"]]
+    pin = PIN_TEL_PARTITION
+    check([res["partition_ticks"], res["heal_ticks"], res["converged"]]
+          == [pin["partition_ticks"], pin["heal_ticks"], pin["converged"]],
+          f"partition1m: partition {res['partition_ticks']}, heal {res['heal_ticks']} ticks, converged "
+          f"{res['converged']} == JAX {pin}")
+    check(records_match(got, pin["records"]), f"partition1m: records == JAX: {record_diff(got, pin['records'])}")
+    check(launches == {"accumulate": 0, "state_digest": len(got)}, f"partition1m: D1 once a record: {launches}")
+    log(f"phase14e: partition1m at {TEL_PART_N} x {TEL_PART_K}: partition {res['partition_ticks']} ticks, heal "
+        f"{res['heal_ticks']}, converged, {len(got)} (tick, coverage, digest) records == JAX; wall {wall:.3f} s; "
+        f"launches {launches}")
+    out["partition1m"] = {"wall_s": wall, "launches": launches, "partition_ticks": res["partition_ticks"],
+                          "heal_ticks": res["heal_ticks"]}
+    return out
+
+
+def run_telemetry(dev: torch.device) -> tuple[list, dict]:
+    """Phase 14 on ``dev``; returns the records of D1 and P1 and the
+    timings."""
+    p14a = phase14a_telemetry_kernels(dev)
+    head = phase14b_headline(dev)
+    scen = phase14cde_scenarios(dev)
+    d1, p1 = head["alone"]["d1_lifecycle_1m_256"], head["alone"]["p1_lifecycle_1m_8"]
+    main = head["launches"]
+    kernels = [{
+        "name": "telemetry_state_digest", "route": "cuda", "source": "ringpop_tpu_torch/csrc/telemetry.cu",
+        "replaces": "ringpop_tpu/sim/telemetry.py:408 (tree_digest over leaf_digest_sum :373: XLA's fused passes; "
+                    "no Pallas kernel)",
+        "launches": main["telemetry_state_digest"], "max_abs_err": p14a["max_abs_err"],
+        "state": f"the headline's final state ({LIFE_N} x {LIFE_K})",
+        "ms": d1["kernel_ms"], "call_ms": d1["call_ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
+        "bound_by": d1["bound_by"], "share_of_bound": d1["share_of_bound"], "library_ms": None,
+        "library": "none", "by_case": head["alone"],
+    }, {
+        "name": "telemetry_accumulate", "route": "cuda", "source": "ringpop_tpu_torch/csrc/telemetry.cu",
+        "replaces": "ringpop_tpu/sim/telemetry.py:148 (accumulate's [N, W] and [N] legs: XLA's elementwise "
+                    "passes; no Pallas kernel)",
+        "launches": main["telemetry_accumulate"], "max_abs_err": p14a["max_abs_err"],
+        "state": f"the headline's tick ({LIFE_N} x {packbits.n_words(LIFE_K)} words, 3 peers)",
+        "ms": p1["kernel_ms"], "call_ms": p1["call_ms"], "plain_ms": p1["plain_ms"], "bound_ms": p1["bound_ms"],
+        "bound_by": "bytes", "share_of_bound": p1["share_of_bound"], "library_ms": None, "library": "none",
+    }]
+    return kernels, {"telemetry_kernels": p14a, "telemetry_headline": head, "telemetry_scenarios": scen}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
-    modules = (hash_kernel, packbits_kernel, lifecycle_kernel, threefry_kernel, fullview_kernel)
+    modules = (hash_kernel, packbits_kernel, lifecycle_kernel, threefry_kernel, fullview_kernel, telemetry_kernel)
     with ThreadPoolExecutor(len(modules)) as ex:
         libs = list(ex.map(lambda m: m.build(), modules))
     log(f"build: {[lib.name for lib in libs]} in {time.perf_counter() - t0:.1f} s")
@@ -2685,6 +3339,11 @@ def main() -> int:
         kernels, timings = run_fullview(torch.device("cuda"))
         log(json.dumps({"card": card, "kernels": kernels, **timings}))
         return 0
+    if sys.argv[1:] == ["--telemetry"]:
+        build_kernels()
+        kernels, timings = run_telemetry(torch.device("cuda"))
+        log(json.dumps({"card": card, "kernels": kernels, **timings}))
+        return 0
     if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
         rng = (sys.argv[2:] or ["counter"])[0]
         log(json.dumps({"card": card, "rng": rng, "detect_ms": detect_wall(torch.device("cuda"), rng)}))
@@ -2695,6 +3354,7 @@ def main() -> int:
     life_kernels, life_timings = run_lifecycle(torch.device("cuda"))
     tf_kernels, tf_timings = run_threefry(torch.device("cuda"))
     fv_kernels, fv_timings = run_fullview(torch.device("cuda"))
+    tel_kernels, tel_timings = run_telemetry(torch.device("cuda"))
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
     for rec, key in zip(delta_kernels, ("row_reduce", "popcount_rows")):
@@ -2702,12 +3362,16 @@ def main() -> int:
         rec["launches"] += life_launches[key]
     # fold_in is a T1 entry that only the fullview path draws
     tf_kernels[0]["fold_in_launches_on_fullview"] = fv_timings["fullview"]["loss1k"]["launches"]["fold_in"]
-    kernels += delta_kernels + life_kernels + tf_kernels + fv_kernels
+    kernels += delta_kernels + life_kernels + tf_kernels + fv_kernels + tel_kernels
     timings.update(delta_timings)
     timings.update(life_timings)
     timings.update(tf_timings)
     timings.update(fv_timings)
+    timings.update(tel_timings)
     timings["card"] = card
+    # the whole record, which the end of a long log may not hold
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke_timings.json").write_text(json.dumps({"timings": timings, "kernels": kernels}))
     log(json.dumps(timings))
     log(card)
     log(json.dumps({"kernels": kernels}))

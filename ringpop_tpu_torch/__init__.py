@@ -17,6 +17,9 @@ Fingerprint32 kernel, ``csrc/fingerprint32.cu``), ``ops.ring_ops`` and
 ``sim.lifecycle`` / ``ops.lifecycle_kernel`` (``csrc/lifecycle.cu``), with
 ``swim.member``'s key lattice, ``sim.fullview`` / ``ops.fullview_kernel``
 (``csrc/fullview.cu``) and ``sim.conformance``, the exact engine and the
-lockstep conformance gate; and ``bench``, the twin of the repository's
-``bench.py`` (``python -m ringpop_tpu_torch.bench``).
+lockstep conformance gate; ``sim.telemetry`` / ``ops.telemetry_kernel``
+(``csrc/telemetry.cu``), ``sim.chaos`` and ``sim.topology``, the run
+journal and the time-varying fault plans, with ``options``' stats sinks
+and ``obs.flight``'s commit read; and ``bench``, the twin of the
+repository's ``bench.py`` (``python -m ringpop_tpu_torch.bench``).
 """

@@ -1,8 +1,8 @@
 """Typed event bus (parity: reference ``events/events.go:26-69``).
 
-The part of ``ringpop_tpu/events`` that the keyed-ownership path needs: the
-listener registry and the two ring events a ``HashRing`` emits, which a
-``RingStore`` subscribes to.
+The part of ``ringpop_tpu/events`` that the port's paths need: the listener
+registry, the two ring events a ``HashRing`` emits, which a ``RingStore``
+subscribes to, and the sim plane's telemetry block event.
 """
 
 from __future__ import annotations
@@ -46,3 +46,13 @@ class RingChangedEvent:
 class RingChecksumEvent:
     old_checksum: int = 0
     new_checksum: int = 0
+
+
+@dataclass
+class SimTickBlockEvent:
+    """One fetched sim-plane telemetry block (``sim/telemetry.py``): the
+    per-tick protocol counters accumulated on the device over a tick block,
+    reduced and brought to the host in one fetch.  ``record`` is the flat
+    scalar dict of OBSERVABILITY.md's journal record schema."""
+
+    record: dict = field(default_factory=dict)

@@ -27,7 +27,16 @@ Counterpart of ``ringpop_tpu/sim``.  Ported so far:
 * :mod:`ringpop_tpu_torch.sim.conformance` — the lockstep conformance
   gate: ``SequentialSwim``, a change-at-a-time interpreter of the SWIM
   rules, and ``LockstepRunner``, which drives it and ``FullViewSim``
-  through the same injected draws and demands bit-identical state.
+  through the same injected draws and demands bit-identical state;
+* :mod:`ringpop_tpu_torch.sim.telemetry` — the telemetry plane: per-tick
+  counter accumulators (one launch of the Hopper kernel P1 a tick on the
+  card), the block fetch and census, the state digest (kernel D1), the
+  JSONL run journal, the stats bridge and ``TelemetrySink``;
+* :mod:`ringpop_tpu_torch.sim.chaos` — time-varying fault plans
+  (``FaultPlan``, evaluated on the card at the state's tick), their
+  builders and batching, and the convergence scorer ``score_blocks``;
+* :mod:`ringpop_tpu_torch.sim.topology` — rack/zone/region trees compiled
+  to tier legs and correlated-failure plans.
 
 This module imports none of them, so importing the package costs nothing.
 """

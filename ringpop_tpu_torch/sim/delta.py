@@ -26,11 +26,14 @@ threefry draw the kernel of ``csrc/threefry.cu``; the rest of the tick is
 plain PyTorch.  ``run_until_converged`` is a Python loop over
 blocks of ``check_every`` ticks with one host sync per block.
 
-Not ported yet, each refused with NotImplementedError: the sharded
-exchange (``exchange_mesh``, ROADMAP A12) and
-``DeltaSim(telemetry_sink=...)`` (A7).  There is no ``FaultPlan`` in the
-port yet; :func:`resolve_faults` passes through any object with an
-``at_tick`` method.
+``DeltaSim(telemetry_sink=...)`` journals one record a block (tick,
+coverage, the state digest: ``telemetry.delta_record``).  Every engine
+takes a time-varying ``chaos.FaultPlan`` where it takes a ``DeltaFaults``:
+:func:`resolve_faults` evaluates any object with an ``at_tick`` method at
+the state's tick.
+
+Not ported yet, refused with NotImplementedError: the sharded exchange
+(``exchange_mesh``, ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -438,27 +441,39 @@ def run_until_converged(
 class DeltaSim:
     """Host-side convenience wrapper: params, state on ``device`` (the card
     unless the caller asks for the CPU), ``tick`` and
-    ``run_until_converged``.  The run journal (``telemetry_sink``) is not
-    ported yet."""
+    ``run_until_converged``.  ``telemetry_sink`` (any callable taking a
+    record dict, e.g. a ``telemetry.TelemetrySink``) turns on the run
+    journal: ``run_until_converged`` then runs in ``journal_every``-tick
+    blocks and hands over one ``telemetry.delta_record`` a block; with no
+    sink it runs exactly the journal-free loop."""
 
     def __init__(self, n: int, k: int, seed: int = 0, telemetry_sink=None,
                  device: DeviceLike = None, **kw):
-        if telemetry_sink is not None:
-            raise NotImplementedError(
-                "DeltaSim(telemetry_sink=...) needs sim/telemetry, which is "
-                "not ported yet (ROADMAP Queue A7)"
-            )
         self.params = DeltaParams(n=n, k=k, **kw)
         self.state = init_state(self.params, seed=seed, device=device)
+        self.telemetry_sink = telemetry_sink
 
     def tick(self, faults: DeltaFaults = DeltaFaults()) -> DeltaState:
         self.state = step(self.params, self.state, faults)
         return self.state
 
-    def run_until_converged(self, faults: DeltaFaults = DeltaFaults(), max_ticks: int = 10_000):
-        self.state, ticks, ok = run_until_converged(
-            self.params, self.state, faults, max_ticks=max_ticks
-        )
+    def run_until_converged(self, faults: DeltaFaults = DeltaFaults(), max_ticks: int = 10_000,
+                            journal_every: int = 64):
+        if self.telemetry_sink is None:
+            self.state, ticks, ok = run_until_converged(
+                self.params, self.state, faults, max_ticks=max_ticks
+            )
+            return ticks, ok
+        from ringpop_tpu_torch.sim.telemetry import delta_record
+
+        ticks, ok = 0, False
+        while ticks < max_ticks and not ok:
+            block = min(journal_every, max_ticks - ticks)
+            self.state, t, ok = run_until_converged(self.params, self.state, faults, max_ticks=block)
+            ticks += t
+            self.telemetry_sink(delta_record(self.state, faults))
+            if t == 0 and not ok:  # budget too small for one check block
+                break
         return ticks, ok
 
 

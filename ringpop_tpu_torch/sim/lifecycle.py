@@ -43,9 +43,15 @@ The first-live-learner argmax, which the JAX package guards with a
 (a block with no wanted slot exits at once), since a branch here would
 cost a host sync a tick, and its value is masked by the same condition.
 
+With a telemetry accumulator (``sim/telemetry``) the tick also counts its
+protocol events, reading only what it computes anyway: on the card its
+[N, W] and [N] legs are one launch of P1 and the journal's state digest one
+launch of D1 (``csrc/telemetry.cu``).  ``faults`` may be a time-varying
+``chaos.FaultPlan``, evaluated at the state's tick.
+
 Not ported yet, each refused with NotImplementedError: the sharded
 exchange and layout hints (``exchange_mesh``, ``learned_sharding``,
-``state_shardings`` — A12), telemetry (A7) and the AOT warm start (A15).
+``state_shardings`` — A12) and the AOT warm start (A15).
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ from torch.profiler import record_function
 
 from ringpop_tpu_torch.device import DeviceLike, resolve_device
 from ringpop_tpu_torch.ops import lifecycle_kernel
-from ringpop_tpu_torch.sim import delta, prng, threefry
+from ringpop_tpu_torch.sim import delta, prng, telemetry as _tm, threefry
 from ringpop_tpu_torch.sim.delta import (
     DeltaFaults,
     check_tier_legs,
@@ -70,6 +76,7 @@ from ringpop_tpu_torch.sim.delta import (
     pair_connected,
     resolve_faults,
     resolve_max_p,
+    tier_pair,
     tier_pair_drop,
     until_loop,
 )
@@ -180,13 +187,6 @@ def _check_supported(params: LifecycleParams) -> None:
         )
 
 
-def _refuse_telemetry(telemetry) -> None:
-    if telemetry is not None:
-        raise NotImplementedError(
-            "lifecycle telemetry (sim/telemetry) is not ported yet (ROADMAP Queue A7)"
-        )
-
-
 def init_state(params: LifecycleParams, seed: int = 0, device: DeviceLike = None) -> LifecycleState:
     """The initial state on ``device`` (the card unless the caller asks for
     the CPU); ``key`` is ``prng.prng_key(seed)``, the value
@@ -278,14 +278,15 @@ def step(
     params: LifecycleParams,
     state: LifecycleState,
     faults: DeltaFaults = DeltaFaults(),
-    telemetry=None,
-) -> LifecycleState:
+    telemetry: Optional[_tm.TelemetryState] = None,
+):
     """One protocol period for all N nodes, bit-equal to the JAX package's
     ``step`` under either stream.  ``faults`` may be a ``DeltaFaults`` or a
     plan with ``at_tick`` (evaluated at ``state.tick``).  The profiler
     ranges name the protocol phases as the JAX package's scopes do
-    (:data:`PHASES`).  ``telemetry`` must be None (not ported: A7)."""
-    _refuse_telemetry(telemetry)
+    (:data:`PHASES`).  With ``telemetry`` (a ``telemetry.TelemetryState``)
+    the tick also adds its counters to it, in place, and returns
+    ``(state, telemetry)``; the new state is the same either way."""
     _check_supported(params)
     faults = resolve_faults(faults, state.tick)
     n, k = params.n, params.k
@@ -378,7 +379,8 @@ def step(
             learned1_w = state.learned | inbound_w
             answerable_w = learned1_w & ride_ok_w & active_w[None, :]
             resp_src = answerable_w.index_select(0, (i_all + shift) % n)
-            learned2_w = learned1_w | (resp_src & dmask)
+            resp_w = resp_src & dmask
+            learned2_w = learned1_w | resp_w
             newly_w = learned2_w & ~state.learned
         else:
             ride_ok_b = state.pcount < maxp
@@ -659,7 +661,7 @@ def step(
         base_fired_ok = ((bfire_s | bfire_f) & (bfire_key >= 0) & (placed_key >= bfire_key)) | bfire_t
         base_pending = torch.where(base_fired_ok, _like(base_pending, -1), base_pending)
 
-    return LifecycleState(
+    new_state = LifecycleState(
         r_subject=r_subject,
         r_inc=r_inc,
         r_status=r_status,
@@ -676,6 +678,47 @@ def step(
         tick=state.tick + 1,
         key=key,
     )
+    if telemetry is None:
+        return new_state
+
+    # -- telemetry: reads of what the tick computed above, written nowhere
+    # but the accumulators (the JAX package's "telemetry" scope)
+    with record_function("telemetry"):
+        if not shift_mode:
+            sent_w, resp_w = pack_bool(sent_b), pack_bool(resp_b)
+        # per-tier suspicion flow (armed accumulators and a topology-carrying
+        # plan): the tier of each accuser -> target pair, and whether the
+        # plan had the target live
+        declared = declared_tier = declared_up = None
+        if telemetry.suspects_by_tier is not None and has_topo:
+            declared = decl_ok
+            declared_tier = tier_pair(faults, i_all, targets)
+            declared_up = up[targets]
+        telemetry = _tm.accumulate(
+            telemetry,
+            declared=declared,
+            declared_tier=declared_tier,
+            declared_up=declared_up,
+            delivered=delivered,
+            probing=probing,
+            peer_ok=peer_ok,
+            refute=refute,
+            placed=placed_subject,
+            sent_w=sent_w,
+            resp_w=resp_w,
+            # the gates that closed this tick: the tick-entry gate less the
+            # gate after the bump
+            ride_ok=state.ride_ok,
+            mid_ride_w=mid_ride_w,
+            # timers count at retirement, not at firing: a fired timer that
+            # could not place its successor refires every tick until it lands
+            fired=slot_fired_ok | fire_t,
+            base_fired=base_fired_ok,
+            place=place,
+            new_status=new_status,
+            heal_attempt=attempt if params.heal_prob > 0 else None,
+        )
+    return new_state, telemetry
 
 
 # -- membership operations -------------------------------------------------------
@@ -907,11 +950,16 @@ def checksums_converged(state: LifecycleState, faults: DeltaFaults = DeltaFaults
 # -- run loops -----------------------------------------------------------------
 
 
-def _run_block(params: LifecycleParams, state: LifecycleState, faults, ticks: int) -> LifecycleState:
-    """``ticks`` steps."""
+def _run_block(params: LifecycleParams, state: LifecycleState, faults, ticks: int, telemetry=None):
+    """``ticks`` steps.  With a telemetry accumulator the carry is the
+    (state, telemetry) pair; with None the loop is the telemetry-free one."""
+    if telemetry is None:
+        for _ in range(ticks):
+            state = step(params, state, faults)
+        return state
     for _ in range(ticks):
-        state = step(params, state, faults)
-    return state
+        state, telemetry = step(params, state, faults, telemetry)
+    return state, telemetry
 
 
 def _quiescent(state: LifecycleState, faults) -> torch.Tensor:
@@ -920,50 +968,105 @@ def _quiescent(state: LifecycleState, faults) -> torch.Tensor:
     return ~(state.r_subject >= 0).any() & checksums_converged(state, faults)
 
 
+def _carry_loop(params: LifecycleParams, state, faults, telemetry, block_ticks: int, max_blocks: int, pred):
+    """``until_loop`` over blocks of ``block_ticks`` ticks, carrying the
+    (state, telemetry) pair when a telemetry accumulator rides along.
+    Returns (state, blocks, done), with the telemetry appended when given."""
+    if telemetry is None:
+        return until_loop(lambda s: _run_block(params, s, faults, block_ticks), state, max_blocks, pred)
+    (state, telemetry), blocks, done = until_loop(
+        lambda c: _run_block(params, c[0], faults, block_ticks, c[1]), (state, telemetry), max_blocks,
+        lambda c: pred(c[0]))
+    return state, blocks, done, telemetry
+
+
 def _run_until_converged_device(params: LifecycleParams, state: LifecycleState, faults, *,
-                                block_ticks: int, max_blocks: int):
+                                block_ticks: int, max_blocks: int, telemetry=None):
     """Up to ``max_blocks`` blocks of ``block_ticks`` ticks until no change
     is in flight and all live checksums agree, tested on entry and after
     each block (``delta.until_loop``: one host sync per block).  Returns
-    (state, blocks_run, converged)."""
-    return until_loop(lambda s: _run_block(params, s, faults, block_ticks), state, max_blocks,
-                      lambda s: _quiescent(s, faults))
+    (state, blocks_run, converged), with the accumulated telemetry appended
+    when a telemetry accumulator rides the carry."""
+    return _carry_loop(params, state, faults, telemetry, block_ticks, max_blocks, lambda s: _quiescent(s, faults))
 
 
 def _run_until_detected_device(params: LifecycleParams, state: LifecycleState, faults,
                                subjects: torch.Tensor, *, min_status: int, block_ticks: int,
-                               max_blocks: int):
+                               max_blocks: int, telemetry=None):
     """Up to ``max_blocks`` blocks of ``block_ticks`` ticks until
     :func:`detection_complete` holds, tested on entry and after each block.
-    Returns (state, blocks_run, detected)."""
-    return until_loop(lambda s: _run_block(params, s, faults, block_ticks), state, max_blocks,
-                      lambda s: detection_complete(s, subjects, faults, min_status))
+    Returns (state, blocks_run, detected), with the telemetry appended as
+    :func:`_run_until_converged_device` does."""
+    return _carry_loop(params, state, faults, telemetry, block_ticks, max_blocks,
+                       lambda s: detection_complete(s, subjects, faults, min_status))
 
 
 class LifecycleSim:
     """Host-side wrapper: params, state on ``device`` (the card unless the
     caller asks for the CPU), ``tick``, ``run`` and the run-until pair with
     the JAX package's loop and budget contract (:meth:`_run_until`).
-    ``telemetry`` and ``aot`` are refused (ROADMAP A7, A15); the telemetry
-    options ``journal_views`` and ``telemetry_tiers`` come with A7."""
 
-    def __init__(self, n: int, seed: int = 0, telemetry=None, aot: Optional[str] = None,
-                 device: DeviceLike = None, **kw):
-        if telemetry:
-            _refuse_telemetry(telemetry)
+    ``telemetry``: False/None (the default) leaves the tick untouched.
+    True, or a ``telemetry.TelemetrySink``, carries the counter
+    accumulators through every tick; each ``run`` / ``run_until_*``
+    dispatch then fetches one block record and, when a sink is attached,
+    hands it over with the state's digest (``state_digest``) attached, and
+    with ``journal_views`` also the wrapped sum of the view checksums
+    (``views_sum``) and their live agreement (``views_agree``).
+    ``telemetry_tiers`` arms the per-tier suspicion counters.  ``aot`` is
+    refused (ROADMAP A15)."""
+
+    def __init__(self, n: int, seed: int = 0, telemetry=None, journal_views: bool = False,
+                 aot: Optional[str] = None, telemetry_tiers: bool = False, device: DeviceLike = None, **kw):
         if aot is not None:
             raise NotImplementedError("the AOT warm start (util/aot) is not ported yet (ROADMAP Queue A15)")
         self.params = LifecycleParams(n=n, **kw)
         _check_supported(self.params)
         self.state = init_state(self.params, seed=seed, device=device)
+        self.telemetry = None
+        self.telemetry_sink = None
+        self.journal_views = journal_views
+        if telemetry:
+            self.telemetry = _tm.zeros(self.params, tiers=telemetry_tiers, device=self.state.learned.device)
+            self.telemetry_sink = telemetry if callable(telemetry) else None
 
     def tick(self, faults: DeltaFaults = DeltaFaults()) -> LifecycleState:
-        self.state = step(self.params, self.state, faults)
+        if self.telemetry is None:
+            self.state = step(self.params, self.state, faults)
+        else:
+            self.state, self.telemetry = step(self.params, self.state, faults, self.telemetry)
         return self.state
 
     def run(self, ticks: int, faults: DeltaFaults = DeltaFaults()) -> LifecycleState:
-        self.state = _run_block(self.params, self.state, faults, ticks)
+        if self.telemetry is None:
+            self.state = _run_block(self.params, self.state, faults, ticks)
+        else:
+            self.state, self.telemetry = _run_block(self.params, self.state, faults, ticks, self.telemetry)
+            self._flush(faults)
         return self.state
+
+    # -- telemetry plumbing -------------------------------------------------
+
+    def fetch_telemetry(self, faults: DeltaFaults = DeltaFaults()) -> Optional[dict]:
+        """Fetch and reset the accumulated block record as host scalars
+        (one copy); None when telemetry is off."""
+        if self.telemetry is None:
+            return None
+        record, self.telemetry = _tm.fetch(self.telemetry, self.state, faults)
+        return {k: (v.item() if isinstance(v, torch.Tensor) else v) for k, v in record.items()}
+
+    def _flush(self, faults: DeltaFaults) -> None:
+        """Fetch the block record and hand it to the sink (if any), with the
+        state digest (D1) attached and, with ``journal_views``, the view
+        checksums' wrapped sum and live agreement (L1's checksum mode)."""
+        if self.telemetry_sink is None:
+            return
+        record, self.telemetry = _tm.fetch(self.telemetry, self.state, faults)
+        extra = {"state_digest": _tm.tree_digest(self.state)}
+        if self.journal_views:
+            extra["views_sum"] = view_checksums(self.state, faults).sum() & 0xFFFF_FFFF
+            extra["views_agree"] = checksums_converged(self.state, faults)
+        self.telemetry_sink(record, **extra)
 
     def _run_until(self, dispatch, max_ticks: int, check_every: int, blocks_per_dispatch: int,
                    time_budget_s: Optional[float]):
@@ -1007,8 +1110,14 @@ class LifecycleSim:
         (ticks_used, converged)."""
 
         def dispatch(max_blocks):
-            self.state, blocks, done = _run_until_converged_device(
-                self.params, self.state, faults, block_ticks=check_every, max_blocks=max_blocks)
+            if self.telemetry is None:
+                self.state, blocks, done = _run_until_converged_device(
+                    self.params, self.state, faults, block_ticks=check_every, max_blocks=max_blocks)
+            else:
+                self.state, blocks, done, self.telemetry = _run_until_converged_device(
+                    self.params, self.state, faults, block_ticks=check_every, max_blocks=max_blocks,
+                    telemetry=self.telemetry)
+                self._flush(faults)
             return blocks, done
 
         return self._run_until(dispatch, max_ticks, check_every, blocks_per_dispatch, time_budget_s)
@@ -1033,9 +1142,15 @@ class LifecycleSim:
         subjects = _subjects(list(subjects), self.state.learned.device)
 
         def dispatch(max_blocks):
-            self.state, blocks, done = _run_until_detected_device(
-                self.params, self.state, faults, subjects, min_status=min_status,
-                block_ticks=check_every, max_blocks=max_blocks)
+            if self.telemetry is None:
+                self.state, blocks, done = _run_until_detected_device(
+                    self.params, self.state, faults, subjects, min_status=min_status,
+                    block_ticks=check_every, max_blocks=max_blocks)
+            else:
+                self.state, blocks, done, self.telemetry = _run_until_detected_device(
+                    self.params, self.state, faults, subjects, min_status=min_status,
+                    block_ticks=check_every, max_blocks=max_blocks, telemetry=self.telemetry)
+                self._flush(faults)
             return blocks, done
 
         return self._run_until(dispatch, max_ticks, check_every, blocks_per_dispatch, time_budget_s)

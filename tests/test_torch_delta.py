@@ -13,7 +13,8 @@ default (``tests/test_torch_golden.py`` holds the small configurations to
 the frozen goldens): both exchanges with ``up`` and ``drop_rate`` at 4096 and
 50,000 nodes, and the default parameters through ``step``,
 ``run_until_converged`` and ``DeltaSim``.  Also the refusals
-(``exchange_mesh``, ``telemetry_sink``, the topology legs under threefry)
+(``exchange_mesh``, the topology legs under threefry; ``telemetry_sink``
+now journals)
 and the hazards the port meets:
 ``%`` against ``fmod`` for the shift's index, the int8 ``pcount + bump``
 at the cap, ``scatter_reduce_`` over duplicate targets, and the float32
@@ -209,8 +210,11 @@ def test_refusals_name_their_roadmap_item():
     meshed = td.DeltaParams(n=64, k=32, rng="counter", exchange_mesh=object())
     with pytest.raises(NotImplementedError, match="A12"):
         td.step(meshed, state)
-    with pytest.raises(NotImplementedError, match="A7"):
-        td.DeltaSim(64, 32, rng="counter", telemetry_sink=print, device="cpu")
+    # the run journal (A7) is ported: a sink takes one record a block
+    records = []
+    sim = td.DeltaSim(64, 32, rng="counter", telemetry_sink=records.append, device="cpu")
+    assert sim.run_until_converged(max_ticks=16, journal_every=8)[0] > 0
+    assert records and set(records[0]) == {"tick", "coverage", "digest"}
     with pytest.raises(ValueError, match="unknown rng"):
         td.step(td.DeltaParams(n=64, k=32, rng="philox"), state)
 
@@ -245,8 +249,8 @@ def test_state_entry_points_raise_without_a_card(monkeypatch):
 
 
 def test_fault_plan_passes_through_at_tick():
-    """There is no FaultPlan in the port yet; any object with ``at_tick``
-    is evaluated at the state's tick, as in the JAX package."""
+    """Any object with ``at_tick`` (``chaos.FaultPlan`` among them) is
+    evaluated at the state's tick, as in the JAX package."""
     jp, tp = _pair(512, 40, "shift")
     jf, tf = _faults("up drop", 512, seed=4)
 

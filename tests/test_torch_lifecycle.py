@@ -34,6 +34,7 @@ from ringpop_tpu.sim.packbits import block_count
 
 from ringpop_tpu_torch.ops import lifecycle_kernel as lk
 from ringpop_tpu_torch.sim import lifecycle as tl
+from ringpop_tpu_torch.sim import telemetry as tt
 from ringpop_tpu_torch.swim.member import FAULTY, SUSPECT
 
 FIELDS = jl.LifecycleState._fields
@@ -520,10 +521,10 @@ def test_refusals_name_their_roadmap_item():
     state = tl.init_state(counter, device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         tl.step(tl.LifecycleParams(n=64, k=32, rng="counter", exchange_mesh=object()), state)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tl.step(counter, state, telemetry=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        tl.LifecycleSim(64, k=32, rng="counter", telemetry=True, device="cpu")
+    # telemetry (A7) is ported: a step with an accumulator returns the pair
+    out, tel = tl.step(counter, state, telemetry=tt.zeros(counter, device="cpu"))
+    assert int(tel.ticks) == 1 and torch.equal(out.learned, tl.step(counter, state).learned)
+    assert tl.LifecycleSim(64, k=32, rng="counter", telemetry=True, device="cpu").telemetry is not None
     with pytest.raises(NotImplementedError, match="A15"):
         tl.LifecycleSim(64, k=32, rng="counter", aot="tag", device="cpu")
     sim = tl.LifecycleSim(64, k=32, rng="counter", device="cpu")

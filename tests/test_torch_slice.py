@@ -78,8 +78,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "ringpop_tpu_torch").rglob("*.py")
     )
-    for m in ("ops.hash_kernel", "ops.packbits_kernel", "ops.lifecycle_kernel", "ops.threefry_kernel", "sim.delta",
-              "sim.lifecycle", "sim.threefry", "swim.member", "bench"):
+    for m in ("ops.hash_kernel", "ops.packbits_kernel", "ops.lifecycle_kernel", "ops.threefry_kernel",
+              "ops.telemetry_kernel", "sim.delta", "sim.lifecycle", "sim.threefry", "sim.telemetry", "sim.chaos",
+              "sim.topology", "options", "obs.flight", "swim.member", "bench"):
         assert f"ringpop_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
