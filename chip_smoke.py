@@ -153,15 +153,19 @@ scale on bench.py's own stream, threefry:
    their plain versions on the card: D1, the state digest, over
    lifecycle-shaped leaf sets at N = 1, 31, 33, 4097, 1,000,000 x K = 40,
    64, 256 (random and all-negative int8 planes) at flat offsets 0, 5 and
-   2**32 - 3, leaves 1..7 elements past alignment, both engines' states
+   2**32 - 3, leaves 1..15 elements past alignment, both engines' states
    and an int8 plane of 2**32 + 256 elements, whose flat index wraps; P1,
    the per-tick accumulate, at N up to 1,000,000 x W = 1, 2, 8 on random,
-   empty and full planes; then each alone by profiler name at the main
-   path's shapes beside its bound; b) the main path, phase 9's headline
-   with a ``TelemetrySink`` journal and ``journal_views=True``: phase 9's
-   tick counts and final digests, the JAX package's block records (pinned
-   below), P1 once a tick and D1 once a record; detection with telemetry
-   off and on in turns and a 32-tick block each way under the profiler;
+   empty and full planes; R1, the record's float32 sums in the JAX
+   package's order, bit for bit at N up to 1,000,000 and 1023 x W = 1, 2, 8
+   with sums past 2**24; then each alone by profiler name at the main
+   path's shapes beside its bound, and D1's SASS an element; b) the main
+   path, phase 9's headline with a ``TelemetrySink`` journal and
+   ``journal_views=True``: phase 9's tick counts and final digests, the
+   JAX package's block records bit for bit (pinned below), P1 once a tick,
+   D1 once and R1 twice a record; detection with telemetry off and on in
+   turns and a 32-tick block each way under the profiler, beside the
+   figures before D1's redesign;
    c) simbench's churn100k (100,000 x 256, the churn plan, 256 ticks),
    d) ``topo_scenario_plan("zone_loss")`` at 4096 x 32 with the per-tier
    counters, e) BASELINE config 4, partition1m (1,000,000 x 128 on the
@@ -186,7 +190,8 @@ that stream (counter unless named), five runs (run it from another
 checkout's root, with this script copied there, to compare two versions
 in one call); ``--threefry`` builds the kernels and runs steps 10-11
 alone; ``--fullview`` builds them and runs steps 12-13 alone;
-``--telemetry`` builds them and runs step 14 alone.
+``--telemetry`` builds them and runs step 14 alone.  ``kernel_compare.py``
+times D1, C1 and F1 against another checkout's in alternating pairs.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
 device is available.  Imports nothing of JAX or of ``ringpop_tpu``.
@@ -1918,7 +1923,7 @@ def t1_profile(dev: torch.device) -> dict:
     launcher = {"split": threefry_kernel.split_cuda, "randint": threefry_kernel.randint_cuda,
                 "uniform": threefry_kernel.uniform_cuda}
     plain = {"split": threefry.split_plain, "randint": threefry.randint_plain, "uniform": threefry.uniform_plain}
-    out = {"sass_instructions": sass, "sass_per_element": per_element, "instructions_per_element": T1_OPS,
+    out = {"sass_instructions": sass, "sass_per_element": per_element, "least_ops_per_element": T1_OPS,
            "instruction_rate": rate, "max_sm_clock_mhz": mhz}
     for name, (kind, args, elements, width) in cases.items():
         ops_kind = kind
@@ -2681,19 +2686,30 @@ TEL_ROWS = (1, 31, 33, 4097, 1_000_000)
 TEL_SLOTS = (40, 64, 256)
 TEL_WORDS = (1, 2, 8)
 TEL_WIDE_ROWS = (1 << 24) + 1  # an int8 [TEL_WIDE_ROWS, 256] plane: 2**32 + 256 elements, 4.3 GB
-# the float32 record keys that are N·T-scaling sums: exact below 2**24 in
-# both packages, the order of summation deciding the last bits above it
-TEL_SUM_KEYS = frozenset(
-    ["ping_send", "ping_req_send", "ping_timeout", "refuted", "rumors_piggybacked", "rumors_expired", "timer_fired",
-     "refuted_unreachable_dir", "refuted_reachable_dir"]
-    + [f"{pre}_{key}" for pre in ("suspects", "false_suspects") for key in telemetry.TIER_KEYS])
-TEL_SUM_EXACT_BELOW = 2.0**24
-TEL_SUM_RTOL = 2.0**-20
-# D1's least work an element: two fmix32 (shift, xor, multiply, shift, xor,
-# multiply, shift, xor: 8 each; the value's xor folds into the inner mix's
-# last three-input xor) and the wrapping add
+# R1's cases: phase 14a's rows, and 1023, whose last first-level window
+# ends in one row of padding (the 31-row lanes)
+R1_ROWS = TEL_ROWS + (1023,)
+# D1's work an element: the yardstick counts two fmix32 (shift, xor,
+# multiply, shift, xor, multiply, shift, xor: 8 each; the value's xor folds
+# into the inner mix's last three-input xor) and the wrapping add.  The
+# function's least work is less: within an aligned chunk of c consecutive
+# flat indices (c = 16 int8 or bool elements, 4 int32) the inner mix's
+# first shift is the chunk's and its xor one with the lane (none for lane
+# 0); the inner mix's last shift by 16 and the outer mix's first cancel,
+# the value entering as w = v ^ v >> 16 (for an int32 a shift and a third
+# input of an xor; for a byte a byte permute, and half an instruction of
+# its word's sign mask); two elements' adds fold into one three-input add:
+# (c - 1) / c + 4 multiplies + 3 shifts and 3 xors + 2 for the value + 1/2,
+# 13.25 an int32 element (c = 4), the least of the kinds, held to no more
+# than D1's marginal SASS an element (d1_sass_per_element)
 FMIX32_OPS = 8
-D1_OPS = 2 * FMIX32_OPS + 1
+D1_YARDSTICK_OPS = 2 * FMIX32_OPS + 1
+D1_OPS = 13.25
+D1_MEASURED_KIND = 3  # csrc/telemetry.cu's int8 walk on aligned chunks (kInt8 * 2 + 1): the headline's pcount
+# the headline with telemetry before D1's redesign and R1 (PERF.md's
+# findings; NVIDIA H100 80GB HBM3, 700 W), logged beside this run's in 14b
+TELEMETRY_BEFORE = {"launches_a_tick_off": 958, "launches_a_tick_on": 975, "detect_ms_off_spread": [3042.06, 3940.30],
+                  "detect_ms_on_spread": [3072.30, 3760.64]}
 # the chaos and topology runs (cli/simbench.py:_run_chaos_scenario): the
 # lifecycle engine at suspect_ticks 10 on the counter stream, 16-tick blocks
 TEL_SEED, TEL_HORIZON, TEL_BLOCK, TEL_SUSPECT_TICKS = 0, 256, 16, 10
@@ -2855,10 +2871,8 @@ PIN_TEL_PARTITION = {  # partition1m: the delta journal's (tick, coverage, diges
 
 
 def records_match(got: list, want: list) -> bool:
-    """Are two journals' records equal?  Every key and value exactly,
-    except a float32 N·T sum (TEL_SUM_KEYS) above 2**24, which may differ
-    by TEL_SUM_RTOL relative: the port takes each sum exactly and rounds
-    once, the JAX package sums in float32 in its own order."""
+    """Are two journals' records equal: the same keys, every value of the
+    same type and equal, the float32 sums bit for bit?"""
     if len(got) != len(want):
         return False
     for g, w in zip(got, want):
@@ -2866,10 +2880,7 @@ def records_match(got: list, want: list) -> bool:
             return False
         for key, wv in w.items():
             gv = g[key]
-            if key in TEL_SUM_KEYS and isinstance(wv, float) and abs(wv) > TEL_SUM_EXACT_BELOW:
-                if not isinstance(gv, float) or abs(gv - wv) > TEL_SUM_RTOL * abs(wv):
-                    return False
-            elif type(gv) is not type(wv) or gv != wv:
+            if type(gv) is not type(wv) or gv != wv:
                 return False
     return True
 
@@ -2980,15 +2991,37 @@ def random_accumulate_inputs(gen: torch.Generator, n: int, w: int, dev, kind: st
     return {"acc": acc, "legs": legs}
 
 
+def r1_inputs(gen: torch.Generator, n: int, w: int, dev) -> list:
+    """R1's inputs at [N, W], as a record's: int32 [N] counts in [2**24,
+    2**26) (every sum past 2**24), a uint32 plane and an int32 plane of any
+    bits, an int32 [N, 4] summed by column, a bool [N] and an int32 [40]."""
+    i32 = lambda *s: torch.randint(-(2**31), 2**31 - 1, s, generator=gen, dtype=torch.int32, device=dev)  # noqa
+    big = torch.randint(2**24, 2**26, (n,), generator=gen, dtype=torch.int32, device=dev)
+    return [(big, False, False), (i32(n, w), True, False), (i32(n, w), False, False),
+            (torch.randint(2**24, 2**26, (n, 4), generator=gen, dtype=torch.int32, device=dev), False, True),
+            (torch.randint(0, 2, (n,), generator=gen, device=dev).to(torch.bool), False, False),
+            (i32(40), False, False)]
+
+
+def check_r1(inputs, what: str) -> None:
+    """R1 == its plain version, bit for bit, on ``inputs``."""
+    got = telemetry.f32_sums(inputs)
+    want = torch.cat([telemetry.f32_sum_plain(x, u, c).reshape(-1) for x, u, c in inputs])
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"R1 {what}: {got.tolist()} == plain {want.tolist()}")
+
+
 def phase14a_telemetry_kernels(dev: torch.device) -> dict:
-    """D1 and P1 == their plain versions on the card: D1 on lifecycle-shaped
-    leaf sets at N = 1, 31, 33, 4097, 1,000,000 x K = 40, 64, 256 (random
-    and all-negative int8 planes), with leaf sums at offsets 0, 5 and
-    2**32 - 3, leaves 1..7 elements past alignment (bytes for int8 and
-    bool), both engines' full states,
-    and one int8 plane of 2**32 + 256 elements, whose flat index wraps
-    (== its two halves' leaf sums at their offsets); P1 at N = 1, 31, 33,
-    4097, 1,000,000 x W = 1, 2, 8 on random, empty and full planes."""
+    """D1, P1 and R1 == their plain versions on the card: D1 on
+    lifecycle-shaped leaf sets at N = 1, 31, 33, 4097, 1,000,000 x K = 40,
+    64, 256 (random and all-negative int8 planes), with leaf sums at
+    offsets 0, 5 and 2**32 - 3, leaves 1..15 elements past alignment (every
+    byte of a 16-byte vector for int8 and bool: D1's heads and tails), both
+    engines' full states, and one int8 plane of 2**32 + 256 elements, whose
+    flat index wraps (== its two halves' leaf sums at their offsets); P1 at
+    N = 1, 31, 33, 4097, 1,000,000 x W = 1, 2, 8 on random, empty and full
+    planes; R1, bit for bit, at N = R1_ROWS x W = 1, 2, 8 (r1_inputs: sums
+    past 2**24, unsigned and signed planes, a sum by column, a mask)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 14)
     t0 = time.perf_counter()
@@ -3001,7 +3034,7 @@ def phase14a_telemetry_kernels(dev: torch.device) -> dict:
                     check_digest(leaves, f"N={n} K={k} {kind}", offset)
                 cases += 1
     base = digest_leaves(gen, 4097, 64, dev, "negative")
-    for off in range(1, 8):
+    for off in range(1, 16):
         shifted = [at_offset(x, off * x.element_size()) for x in base]
         check_digest(shifted, f"bases {off} elements past alignment", offset=off)
         cases += 1
@@ -3044,7 +3077,15 @@ def phase14a_telemetry_kernels(dev: torch.device) -> dict:
                     check(torch.equal(got[name], want[name]), f"P1 N={n} W={w} {kind}: {name} == plain")
                 p1_cases += 1
     log(f"phase14a: P1 == plain over {p1_cases} cases ({time.perf_counter() - t0:.1f} s)")
-    return {"d1_cases": cases, "p1_cases": p1_cases, "max_abs_err": 0}
+    t0 = time.perf_counter()
+    r1_cases = 0
+    for n in R1_ROWS:
+        for w in TEL_WORDS:
+            check_r1(r1_inputs(gen, n, w, dev), f"N={n} W={w}")
+            r1_cases += 1
+    log(f"phase14a: R1 == plain, bit for bit, over {r1_cases} cases of six inputs, N = {R1_ROWS} x W = {TEL_WORDS} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"d1_cases": cases, "p1_cases": p1_cases, "r1_cases": r1_cases, "max_abs_err": 0}
 
 
 def d1_bound(leaves, rate: float) -> dict:
@@ -3054,6 +3095,30 @@ def d1_bound(leaves, rate: float) -> dict:
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
     return {"bytes": nbytes, "elements": elements, "operations": ops, "bytes_ms": bytes_ms, "operations_ms": ops_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def d1_sass_per_element() -> dict:
+    """D1's SASS instructions an element on the headline's path (the int8
+    walk on aligned chunks): the difference between two measurement builds
+    that walk that kind alone (RP_D1_ONLY), with 4 and with 2 vectors in
+    flight a thread (RP_D1_UNROLL), over the 32 elements between; beside
+    the built kernel's opcodes and registers."""
+    defines = {u: (f"RP_D1_ONLY={D1_MEASURED_KIND}", f"RP_D1_UNROLL={u}") for u in (2, 4)}
+    with ThreadPoolExecutor(2) as ex:
+        libs = dict(zip(defines, ex.map(lambda d: telemetry_kernel.build(d), defines.values())))
+    name_of = lambda sym: "D1" if "telemetry_state_digest" in sym else None  # noqa: E731
+    counts = {u: sum(next(iter(sass_opcodes(lib, name_of).values())).values()) for u, lib in libs.items()}
+    lib = telemetry_kernel.build()
+    per_element = (counts[4] - counts[2]) / (2 * 16)
+    check(D1_OPS <= per_element, f"D1_OPS {D1_OPS} <= D1's marginal SASS an element {per_element}")
+    return {"per_element": per_element, "builds": counts, "opcodes": next(iter(sass_opcodes(lib, name_of).values())),
+            "registers": ptxas_registers(lib, name_of).get("D1")}
+
+
+def r1_bound(inputs) -> dict:
+    nbytes = sum(x.numel() * x.element_size() for x, _, _ in inputs)
+    nbytes += 4 * sum(x.shape[1] if c else 1 for x, _, c in inputs)
+    return {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
 def p1_bound(n: int, w: int, p: int) -> dict:
@@ -3082,10 +3147,16 @@ def telemetry_alone(dev: torch.device, life_state, delta_state) -> dict:
         rec = out[name] = {"kernel_ms": ms, "call_ms": time_ms(fn, 20, buf), "plain_ms": time_ms(ref, 3, buf),
                            **d1_bound(leaves, rate)}
         rec["share_of_bound"] = rec["bound_ms"] / ms
+        rec["yardstick_ms"] = rec["elements"] * D1_YARDSTICK_OPS / rate * 1e3
+        rec["share_of_yardstick"] = rec["yardstick_ms"] / ms
         log(f"profile: D1 {name}: kernel alone {ms * 1e3:.2f} us after a clean flush; call {rec['call_ms'] * 1e3:.2f} "
             f"us; plain {rec['plain_ms']:.3f} ms; bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bound_by']}: "
             f"{rec['bytes']} bytes {rec['bytes_ms'] * 1e3:.2f} us, {rec['elements']} elements x {D1_OPS} "
-            f"{rec['operations_ms'] * 1e3:.2f} us; {rec['share_of_bound']:.1%})")
+            f"{rec['operations_ms'] * 1e3:.2f} us; {rec['share_of_bound']:.1%}); the yardstick ({D1_YARDSTICK_OPS} "
+            f"an element) {rec['yardstick_ms'] * 1e3:.2f} us, {rec['share_of_yardstick']:.1%}")
+    out["d1_sass"] = sass = d1_sass_per_element()
+    log(f"profile: D1 SASS: {sass['per_element']} instructions an int8 element (builds {sass['builds']}), "
+        f"{sass['registers']} registers; opcodes {sass['opcodes']}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 15)
     n, w = LIFE_N, packbits.n_words(LIFE_K)
@@ -3100,6 +3171,28 @@ def telemetry_alone(dev: torch.device, life_state, delta_state) -> dict:
     log(f"profile: P1 at {n} x {w} words: kernel alone {ms * 1e3:.2f} us after a clean flush; call "
         f"{rec['call_ms'] * 1e3:.2f} us; plain {rec['plain_ms']:.3f} ms; bound {rec['bound_ms'] * 1e3:.2f} us "
         f"({rec['bytes']} bytes; {rec['share_of_bound']:.1%})")
+    # R1 on a headline record's inputs (fetch's: the [N] counters, the two
+    # [N, W] planes, the timer legs, the census masks), its two kernels' sum
+    inputs = [(acc["pings"], False, False), (acc["ping_reqs"], False, False), (acc["probes_failed"], False, False),
+              (acc["incarnation_bumps"], False, False), (acc["piggybacked"], True, False),
+              (acc["expired"], True, False),
+              (torch.randint(0, 1000, (LIFE_K,), generator=gen, dtype=torch.int32, device=dev), False, False),
+              (acc["base_timer_fires"], False, False), (inp["legs"]["delivered"], False, False),
+              (inp["legs"]["probing"], False, False)]
+    fn = lambda: telemetry.f32_sums(inputs)  # noqa: E731
+    ref = lambda: [telemetry.f32_sum_plain(x, u, c) for x, u, c in inputs]  # noqa: E731
+    check_r1(inputs, "on a headline record's inputs")
+    found = profile_ms(fn, 20, clean, "reduce_kernel")
+    windows_ms, levels_ms = one_kernel_ms(found, "telemetry_sum_windows"), one_kernel_ms(found, "telemetry_sum_levels")
+    ms = windows_ms + levels_ms
+    rec = out["r1_lifecycle_1m_8"] = {"kernel_ms": ms, "windows_ms": windows_ms, "levels_ms": levels_ms,
+                                      "call_ms": time_ms(fn, 20, buf), "plain_ms": time_ms(ref, 3, buf),
+                                      **r1_bound(inputs)}
+    rec["share_of_bound"] = rec["bound_ms"] / ms
+    log(f"profile: R1 on a headline record ({n} x {w} words): kernels alone {ms * 1e3:.2f} us (windows "
+        f"{windows_ms * 1e3:.2f}, levels {levels_ms * 1e3:.2f}) after a clean flush; call {rec['call_ms'] * 1e3:.2f} "
+        f"us; plain {rec['plain_ms']:.3f} ms; bound {rec['bound_ms'] * 1e3:.2f} us ({rec['bytes']} bytes; "
+        f"{rec['share_of_bound']:.1%})")
     return out
 
 
@@ -3165,10 +3258,10 @@ def phase14b_headline(dev: torch.device) -> dict:
           f"headline block records == the JAX pins: {record_diff(res['records'], PIN_TEL_HEADLINE['records'])}")
     flushes = len(res["records"])
     check(launches["telemetry_accumulate"] == PIN_LIFE_DETECT_TICKS and launches["telemetry_state_digest"] == flushes
-          and launches["row_reduce"] == 3 * PIN_LIFE_DETECT_TICKS
+          and launches["telemetry_f32_sums"] == 2 * flushes and launches["row_reduce"] == 3 * PIN_LIFE_DETECT_TICKS
           and not any(v for k, v in launches.items() if k.startswith("threefry_")),
-          f"P1 once a tick ({PIN_LIFE_DETECT_TICKS}), D1 once a block record ({flushes}), S1 3x a tick and no T1 "
-          f"on the counter stream: {launches}")
+          f"P1 once a tick ({PIN_LIFE_DETECT_TICKS}), D1 once and R1 twice a block record ({flushes}), S1 3x a tick "
+          f"and no T1 on the counter stream: {launches}")
     check(len(telemetry.read_journal(str(path))) == 1 + flushes, "the journal holds the header and every block")
     log(f"phase14b: telemetry on, detected in {res['detect'][0]} ticks and converged {res['converge'][0]} later == "
         f"phase 9's pins, final digests == PIN_LIFE, {flushes} block records == JAX; launches {launches}; "
@@ -3194,8 +3287,11 @@ def phase14b_headline(dev: torch.device) -> dict:
         state = lifecycle.step(params, state, faults)
     blocks = {"off": tick_profile(params, state, faults, None, LIFE_CHECK_EVERY),
               "on": tick_profile(params, state, faults, telemetry.zeros(params, device=dev), LIFE_CHECK_EVERY)}
-    log(f"phase14b: detection ms telemetry off {walls['off']}, on {walls['on']}; 32-tick block from tick "
-        f"{LIFE_TWIN_TICKS}: off {blocks['off']}, on {blocks['on']}")
+    log(f"phase14b: detection ms telemetry off {walls['off']}, on {walls['on']} (before: off "
+        f"{TELEMETRY_BEFORE['detect_ms_off_spread']}, on {TELEMETRY_BEFORE['detect_ms_on_spread']}); 32-tick block "
+        f"from tick {LIFE_TWIN_TICKS}: off {blocks['off']}, on {blocks['on']} (before: launches a tick off "
+        f"{TELEMETRY_BEFORE['launches_a_tick_off']}, on {TELEMETRY_BEFORE['launches_a_tick_on']}; R1's 2 a journalled "
+        f"block come on top, {2 * flushes} over the run's {PIN_LIFE_DETECT_TICKS} ticks)")
     delta_state = delta.init_state(delta.DeltaParams(n=DELTA_N, k=DELTA_K, rng="counter"), seed=DELTA_SEED,
                                    device=dev)
     alone = telemetry_alone(dev, sim.state, delta_state)
@@ -3231,8 +3327,9 @@ def phase14cde_scenarios(dev: torch.device) -> dict:
         check(records_match(res["records"], pin["records"]),
               f"{name}: block records == the JAX pins: {record_diff(res['records'], pin['records'])}")
         check(res["score"] == pin["score"], f"{name}: the verdict == the JAX pin: {res['score']}")
-        check(launches == {"accumulate": TEL_HORIZON, "state_digest": TEL_HORIZON // TEL_BLOCK},
-              f"{name}: P1 once a tick, D1 once a block: {launches}")
+        check(launches == {"accumulate": TEL_HORIZON, "state_digest": TEL_HORIZON // TEL_BLOCK,
+                           "f32_sums": 2 * TEL_HORIZON // TEL_BLOCK},
+              f"{name}: P1 once a tick, D1 once and R1 twice a block: {launches}")
         journaled = telemetry.read_journal(str(path))
         check(journaled[-1] == json.loads(json.dumps(res["score"])) and len(journaled) == 2 + len(res["records"]),
               f"{name}: the scored journal round-trips")
@@ -3256,7 +3353,8 @@ def phase14cde_scenarios(dev: torch.device) -> dict:
           f"partition1m: partition {res['partition_ticks']}, heal {res['heal_ticks']} ticks, converged "
           f"{res['converged']} == JAX {pin}")
     check(records_match(got, pin["records"]), f"partition1m: records == JAX: {record_diff(got, pin['records'])}")
-    check(launches == {"accumulate": 0, "state_digest": len(got)}, f"partition1m: D1 once a record: {launches}")
+    check(launches == {"accumulate": 0, "state_digest": len(got), "f32_sums": 0},
+          f"partition1m: D1 once a record: {launches}")
     log(f"phase14e: partition1m at {TEL_PART_N} x {TEL_PART_K}: partition {res['partition_ticks']} ticks, heal "
         f"{res['heal_ticks']}, converged, {len(got)} (tick, coverage, digest) records == JAX; wall {wall:.3f} s; "
         f"launches {launches}")
@@ -3271,7 +3369,7 @@ def run_telemetry(dev: torch.device) -> tuple[list, dict]:
     p14a = phase14a_telemetry_kernels(dev)
     head = phase14b_headline(dev)
     scen = phase14cde_scenarios(dev)
-    d1, p1 = head["alone"]["d1_lifecycle_1m_256"], head["alone"]["p1_lifecycle_1m_8"]
+    d1, p1, r1 = (head["alone"][k] for k in ("d1_lifecycle_1m_256", "p1_lifecycle_1m_8", "r1_lifecycle_1m_8"))
     main = head["launches"]
     kernels = [{
         "name": "telemetry_state_digest", "route": "cuda", "source": "ringpop_tpu_torch/csrc/telemetry.cu",
@@ -3281,7 +3379,9 @@ def run_telemetry(dev: torch.device) -> tuple[list, dict]:
         "state": f"the headline's final state ({LIFE_N} x {LIFE_K})",
         "ms": d1["kernel_ms"], "call_ms": d1["call_ms"], "plain_ms": d1["plain_ms"], "bound_ms": d1["bound_ms"],
         "bound_by": d1["bound_by"], "share_of_bound": d1["share_of_bound"], "library_ms": None,
-        "library": "none", "by_case": head["alone"],
+        "library": "none", "least_ops_per_element": D1_OPS, "yardstick_ops": D1_YARDSTICK_OPS,
+        "share_of_yardstick": d1["share_of_yardstick"], "sass": head["alone"]["d1_sass"],
+        "by_case": {k: v for k, v in head["alone"].items() if k.startswith("d1_") and k != "d1_sass"},
     }, {
         "name": "telemetry_accumulate", "route": "cuda", "source": "ringpop_tpu_torch/csrc/telemetry.cu",
         "replaces": "ringpop_tpu/sim/telemetry.py:148 (accumulate's [N, W] and [N] legs: XLA's elementwise "
@@ -3290,6 +3390,15 @@ def run_telemetry(dev: torch.device) -> tuple[list, dict]:
         "state": f"the headline's tick ({LIFE_N} x {packbits.n_words(LIFE_K)} words, 3 peers)",
         "ms": p1["kernel_ms"], "call_ms": p1["call_ms"], "plain_ms": p1["plain_ms"], "bound_ms": p1["bound_ms"],
         "bound_by": "bytes", "share_of_bound": p1["share_of_bound"], "library_ms": None, "library": "none",
+    }, {
+        "name": "telemetry_f32_sums", "route": "cuda", "source": "ringpop_tpu_torch/csrc/telemetry.cu",
+        "replaces": "ringpop_tpu/sim/telemetry.py:280-332 (fetch's float32 sums: XLA:CPU's reduce-windows; no "
+                    "Pallas kernel)",
+        "launches": main["telemetry_f32_sums"], "max_abs_err": p14a["max_abs_err"],
+        "state": f"a headline record's inputs ({LIFE_N} x {packbits.n_words(LIFE_K)} words)",
+        "ms": r1["kernel_ms"], "call_ms": r1["call_ms"], "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"],
+        "bound_by": "bytes", "share_of_bound": r1["share_of_bound"], "library_ms": None,
+        "library": "none: torch.sum adds in another order",
     }]
     return kernels, {"telemetry_kernels": p14a, "telemetry_headline": head, "telemetry_scenarios": scen}
 

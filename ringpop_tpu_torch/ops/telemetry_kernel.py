@@ -1,7 +1,7 @@
 """The telemetry-plane kernels for Hopper: build, bind and launch.
 
-``csrc/telemetry.cu`` holds two kernels of the sim plane's telemetry
-(``sim/telemetry.py``), neither of which torch can express in one call:
+``csrc/telemetry.cu`` holds three kernels of the sim plane's telemetry
+(``sim/telemetry.py``), none of which torch can express in one call:
 
 * D1 ``state_digest`` — the position-sensitive digest of a state: per leaf
   the wrapping uint32 sum of ``mix32(value ^ mix32(flat index))``, then
@@ -10,7 +10,11 @@
   ``leaf_digest_sum`` / ``tree_digest``;
 * P1 ``accumulate`` — one tick of the telemetry accumulators' [N, W] and
   [N] legs, in place: three popcounts of packed planes and five counters;
-  replaces XLA's elementwise passes of ``telemetry.accumulate``.
+  replaces XLA's elementwise passes of ``telemetry.accumulate``;
+* R1 ``f32_sums`` — a record's float32 sums in XLA:CPU's order, bit for
+  bit the JAX package's ``sum(dtype=float32)``, in two launches for the
+  whole record (``sim/telemetry.py`` plans each input's first level);
+  replaces XLA's reduce-windows of ``telemetry.fetch``.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use
 (``ops/_cuda_build.py``) and loaded with ctypes; nothing is built or loaded
@@ -34,21 +38,24 @@ from ringpop_tpu_torch.ops import _cuda_build
 SOURCE = _cuda_build.CSRC / "telemetry.cu"
 BUILD_DIR = _cuda_build.BUILD_DIR
 MAX_LEAVES = 64  # csrc/telemetry.cu kMaxLeaves: the leaves one digest launch takes
+MAX_SUMS = 32  # csrc/telemetry.cu kMaxSums: the inputs one R1 call takes (a column of a plane counts one)
+SUM_WINDOW = 32  # csrc/telemetry.cu kSumWindow
 
 # leaf dtype -> the kernel's element kind (bool 0/1, int8 sign-extended,
 # int32 as its bits, int64 by its low word)
 KINDS = {torch.bool: 0, torch.uint8: 0, torch.int8: 1, torch.int32: 2, torch.int64: 3}
 
-launches = {"state_digest": 0, "accumulate": 0}
+launches = {"state_digest": 0, "accumulate": 0, "f32_sums": 0}  # R1 counts each of its two launches
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
-def build() -> Path:
-    """Compile ``csrc/telemetry.cu`` unless the library for this source is
-    already built.  Raises RuntimeError on failure."""
-    return _cuda_build.build(SOURCE, BUILD_DIR)
+def build(defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc/telemetry.cu`` (with the macros ``defines``, for a
+    build whose SASS is counted) unless that library is already built.
+    Raises RuntimeError on failure."""
+    return _cuda_build.build(SOURCE, BUILD_DIR, defines)
 
 
 def _library():
@@ -59,8 +66,10 @@ def _library():
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.rp_state_digest.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, ptr]
             lib.rp_telemetry_accumulate.argtypes = [ptr] * 6 + [i64, i32] + [ptr] * 8 + [i32] + [ptr] * 4
+            lib.rp_f32_sums.argtypes = [ptr] * 6 + [i32, ptr, ptr, i64, ptr, ptr, ptr]
             lib.rp_state_digest.restype = i32
             lib.rp_telemetry_accumulate.restype = i32
+            lib.rp_f32_sums.restype = i32
             _lib = lib
         return _lib
 
@@ -162,3 +171,57 @@ def accumulate_cuda(acc: dict, *, sent_w, resp_w, ride_ok, mid_ride_w, delivered
     if err != 0:
         raise RuntimeError(f"accumulate kernel launch failed: cudaError {err}")
     launches["accumulate"] += 1
+
+
+# input dtype -> R1's element kind (0 bool, 1 int32, 2 uint32 held in int32)
+SUM_KINDS = {torch.bool: 0, torch.int32: 1}
+
+
+def f32_sums_cuda(inputs: Sequence[tuple]) -> torch.Tensor:
+    """Launch R1 over ``inputs``, a list of ``(x, unsigned, by_column,
+    lanes)``: CUDA tensors of one device, bool or int32 (``unsigned``: int32
+    holding uint32 bits) of at most two dimensions; ``by_column`` sums an
+    [N, C] tensor by column (C outputs); ``lanes`` is the first level's plan
+    (``sim.telemetry.sum_lanes``: 0 exact, 1 in order, 4 or 8 lanes; 1 for
+    a sum by column).  Returns float32 [outputs], the sums in order.  Two
+    launches (one when every input is empty).  Raises as
+    :func:`state_digest_cuda` does."""
+    cols = []  # (tensor, element offset, rows, width, ld, kind, lanes)
+    dev = inputs[0][0].device if inputs else None
+    for x, unsigned, by_column, lanes in inputs:
+        if not x.is_cuda or x.device != dev:
+            raise ValueError(f"f32_sums_cuda needs CUDA tensors on one device, got {x.device}")
+        if x.dtype not in SUM_KINDS or (unsigned and x.dtype != torch.int32) or x.dim() > 2:
+            raise ValueError(f"f32_sums_cuda takes bool or int32 tensors of at most two dimensions, got "
+                             f"{x.dtype}{list(x.shape)}")
+        x = x.contiguous()
+        kind = 2 if unsigned else SUM_KINDS[x.dtype]
+        if by_column:
+            if x.dim() != 2:
+                raise ValueError(f"a sum by column takes an [N, C] tensor, got {list(x.shape)}")
+            cols += [(x, c, x.shape[0], 1, x.shape[1], kind, 1) for c in range(x.shape[1])]
+        else:
+            rows = x.shape[0] if x.dim() else 1
+            width = x.shape[1] if x.dim() == 2 else 1
+            cols.append((x, 0, rows, width, width, kind, lanes))
+    count = len(cols)
+    if not 1 <= count <= MAX_SUMS:
+        raise ValueError(f"f32_sums_cuda takes 1 to {MAX_SUMS} sums, got {count}")
+    if any(width < 1 for _, _, _, width, _, _, _ in cols):
+        raise ValueError("f32_sums_cuda takes rows of at least one word")
+    windows = sum(-(-rows // SUM_WINDOW) for _, _, rows, _, _, _, _ in cols)
+    ptrs = (ctypes.c_void_p * count)(*(x.data_ptr() + off * x.element_size() for x, off, *_ in cols))
+    rows = (ctypes.c_longlong * count)(*(c[2] for c in cols))
+    widths, lds, kinds, lanes = ((ctypes.c_int * count)(*(c[i] for c in cols)) for i in (3, 4, 5, 6))
+    fwin = torch.empty(2 * max(windows, 1), dtype=torch.float32, device=dev)
+    xwin = torch.empty(2 * max(windows, 1) if any(c[6] == 0 for c in cols) else 1, dtype=torch.int64, device=dev)
+    out = torch.empty(count, dtype=torch.float32, device=dev)
+    launched = ctypes.c_int(0)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.rp_f32_sums(ptrs, rows, widths, lds, kinds, lanes, count, fwin.data_ptr(), xwin.data_ptr(), windows,
+                              out.data_ptr(), ctypes.byref(launched), torch.cuda.current_stream().cuda_stream)
+    launches["f32_sums"] += launched.value
+    if err != 0:
+        raise RuntimeError(f"f32_sums kernel launch failed: cudaError {err}")
+    return out

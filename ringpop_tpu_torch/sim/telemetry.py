@@ -14,9 +14,10 @@ in blocks, so observability costs no host round trip a tick.
   packed planes, [K] slot vectors, [M] placement vectors), reduced to
   scalars once a block in :func:`fetch`.
 
-On the card the tick's [N, W] and [N] legs are one launch of kernel P1 and
-the state digest one launch of kernel D1 (``csrc/telemetry.cu``,
-``ops/telemetry_kernel.py``); on the CPU their plain versions below run.
+On the card the tick's [N, W] and [N] legs are one launch of kernel P1, the
+state digest one launch of kernel D1 and a record's float32 sums two
+launches of kernel R1 (``csrc/telemetry.cu``, ``ops/telemetry_kernel.py``);
+on the CPU their plain versions below run.
 The accumulators are updated in place (the JAX package's are immutable):
 :func:`accumulate` returns the same tensors, one tick further on.
 
@@ -24,9 +25,8 @@ The host half (journal, stats bridge, sink) is the JAX package's, with the
 port's own toolchain fingerprint (torch, CUDA, numpy, Python).  Counter
 overflow: int32 accumulators hold per-tick increments of at most N (or 32
 per packed word); a fetch resets them.  :func:`fetch` reports the N·T-scaling
-sums in float32, as the JAX package does; the port takes each sum exactly
-in int64 and rounds once, so the two agree bit for bit while the true sum
-is below 2**24 and to the last bits of float32 above it.
+sums in float32, as the JAX package does, added in the order XLA:CPU adds
+them (:func:`f32_sum_plain`), so the two agree bit for bit at every size.
 """
 
 from __future__ import annotations
@@ -194,22 +194,170 @@ def accumulate(
     return tel
 
 
+# -- float32 sums in the JAX package's order (kernel R1) ----------------------
+
+# The JAX package's ``fetch`` sums its counters in float32
+# (``x.sum(dtype=float32)``) under ``jax.jit`` on the CPU, and above 2**24
+# the order of the adds decides the last bits.  XLA:CPU's tree-reduction
+# rewrite turns a reduce over a dimension longer than SUM_WINDOW into a
+# chain of reduce-windows of SUM_WINDOW (for an [N, W] plane with W <=
+# SUM_WINDOW a window is SUM_WINDOW whole rows), each level padded with
+# zeros, pad // 2 of them in front, until at most SUM_WINDOW values are
+# left; then one plain reduce adds those in order.  Inside a window the
+# adds run in row-major order, except where LLVM vectorizes the window's
+# loop (its adds are marked reassociable): at a first level with no
+# padding in front, of rows 2..SUM_WINDOW_LANES_MAX_WIDTH words wide, the
+# leading rows are summed in window_lanes(W, rows) lanes, row r into lane
+# r % L, the lanes halved pairwise, and the other rows added after
+# (:func:`_first_level`).  Read from the compiled HLO and the optimized
+# LLVM IR (jax 0.9.0, x86-64 with 256-bit vectors) and held against live
+# ``jnp.sum`` by tests/test_torch_telemetry.py.  One reduce is not pinned: a full sum of an
+# [N, W] plane with W >= 2 and N <= SUM_WINDOW (or W > SUM_WINDOW) ends in a
+# plain reduce of two or more columns, which LLVM vectorizes with lanes and
+# a remainder that its cost model picks by N and W; there the sum is taken
+# exactly and rounded once, which is what any order gives while the sum
+# stays below 2**24 (ROADMAP Queue C).
+SUM_WINDOW = 32
+SUM_WINDOW_LANES_MAX_WIDTH = 8
+
+
+def window_lanes(width: int, rows: int = SUM_WINDOW) -> int:
+    """The lanes in which LLVM sums a window's loop over ``rows`` rows
+    (SUM_WINDOW, or one less when the level's last window ends in a row of
+    padding) of ``width`` words: for 32 rows 8 lanes at 2..6 words and 4 at
+    7..8; for 31 rows 8 at 2 words and 4 at 3..8; else 1 (in order)."""
+    if width < 2 or width > SUM_WINDOW_LANES_MAX_WIDTH:
+        return 1
+    return 8 if width <= (6 if rows == SUM_WINDOW else 2) else 4
+
+
+def _rows_width(x: torch.Tensor) -> tuple[int, int]:
+    """(rows, words a row) of a 0-d, [N] or [N, W] tensor."""
+    return (x.shape[0] if x.dim() else 1), (x.shape[1] if x.dim() == 2 else 1)
+
+
+def _as_f32(x: torch.Tensor, unsigned: bool) -> torch.Tensor:
+    """Each element as float32, rounded to nearest (uint32 planes held in
+    int32 by their unsigned value)."""
+    if unsigned:
+        x = x.to(torch.int64) & M32
+    return x.to(torch.float32)
+
+
+def _pad_rows(a: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """``a`` [R, ...] padded with zero rows to a multiple of SUM_WINDOW,
+    pad // 2 in front; returns it and the pad."""
+    pad = -a.shape[0] % SUM_WINDOW
+    if pad:
+        lo = a.new_zeros((pad // 2, *a.shape[1:]))
+        hi = a.new_zeros((pad - pad // 2, *a.shape[1:]))
+        a = torch.cat([lo, a, hi])
+    return a, pad
+
+
+def _column_levels(a: torch.Tensor) -> torch.Tensor:
+    """float32 [R, C] -> [C]: each column summed as XLA sums a vector: windows
+    of SUM_WINDOW in order, level by level, then the last at most
+    SUM_WINDOW values in order."""
+    while a.shape[0] > SUM_WINDOW:
+        a, _ = _pad_rows(a)
+        win = a.view(-1, SUM_WINDOW, a.shape[1])
+        acc = win[:, 0].clone()
+        for r in range(1, SUM_WINDOW):
+            acc = acc + win[:, r]
+        a = acc
+    total = a[0].clone()
+    for r in range(1, a.shape[0]):
+        total = total + a[r]
+    return total
+
+
+def sum_lanes(rows: int, width: int) -> int:
+    """How the first level of a full sum of ``rows`` x ``width`` words is
+    taken: 0 for the reduce whose order is not pinned (exact, rounded
+    once), else its windows' lanes (1: in order)."""
+    if width > 1 and (rows <= SUM_WINDOW or width > SUM_WINDOW):
+        return 0
+    pad = -rows % SUM_WINDOW
+    return window_lanes(width, SUM_WINDOW - (pad - pad // 2)) if rows > SUM_WINDOW and pad // 2 == 0 else 1
+
+
+def _first_level(a: torch.Tensor) -> torch.Tensor:
+    """float32 [R, W] (R > SUM_WINDOW, W <= SUM_WINDOW) -> [windows]: the
+    first reduce-window of a full sum, SUM_WINDOW whole rows a window.
+    With no padding in front (a pad of 0 or 1), XLA's loop over the rows
+    in bounds in every window (all SUM_WINDOW, or all but the last) has no
+    bounds check, and LLVM sums its first rows in lanes (window_lanes: row
+    r into lane r % L, whole lane-counts of rows), halves the lanes, then
+    adds the rest of the window's rows in order."""
+    a, pad = _pad_rows(a)
+    w = a.shape[1]
+    win = a.view(-1, SUM_WINDOW, w)
+    lanes = sum_lanes(a.shape[0] - pad, w)
+    if lanes == 1:
+        acc, first = win[:, 0, 0].clone(), 1
+    else:
+        first = (SUM_WINDOW - pad) // lanes * lanes  # pad is 0 or 1 here
+        grid = win[:, :first].reshape(-1, first // lanes, lanes, w)  # row i * lanes + l in lane l
+        acc = grid[:, 0, :, 0].clone()
+        for i in range(first // lanes):
+            for c in range(w):
+                if i or c:
+                    acc = acc + grid[:, i, :, c]
+        while acc.shape[1] > 1:
+            half = acc.shape[1] // 2
+            acc = acc[:, :half] + acc[:, half:]
+        acc, first = acc[:, 0], first * w
+    flat = win.reshape(win.shape[0], -1)
+    for e in range(first, SUM_WINDOW * w):
+        acc = acc + flat[:, e]
+    return acc
+
+
+def f32_sum_plain(x: torch.Tensor, unsigned: bool = False, by_column: bool = False) -> torch.Tensor:
+    """The plain version of R1 for one input: ``x.sum(dtype=float32)`` as
+    the JAX package takes it, bit for bit (0-d float32); with
+    ``by_column``, ``x.sum(axis=0, dtype=float32)`` of an [N, C] tensor
+    ([C] float32).  ``x`` is bool, int32, or with ``unsigned`` int32
+    holding uint32 bits, of at most two dimensions.  Built from float32
+    adds of one window position at a time (torch's own sums do not fix
+    their order)."""
+    if x.dim() > 2 or (by_column and x.dim() != 2):
+        raise ValueError(f"f32_sum takes tensors of at most two dimensions ([N, C] by column), got {list(x.shape)}")
+    if by_column:
+        if x.shape[0] == 0:
+            return torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
+        return _column_levels(_as_f32(x, unsigned))
+    rows, width = _rows_width(x)
+    a = _as_f32(x, unsigned).reshape(rows, width)
+    if a.numel() == 0:
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+    if sum_lanes(rows, width) == 0:
+        wide = x.to(torch.int64) & M32 if unsigned else x.to(torch.int64)
+        return wide.sum().to(torch.float32)
+    if rows > SUM_WINDOW:
+        a = _first_level(a)[:, None]
+    return _column_levels(a)[0]
+
+
+def f32_sums(inputs: list) -> torch.Tensor:
+    """float32 [outputs]: the JAX package's float32 sums of ``inputs``, a
+    list of ``(x, unsigned, by_column)`` on one device, in order (an input
+    by column gives one output a column).  Kernel R1 on the card (two
+    launches for the whole list), :func:`f32_sum_plain` on the CPU."""
+    if inputs and inputs[0][0].device.type != "cpu":
+        return telemetry_kernel.f32_sums_cuda([
+            (x, u, c, 1 if c else sum_lanes(*_rows_width(x))) for x, u, c in inputs])
+    return torch.cat([f32_sum_plain(x, u, c).reshape(-1) for x, u, c in inputs])
+
+
 # -- fetch: the once-per-block reduction + census ----------------------------
 
 
-def _f32_sum(x: torch.Tensor) -> torch.Tensor:
-    """The float32 of ``x``'s exact sum (int64), rounded once."""
-    return x.sum(dtype=torch.int64).to(torch.float32)
-
-
-def _u32_sum(p: torch.Tensor) -> torch.Tensor:
-    """The float32 sum of a plane of int32 holding uint32."""
-    return _f32_sum(p.to(torch.int64) & M32)
-
-
-def _census(state, faults: DeltaFaults) -> dict:
-    """Point-in-time membership census from the converged base view, plus
-    the detection fraction over the fault model's down nodes."""
+def _census(state, faults: DeltaFaults) -> tuple[dict, list]:
+    """Point-in-time membership census from the converged base view, and
+    the float32 sums (down, detected) of the detection fraction over the
+    fault model's down nodes (none without a fault model)."""
     present = state.base_present
     status = state.base_status
 
@@ -224,52 +372,28 @@ def _census(state, faults: DeltaFaults) -> dict:
         "census_tombstone": count(TOMBSTONE),
         "rumors_active": (state.r_subject >= 0).sum(dtype=torch.int32),
     }
-    one = torch.ones((), dtype=torch.float32, device=present.device)
-    if faults.up is not None:
-        down = ~faults.up
-        detected = down & (~present | (status >= FAULTY))
-        down_total = _f32_sum(down)
-        # an empty down set reports the vacuous 1.0 (a fully recovered
-        # cluster under a time-varying plan), as the up-is-None branch does
-        out["detect_frac"] = torch.where(down_total > 0, _f32_sum(detected) / down_total.clamp_min(1.0), one)
-    else:
-        out["detect_frac"] = one
-    return out
+    if faults.up is None:
+        return out, []
+    down = ~faults.up
+    return out, [(down, False, False), (down & (~present | (status >= FAULTY)), False, False)]
 
 
 def fetch(tel: TelemetryState, state, faults: DeltaFaults = DeltaFaults()) -> tuple[dict, TelemetryState]:
     """Reduce the block's accumulators to a scalar record and reset them.
     Returns ``(record, zeroed_tel)``: a flat dict of 0-d tensors on the
-    device (``_to_host`` brings them over in one copy).  A time-varying
-    plan is resolved at the state's tick; the directed-partition
-    attribution reads the unresolved plan's group/reach, which are
-    time-invariant."""
+    device (``_to_host`` brings them over in one copy).  The float32 sums
+    are the JAX package's, bit for bit (:func:`f32_sums`: one R1 call for
+    the record on the card).  A time-varying plan is resolved at the
+    state's tick; the directed-partition attribution reads the unresolved
+    plan's group/reach, which are time-invariant."""
     raw_group = getattr(faults, "group", None)
     raw_reach = getattr(faults, "reach", None)
     faults = resolve_faults(faults, state.tick)
-    record = {
-        "ticks": tel.ticks,
-        "ping_send": _f32_sum(tel.pings),
-        "ping_req_send": _f32_sum(tel.ping_reqs),
-        "ping_timeout": _f32_sum(tel.probes_failed),
-        "refuted": _f32_sum(tel.incarnation_bumps),
-        "rumors_piggybacked": _u32_sum(tel.piggybacked),
-        "rumors_expired": _u32_sum(tel.expired),
-        # the JAX package adds the [K] and [N] float32 sums
-        "timer_fired": _f32_sum(tel.timer_fires) + _f32_sum(tel.base_timer_fires),
-        "decl_alive": tel.decl_alive.sum(dtype=torch.int32),
-        "decl_suspect": tel.decl_suspect.sum(dtype=torch.int32),
-        "decl_faulty": tel.decl_faulty.sum(dtype=torch.int32),
-        "decl_tombstone": tel.decl_tombstone.sum(dtype=torch.int32),
-        "heal_attempts": tel.heal_attempts,
-        "tick": state.tick,
-    }
+    sums = [(tel.pings, False, False), (tel.ping_reqs, False, False), (tel.probes_failed, False, False),
+            (tel.incarnation_bumps, False, False), (tel.piggybacked, True, False), (tel.expired, True, False),
+            (tel.timer_fires, False, False), (tel.base_timer_fires, False, False)]
     if tel.suspects_by_tier is not None:
-        s = tel.suspects_by_tier.sum(dim=0, dtype=torch.int64).to(torch.float32)
-        fpos = tel.false_suspects_by_tier.sum(dim=0, dtype=torch.int64).to(torch.float32)
-        for ti, key in enumerate(TIER_KEYS):
-            record[f"suspects_{key}"] = s[ti]
-            record[f"false_suspects_{key}"] = fpos[ti]
+        sums += [(tel.suspects_by_tier, False, True), (tel.false_suspects_by_tier, False, True)]
     if raw_group is not None and raw_reach is not None:
         # directed-partition attribution: the block's refutations split by
         # whether the refuting subject's group g sits in the unreachable
@@ -281,9 +405,45 @@ def fetch(tel: TelemetryState, state, faults: DeltaFaults = DeltaFaults()) -> tu
         g = torch.as_tensor(raw_group, device=tel.pings.device).to(torch.int64)
         flag = (g >= 0) & blocked[g.clamp_min(0)]
         bumps = tel.incarnation_bumps
-        record["refuted_unreachable_dir"] = _f32_sum(torch.where(flag, bumps, 0))
-        record["refuted_reachable_dir"] = _f32_sum(torch.where(~flag, bumps, 0))
-    record.update(_census(state, faults))
+        sums += [(torch.where(flag, bumps, 0), False, False), (torch.where(~flag, bumps, 0), False, False)]
+    census, census_sums = _census(state, faults)
+    totals = f32_sums(sums + census_sums)
+    record = {
+        "ticks": tel.ticks,
+        "ping_send": totals[0],
+        "ping_req_send": totals[1],
+        "ping_timeout": totals[2],
+        "refuted": totals[3],
+        "rumors_piggybacked": totals[4],
+        "rumors_expired": totals[5],
+        # the JAX package adds the [K] and [N] float32 sums
+        "timer_fired": totals[6] + totals[7],
+        "decl_alive": tel.decl_alive.sum(dtype=torch.int32),
+        "decl_suspect": tel.decl_suspect.sum(dtype=torch.int32),
+        "decl_faulty": tel.decl_faulty.sum(dtype=torch.int32),
+        "decl_tombstone": tel.decl_tombstone.sum(dtype=torch.int32),
+        "heal_attempts": tel.heal_attempts,
+        "tick": state.tick,
+    }
+    at = 8
+    if tel.suspects_by_tier is not None:
+        for ti, key in enumerate(TIER_KEYS):
+            record[f"suspects_{key}"] = totals[at + ti]
+            record[f"false_suspects_{key}"] = totals[at + N_TIERS + ti]
+        at += 2 * N_TIERS
+    if raw_group is not None and raw_reach is not None:
+        record["refuted_unreachable_dir"] = totals[at]
+        record["refuted_reachable_dir"] = totals[at + 1]
+        at += 2
+    record.update(census)
+    one = torch.ones((), dtype=torch.float32, device=totals.device)
+    if census_sums:
+        down_total, detected = totals[at], totals[at + 1]
+        # an empty down set reports the vacuous 1.0 (a fully recovered
+        # cluster under a time-varying plan), as the up-is-None branch does
+        record["detect_frac"] = torch.where(down_total > 0, detected / down_total.clamp_min(1.0), one)
+    else:
+        record["detect_frac"] = one
     fresh = TelemetryState(*(None if x is None else torch.zeros_like(x) for x in tel))
     return record, fresh
 

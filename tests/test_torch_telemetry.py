@@ -15,11 +15,15 @@ records; the host half (journal header/block/score round trip under
 OBSERVABILITY.md's schema index, ``emit_stats`` keys, ``TelemetrySink``'s
 fan-out, ``split_batched``).
 
-Records' float32 fields are the N·T-scaling sums, which both packages take
-exactly below 2**24; every test here stays below it, so they must be equal.
-Above 2**24 the order of summation decides the last bits, and only there
-(the full-scale pins of ``chip_smoke.py``'s phase 14) is a relative
-tolerance of 2**-20 allowed (``chip_smoke.records_match``).
+Records' float32 fields are the N·T-scaling sums, which the JAX package
+takes in float32 in XLA:CPU's order; the port's ``f32_sum_plain`` (kernel
+R1's plain version) takes them in that order, so they are equal bit for bit
+at every size: held here against live ``jnp.sum(dtype=float32)`` over a
+grid of shapes whose every sum passes 2**24, and the whole ``fetch`` against
+the JAX package's, eager and jitted, at N = 100003 and 2**20 with every
+float32 key past 2**24.  The one reduce whose order is not pinned (a full
+sum over [N <= 32, W >= 2]) is taken exactly, which equals any order below
+2**24.  ``chip_smoke.records_match`` allows no tolerance.
 """
 
 import functools
@@ -27,6 +31,7 @@ import json
 import re
 import zlib
 from pathlib import Path
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
@@ -455,9 +460,110 @@ def test_split_batched_matches_jax():
 
 
 def test_records_match_allows_the_float_tolerance_only_above_2_24():
+    """No tolerance is left, above 2**24 or below: ``records_match`` demands
+    every key equal, of the same type, at every size."""
     big = float(2**26)
-    assert chip_smoke.records_match([{"ping_send": big + 32, "tick": 3}], [{"ping_send": big, "tick": 3}])
-    assert not chip_smoke.records_match([{"ping_send": big * (1 + 2**-19), "tick": 3}], [{"ping_send": big, "tick": 3}])
+    assert chip_smoke.records_match([{"ping_send": big, "tick": 3}], [{"ping_send": big, "tick": 3}])
+    assert not chip_smoke.records_match([{"ping_send": big + 32, "tick": 3}], [{"ping_send": big, "tick": 3}])
+    assert not chip_smoke.records_match([{"rumors_piggybacked": 157241616.0}], [{"rumors_piggybacked": 157241632.0}])
     assert not chip_smoke.records_match([{"ping_send": 1000.0, "tick": 3}], [{"ping_send": 1001.0, "tick": 3}])
     assert not chip_smoke.records_match([{"ping_send": big, "tick": 4}], [{"ping_send": big, "tick": 3}])
     assert not chip_smoke.records_match([{"detect_frac": 0.5}], [{"detect_frac": 0.5000001}])
+    assert not chip_smoke.records_match([{"tick": 3.0}], [{"tick": 3}])
+    assert not chip_smoke.records_match([{"tick": 3}], [{"tick": 3}, {"tick": 4}])
+    assert not hasattr(chip_smoke, "TEL_SUM_RTOL") and not hasattr(chip_smoke, "TEL_SUM_EXACT_BELOW")
+
+
+# -- the float32 sums in XLA:CPU's order (kernel R1's plain version) -----------
+
+SUM_ROWS = (1, 31, 32, 33, 63, 1000, 1023, 4097, 100003, 2**20)
+SUM_CASES = ([("vector", n, 1) for n in SUM_ROWS] + [("plane", n, w) for n in SUM_ROWS if n >= 33 for w in (1, 2, 8)]
+             + [("uplane", n, w) for n in (63, 1023, 100003, 2**20) for w in (2, 4, 8)]
+             + [("columns", n, 4) for n in SUM_ROWS])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sum(axis):
+    return jax.jit(lambda a: a.sum(axis=axis, dtype=jnp.float32))
+
+
+@pytest.mark.parametrize("what,n,w", SUM_CASES)
+def test_f32_sum_matches_jax_bit_for_bit_above_2_24(what, n, w):
+    """The JAX package's ``x.sum(dtype=float32)`` (``axis=0`` for the
+    columns), live, against ``f32_sum_plain``: every sum past 2**24, so the
+    order of the adds decides the last bits: the windows, their padding,
+    the lanes of an unpadded level and of one padded by a row."""
+    rng = np.random.default_rng(n * 16 + w)
+    shape = (n,) if what == "vector" else (n, w)
+    if what == "uplane":
+        x = rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
+        port = torch.from_numpy(x.view(np.int32))
+    else:
+        x = rng.integers(2**24, 2**28, size=shape).astype(np.int32)
+        port = torch.from_numpy(x)
+    by_column = what == "columns"
+    want = np.asarray(_jax_sum(0 if by_column else None)(jnp.asarray(x)))
+    got = tt.f32_sum_plain(port, unsigned=what == "uplane", by_column=by_column).numpy()
+    assert (np.abs(want) > 2**24).all()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert got.tobytes() == want.tobytes(), (got, want)
+
+
+def test_f32_sum_of_the_unpinned_reduce_is_exact_and_equal_below_2_24():
+    """A full sum over [N <= 32, W >= 2] is the one reduce whose order is not
+    pinned (LLVM's vectorizer picks its lanes by N and W): the port takes it
+    exactly and rounds once, which equals the JAX package's wherever the
+    sum stays below 2**24, at shapes across that range."""
+    rng = np.random.default_rng(24)
+    f = _jax_sum(None)
+    for n in (1, 2, 3, 5, 8, 13, 20, 21, 31, 32):
+        for w in (2, 3, 8):
+            x = rng.integers(0, 2**24 // (n * w), size=(n, w)).astype(np.int32)
+            got = tt.f32_sum_plain(torch.from_numpy(x))
+            assert float(got) == float(x.astype(np.int64).sum()) < 2**24
+            assert got.numpy().tobytes() == np.asarray(f(jnp.asarray(x))).tobytes(), (n, w)
+            assert tt.sum_lanes(n, w) == 0
+
+
+class _Census(NamedTuple):
+    """The state leaves ``fetch`` reads, in both packages."""
+    tick: object
+    base_present: object
+    base_status: object
+    r_subject: object
+
+
+@pytest.mark.parametrize("n", [100003, 2**17])
+def test_fetch_matches_jax_with_every_float_key_above_2_24(n):
+    """A synthetic accumulator at N = 100003 (its first-level windows padded
+    in front: in order) and 2**17 (unpadded: the planes' windows in lanes),
+    K = 256, tiers and the directed legs armed, every float32 key of the
+    record past 2**24: the port's ``fetch`` == the JAX package's, eager and
+    under ``jax.jit`` (as ``LifecycleSim`` takes it), carried across with
+    ``telemetry_from_numpy``."""
+    k = 256
+    rng = np.random.default_rng(n)
+    zero = jt.zeros(jl.LifecycleParams(n=n, k=k), tiers=True)
+    leaves = {name: np.asarray(x) for name, x in zip(zero._fields, zero)}
+    for name in ("pings", "ping_reqs", "probes_failed", "incarnation_bumps", "base_timer_fires", "suspects_by_tier",
+                 "false_suspects_by_tier"):
+        leaves[name] = rng.integers(2**9, 2**12, size=leaves[name].shape).astype(np.int32)
+    for name in ("piggybacked", "expired"):
+        leaves[name] = rng.integers(0, 2**28, size=leaves[name].shape).astype(np.uint32)
+    leaves["timer_fires"] = rng.integers(2**17, 2**20, size=k).astype(np.int32)
+    jtel = type(zero)(**{name: jnp.asarray(leaves[name]) for name in zero._fields})
+    ttel = tt.telemetry_from_numpy([leaves[name] for name in zero._fields], device="cpu")
+    present, status = rng.random(n) < 0.9, rng.integers(0, 4, size=n).astype(np.int8)
+    subject = rng.integers(-1, n, size=k).astype(np.int32)
+    up, group = rng.random(n) < 0.7, rng.integers(-1, 3, size=n).astype(np.int32)
+    reach = np.array([[True, False, True], [True, True, True], [False, True, True]])
+    js = _Census(jnp.int32(77), *(jnp.asarray(a) for a in (present, status, subject)))
+    ts = _Census(torch.tensor(77, dtype=torch.int32), *(torch.from_numpy(a) for a in (present, status, subject)))
+    jf = jd.DeltaFaults(up=jnp.asarray(up), group=jnp.asarray(group), reach=jnp.asarray(reach))
+    tf = td.DeltaFaults(up=torch.from_numpy(up), group=torch.from_numpy(group), reach=torch.from_numpy(reach))
+    got = tt._to_host(tt.fetch(ttel, ts, tf)[0])
+    floats = {key: v for key, v in got.items() if isinstance(v, float) and key != "detect_frac"}
+    assert len(floats) == 17 and all(v > 2**24 for v in floats.values()), floats
+    for fetch in (jt.fetch, jax.jit(jt.fetch)):
+        want = jt._to_host(fetch(jtel, js, jf)[0])
+        assert got == want and all(type(got[key]) is type(want[key]) for key in want)
