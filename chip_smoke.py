@@ -2,8 +2,8 @@
 """Smoke run of ringpop_tpu_torch on one CUDA card: the keyed-ownership path,
 the SWIM dissemination engine, the SWIM failure-detection engine, the
 threefry stream, the headline benchmark record, the exact full-view
-engine with its lockstep conformance gate, and the telemetry plane with
-the chaos and topology fault plans.
+engine with its lockstep conformance gate, the telemetry plane with the
+chaos and topology fault plans, and the scenario fleet.
 
     python3 chip_smoke.py
 
@@ -171,7 +171,24 @@ scale on bench.py's own stream, threefry:
    counters, e) BASELINE config 4, partition1m (1,000,000 x 128 on the
    delta engine): their journals and verdicts == the JAX pins, with their
    wall times.  Phase 14's journals and the whole record go to
-   ``chip_smoke_out/``.
+   ``chip_smoke_out/``;
+15. the scenario fleet (``sim/montecarlo``, ``sim/scenarios``,
+   ``sim/snapshot``), each replica stepped through the solo lifecycle tick:
+   first a twin, 2 replicas of the scored grid at 4096 x 32 with telemetry,
+   4 ticks of detection and a fetch on the kernels and on their plain
+   versions (L1, L2, S1, T1, P1, D1, R1 at the fleet's shapes), every leaf
+   and record equal; a) simbench's ``montecarlo`` at full scale (4096 x
+   32, 32 replicas seeded 0..31, threefry, 4 victims, detection checked
+   every tick): the distribution and the 32 final digests == the JAX pins,
+   with a 2-tick fleet block at B = 1 and B = 32 under the profiler
+   (launches and ms a fleet tick, busy share); b) simbench's ``mc_churn``
+   (up to 128 background crashes, 4096 ticks at most) with its three
+   2-replica contrasts: the curve, cliff and contrasts == the pins; c)
+   mc_chaos's scored journal on its grid's corner (doses 0 and 128, losses
+   0 and 0.1: 4 of its 128 scenarios) for 256 ticks in 16-tick blocks,
+   saved at tick 128 and run on, then restored from the checkpoint and run
+   again: both runs' verdicts and digests == each other and the pins; each
+   with its wall time and the wrappers' launch counts.
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -190,7 +207,8 @@ that stream (counter unless named), five runs (run it from another
 checkout's root, with this script copied there, to compare two versions
 in one call); ``--threefry`` builds the kernels and runs steps 10-11
 alone; ``--fullview`` builds them and runs steps 12-13 alone;
-``--telemetry`` builds them and runs step 14 alone.  ``kernel_compare.py``
+``--telemetry`` builds them and runs step 14 alone; ``--fleet`` builds them
+and runs step 15 alone.  ``kernel_compare.py``
 times D1, C1 and F1 against another checkout's in alternating pairs.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
@@ -233,8 +251,10 @@ from ringpop_tpu_torch.sim import (
     delta,
     fullview,
     lifecycle,
+    montecarlo,
     packbits,
     prng,
+    scenarios,
     telemetry,
     threefry,
     topology,
@@ -3403,6 +3423,320 @@ def run_telemetry(dev: torch.device) -> tuple[list, dict]:
     return kernels, {"telemetry_kernels": p14a, "telemetry_headline": head, "telemetry_scenarios": scen}
 
 
+# -- phase 15: the scenario fleet (sim/montecarlo, sim/scenarios, sim/snapshot) --
+
+# simbench's fleet rows at full scale (ringpop_tpu/cli/simbench.py): montecarlo
+# (:232-262) and mc_churn (:1064-1143), n 4096 x k 32, 32 replicas seeded 0..31,
+# threefry, 4 victims from default_rng(seed); mc_chaos's scored journal
+# (:1249-1262) on the corner of its grid (doses 0 and churn_max, losses 0
+# and 0.1: 4 of its 128 scenarios), 256 ticks in 16-tick blocks
+FLEET_N, FLEET_K, FLEET_B, FLEET_SEED = 4096, 32, 32, 0
+FLEET_MC_MAX_TICKS, FLEET_CHURN_MAX_TICKS = 1024, 4096
+FLEET_CHURN_SEED, FLEET_CONTRAST_SEED = FLEET_SEED + 777, FLEET_SEED + 778
+FLEET_LOSSES, FLEET_HORIZON, FLEET_BLOCK, FLEET_SAVE_AT = (0.0, 0.1), 256, 16, 128
+FLEET_TWIN_B, FLEET_TWIN_TICKS = 2, 4  # 15's twin: kernels against plain versions on the fleet's shapes
+FLEET_PROFILE_TICKS = 2  # a profiled fleet block at B = 1 and B = FLEET_B
+FLEET_KERNELS = ("slot_walk", "first_live_learner", "row_reduce", "threefry", "telemetry_accumulate",
+                 "telemetry_state_digest", "telemetry_f32_sums")
+# pinned from the JAX package (ringpop_tpu.sim.montecarlo, .scenarios) run on
+# the CPU; tests/test_torch_chip_smoke_pins_fleet.py recomputes them
+# 15a: the distribution and every replica's final digest, in replica order
+PIN_FLEET_MC = {
+    "distribution": {"n_replicas": 32, "detected": 32, "ticks_median": 36.0, "ticks_p90": 36.0, "ticks_max": 37.0,
+                     "sim_s_median": 7.2, "ticks_all": [35, 35, 35, 36, 36, 36, 36, 36, 36, 36, 36, 36, 36, 36, 36,
+                      36, 36, 36, 36, 36, 36, 36, 36, 36, 36, 36, 36, 36, 36, 36, 36, 37]},
+    "digests": [2419896041, 13971730, 276234646, 2622331047, 2758430302, 2109515306, 957886429, 3859830618,
+                342299360, 120943324, 2340974905, 2921628582, 343585947, 1926029024, 3920164558, 3235900662,
+                901479654, 793882333, 637095638, 4005361127, 2347540153, 2036482530, 3159803321, 1753515270,
+                3137142401, 526025267, 1215035414, 599611794, 443439922, 481916085, 398596524, 203288392],
+}
+# 15b: the dose-response curve, its cliff and the contrasts
+PIN_FLEET_CHURN = {
+    "churn_ticks": [[0, 37], [4, 36], [8, 36], [12, 35], [17, 36], [21, 36], [25, 36], [29, 35], [33, 36], [37, 48],
+                    [41, 46], [45, 46], [50, 47], [54, 46], [58, 46], [62, 46], [66, 51], [70, 51], [74, 56],
+                    [78, 56], [83, 56], [87, 63], [91, 62], [95, 62], [99, 62], [103, 63], [107, 96], [111, 96],
+                    [116, 96], [120, 97], [124, 97], [128, 96]],
+    "churn_cliff_at": 107, "cliff_jump_ticks": 33,
+    "cliff_contrast": {"maxp_default": 60, "k32_maxp_default": [[0, 37], [128, 99]],
+                       "k32_maxp_x3": [[0, 37], [128, 99]], "k64_maxp_default": [[0, 37], [128, 46]]},
+}
+# 15c: the verdicts and digests at the horizon
+PIN_FLEET_SCORED = {
+    "scores": tel_records(("kind", "scenario", "n", "ticks", "blocks", "block_granularity_ticks", "events",
+                          "time_to_detect", "time_to_detect_median", "rumor_half_life", "rumor_half_life_median",
+                          "refutations", "false_positive_suspects", "suspects_declared", "faulty_declared",
+                          "heal_attempts", "final_detect_frac", "rejoin_convergence_ticks", "scenario_id", "churn",
+                          "loss", "part", "dose_index"), [
+        ("score", "mc_chaos", 4096, 256, 16, 16, [], [], None, [], None, 0, 0, 4, 4, 6, 1.0, None, 0, 0, 0.0, 0.0, 0),
+        ("score", "mc_chaos", 4096, 256, 16, 16, [], [], None, [], None, 0, 0, 132, 132, 6, 1.0, None, 1, 128, 0.0,
+         0.0, 1),
+        ("score", "mc_chaos", 4096, 256, 16, 16, [], [], None, [], None, 265, 265, 272, 4, 6, 1.0, None, 2, 0, 0.1,
+         0.0, 0),
+        ("score", "mc_chaos", 4096, 256, 16, 16, [], [], None, [], None, 169, 169, 306, 132, 6, 1.0, None, 3, 128,
+         0.1, 0.0, 1),
+    ]),
+    "digests": {0: 2855582472, 1: 1248461985, 2: 2164527130, 3: 3539042073},
+}
+
+
+def fleet_victims(n: int) -> list[int]:
+    """simbench's victims: 4 of n from ``np.random.default_rng(FLEET_SEED)``."""
+    return sorted(np.random.default_rng(FLEET_SEED).choice(n, size=4, replace=False).tolist())
+
+
+def fleet_faults(dev, n: int):
+    victims = fleet_victims(n)
+    up = np.ones(n, bool)
+    up[victims] = False
+    return victims, delta.DeltaFaults(up=torch.from_numpy(up).to(dev))
+
+
+def fleet_digests(states) -> list[int]:
+    """Every replica's state digest, in replica order."""
+    return [int(telemetry.tree_digest(lifecycle.LifecycleState(*(x[b] for x in states))))
+            for b in range(int(states.tick.shape[0]))]
+
+
+def fleet_mc_run(dev, n: int = FLEET_N, b: int = FLEET_B, k: int = FLEET_K,
+                 max_ticks: int = FLEET_MC_MAX_TICKS) -> tuple[dict, "montecarlo.MonteCarlo"]:
+    """simbench ``montecarlo``: ``detection_latency_distribution``'s recipe
+    (B replicas seeded FLEET_SEED.., the victims down, detection checked
+    every tick) through ``MonteCarlo``, so that the final states can be
+    digested.  Returns ({"distribution", "digests"}, the fleet)."""
+    victims, faults = fleet_faults(dev, n)
+    params = lifecycle.LifecycleParams(n=n, k=k)
+    mc = montecarlo.MonteCarlo(params, range(FLEET_SEED, FLEET_SEED + b), device=dev)
+    ticks, detected = mc.run_until_detected(victims, faults, max_ticks=max_ticks, check_every=1)
+    dist = montecarlo._distribution(ticks, detected, mc.n_replicas, params.tick_ms / 1000.0)
+    return {"distribution": dist, "digests": fleet_digests(mc.states)}, mc
+
+
+def fleet_churn_run(dev, n: int = FLEET_N, b: int = FLEET_B, k: int = FLEET_K,
+                    max_ticks: int = FLEET_CHURN_MAX_TICKS) -> dict:
+    """simbench ``mc_churn``: ``detection_latency_under_churn`` with up to
+    n // 32 background crashes, the cliff by ``scenarios.locate_cliff``,
+    and the three 2-replica contrasts at the saturating dose (k, k with
+    three times maxP, 2k)."""
+    victims = fleet_victims(n)
+    churn_max = n // 32
+    seeds = range(FLEET_SEED, FLEET_SEED + b)
+    out = montecarlo.detection_latency_under_churn(n=n, seeds=seeds, victims=victims, churn_max=churn_max, k=k,
+                                                   max_ticks=max_ticks, churn_seed=FLEET_CHURN_SEED, device=dev)
+    cliff_at, jump = scenarios.locate_cliff(out["churn_ticks"])
+    base = lifecycle.LifecycleParams(n=n, k=k)
+    contrast = {"maxp_default": base.resolved_max_p()}
+    for label, kw in ((f"k{k}_maxp_default", dict(k=k)), (f"k{k}_maxp_x3", dict(k=k, max_p=3 * base.resolved_max_p())),
+                      (f"k{2 * k}_maxp_default", dict(k=2 * k))):
+        o = montecarlo.detection_latency_under_churn(
+            n=n, seeds=[FLEET_SEED, FLEET_SEED + 1], victims=victims, churn_max=churn_max, max_ticks=max_ticks,
+            churn_seed=FLEET_CONTRAST_SEED, device=dev, **kw)
+        contrast[label] = o["churn_ticks"]
+    return {"churn_ticks": out["churn_ticks"], "churn_cliff_at": cliff_at, "cliff_jump_ticks": jump,
+            "detected": out["detected"], "cliff_contrast": contrast}
+
+
+def fleet_grid(dev, n: int):
+    """The corner of mc_chaos's grid: doses 0 and n // 32, losses 0 and 0.1."""
+    plan, meta = scenarios.scenario_grid(n, victims=fleet_victims(n), doses=[0, n // 32], losses=FLEET_LOSSES,
+                                         churn_seed=FLEET_CHURN_SEED, device=dev)
+    return plan, meta, scenarios.grid_seeds(meta, FLEET_SEED)
+
+
+def fleet_scored_run(dev, ckpt: str, n: int = FLEET_N, k: int = FLEET_K, horizon: int = FLEET_HORIZON,
+                     save_at: int = FLEET_SAVE_AT) -> dict:
+    """mc_chaos's scored journal on the grid's corner: a ``FleetSweep`` run
+    to ``save_at``, saved to ``ckpt``, run on to the horizon; then restored
+    from ``ckpt`` into a new sweep and run to the horizon.  Returns both
+    runs' ``scores()`` and ``digests()``."""
+    params = lifecycle.LifecycleParams(n=n, k=k)
+    plan, meta, seeds = fleet_grid(dev, n)
+    sweep = scenarios.FleetSweep(params, plan, meta, seeds, horizon=horizon, journal_every=FLEET_BLOCK,
+                                 scenario="mc_chaos", device=dev)
+    sweep.run(until_tick=save_at)
+    sweep.save(ckpt)
+    sweep.run()
+    out = {"scores": sweep.scores(), "digests": sweep.digests()}
+    del sweep
+    resumed = scenarios.FleetSweep.restore(ckpt, params, plan, meta, seeds, device=dev)
+    resumed.run()
+    out.update(resumed_scores=resumed.scores(), resumed_digests=resumed.digests(),
+               resumed_from=resumed.resumed["from_tick"])
+    return out
+
+
+def fleet_launches() -> dict[str, int]:
+    """The wrapper counts of the fleet path's kernels: L1, L2, S1, T1 (all
+    its entries), P1, D1 and R1."""
+    counts = port_launches()
+    return {"slot_walk": counts["slot_walk"], "first_live_learner": counts["first_live_learner"],
+            "row_reduce": counts["row_reduce"],
+            "threefry": sum(v for key, v in counts.items() if key.startswith("threefry_")),
+            **{f"telemetry_{key}": v for key, v in telemetry_kernel.launches.items()}}
+
+
+def reset_fleet_launches() -> None:
+    packbits_kernel.reset_launches()
+    lifecycle_kernel.reset_launches()
+    threefry_kernel.reset_launches()
+    telemetry_kernel.reset_launches()
+    torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def plain_telemetry():
+    """Route ``ops/telemetry_kernel``'s P1, D1 and R1 on CUDA tensors to their
+    plain versions (on the card) for the duration."""
+    names = ("accumulate_cuda", "state_digest_cuda", "f32_sums_cuda")
+    saved = [getattr(telemetry_kernel, name) for name in names]
+
+    def d1_plain(leaves, offset: int = 0, final: bool = True):
+        if final:
+            return telemetry.tree_digest_plain(list(leaves))
+        return telemetry.leaf_digest_sum_plain(leaves[0], offset)
+
+    def r1_plain(inputs):
+        return torch.cat([telemetry.f32_sum_plain(x, u, c).reshape(-1) for x, u, c, _ in inputs])
+
+    for name, fn in zip(names, (telemetry.accumulate_plain, d1_plain, r1_plain)):
+        setattr(telemetry_kernel, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in zip(names, saved):
+            setattr(telemetry_kernel, name, fn)
+
+
+def fleet_twin(dev, plain: bool) -> dict:
+    """FLEET_TWIN_B replicas of the scored grid at full width, telemetry on:
+    a detection run of FLEET_TWIN_TICKS ticks checked every 2 (L1, L2, S1,
+    T1, P1) and a fetch (D1, R1), on the kernels or on their plain versions
+    (on the card).  Returns the ticks, the leaves and the records."""
+    plan, meta, seeds = fleet_grid(dev, FLEET_N)
+    plan = chaos.slice_plan(plan, 1, 1 + FLEET_TWIN_B)
+    mc = montecarlo.MonteCarlo(lifecycle.LifecycleParams(n=FLEET_N, k=FLEET_K), seeds[1:1 + FLEET_TWIN_B],
+                               telemetry=True, device=dev)
+    with contextlib.ExitStack() as stack:
+        if plain:
+            for ctx in (plain_lifecycle(), plain_threefry(), plain_telemetry()):
+                stack.enter_context(ctx)
+        ticks, det = mc.run_until_detected(fleet_victims(FLEET_N), plan, max_ticks=FLEET_TWIN_TICKS, check_every=2)
+        records = mc.fetch_telemetry(plan)
+    return {"ticks": ticks.tolist(), "detected": det.tolist(), "records": records,
+            "leaves": lifecycle.state_to_numpy(mc.states)}
+
+
+def fleet_block_profile(mc, faults, ticks: int) -> dict:
+    """``ticks`` fleet ticks (``mc.run``) timed alone (CUDA events), then
+    ``ticks`` more under ``torch.profiler``: the window, the wrappers'
+    launches and the profiler's kernel launches a fleet tick, and the
+    device's busy share (the profiler's own cost, ~17k records a fleet
+    tick at B = 32, lengthens its window)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    mc.run(ticks, faults)
+    end.record()
+    torch.cuda.synchronize()
+    alone_ms = start.elapsed_time(end)
+    reset_fleet_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiler_warmup()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        mc.run(ticks, faults)
+        end.record()
+        torch.cuda.synchronize()
+    port = fleet_launches()
+    window_ms = start.elapsed_time(end)
+    launches, busy = 0, 0.0
+    for evt in prof.key_averages():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA and evt.key not in lifecycle.PHASES
+                and MARK_TAG not in evt.key and evt.self_device_time_total > 0 and "(" in evt.key):
+            launches += evt.count
+            busy += evt.self_device_time_total / 1e3
+    return {"b": mc.n_replicas, "ticks": ticks, "ms_a_fleet_tick": alone_ms / ticks, "profiled_window_ms": window_ms,
+            "launches_a_fleet_tick": launches / ticks, "port_launches_a_fleet_tick": {
+                key: v / ticks for key, v in port.items()},
+            "port_launches_a_replica_tick": sum(port.values()) / ticks / mc.n_replicas,
+            "busy_ms": busy, "busy_share": busy / window_ms}
+
+
+def timed(fn):
+    """(fn's result, wall seconds to a synchronize, the fleet path's wrapper
+    launches): the counts are set to 0 just before and read just after."""
+    reset_fleet_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, fleet_launches()
+
+
+def run_fleet(dev: torch.device) -> dict:
+    """Phase 15 on ``dev``; returns its timings and launches by path under
+    ``"fleet"``.  15: the twin (every kernel of the fleet path against its plain
+    version on the fleet's shapes); a) simbench ``montecarlo`` at full
+    scale, its distribution and 32 digests == the JAX pins, and a profiled
+    fleet block at B = 1 and B = 32; b) ``mc_churn``: the curve, cliff and
+    contrasts == the pins; c) the scored sweep saved at tick 128 and
+    restored: both runs' scores and digests == each other and the pins."""
+    kern, plain = fleet_twin(dev, False), fleet_twin(dev, True)
+    check(kern["ticks"] == plain["ticks"] and kern["detected"] == plain["detected"],
+          f"fleet twin: detection {kern['ticks']} on the kernels == {plain['ticks']} on the plain versions")
+    for name in lifecycle.LifecycleState._fields:
+        check(np.array_equal(getattr(kern["leaves"], name), getattr(plain["leaves"], name)),
+              f"fleet twin: {name} on the kernels == on the plain versions")
+    check(records_match(kern["records"], plain["records"]),
+          f"fleet twin: the records on the kernels == on the plain versions: "
+          f"{record_diff(kern['records'], plain['records'])}")
+    log(f"phase15: twin of {FLEET_TWIN_B} replicas x {FLEET_TWIN_TICKS} ticks at {FLEET_N} x {FLEET_K} with "
+        f"telemetry: L1, L2, S1, T1, P1, D1, R1 == plain (every leaf, every record)")
+    out = {}
+    (mc_res, mc), wall, launches = timed(lambda: fleet_mc_run(dev))
+    check(mc_res["distribution"] == PIN_FLEET_MC["distribution"],
+          f"15a: the distribution == the JAX pin: {mc_res['distribution']}")
+    check(mc_res["digests"] == PIN_FLEET_MC["digests"], "15a: the 32 final digests == the JAX pins")
+    check(all(launches[key] > 0 for key in FLEET_KERNELS[:4]), f"15a: L1, L2, S1 and T1 launched: {launches}")
+    log(f"phase15a: montecarlo {FLEET_N} x {FLEET_K} x B {FLEET_B}: ticks_all {mc_res['distribution']['ticks_all']} "
+        f"and 32 digests == JAX; wall {wall:.3f} s (host clock to a synchronize); launches {launches}")
+    out["15a"] = {"wall_s": wall, "launches": launches, "ticks_max": mc_res["distribution"]["ticks_max"]}
+    del mc
+    # launches and busy share of a fleet tick, from the 15a recipe's state after 8 ticks
+    victims, faults = fleet_faults(dev, FLEET_N)
+    blocks = {}
+    for b in (1, FLEET_B):
+        mc = montecarlo.MonteCarlo(lifecycle.LifecycleParams(n=FLEET_N, k=FLEET_K), range(FLEET_SEED, FLEET_SEED + b),
+                                   device=dev)
+        mc.run(8, faults)
+        torch.cuda.synchronize()
+        blocks[f"b{b}"] = fleet_block_profile(mc, faults, FLEET_PROFILE_TICKS)
+        del mc
+    log(f"phase15a: a fleet tick at B = 1: {blocks['b1']}; at B = {FLEET_B}: {blocks[f'b{FLEET_B}']}")
+    out["profile"] = blocks
+    churn, wall, launches = timed(lambda: fleet_churn_run(dev))
+    for key in ("churn_ticks", "churn_cliff_at", "cliff_jump_ticks", "cliff_contrast"):
+        check(churn[key] == PIN_FLEET_CHURN[key], f"15b: {key} {churn[key]} == the JAX pin")
+    log(f"phase15b: mc_churn: curve, cliff at {churn['churn_cliff_at']} (jump {churn['cliff_jump_ticks']}) and "
+        f"contrasts {churn['cliff_contrast']} == JAX; wall {wall:.3f} s; launches {launches}")
+    if wall > 150:
+        log(f"phase15b: the lockstep study took {wall:.1f} s, past the 150 s it was expected to take")
+    out["15b"] = {"wall_s": wall, "launches": launches, "cliff_at": churn["churn_cliff_at"]}
+    ckpt = OUT_DIR / "phase15_fleet_ckpt"
+    OUT_DIR.mkdir(exist_ok=True)
+    scored, wall, launches = timed(lambda: fleet_scored_run(dev, str(ckpt)))
+    check(scored["scores"] == PIN_FLEET_SCORED["scores"], f"15c: scores == the JAX pins: {scored['scores']}")
+    check(scored["digests"] == PIN_FLEET_SCORED["digests"], f"15c: digests == the JAX pins: {scored['digests']}")
+    check(scored["resumed_scores"] == scored["scores"] and scored["resumed_digests"] == scored["digests"]
+          and scored["resumed_from"] == FLEET_SAVE_AT,
+          f"15c: the run restored from tick {scored['resumed_from']} == the unbroken run")
+    check(all(launches[key] > 0 for key in FLEET_KERNELS[1:]), f"15c: L2, S1, T1, P1, D1 and R1 launched: {launches}")
+    log(f"phase15c: scored sweep of {len(scored['scores'])} scenarios x {FLEET_HORIZON} ticks, saved at "
+        f"{FLEET_SAVE_AT} and restored: scores and digests == each other and JAX; wall {wall:.3f} s (two runs, "
+        f"the second from tick {FLEET_SAVE_AT}); launches {launches}")
+    out["15c"] = {"wall_s": wall, "launches": launches}
+    return {"fleet": out}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
@@ -3453,17 +3787,31 @@ def main() -> int:
         kernels, timings = run_telemetry(torch.device("cuda"))
         log(json.dumps({"card": card, "kernels": kernels, **timings}))
         return 0
+    if sys.argv[1:] == ["--fleet"]:
+        build_kernels()
+        log(json.dumps({"card": card, **run_fleet(torch.device("cuda"))}))
+        return 0
     if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
         rng = (sys.argv[2:] or ["counter"])[0]
         log(json.dumps({"card": card, "rng": rng, "detect_ms": detect_wall(torch.device("cuda"), rng)}))
         return 0
+    walls = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch.device("cuda"), *args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
     build_kernels()
-    kernels, timings = run(torch.device("cuda"), N_SERVERS, N_KEYS)
-    delta_kernels, delta_timings = run_delta(torch.device("cuda"))
-    life_kernels, life_timings = run_lifecycle(torch.device("cuda"))
-    tf_kernels, tf_timings = run_threefry(torch.device("cuda"))
-    fv_kernels, fv_timings = run_fullview(torch.device("cuda"))
-    tel_kernels, tel_timings = run_telemetry(torch.device("cuda"))
+    kernels, timings = phase("1-4", run, N_SERVERS, N_KEYS)
+    delta_kernels, delta_timings = phase("5-7", run_delta)
+    life_kernels, life_timings = phase("8-9", run_lifecycle)
+    tf_kernels, tf_timings = phase("10-11", run_threefry)
+    fv_kernels, fv_timings = phase("12-13", run_fullview)
+    tel_kernels, tel_timings = phase("14", run_telemetry)
+    fleet_timings = phase("15", run_fleet)
+    log(f"phase walls, s: {walls}")
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
     for rec, key in zip(delta_kernels, ("row_reduce", "popcount_rows")):
@@ -3472,12 +3820,22 @@ def main() -> int:
     # fold_in is a T1 entry that only the fullview path draws
     tf_kernels[0]["fold_in_launches_on_fullview"] = fv_timings["fullview"]["loss1k"]["launches"]["fold_in"]
     kernels += delta_kernels + life_kernels + tf_kernels + fv_kernels + tel_kernels
+    # phase 15's paths run L1, L2, S1, T1, P1, D1 and R1 once a replica: their counts there
+    by_name = {"lifecycle_slot_walk": "slot_walk", "lifecycle_first_live_learner": "first_live_learner",
+               "packbits_row_reduce": "row_reduce", "threefry": "threefry",
+               **{name: name for name in FLEET_KERNELS if name.startswith("telemetry_")}}
+    for rec in kernels:
+        if rec["name"] in by_name:
+            rec["launches_on_fleet"] = {path: fleet_timings["fleet"][path]["launches"][by_name[rec["name"]]]
+                                        for path in ("15a", "15b", "15c")}
     timings.update(delta_timings)
     timings.update(life_timings)
     timings.update(tf_timings)
     timings.update(fv_timings)
     timings.update(tel_timings)
+    timings.update(fleet_timings)
     timings["card"] = card
+    timings["phase_walls_s"] = walls
     # the whole record, which the end of a long log may not hold
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_timings.json").write_text(json.dumps({"timings": timings, "kernels": kernels}))

@@ -36,7 +36,17 @@ Counterpart of ``ringpop_tpu/sim``.  Ported so far:
   (``FaultPlan``, evaluated on the card at the state's tick), their
   builders and batching, and the convergence scorer ``score_blocks``;
 * :mod:`ringpop_tpu_torch.sim.topology` — rack/zone/region trees compiled
-  to tier legs and correlated-failure plans.
+  to tier legs and correlated-failure plans;
+* :mod:`ringpop_tpu_torch.sim.montecarlo` — the Monte-Carlo fleet
+  (``MonteCarlo``): B lockstep replicas differing in seed and fault
+  scenario, each stepped through the solo lifecycle tick and read as one
+  batched state; the detection-latency studies;
+* :mod:`ringpop_tpu_torch.sim.scenarios` — the scenario-grid compiler,
+  the scored and resumable fleet sweep (``FleetSweep``), response
+  surfaces and the adaptive cliff search;
+* :mod:`ringpop_tpu_torch.sim.snapshot` — engine snapshots in the JAX
+  package's ``.npz`` format (either package loads the other's) and the
+  fleet's npz carry checkpoint.
 
 This module imports none of them, so importing the package costs nothing.
 """

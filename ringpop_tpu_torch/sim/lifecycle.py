@@ -192,11 +192,29 @@ def init_state(params: LifecycleParams, seed: int = 0, device: DeviceLike = None
     the CPU); ``key`` is ``prng.prng_key(seed)``, the value
     ``jax.random.PRNGKey(seed)`` has.  On the card, K is refused past the
     widest plane the lifecycle kernels take (``lifecycle_kernel.MAX_WORDS``
-    words) rather than at the first tick."""
+    words) before anything is allocated."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        lifecycle_kernel.check_width(n_words(params.k), "lifecycle.init_state")
+    return init_state_from_key(params, prng.prng_key(seed, dev), dev)
+
+
+def init_state_from_key(params: LifecycleParams, key, device: DeviceLike = None) -> LifecycleState:
+    """The initial state with a given PRNG ``key`` leaf: the port's int64[2]
+    tensor, or the JAX package's uint32[2] as numpy-convertible values.  The
+    Monte-Carlo fleet (``sim/montecarlo``) builds its replicas this way.  On
+    the card, K is refused past the widest plane the lifecycle kernels take
+    rather than at the first tick."""
     dev = resolve_device(device)
     n, k = params.n, params.k
     if dev.type == "cuda":
         lifecycle_kernel.check_width(n_words(k), "lifecycle.init_state")
+    if isinstance(key, torch.Tensor):
+        key = key.to(device=dev, dtype=torch.int64)
+    else:
+        key = torch.as_tensor(np.asarray(key).astype(np.uint32).astype(np.int64), device=dev)
+    if key.shape != (2,):
+        raise ValueError(f"a PRNG key is two uint32 words, got shape {tuple(key.shape)}")
     i32 = dict(dtype=torch.int32, device=dev)
     return LifecycleState(
         r_subject=torch.full((k,), -1, **i32),
@@ -213,7 +231,7 @@ def init_state(params: LifecycleParams, seed: int = 0, device: DeviceLike = None
         base_deadline=torch.full((n,), NO_DEADLINE, **i32),
         self_inc=torch.zeros((n,), **i32),
         tick=torch.zeros((), **i32),
-        key=prng.prng_key(seed, dev),
+        key=key,
     )
 
 

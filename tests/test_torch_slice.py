@@ -80,7 +80,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     for m in ("ops.hash_kernel", "ops.packbits_kernel", "ops.lifecycle_kernel", "ops.threefry_kernel",
               "ops.telemetry_kernel", "sim.delta", "sim.lifecycle", "sim.threefry", "sim.telemetry", "sim.chaos",
-              "sim.topology", "options", "obs.flight", "swim.member", "bench"):
+              "sim.topology", "sim.montecarlo", "sim.scenarios", "sim.snapshot", "options", "obs.flight", "swim.member",
+              "bench"):
         assert f"ringpop_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
