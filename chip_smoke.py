@@ -3,7 +3,8 @@
 the SWIM dissemination engine, the SWIM failure-detection engine, the
 threefry stream, the headline benchmark record, the exact full-view
 engine with its lockstep conformance gate, the telemetry plane with the
-chaos and topology fault plans, and the scenario fleet.
+chaos and topology fault plans, the scenario fleet, and the serve tier's
+collector with its transports.
 
     python3 chip_smoke.py
 
@@ -188,7 +189,23 @@ scale on bench.py's own stream, threefry:
    0 and 0.1: 4 of its 128 scenarios) for 256 ticks in 16-tick blocks,
    saved at tick 128 and run on, then restored from the checkpoint and run
    again: both runs' verdicts and digests == each other and the pins; each
-   with its wall time and the wrappers' launch counts.
+   with its wall time and the wrappers' launch counts;
+16. the serve tier (``serve/service``, ``serve/shm``, ``net/channel``,
+   ``serve/bench``): a) simbench's ``serve_ring`` at full scale through the
+   port's ``run_ab`` with the store on the card (64 servers x 100 vnodes,
+   4 frontend processes over the shared-memory ring, 8192-key batches x 16,
+   5 measured reps, 300 B = 1 requests): serve and bisect owner digests
+   equal per (worker, rep), every answer at the pinned generation, a live
+   update re-certified, the B = 1 answers == the bisect oracle, and a
+   journal with ``serve`` and ``ring_update`` records (the last one's gen ==
+   the committed one); b) the same over TCP with the json codec at
+   simbench's non-full settings; c) a ``RingService`` on its own loop over
+   BASELINE config 5's ring on the card (4096 servers x 256 vnodes), fed
+   1,048,576 keys as 128 requests of 8192 with an n = 3 group every 8, a 1 %
+   churn commit on another thread while requests are pending: every answer
+   at generation 0 or 1 == that generation's host oracles; the qps, the
+   B = 1 latencies, the flush counts and one profiled flush's launches at
+   8192 and 65,536 keys.  The serve path runs no hand-written kernel.
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -208,7 +225,7 @@ checkout's root, with this script copied there, to compare two versions
 in one call); ``--threefry`` builds the kernels and runs steps 10-11
 alone; ``--fullview`` builds them and runs steps 12-13 alone;
 ``--telemetry`` builds them and runs step 14 alone; ``--fleet`` builds them
-and runs step 15 alone.  ``kernel_compare.py``
+and runs step 15 alone; ``--serve`` runs step 16 alone (no kernel build).  ``kernel_compare.py``
 times D1, C1 and F1 against another checkout's in alternating pairs.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
@@ -3737,6 +3754,190 @@ def run_fleet(dev: torch.device) -> dict:
     return {"fleet": out}
 
 
+# phase 16: the serve tier's collector and transports.  16a simbench
+# serve_ring at full scale (cli/simbench.py:1657-1659), 16b the same A/B over
+# TCP with the json codec at simbench's non-full settings (:1660-1662), 16c
+# the collector at BASELINE config 5's ring (phase 2-3's 4096 x 256 tokens)
+SERVE_AB_FULL = dict(n_servers=64, replica_points=100, frontends=4, batch=8192, batches_per_rep=16, reps=5,
+                     warm_reps=1, latency_reqs=300, transport="shm", seed=0)
+SERVE_AB_TCP = dict(n_servers=64, replica_points=100, frontends=4, batch=4096, batches_per_rep=8, reps=3,
+                    warm_reps=1, latency_reqs=150, transport="tcp", codec="json", seed=0)
+SERVE_SUBMIT, SERVE_N3_KEYS = 8192, 1024  # 16c: 128 submits of 8192 keys; an n = 3 group every 8
+SERVE_MAX_BATCH = SERVE_INLINE_MAX = 65536  # run_ab's collector settings
+SERVE_FIELDS = {"keys_per_flush", "queue_wait_us", "dispatch_us", "flushes", "requests", "keys", "gen"}
+
+
+def serve_ab(dev: torch.device, kw: dict, what: str) -> dict:
+    """One ``run_ab`` leg with a journal; its certificate (scripts/serve_smoke.py's),
+    and the journal's ``serve`` and ``ring_update`` records."""
+    from ringpop_tpu_torch.serve.bench import run_ab
+
+    OUT_DIR.mkdir(exist_ok=True)
+    path = OUT_DIR / f"phase16_{what}.jsonl"
+    journal = telemetry.TelemetryJournal(str(path))
+    journal.header("serve", "serve_ring", {"seed": kw["seed"], "transport": kw["transport"]})
+    try:
+        t0 = time.perf_counter()
+        rec = run_ab(journal=journal, device=dev, **kw)
+        wall = time.perf_counter() - t0
+    finally:
+        journal.close()
+    records = [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+    serves = [r for r in records if r.get("kind") == "serve"]
+    updates = [r for r in records if r.get("kind") == "ring_update"]
+    check(rec["digest_equal"], f"{what}: serve and bisect owner digests are equal per (worker, rep)")
+    check(rec["generation_pinned"], f"{what}: every answer carries the pinned generation: {rec['generations_seen']}")
+    check(rec["update_certified"], f"{what}: the live update re-certifies against the post-update oracle")
+    check(rec["latency_b1"]["owners_match_oracle"], f"{what}: the B = 1 answers equal the bisect oracle")
+    check(bool(serves) and all(SERVE_FIELDS <= set(r) and {"mean", "p50", "p90", "max"} <= set(r["keys_per_flush"])
+                               for r in serves), f"{what}: the journal's serve records carry serve_smoke's fields")
+    check(bool(updates) and updates[-1]["gen"] == rec["update_record"]["gen"],
+          f"{what}: the last ring_update record's gen == the committed generation {rec['update_record']['gen']}")
+    keep = ("serve_qps_median", "bisect_qps_median", "speedup_median", "serve_qps_reps", "bisect_qps_reps",
+            "ratio_reps", "latency_b1", "telemetry", "flush_us", "codec")
+    out = {k: rec[k] for k in keep}
+    out.update(wall_s=wall, serve_records=len(serves))
+    log(f"phase{what}: run_ab {kw['transport']} ({kw['n_servers']} servers, {kw['frontends']} frontends, "
+        f"batch {kw['batch']} x {kw['batches_per_rep']}, {kw['reps']} reps): digests equal, generation pinned, "
+        f"update certified, B = 1 owners == oracle; {json.dumps(out)}")
+    return out
+
+
+def serve_collector_run(dev: torch.device, n_servers: int, replicas: int, submits: int, seed: int = SEED):
+    """16c: a ``RingService`` on its own loop over a ``RingStore`` of
+    ``n_servers`` x ``replicas`` tokens on ``dev``, fed ``submits`` requests
+    of SERVE_SUBMIT keys with an n = 3 group of SERVE_N3_KEYS every 8, in
+    the same flushes; halfway a 1 % churn commit runs on another thread
+    while requests are pending and flushes go on, and after it one more
+    round.  Every answer carries generation 0 or 1 and equals the host
+    oracles (searchsorted, ``host_lookup_n``) of that generation's ring.
+    Returns the run's record and the service."""
+    import asyncio
+    import threading
+
+    from ringpop_tpu_torch.serve.service import RingService
+
+    servers = [f"10.0.{i // 256}.{i % 256}:3000" for i in range(n_servers)]
+    t0 = time.perf_counter()
+    store = RingStore(servers, replica_points=replicas, device=dev)
+    build_s = time.perf_counter() - t0
+    svc = RingService(store, max_batch=SERVE_MAX_BATCH, flush_us=0.0, inline_resolve_max=SERVE_INLINE_MAX)
+    rng = np.random.default_rng(seed + 16)
+    hashes = rng.integers(0, 2**32, size=submits * SERVE_SUBMIT, dtype=np.uint32)
+    n3 = rng.integers(0, 2**32, size=SERVE_N3_KEYS, dtype=np.uint32)
+    hosts = {0: store.snapshot_host()}
+    n_churn = max(1, n_servers // 100)
+    commit = threading.Thread(target=lambda: store.update(
+        add=[f"10.9.{i // 256}.{i % 256}:3000" for i in range(n_churn)], remove=servers[:n_churn]))
+    asked = []  # (hashes, n, future)
+
+    async def drive():
+        def submit(h, n=1):
+            asked.append((h, n, svc.submit(h, n=n)))
+
+        for i in range(submits):
+            if i == submits // 2:
+                commit.start()
+            submit(hashes[i * SERVE_SUBMIT:(i + 1) * SERVE_SUBMIT])
+            if i % 8 == 7:
+                submit(n3, 3)
+            if commit.is_alive():
+                await asyncio.sleep(0)  # let flushes run while the commit is in flight
+        commit.join()
+        submit(hashes[:SERVE_SUBMIT])
+        submit(n3, 3)
+        return await asyncio.gather(*(f for _, _, f in asked))
+
+    t0 = time.perf_counter()
+    answers = asyncio.run(drive())
+    wall = time.perf_counter() - t0
+    hosts[1] = store.snapshot_host()
+    gens = {}
+    for (h, n, _), (owners, gen) in zip(asked, answers):
+        check(gen in (0, 1), f"16c: every answer carries generation 0 or 1, saw {gen}")
+        ht, ho, _, ns = hosts[gen]
+        want = host_owner(ht, ho, h) if n == 1 else host_lookup_n(ht, ho, h, n, ns)
+        check(np.array_equal(np.asarray(owners), want), f"16c: owners of a request of {len(h)} keys (n = {n}) == "
+              f"the host oracle of generation {gen}")
+        gens[gen] = gens.get(gen, 0) + 1
+    check(set(gens) == {0, 1}, f"16c: answers of both generations, around the commit: {gens}")
+    check(store.servers_at(1) is not None and store.gen == 1, "16c: the churn commit is generation 1")
+    t = svc.telemetry
+    keys = sum(len(h) for h, _, _ in asked)
+    check(t.keys_total == keys and t.requests_total == len(asked),
+          f"16c: the collector took every key ({t.keys_total} of {keys}) and request")
+    return {"servers": n_servers, "tokens": n_servers * replicas, "capacity": store.capacity, "requests": len(asked),
+            "keys": keys, "answers_by_gen": gens, "flushes": t.flushes_total,
+            "keys_per_flush_mean": t.keys_total / max(t.flushes_total, 1), "wall_s": wall,
+            "store_build_s": build_s}, svc
+
+
+def serve_flush_profile(svc, size: int, n: int = 1) -> dict:
+    """One flush of ``size`` keys through the collector (``submit_nowait`` +
+    ``flush_now``, resolved inline) under ``torch.profiler``: the kernels it
+    launches and their device time, with the flush's host wall."""
+    import asyncio
+
+    from torch.profiler import ProfilerActivity, profile
+
+    keys = np.random.default_rng(size).integers(0, 2**32, size=size, dtype=np.uint32)
+    got = []
+
+    async def one():
+        svc.submit_nowait(keys, n, lambda rows, gen: got.append(gen))
+        svc.flush_now()
+
+    asyncio.run(one())  # warm this shape
+    for _ in range(3):
+        got.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiler_warmup()
+            t0 = time.perf_counter()
+            asyncio.run(one())
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        kernels, marks, busy = {}, 0, 0.0
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA or evt.self_device_time_total <= 0 or "(" not in evt.key:
+                continue
+            if MARK_TAG in evt.key:
+                marks += evt.count
+            else:
+                kernels[evt.key[:80]] = evt.count
+                busy += evt.self_device_time_total / 1e3
+        # the profiler drops the first records of a session: a mark that
+        # survived means the drop ended before the flush, whose upload and
+        # read-back copies bracket its kernels
+        copies = [k for k in kernels if k.startswith("Memcpy")]
+        if got and marks > 0 and any("HtoD" in k for k in copies) and any("DtoH" in k for k in copies):
+            return {"keys": size, "n": n, "launches": sum(kernels.values()), "device_ms": busy,
+                    "flush_wall_ms": wall * 1e3, "marks": marks, "kernels": kernels}
+        log(f"16: the profiler recorded {marks} of {WARMUP_MARKS} marks and the copies {copies}; "
+            "profiling the flush again")
+    raise SystemExit("chip_smoke FAILED: the profiler lost the records of the serve flush three times")
+
+
+def run_serve(dev: torch.device) -> dict:
+    """Phase 16 on ``dev``: 16a, 16b and 16c (above); the launches of one
+    profiled flush at 8192 and 65536 keys.  The serve path runs no
+    hand-written kernel (the fused lookup is searchsorted and a gather, as
+    in the JAX package), so no wrapper counts here."""
+    out = {"16a": serve_ab(dev, SERVE_AB_FULL, "16a"), "16b": serve_ab(dev, SERVE_AB_TCP, "16b")}
+    c, svc = serve_collector_run(dev, N_SERVERS, REPLICAS, N_KEYS // SERVE_SUBMIT)
+    log(f"phase16c: RingService over the {c['tokens']}-token ring (capacity {c['capacity']}): {c['keys']} keys in "
+        f"{c['requests']} requests ({N_KEYS // SERVE_SUBMIT} of {SERVE_SUBMIT}, n = 3 groups of {SERVE_N3_KEYS}), a "
+        f"1 % churn commit in flight: owners == the host oracles of each answer's generation {c['answers_by_gen']}; "
+        f"{c['flushes']} flushes, {c['keys_per_flush_mean']:.1f} keys a flush, wall {c['wall_s']:.3f} s "
+        f"(ring built in {c['store_build_s']:.1f} s)")
+    out["16c"] = c
+    out["flush_profile"] = {str(size): serve_flush_profile(svc, size) for size in (SERVE_SUBMIT, SERVE_MAX_BATCH)}
+    out["flush_profile"]["n3_1024"] = serve_flush_profile(svc, SERVE_N3_KEYS, 3)
+    for key, rec in out["flush_profile"].items():
+        log(f"phase16: one flush of {rec['keys']} keys (n = {rec['n']}): {rec['launches']} launches, "
+            f"{rec['device_ms']:.4f} ms of device, {rec['flush_wall_ms']:.3f} ms of host wall; {rec['kernels']}")
+    return {"serve": out}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
@@ -3791,6 +3992,9 @@ def main() -> int:
         build_kernels()
         log(json.dumps({"card": card, **run_fleet(torch.device("cuda"))}))
         return 0
+    if sys.argv[1:] == ["--serve"]:
+        log(json.dumps({"card": card, **run_serve(torch.device("cuda"))}))
+        return 0
     if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
         rng = (sys.argv[2:] or ["counter"])[0]
         log(json.dumps({"card": card, "rng": rng, "detect_ms": detect_wall(torch.device("cuda"), rng)}))
@@ -3811,6 +4015,7 @@ def main() -> int:
     fv_kernels, fv_timings = phase("12-13", run_fullview)
     tel_kernels, tel_timings = phase("14", run_telemetry)
     fleet_timings = phase("15", run_fleet)
+    serve_timings = phase("16", run_serve)
     log(f"phase walls, s: {walls}")
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
@@ -3834,6 +4039,7 @@ def main() -> int:
     timings.update(fv_timings)
     timings.update(tel_timings)
     timings.update(fleet_timings)
+    timings.update(serve_timings)
     timings["card"] = card
     timings["phase_walls_s"] = walls
     # the whole record, which the end of a long log may not hold

@@ -20,6 +20,11 @@ Fingerprint32 kernel, ``csrc/fingerprint32.cu``), ``ops.ring_ops`` and
 lockstep conformance gate; ``sim.telemetry`` / ``ops.telemetry_kernel``
 (``csrc/telemetry.cu``), ``sim.chaos`` and ``sim.topology``, the run
 journal and the time-varying fault plans, with ``options``' stats sinks
-and ``obs.flight``'s commit read; and ``bench``, the twin of the
+and ``obs.flight``'s commit read; ``sim.montecarlo``, ``sim.scenarios``
+and ``sim.snapshot``, the scenario fleet; the serve tier's collector
+``serve.service`` with its transports — ``net.channel``, the RPC and codec
+half of ``parallel.fabric``, ``serve.shm``, ``serve.client`` (torch-free,
+with ``errors``, ``logging``, ``util.metrics`` and ``obs.trace``) — and
+``serve.bench``'s paired A/B ``run_ab``; and ``bench``, the twin of the
 repository's ``bench.py`` (``python -m ringpop_tpu_torch.bench``).
 """

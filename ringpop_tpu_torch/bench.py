@@ -18,7 +18,14 @@ through the port's entry points, and prints one JSON record with its keys:
 * ``ring_lookup`` and the serve tier's ``serve_lookup_fused`` over a
   4096-server x 256-vnode ring (512 servers fast), each ten batches of
   1,000,000 hashes from ``default_rng(0)`` (100,000 fast) shifted by the
-  batch number, as keys per second.
+  batch number, as keys per second;
+* the RPC channel — ``net.channel.TCPChannel``'s small-RPC echo round trip
+  (``call_sync`` against a plain handler on the link's reader thread, 1000
+  calls, 200 fast) under msgpack and under json, p50 as a trimmed
+  median-of-batches and p99, and a 256 KiB body echoed 12 times (6 fast)
+  as MB/s, under msgpack (bench.py's codec) or, where msgpack is not
+  importable, json carrying the body as base64 text (``transport_bulk_codec``
+  says which).
 
 Both engines run ``--rng threefry`` (bench.py's own stream, the default) or
 ``--rng counter``; the record names it.  Detection and convergence are
@@ -26,8 +33,10 @@ host-clock times of work that ends in a device synchronize: the detection
 leg is timed ``--runs`` times from a fresh state, every run listed beside
 the median, which is ``value``.  Keys of legs the port does not have yet
 are null, each with a reason key: the AOT front door (``delta_cache_hit``,
-``delta_aot_*``) and the RPC channel (``transport_*``).  Every
-``vs_baseline*`` is null: the baseline's figures were taken on other
+``delta_aot_*``), and the msgpack pair of the channel's round trip where
+msgpack is not importable (``transport_msgpack_reason``: that leg is
+refused, never switched to json).  Every ``vs_baseline*`` and
+``transport_*_baseline*`` is null: those figures were taken on other
 hardware.  The record also carries the tick counts' companions the tests
 and ``chip_smoke.py`` hold against the JAX package: the final leaves'
 sha256 digests of both engines and the view checksums' wrapping sum and
@@ -62,8 +71,10 @@ CHECK_EVERY, DELTA_CHECK_EVERY, MAX_TICKS = 32, 8, 4096
 
 # the legs the port does not have yet, and why their keys are null
 AOT_REASON = "the AOT front door (util/aot.py) is not ported: ROADMAP A15"
-TRANSPORT_REASON = "the RPC channel (net/channel.py) is not ported: ROADMAP A5"
 BASELINE_REASON = "BASELINE.json's figures were taken on other hardware; no ratio against them is kept"
+TRANSPORT_BASELINE_REASON = (
+    "bench.py's transport baselines were taken on a CPU container of the TPU era; no ratio against them is kept")
+MSGPACK_REASON = "msgpack is not importable here: the channel refuses the msgpack codec (no json fallback)"
 
 
 def scales(fast: bool) -> dict:
@@ -125,6 +136,111 @@ def _qps(dev: torch.device, batch: int, lookup, hashes: torch.Tensor) -> float:
     ten()
     _, secs = _timed(dev, ten)
     return batch * 10 / secs
+
+
+def _trimmed_batch_median(samples: list, batches: int = 8) -> float:
+    """bench.py's trimmed median-of-batches: ``samples`` (in arrival order)
+    in ``batches`` contiguous batches, each batch's median, the highest and
+    lowest dropped, the mean of the rest."""
+    n = len(samples)
+    if n == 0:
+        raise ValueError("no samples")
+    batches = max(1, min(batches, n))
+    size = n / batches
+    meds = []
+    for b in range(batches):
+        chunk = sorted(samples[int(b * size): int((b + 1) * size)])
+        if chunk:
+            meds.append(chunk[len(chunk) // 2])
+    meds.sort()
+    if len(meds) > 2:
+        meds = meds[1:-1]
+    return sum(meds) / len(meds)
+
+
+def _echo_pair(codec: str):
+    """A listening echo server and a client channel under ``codec``: the
+    in-process pair, one link, of bench.py's transport probes."""
+    from ringpop_tpu_torch.net import TCPChannel
+
+    server = TCPChannel(app="bench", codec=codec)
+    server.register("bench", "/echo", lambda body, headers: body)
+    client = TCPChannel(app="bench-cli", codec=codec)
+    return server, client, server.listen_sync("127.0.0.1", 0)
+
+
+def transport_rtt_us(reps: int, codec: str) -> dict:
+    """Small-RPC echo round trip over the TCP channel (bench.py's
+    ``_transport_rtt_us``): ``call_sync`` inline completion against a plain
+    handler on the link's reader thread.  ``{"p50_us", "p99_us"}``."""
+    server, client, addr = _echo_pair(codec)
+    try:
+        payload = {"x": 7, "k": "bench"}
+        for _ in range(20):  # warm the link and the demux path
+            client.call_sync(addr, "bench", "/echo", payload, timeout=10)
+        samples = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            client.call_sync(addr, "bench", "/echo", payload, timeout=10)
+            samples.append(time.perf_counter() - t0)
+    finally:
+        client.close_sync()
+        server.close_sync()
+    ordered = sorted(samples)
+    return {"p50_us": _trimmed_batch_median(samples) * 1e6,
+            "p99_us": ordered[min(len(ordered) - 1, (len(ordered) * 99) // 100)] * 1e6}
+
+
+def transport_bulk_mbps(reps: int, codec: str, size: int = 256 * 1024) -> float:
+    """Body throughput, MB/s of ``size`` payload bytes each way (bench.py's
+    ``_transport_bulk_mbps``): one ``size``-byte body echoed per call, raw
+    bytes under msgpack, base64 text (the channel's json array lane) under
+    json."""
+    from ringpop_tpu_torch.net import encode_array
+
+    server, client, addr = _echo_pair(codec)
+    try:
+        payload = {"blob": encode_array(np.full(size, 0xA5, np.uint8), codec, "u1")}
+        for _ in range(3):
+            client.call_sync(addr, "bench", "/echo", payload, timeout=30)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            client.call_sync(addr, "bench", "/echo", payload, timeout=30)
+        dt = time.perf_counter() - t0
+    finally:
+        client.close_sync()
+        server.close_sync()
+    return (2 * reps * size) / dt / 1e6
+
+
+def transport_record(fast: bool) -> dict:
+    """The record's ``transport_*`` keys (bench.py:607-629 and :684-692):
+    the msgpack pair, the json pair and the bulk rate; a probe that fails
+    leaves its keys null with the error, never the headline."""
+    from ringpop_tpu_torch.net import channel
+
+    reps = 200 if fast else 1000
+    has_msgpack = channel._msgpack is not None
+    rec = {"transport_rtt_us": None, "transport_rtt_p99_us": None, "transport_rtt_baseline_us": None,
+           "transport_rtt_json_us": None, "transport_rtt_json_p99_us": None,
+           "transport_rtt_json_baseline_us": None, "transport_bulk_mbps": None,
+           "transport_bulk_baseline_mbps": None, "transport_rtt_error": None,
+           "transport_bulk_codec": "msgpack" if has_msgpack else "json",
+           "transport_msgpack_reason": None if has_msgpack else MSGPACK_REASON,
+           "transport_baseline_reason": TRANSPORT_BASELINE_REASON}
+    try:
+        if has_msgpack:
+            mp = transport_rtt_us(reps, "msgpack")
+            rec["transport_rtt_us"], rec["transport_rtt_p99_us"] = round(mp["p50_us"], 1), round(mp["p99_us"], 1)
+        js = transport_rtt_us(reps, "json")
+        rec["transport_rtt_json_us"], rec["transport_rtt_json_p99_us"] = round(js["p50_us"], 1), round(js["p99_us"], 1)
+        rec["transport_bulk_mbps"] = round(transport_bulk_mbps(6 if fast else 12, rec["transport_bulk_codec"]), 1)
+    except Exception as e:  # the side probe never kills the headline
+        for key in ("transport_rtt_us", "transport_rtt_p99_us", "transport_rtt_json_us",
+                    "transport_rtt_json_p99_us", "transport_bulk_mbps"):
+            rec[key] = None
+        rec["transport_rtt_error"] = f"{type(e).__name__}: {e}"
+    return rec
 
 
 def _device_name(dev: torch.device) -> str:
@@ -201,6 +317,7 @@ def run_bench(device: DeviceLike = None, rng: str = "threefry", fast: bool = Fal
     ring_qps = _qps(dev, batch, lambda h: ring_lookup(tokens, owners, h), hashes)
     sring = device_ring(tokens.cpu().numpy(), owners.cpu().numpy(), 2 * int(tokens.shape[0]), device=dev)
     serve_qps = _qps(dev, batch, lambda h: serve_lookup_fused(sring, h), hashes)
+    transport = transport_record(fast)
 
     n_victims = int(victims.shape[0])
     return {
@@ -239,16 +356,7 @@ def run_bench(device: DeviceLike = None, rng: str = "threefry", fast: bool = Fal
         "delta_aot_reason": AOT_REASON,
         "ring_lookup_qps": round(ring_qps, 0),
         "serve_lookup_qps": round(serve_qps, 0),
-        "transport_rtt_us": None,
-        "transport_rtt_p99_us": None,
-        "transport_rtt_baseline_us": None,
-        "transport_rtt_json_us": None,
-        "transport_rtt_json_p99_us": None,
-        "transport_rtt_json_baseline_us": None,
-        "transport_bulk_mbps": None,
-        "transport_bulk_baseline_mbps": None,
-        "transport_rtt_error": None,
-        "transport_reason": TRANSPORT_REASON,
+        **transport,
         "view_checksum_s": round(checksum_s, 4),
         "view_checksum_sum": int(cs_np.astype(np.uint64).sum() % 2**32),
         "view_checksum_sha256": hashlib.sha256(cs_np.tobytes()).hexdigest(),

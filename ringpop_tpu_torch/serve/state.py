@@ -43,13 +43,14 @@ from ringpop_tpu_torch.ops.ring_ops import (
 
 
 class RingEpoch:
-    """The host-side commit count of one buffer set: :func:`ring_commit`
-    adds one each time it overwrites the set's tensors."""
+    """The host-side sequence word of one buffer set, a seqlock:
+    :func:`ring_commit` makes it odd before it enqueues its copies into the
+    set's tensors and even again after them, so it moves by two a commit."""
 
-    __slots__ = ("commits",)
+    __slots__ = ("seq",)
 
     def __init__(self) -> None:
-        self.commits = 0
+        self.seq = 0
 
 
 class StaleRingError(RuntimeError):
@@ -65,17 +66,24 @@ class DeviceRing(NamedTuple):
     owners: torch.Tensor  # int32[C], -1 past count
     count: torch.Tensor  # int32[1] live tokens
     gen: torch.Tensor  # int64[1] membership generation (a uint32 value)
-    # (the buffer set's RingEpoch, its commit count when this view was made)
+    # (the buffer set's RingEpoch, its sequence word when this view was made)
     epoch: Optional[tuple[RingEpoch, int]] = None
 
 
 def check_current(ring: DeviceRing) -> None:
-    """Raise :class:`StaleRingError` when a commit has overwritten the
-    tensors of this view since it was made (a host-side check)."""
-    if ring.epoch is not None and ring.epoch[0].commits != ring.epoch[1]:
+    """Raise :class:`StaleRingError` when a commit into this view's tensors
+    has begun since the view was made (a host-side check).
+
+    Every lookup checks twice: before it enqueues its first read of the
+    ring and after its last.  A commit from another thread enqueues its
+    copies between its two moves of the sequence word, so a commit that
+    interleaves with the lookup's reads on the host fails the second check,
+    and one that begins after it is ordered behind those reads on the
+    stream: a lookup answers one whole generation or raises."""
+    if ring.epoch is not None and ring.epoch[0].seq != ring.epoch[1]:
         raise StaleRingError(
-            f"this ring view is stale: its buffers were recommitted {ring.epoch[0].commits - ring.epoch[1]} "
-            "time(s) since it was taken and now hold a newer generation; take a fresh snapshot"
+            "this ring view is stale: a commit has overwritten (or is overwriting) its buffers "
+            "with a newer generation since it was taken; take a fresh snapshot"
         )
 
 
@@ -118,15 +126,17 @@ def ring_commit(
     The JAX version donates the old buffers, so a read of a snapshot TWO
     generations old raises "deleted buffer".  Here the tensors live on,
     holding the new generation; the commit advances their buffer set's
-    host-side count instead, so every lookup through an older view raises
-    :class:`StaleRingError` rather than reading the newer ring."""
+    host-side sequence word instead (odd while the copies are enqueued), so
+    every lookup through an older view raises :class:`StaleRingError`
+    rather than reading the newer ring, or a mix of the two."""
     epoch = ring.epoch[0] if ring.epoch is not None else RingEpoch()
+    epoch.seq += 1
     ring.tokens.copy_(tokens)
     ring.owners.copy_(owners)
     ring.count.copy_(count)
     ring.gen.copy_(gen)
-    epoch.commits += 1
-    return ring._replace(epoch=(epoch, epoch.commits))
+    epoch.seq += 1
+    return ring._replace(epoch=(epoch, epoch.seq))
 
 
 def serve_lookup(ring: DeviceRing, key_hashes) -> tuple[torch.Tensor, torch.Tensor]:
@@ -134,10 +144,12 @@ def serve_lookup(ring: DeviceRing, key_hashes) -> tuple[torch.Tensor, torch.Tens
     (int32[B] owners, int64[1] gen — a copy, so a later commit into this
     ring's buffers cannot change it)."""
     check_current(ring)
-    return (
+    answer = (
         ring_lookup_padded(ring.tokens, ring.owners, ring.count[0], key_hashes),
         ring.gen.clone(),
     )
+    check_current(ring)
+    return answer
 
 
 def serve_lookup_fused(ring: DeviceRing, key_hashes) -> torch.Tensor:
@@ -146,19 +158,23 @@ def serve_lookup_fused(ring: DeviceRing, key_hashes) -> torch.Tensor:
     transfer."""
     check_current(ring)
     owners = ring_lookup_padded(ring.tokens, ring.owners, ring.count[0], key_hashes)
-    return torch.cat([owners, ring.gen.to(torch.int32)])
+    fused = torch.cat([owners, ring.gen.to(torch.int32)])
+    check_current(ring)
+    return fused
 
 
 def serve_lookup_n(ring: DeviceRing, num_servers, key_hashes, n: int):
     """N-owner preference-list lookup against the padded ring (exact — the
     window-doubling rescue of ``ring_lookup_n_padded``)."""
     check_current(ring)
-    return (
+    answer = (
         ring_lookup_n_padded(
             ring.tokens, ring.owners, ring.count[0], num_servers, key_hashes, n
         ),
         ring.gen.clone(),
     )
+    check_current(ring)
+    return answer
 
 
 def _serve_lookup_n_window_fused(ring: DeviceRing, num_servers, key_hashes, n: int, w: int):
@@ -171,7 +187,9 @@ def _serve_lookup_n_window_fused(ring: DeviceRing, num_servers, key_hashes, n: i
     )
     fused = torch.cat([out.reshape(-1), ring.gen.to(torch.int32)])
     need = torch.clamp(torch.as_tensor(num_servers, device=found.device), max=n)
-    return fused, (found >= need).all()
+    satisfied = (found >= need).all()
+    check_current(ring)
+    return fused, satisfied
 
 
 def serve_lookup_n_fused(ring: DeviceRing, num_servers, key_hashes, n: int) -> torch.Tensor:
@@ -220,7 +238,7 @@ class RingStore:
         device: DeviceLike = None,
     ):
         if placement == "dgro":
-            raise NotImplementedError("placement='dgro' is not ported yet")
+            raise NotImplementedError("placement='dgro' is not ported yet (ROADMAP A14)")
         if placement != "random":
             raise ValueError(f"unknown placement {placement!r}")
         self.torch_device = resolve_device(device)

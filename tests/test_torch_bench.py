@@ -10,7 +10,8 @@ equal detection and convergence ticks, equal view-checksum sum and digest,
 equal delta ticks, and every final leaf's digest equal to the JAX
 package's.  The record carries every key of bench.py's record (read from
 its source: bench.py runs the whole benchmark when executed), the keys of
-legs the port lacks null beside a reason, the timed runs listed, and the
+legs the port lacks null beside a reason, the channel's transport keys
+measured through the ported ``TCPChannel``, the timed runs listed, and the
 twin refuses to run without a card unless asked for the CPU.
 """
 
@@ -97,8 +98,11 @@ def test_fast_twin_matches_the_jax_package(rng):
 
 def test_record_has_every_key_of_bench_py_and_a_reason_for_each_null(monkeypatch):
     """The twin's record at FAST scale, printed as one JSON line by the
-    module's entry point: bench.py's keys all present; the AOT, transport
-    and baseline-ratio keys null, each group beside its reason."""
+    module's entry point: bench.py's keys all present; the AOT and
+    baseline-ratio keys null, each group beside its reason; the channel's
+    transport keys filled through the ported ``TCPChannel``, the msgpack
+    pair null beside its reason only where msgpack is not importable, the
+    three transport baselines null beside theirs."""
     monkeypatch.setenv("BENCH_FAST", "1")
     lines = []
     monkeypatch.setattr("builtins.print", lambda *a, **k: lines.append(" ".join(map(str, a))))
@@ -112,10 +116,19 @@ def test_record_has_every_key_of_bench_py_and_a_reason_for_each_null(monkeypatch
     for key in ("delta_cache_hit", "delta_aot_compile_s", "delta_aot_error"):
         assert record[key] is None
     assert "A15" in record["delta_aot_reason"]
+    assert record["transport_rtt_error"] is None
+    for key in ("transport_rtt_json_us", "transport_rtt_json_p99_us", "transport_bulk_mbps"):
+        assert record[key] > 0, key
+    for key in ("transport_rtt_us", "transport_rtt_p99_us"):
+        if record["transport_msgpack_reason"] is None:
+            assert record[key] > 0, key
+        else:
+            assert record[key] is None and "msgpack" in record["transport_msgpack_reason"]
     for key in keys:
-        if key.startswith("transport_"):
+        if key.startswith("transport_") and "baseline" in key:
             assert record[key] is None, key
-    assert "A5" in record["transport_reason"]
+    assert record["transport_baseline_reason"]
+    assert record["transport_bulk_codec"] in ("msgpack", "json")
     for key in ("vs_baseline", "vs_baseline_at_reduced_scale", "delta_vs_baseline"):
         assert record[key] is None
     assert record["vs_baseline_reason"]

@@ -11,9 +11,11 @@ constants.  Here they are recomputed on the CPU: from
 ``rng="counter"``): the leaves after the first 8 ticks, and the tick counts
 of ``run_until_detected`` and ``run_until_converged(max_ticks=4096,
 check_every=32, blocks_per_dispatch=8)``, the final leaves and the
-``view_checksums`` after them.  Also: importing ``chip_smoke`` has no side
-effects and loads no JAX, and without a card the script exits non-zero and
-prints no result.
+``view_checksums`` after them.  The full-scale headline (about 120 s of
+JAX on the CPU) is marked ``slow``; the card holds the port to its pins
+every run, and tier-1 runs the same recipe at 4096 x 256 through both
+packages.  Also: importing ``chip_smoke`` has no side effects and loads no
+JAX, and without a card the script exits non-zero and prints no result.
 """
 
 import hashlib
@@ -26,10 +28,23 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 import chip_smoke
 from ringpop_tpu.sim import delta as jd
 from ringpop_tpu.sim import lifecycle as jl
+from ringpop_tpu_torch.sim import delta as td
+from ringpop_tpu_torch.sim import lifecycle as tl
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -81,9 +96,11 @@ def test_phase9_first_ticks_pins_match_the_jax_package():
     assert _digests(state) == chip_smoke.PIN_LIFE_TWIN
 
 
+@pytest.mark.slow
 def test_phase9_headline_pins_match_the_jax_package():
     """bench.py's headline through the JAX package's own entry points (the
-    full run: about 90 s on the CPU)."""
+    full run: about 120 s on the CPU, so ``slow``; the card holds the port
+    to these pins every run, and the recipe runs at a small size below)."""
     victims, faults = _headline()
     sim = jl.LifecycleSim(n=chip_smoke.LIFE_N, k=chip_smoke.LIFE_K, seed=chip_smoke.LIFE_SEED, rng="counter")
     run = dict(max_ticks=chip_smoke.LIFE_MAX_TICKS, check_every=chip_smoke.LIFE_CHECK_EVERY,
@@ -95,6 +112,36 @@ def test_phase9_headline_pins_match_the_jax_package():
     assert cs.dtype == np.uint32
     assert int(jnp.asarray(cs).sum()) == int(cs.astype(np.uint64).sum() % 2**32) == chip_smoke.PIN_LIFE_VIEWS_SUM
     assert hashlib.sha256(cs.astype("<u4").tobytes()).hexdigest() == chip_smoke.PIN_LIFE_VIEWS_SHA
+
+
+def headline_recipe(n: int, k: int, rng: str) -> None:
+    """bench.py's headline recipe at ``n`` x ``k`` through both packages'
+    entry points: the same seed, the victims drawn as bench.py draws them
+    (0.1 % of the nodes, ``default_rng(0)``), ``run_until_detected``, then
+    ``run_until_converged`` and ``view_checksums``.  Tick counts, final leaf
+    digests and view checksums must be equal."""
+    victims = np.sort(np.random.default_rng(0).choice(n, size=n // 1000, replace=False))
+    up = np.ones(n, bool)
+    up[victims] = False
+    jf, tf = jd.DeltaFaults(up=jnp.asarray(up)), td.DeltaFaults(up=torch.from_numpy(up))
+    jsim = jl.LifecycleSim(n=n, k=k, seed=chip_smoke.LIFE_SEED, rng=rng)
+    tsim = tl.LifecycleSim(n=n, k=k, seed=chip_smoke.LIFE_SEED, rng=rng, device="cpu")
+    run = dict(max_ticks=chip_smoke.LIFE_MAX_TICKS, check_every=chip_smoke.LIFE_CHECK_EVERY,
+               blocks_per_dispatch=8)
+    detect = jsim.run_until_detected(victims, jf, **run)
+    assert detect[1] and tsim.run_until_detected(victims, tf, **run) == detect
+    converge = jsim.run_until_converged(jf, **run)
+    assert converge[1] and tsim.run_until_converged(tf, **run) == converge
+    fields = jl.LifecycleState._fields
+    assert chip_smoke.leaf_digests(tl.state_to_numpy(tsim.state), fields) == _digests(jsim.state)
+    jcs = np.asarray(jl.view_checksums(jsim.state, jf))
+    assert np.array_equal(jcs.astype(np.int64), tl.view_checksums(tsim.state, tf).numpy())
+
+
+def test_phase9_headline_recipe_at_a_small_size():
+    """Phase 9's recipe (counter stream) at 4096 x 256: what tier-1 keeps of
+    the slow full-scale recomputation above."""
+    headline_recipe(4096, chip_smoke.LIFE_K, "counter")
 
 
 def test_chip_smoke_import_is_quiet_and_jax_free():

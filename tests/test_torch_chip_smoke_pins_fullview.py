@@ -15,11 +15,21 @@ of its own takes the ~20 s run at 4096.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 import chip_smoke
 from ringpop_tpu.sim import fullview as jfv
 from ringpop_tpu_torch.sim import fullview as tfv
 from tests.engine_agreement import fv_detected
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _digests(state):
@@ -60,4 +70,3 @@ def test_phase13c_4096_pins_match_the_jax_package():
     assert _digests(sim.state) == chip_smoke.PIN_FV_BIG
     # not a vacuous run: suspicion has spread, detection is not complete
     assert (np.asarray(sim.state.status) == 1).sum() > 0 and not fv_detected(sim, victims, up)
-

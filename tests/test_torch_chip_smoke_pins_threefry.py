@@ -13,8 +13,10 @@ the first 8 ticks, then ``LifecycleSim.run_until_detected`` and
 ``run_until_converged(max_ticks=4096, check_every=32,
 blocks_per_dispatch=8)``, the final leaves and ``view_checksums``.  The
 phase 9 pins at ``rng="counter"`` are recomputed by
-``test_torch_chip_smoke_pins.py``; this file is apart so that a worker of
-its own takes the second 1M x 256 run.
+``test_torch_chip_smoke_pins.py``.  The full-scale headline (about 120 s
+of JAX on the CPU) is marked ``slow``; the card holds the port to its pins
+every run, and tier-1 runs the same recipe at 4096 x 256 through both
+packages.
 """
 
 import hashlib
@@ -22,10 +24,21 @@ import hashlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 import chip_smoke
 from ringpop_tpu.sim import delta as jd
 from ringpop_tpu.sim import lifecycle as jl
+from test_torch_chip_smoke_pins import headline_recipe
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _digests(state, fields):
@@ -74,9 +87,12 @@ def test_phase11_first_ticks_pins_match_the_jax_package():
     assert _digests(state, jl.LifecycleState._fields) == chip_smoke.PIN_TF_LIFE_TWIN
 
 
+@pytest.mark.slow
 def test_phase11_headline_pins_match_the_jax_package():
     """bench.py's headline at its own stream through the JAX package's entry
-    points (the full run: about 70 s on the CPU)."""
+    points (the full run: about 120 s on the CPU, so ``slow``; the card
+    holds the port to these pins every run, and the recipe runs at a small
+    size below)."""
     victims, faults = _headline()
     sim = jl.LifecycleSim(n=chip_smoke.LIFE_N, k=chip_smoke.LIFE_K, seed=chip_smoke.LIFE_SEED)
     assert sim.params.rng == "threefry"
@@ -89,3 +105,9 @@ def test_phase11_headline_pins_match_the_jax_package():
     assert cs.dtype == np.uint32
     assert int(cs.astype(np.uint64).sum() % 2**32) == chip_smoke.PIN_TF_LIFE_VIEWS_SUM
     assert hashlib.sha256(cs.astype("<u4").tobytes()).hexdigest() == chip_smoke.PIN_TF_LIFE_VIEWS_SHA
+
+
+def test_phase11_headline_recipe_at_a_small_size():
+    """Phase 11's recipe (threefry, bench.py's stream) at 4096 x 256: what
+    tier-1 keeps of the slow full-scale recomputation above."""
+    headline_recipe(4096, chip_smoke.LIFE_K, "threefry")

@@ -24,6 +24,14 @@ from ringpop_tpu_torch.sim import fullview as tfv
 from ringpop_tpu_torch.swim.member import ALIVE, FAULTY, SUSPECT
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _assert_equal(jstate, tstate, what):
     got = tfv.state_to_numpy(tstate)
     for name, a, b in zip(jfv.FullViewState._fields, jstate, got):

@@ -4,15 +4,15 @@ Every leaf of the port's ``DeltaState`` equals ``ringpop_tpu.sim.delta``'s
 at every tick, at ``rng="counter"``, on the CPU: n in {4096, 50,000}, k in
 {40, 64, 128}, both exchanges, with and without ``up``, ``drop_rate``,
 ``drop_node``, ``group``/``reach`` and the topology tier legs; a run resumed
-from a JAX state in mid-run (``state_from_numpy``); ``converged`` and the
-convergence tick of ``run_until_converged``; ``converged_fraction`` within
-1e-6 relative (both sum float32 per-row counts, in different orders, over
-more than 2**24 bits); the full 1,000,000 x 128 shift configuration of
-``bench.py`` for its 16 ticks to convergence.  At ``rng="threefry"``, the
-default (``tests/test_torch_golden.py`` holds the small configurations to
-the frozen goldens): both exchanges with ``up`` and ``drop_rate`` at 4096 and
-50,000 nodes, and the default parameters through ``step``,
-``run_until_converged`` and ``DeltaSim``.  Also the refusals
+from a JAX state in mid-run (``state_from_numpy``); ``converged``;
+``converged_fraction`` within 1e-6 relative (both sum float32 per-row
+counts, in different orders, over more than 2**24 bits).  The run loops
+are in ``tests/test_torch_delta_runs.py`` and ``bench.py``'s full 1,000,000
+x 128 configuration in ``tests/test_torch_delta_full_scale.py``.  At
+``rng="threefry"``, the default (``tests/test_torch_golden.py`` holds the
+small configurations to the frozen goldens): both exchanges with ``up`` and
+``drop_rate`` at 4096 and 50,000 nodes, and the default parameters through
+``step``, ``run_until_converged`` and ``DeltaSim``.  Also the refusals
 (``exchange_mesh``, the topology legs under threefry; ``telemetry_sink``
 now journals)
 and the hazards the port meets:
@@ -31,6 +31,15 @@ from ringpop_tpu.sim import delta as jd
 from ringpop_tpu.sim.packbits import pack_bool
 
 from ringpop_tpu_torch.sim import delta as td
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 FIELDS = jd.DeltaState._fields
 
@@ -120,16 +129,6 @@ def test_every_leaf_every_tick_matches_jax(n, k, exchange, kind, ticks):
     assert abs(float(got) - want) <= 1e-6 * max(abs(want), 1e-30)
 
 
-def test_full_scale_shift_matches_jax():
-    """bench.py's delta configuration, 1,000,000 x 128 from seed 1: all
-    leaves equal at each of the 16 ticks it takes the JAX package to
-    converge, and both report convergence there."""
-    jp, tp = _pair(1_000_000, 128, "shift")
-    js, ts = _run_both(jp, tp, jd.DeltaFaults(), td.DeltaFaults(), 16)
-    assert bool(jd.converged(js)) and bool(td.converged(ts))
-    assert float(td.converged_fraction(ts)) == 1.0
-
-
 def test_resume_from_a_mid_run_jax_state():
     """A JAX state after 9 ticks crosses with ``state_from_numpy`` (uint32
     planes as int32 bit patterns, the key as int64) and both engines go on
@@ -144,37 +143,6 @@ def test_resume_from_a_mid_run_jax_state():
         assert ts.learned.dtype == torch.int32 and ts.key.dtype == torch.int64 and ts.tick.dtype == torch.int32
         assert [a.dtype for a in td.state_to_numpy(ts)] == [np.uint32, np.int8, np.uint32, np.int32, np.uint32]
         _run_both(jp, tp, jf, tf, 8, js=js, ts=ts)
-
-
-@pytest.mark.parametrize("exchange,kind", [("shift", ""), ("shift", "up drop"), ("uniform", "up"),
-                                           ("uniform", "group drop")])
-def test_run_until_converged_matches_jax(exchange, kind):
-    jp, tp = _pair(4096, 64, exchange)
-    jf, tf = _faults(kind, 4096, seed=9)
-    js, jticks, jok = jd.run_until_converged(jp, jd.init_state(jp, seed=5), jf, max_ticks=2048, check_every=4)
-    ts, tticks, tok = td.run_until_converged(tp, td.init_state(tp, seed=5, device="cpu"), tf,
-                                             max_ticks=2048, check_every=4)
-    assert (tticks, tok) == (jticks, jok)
-    assert_same_state(js, ts, "final")
-    # a budget that ends before convergence, then an already converged state
-    js2, jt2, jok2 = jd.run_until_converged(jp, jd.init_state(jp, seed=5), jf, max_ticks=6, check_every=4)
-    ts2, tt2, tok2 = td.run_until_converged(tp, td.init_state(tp, seed=5, device="cpu"), tf, max_ticks=6,
-                                            check_every=4)
-    assert (tt2, tok2) == (jt2, jok2) == (8, False)
-    assert_same_state(js2, ts2, "budget")
-    if jok:
-        ts3, tt3, tok3 = td.run_until_converged(tp, ts, tf, max_ticks=100)
-        assert (tt3, tok3) == (0, True) and ts3 is ts
-
-
-def test_delta_sim_matches_jax():
-    jsim = jd.DeltaSim(3000, 33, seed=8, rng="counter", exchange="uniform")
-    tsim = td.DeltaSim(3000, 33, seed=8, rng="counter", exchange="uniform", device="cpu")
-    assert tsim.run_until_converged() == jsim.run_until_converged()
-    assert_same_state(jsim.state, tsim.state)
-    jsim.tick()
-    tsim.tick()
-    assert_same_state(jsim.state, tsim.state)
 
 
 def test_init_state_sources_and_max_p():

@@ -29,6 +29,15 @@ from ringpop_tpu_torch.ops import threefry_kernel as tk
 from ringpop_tpu_torch.sim import fullview as tfv
 from ringpop_tpu_torch.sim.delta import DeltaFaults
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TIMEOUTS = dict(suspect_ticks=5, faulty_ticks=20, tombstone_ticks=6)
 
 

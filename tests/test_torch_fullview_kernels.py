@@ -38,6 +38,15 @@ from ringpop_tpu_torch.sim import fullview as tfv
 from ringpop_tpu_torch.sim import prng
 from ringpop_tpu_torch.sim import threefry as tf
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 M32 = 0xFFFFFFFF
 CODE = 0x1FF  # the low 9 bits of a C1 key: RUN - k
 NO_INDEX = 0x7FFFFFFF

@@ -22,6 +22,14 @@ from ringpop_tpu_torch.ops import hash_kernel, hash_ops
 from ringpop_tpu_torch.ops.ring_ops import build_ring_tokens
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _corpus(seed=0, n_rand=4):
     """tests/test_hash_ops.py's corpus — every length class boundary and
     loop counts 1..6 of random bytes (>= 0x80 included), realistic ring

@@ -18,6 +18,15 @@ from ringpop_tpu.swim import member as jm
 
 from ringpop_tpu_torch.swim import member as tm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 STATES = range(-1, 6)
 INCS = (-3, -1, 0, 1, 2, 7, 2**27, 2**28 - 1, 2**28, 2**28 + 5)
 

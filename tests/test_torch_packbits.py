@@ -26,6 +26,15 @@ from ringpop_tpu.sim import packbits as jp
 from ringpop_tpu_torch.ops import packbits_kernel
 from ringpop_tpu_torch.sim import packbits as tp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parent.parent
 KS = [1, 31, 32, 33, 40, 64, 128]
 M32 = 0xFFFFFFFF

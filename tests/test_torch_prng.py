@@ -17,6 +17,15 @@ from ringpop_tpu.sim import prng as jr
 
 from ringpop_tpu_torch.sim import prng as tr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SEEDS = [0, 1, 7, -1, -2, -(1 << 31), -(1 << 31) - 1, (1 << 31) - 1, 1 << 31,
          (1 << 32) - 1, 1 << 32, (1 << 32) + 3, 1 << 33, 12_345_678_901, -98_765_432_109]
 SITES = sorted({v for k, v in vars(jr).items() if k.startswith("D_") and k != "D_COLUMN_SPAN"}

@@ -20,6 +20,14 @@ from ringpop_tpu.ops import ring_ops as jro
 from ringpop_tpu_torch.ops import ring_ops as tro
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _adversarial_ring(rng, t, num_servers):
     """(tokens uint32, owners int32) in composite (token, owner) order with
     long same-owner runs and duplicate tokens (test_ring_properties)."""

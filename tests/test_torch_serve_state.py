@@ -4,9 +4,17 @@ A seeded add/remove sequence drives both packages' ``HashRing`` and
 ``RingStore``: token arrays, checksums, commit records (generation, count,
 capacity reallocation), host mirrors and the fused serve lookups must be
 equal.  A JAX ``DeviceRing`` carried across with ``device_ring_from_numpy``
-answers identically, and a snapshot survives one commit.  Everything
-compared is an integer: the tolerance is none.
+answers identically, and a snapshot survives one commit.  A commit racing
+a lookup, forced at each seam and run from threads, never tears its
+answer: the lookup answers one whole generation or raises
+``StaleRingError``.  Everything compared is an integer: the tolerance is
+none.
 """
+
+import os
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -22,6 +30,14 @@ from ringpop_tpu_torch.events import RingChangedEvent
 from ringpop_tpu_torch.hashring import HashRing
 from ringpop_tpu_torch.ops.ring_ops import host_lookup_n
 from ringpop_tpu_torch.serve import state as tst
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _servers(prefix, n):
@@ -218,3 +234,146 @@ def test_placement_options():
         tst.RingStore(_servers(6, 2), placement="dgro", device="cpu")
     with pytest.raises(ValueError):
         tst.RingStore(_servers(6, 2), placement="nope", device="cpu")
+
+
+READS = {
+    "serve_lookup": lambda ring, ns, keys: tst.serve_lookup(ring, keys)[0].numpy().reshape(-1),
+    "serve_lookup_fused": lambda ring, ns, keys: tst.serve_lookup_fused(ring, keys)[:-1].numpy(),
+    "serve_lookup_n": lambda ring, ns, keys: tst.serve_lookup_n(ring, ns, keys, 3)[0].numpy().reshape(-1),
+    "serve_lookup_n_fused": lambda ring, ns, keys: tst.serve_lookup_n_fused(ring, ns, keys, 3)[:-1].numpy(),
+}
+
+
+def _generation_answer(store, read, keys):
+    """What ``read`` answers from the store's committed generation, by the
+    host oracles (searchsorted for one owner, ``host_lookup_n`` for three)."""
+    ht, ho, _, ns = store.snapshot_host()
+    h = keys.numpy().astype(np.uint32)
+    if read.endswith("_n") or read.endswith("_n_fused"):
+        return host_lookup_n(ht, ho, h, 3, ns).reshape(-1)
+    idx = np.searchsorted(ht, h)
+    idx[idx == ht.shape[0]] = 0
+    return ho[idx]
+
+
+def _torn_read_setup():
+    """A store at generation 1 with a reader holding generation 0's view:
+    the next commit (generation 2) overwrites that view's buffers in place.
+    Generation 2 swaps most of the servers, so an answer that mixes the two
+    generations' tokens and owners matches neither."""
+    servers = _servers(8, 16)
+    store = tst.RingStore(servers, replica_points=10, device="cpu")
+    keys = _t(_hashes(512, seed=31))
+    ring0, _, ns0 = store.snapshot()
+    store.update(add=["race:1"])
+    return store, ring0, ns0, keys, (_servers(9, 12), servers[:13])
+
+
+@pytest.mark.parametrize("read", sorted(READS))
+@pytest.mark.parametrize("where", ["lookup_inside_a_commit", "commit_inside_a_lookup"])
+def test_a_commit_racing_a_lookup_never_tears_its_answer(read, where, monkeypatch):
+    """A commit from another thread writes a generation in place, tensor by
+    tensor, into the buffers a reader's view still points at.  Forced here
+    at each seam: the lookup runs between the commit's token and owner
+    copies (``lookup_inside_a_commit``), or the whole commit lands between
+    the lookup's searchsorted and its owner gather
+    (``commit_inside_a_lookup``).  The lookup must answer one whole
+    generation or raise ``StaleRingError`` — never new tokens with old
+    owners."""
+    store, ring0, ns0, keys, churn = _torn_read_setup()
+    answers = {0: READS[read](ring0, ns0, keys)}  # one commit old: still valid
+    got = {}
+
+    def lookup():
+        try:
+            got["answer"] = READS[read](ring0, ns0, keys)
+        except tst.StaleRingError:
+            got["answer"] = "stale"
+
+    armed = [True]
+    if where == "lookup_inside_a_commit":
+        real_copy = torch.Tensor.copy_
+
+        def copy_(self, src, *args, **kwargs):
+            out = real_copy(self, src, *args, **kwargs)
+            if armed[0] and self.data_ptr() == ring0.tokens.data_ptr():
+                armed[0] = False
+                lookup()
+            return out
+
+        monkeypatch.setattr(torch.Tensor, "copy_", copy_)
+        store.update(*churn)
+    else:
+        real_searchsorted = torch.searchsorted
+
+        def searchsorted(*args, **kwargs):
+            out = real_searchsorted(*args, **kwargs)
+            if armed[0]:
+                armed[0] = False
+                store.update(*churn)
+            return out
+
+        monkeypatch.setattr(torch, "searchsorted", searchsorted)
+        lookup()
+    monkeypatch.undo()
+    assert not armed[0] and store.gen == 2
+    answers[2] = _generation_answer(store, read, keys)
+    assert not np.array_equal(answers[0], answers[2])
+    answer = got["answer"]
+    assert isinstance(answer, str) or any(np.array_equal(answer, a) for a in answers.values()), (
+        "the lookup answered a mix of two generations")
+    # a fresh snapshot reads generation 2 whole
+    ring2, gen2, ns2 = store.snapshot()
+    assert gen2 == 2 and np.array_equal(READS[read](ring2, ns2, keys), answers[2])
+
+
+def test_lookups_under_concurrent_commits_answer_whole_generations():
+    """More reader threads than cores look up through snapshots while a
+    writer commits two server sets in turn, with a short switch interval:
+    every answer carries its generation and equals that generation's host
+    oracle, or the lookup raises ``StaleRingError`` (bounded: ~1.5 s)."""
+    sets = (_servers(10, 16), _servers(11, 16))
+    store = tst.RingStore(sets[0], replica_points=10, device="cpu")
+    keys = _t(_hashes(2048, seed=41))
+    oracles = {}
+    for s in (1, 0):
+        store.update(add=sets[s], remove=sets[1 - s])
+        oracles[s] = _generation_answer(store, "serve_lookup_fused", keys)
+    stop = threading.Event()
+    seen = {"answers": 0, "stale": 0, "torn": 0}
+    lock = threading.Lock()
+
+    def writer():
+        while not stop.is_set():
+            s = store.gen % 2  # even generations hold sets[0], odd ones sets[1]
+            store.update(add=sets[1 - s], remove=sets[s])
+
+    def reader():
+        while not stop.is_set():
+            ring, _, _ = store.snapshot()
+            try:
+                fused = tst.serve_lookup_fused(ring, keys).numpy()
+            except tst.StaleRingError:
+                with lock:
+                    seen["stale"] += 1
+                continue
+            ok = np.array_equal(fused[:-1], oracles[int(fused[-1]) % 2])
+            with lock:
+                seen["answers" if ok else "torn"] += 1
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    threads = [threading.Thread(target=writer)] + [
+        threading.Thread(target=reader) for _ in range((os.cpu_count() or 2) + 2)]
+    try:
+        for t in threads:
+            t.start()
+        time.sleep(1.5)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert seen["torn"] == 0, seen
+    assert seen["answers"] > 0 and store.gen > 2, seen

@@ -28,6 +28,15 @@ from ringpop_tpu_torch.hashing.farm import pack_strings
 from ringpop_tpu_torch.ops import hash_kernel, hash_ops, ring_ops
 from ringpop_tpu_torch.serve import state as tst
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -81,7 +90,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for m in ("ops.hash_kernel", "ops.packbits_kernel", "ops.lifecycle_kernel", "ops.threefry_kernel",
               "ops.telemetry_kernel", "sim.delta", "sim.lifecycle", "sim.threefry", "sim.telemetry", "sim.chaos",
               "sim.topology", "sim.montecarlo", "sim.scenarios", "sim.snapshot", "options", "obs.flight", "swim.member",
-              "bench"):
+              "bench", "errors", "logging", "util.metrics", "obs.trace", "parallel.fabric", "net.channel",
+              "serve.client", "serve.shm", "serve.service", "serve.bench"):
         assert f"ringpop_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"

@@ -37,6 +37,15 @@ import torch
 from ringpop_tpu_torch.ops import telemetry_kernel as tk
 from ringpop_tpu_torch.sim import telemetry as tt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 M32 = 0xFFFFFFFF
 SMS = 132  # an H100 SXM's SMs: the grid's wave
 

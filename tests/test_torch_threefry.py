@@ -39,6 +39,15 @@ from ringpop_tpu_torch.ops import threefry_kernel as tk
 from ringpop_tpu_torch.sim import prng
 from ringpop_tpu_torch.sim import threefry as tf
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SEEDS = (0, 1, 7, 2**31 + 5, 2**32 - 1)
 SHAPES = ((), (7,), (5, 3), (1000, 3))
 N = 1_000_000
