@@ -3,8 +3,9 @@
 the SWIM dissemination engine, the SWIM failure-detection engine, the
 threefry stream, the headline benchmark record, the exact full-view
 engine with its lockstep conformance gate, the telemetry plane with the
-chaos and topology fault plans, the scenario fleet, and the serve tier's
-collector with its transports.
+chaos and topology fault plans, the scenario fleet, the serve tier's
+collector with its transports, and the SWIM engines sharded over node
+ranks.
 
     python3 chip_smoke.py
 
@@ -206,6 +207,25 @@ scale on bench.py's own stream, threefry:
    at generation 0 or 1 == that generation's host oracles; the qps, the
    B = 1 latencies, the flush counts and one profiled flush's launches at
    8192 and 65,536 keys.  The serve path runs no hand-written kernel.
+17. the SWIM engines sharded over 4 node ranks (``ringpop_tpu_torch/parallel``:
+   one spawned process a rank, ``torch.distributed`` over NCCL when every
+   rank has a card of its own, else over gloo with every leg staged
+   through host memory, as on one card), after the same cells unsharded on
+   this card: a) simbench's ``sharded100k`` (100,000 x 256, counter,
+   ``suspect_ticks`` 10, 100 victims): 6 ticks, then the detect path in
+   blocks of 32 ticks (at most 16), every gathered leaf, the blocks and the
+   verdict == the unsharded run's; b) the headline at the counter stream
+   over the ranks: the tick-8 leaves == ``PIN_LIFE_TWIN``, L1 on each rank's
+   block of that state == its plain version (L1 takes a row block since
+   this phase), then ``LifecycleSim`` detection and convergence in the
+   pinned ticks, every final leaf == ``PIN_LIFE``, the view checksums ==
+   ``PIN_LIFE_VIEWS_*``, and the digest combined from the ranks' partial
+   sums (D1 at each block's global offset) == ``tree_digest`` of the
+   gathered state; c) the delta engine at 1,000,000 x 128 (shift, counter)
+   over the ranks converges in ``PIN_SHIFT_TICKS`` to ``PIN_SHIFT``.  Each
+   cell prints its ms a tick sharded (each rank, CUDA events) against
+   unsharded, the exchange's sends a leg and its bytes a tick (legs,
+   collectives, staged), and S1, S2, L1, L2 and D1's launches on each rank.
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -225,7 +245,8 @@ checkout's root, with this script copied there, to compare two versions
 in one call); ``--threefry`` builds the kernels and runs steps 10-11
 alone; ``--fullview`` builds them and runs steps 12-13 alone;
 ``--telemetry`` builds them and runs step 14 alone; ``--fleet`` builds them
-and runs step 15 alone; ``--serve`` runs step 16 alone (no kernel build).  ``kernel_compare.py``
+and runs step 15 alone; ``--serve`` runs step 16 alone (no kernel build); ``--sharded`` builds
+the kernels and runs step 17 alone.  ``kernel_compare.py``
 times D1, C1 and F1 against another checkout's in alternating pairs.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
@@ -1132,11 +1153,13 @@ def check_walk(learned, subj, rkey, base_key, obs_masks, what: str, calls: dict,
                statuses=(SUSPECT, FAULTY)) -> int:
     """L1 in checksum mode and in detect mode (each observer mask x each
     of ``statuses``) == its plain version on the card; returns the max abs
-    difference."""
+    difference.  The plain version's walk, the part both modes share, runs
+    once for all of them (``slot_walk_keys_plain``)."""
     n, k = learned.shape[0], rkey.shape[0]
     order, ss, sk = lifecycle_kernel.walk_order(subj, rkey, n)
+    keys, is_last = lifecycle_kernel.slot_walk_keys_plain(learned, order, ss, sk, base_key)
     got = lifecycle_kernel.slot_walk_cuda(learned, order, ss, sk, base_key, "checksum")
-    want = lifecycle_kernel.slot_walk_plain(learned, order, ss, sk, base_key, "checksum")
+    want = lifecycle_kernel.slot_walk_finish_plain(keys, is_last, ss, n, "checksum")
     calls["slot_walk"] += 1
     err = int((got - want).abs().max())
     check(torch.equal(got, want), f"L1 checksum == plain ({what})")
@@ -1144,7 +1167,7 @@ def check_walk(learned, subj, rkey, base_key, obs_masks, what: str, calls: dict,
         obs = torch.ones(n, dtype=torch.bool, device=learned.device) if obs is None else obs
         for min_status in statuses:
             got = lifecycle_kernel.slot_walk_cuda(learned, order, ss, sk, base_key, "detect", obs, min_status)
-            want = lifecycle_kernel.slot_walk_plain(learned, order, ss, sk, base_key, "detect", obs, min_status)
+            want = lifecycle_kernel.slot_walk_finish_plain(keys, is_last, ss, n, "detect", obs, min_status)
             calls["slot_walk"] += 1
             err = max(err, int((got.int() - want.int()).abs().max()))
             check(torch.equal(got, want), f"L1 detect == plain ({what} {oname} {min_status})")
@@ -1184,7 +1207,7 @@ def widest_planes(dev: torch.device, gen: torch.Generator, calls: dict) -> int:
     base_key = random_base_key(gen, n, dev)
     up = torch.rand(n, generator=gen, device=dev) < 0.7
     err = 0
-    # the plain walk takes ~1 s a call at this K (one step of [N] ops a slot)
+    # the plain walk takes one step of [N] ops a slot: one pass a table serves both modes
     for kind in ("single", "straddle"):
         subj, rkey = random_rumor_table(gen, n, k, dev, kind)
         err = max(err, check_walk(learned, subj, rkey, base_key, {"random up": up}, f"N={n} K={k} {kind}", calls,
@@ -3938,6 +3961,361 @@ def run_serve(dev: torch.device) -> dict:
     return {"serve": out}
 
 
+# -- phase 17: the SWIM engines sharded over node ranks (parallel/) -------------
+
+SHARD_RANKS = 4
+# simbench's sharded100k (ringpop_tpu/cli/simbench.py:300-430), at its CLI seed
+SH100K_N, SH100K_K, SH100K_TICKS, SH100K_VICTIMS, SH100K_SEED = 100_000, 256, 6, 100, 0
+SH100K_BLOCK_TICKS, SH100K_MAX_BLOCKS = 32, 16
+SHARD_DEADLINE_S = 600
+# the kernels a sharded tick runs, by their wrappers' launch-count names
+SHARD_KERNELS = {"row_reduce": "packbits_row_reduce", "popcount_rows": "packbits_popcount_rows",
+                 "slot_walk": "lifecycle_slot_walk", "first_live_learner": "lifecycle_first_live_learner",
+                 "state_digest": "telemetry_state_digest"}
+
+
+def shard_reset() -> None:
+    packbits_kernel.reset_launches()
+    lifecycle_kernel.reset_launches()
+    telemetry_kernel.reset_launches()
+
+
+def shard_launches() -> dict[str, int]:
+    counts = {**packbits_kernel.launches, **lifecycle_kernel.launches,
+              "state_digest": telemetry_kernel.launches["state_digest"]}
+    return {name: counts[name] for name in SHARD_KERNELS}
+
+
+def gathered_digests(leaves, module) -> dict[str, str]:
+    """sha256 of each leaf gathered from the ranks (numpy of the port's
+    dtypes), in the JAX package's dtypes."""
+    cls = module.LifecycleState if module is lifecycle else module.DeltaState
+    state = cls(*(torch.from_numpy(np.ascontiguousarray(x)) for x in leaves))
+    return leaf_digests(module.state_to_numpy(state), cls._fields)
+
+
+def sh100k_config(dev: torch.device):
+    """sharded100k's configuration: 100,000 x 256, counter stream,
+    suspect_ticks 10, 100 victims down."""
+    victims = np.sort(np.random.default_rng(SH100K_SEED).choice(SH100K_N, size=SH100K_VICTIMS, replace=False))
+    up = np.ones(SH100K_N, bool)
+    up[victims] = False
+    params = lifecycle.LifecycleParams(n=SH100K_N, k=SH100K_K, suspect_ticks=10, rng="counter")
+    return params, victims, delta.DeltaFaults(up=torch.from_numpy(up).to(dev))
+
+
+def event_timed(fn):
+    """(fn(), ms) by CUDA events around it."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def exchange_record(mesh, ticks: int) -> dict:
+    """The exchange's sends and bytes since the last reset, per tick: the
+    shift legs' sends (and each leg's count), every collective's bytes, and
+    the bytes staged through host memory for gloo."""
+    from ringpop_tpu_torch.parallel import shift
+
+    legs = list(shift.leg_sends)
+    return {"legs": len(legs), "sends_per_leg": sorted(set(legs)),
+            "sends_per_tick": mesh.stats["sends"] / ticks, "send_bytes_per_tick": mesh.stats["send_bytes"] / ticks,
+            "collectives_per_tick": mesh.stats["collectives"] / ticks,
+            "collective_bytes_per_tick": mesh.stats["collective_bytes"] / ticks,
+            "staged_bytes_per_tick": mesh.stats["staged_bytes"] / ticks,
+            "bytes_per_tick": (mesh.stats["send_bytes"] + mesh.stats["collective_bytes"]) / ticks}
+
+
+def shard_stats_reset(mesh) -> None:
+    """Zero the exchange's counters, after every rank has reached this
+    point: a timed region then starts on all ranks together (rank 0's
+    extra host work before it, the gathered digests, is not timed)."""
+    import torch.distributed as dist
+
+    from ringpop_tpu_torch.parallel import shift
+
+    torch.cuda.synchronize()
+    dist.barrier(group=mesh.group, device_ids=[mesh.device.index] if mesh.transport == "nccl" else None)
+    mesh.reset_stats()
+    shift.reset_stats()
+
+
+def sharded_100k(mesh) -> dict:
+    """17a on this rank: sharded100k's 6 ticks, then its detect path (blocks
+    of 32 ticks, at most 16) with the node-sharded walk hint, gathered."""
+    from ringpop_tpu_torch.parallel import partition
+    from ringpop_tpu_torch.parallel.mesh import with_exchange_mesh
+
+    params, victims, faults = sh100k_config(mesh.device)
+    sp = with_exchange_mesh(params, mesh)
+    lifecycle._run_block(sp, lifecycle.init_state(sp, seed=SH100K_SEED), faults, 1)  # warm-up, not timed
+    state = lifecycle.init_state(sp, seed=SH100K_SEED)
+    shard_reset()
+    shard_stats_reset(mesh)
+    state, ms = event_timed(lambda: lifecycle._run_block(sp, state, faults, SH100K_TICKS))
+    out = {"tick_ms": ms / SH100K_TICKS, "launches": shard_launches(), "exchange": exchange_record(mesh, SH100K_TICKS)}
+    leaves = partition.host_gather(state, mesh)
+    out["digests"] = gathered_digests(leaves, lifecycle) if mesh.rank == 0 else None
+    hint = partition.NamedSharding(mesh, partition.P("node", None))
+    subjects = torch.as_tensor(victims, device=mesh.device)
+    shard_stats_reset(mesh)
+    (state, blocks, done), ms = event_timed(lambda: lifecycle._run_until_detected_device(
+        sp, lifecycle.init_state(sp, seed=SH100K_SEED), faults, subjects, min_status=FAULTY,
+        block_ticks=SH100K_BLOCK_TICKS, max_blocks=SH100K_MAX_BLOCKS, learned_sharding=hint))
+    leaves = partition.host_gather(state, mesh)
+    out["detect"] = {"blocks": blocks, "done": bool(done), "ms": ms,
+                     "digests": gathered_digests(leaves, lifecycle) if mesh.rank == 0 else None}
+    return out
+
+
+def sharded_headline(mesh) -> dict:
+    """17b on this rank: the headline at the counter stream over the mesh —
+    the first 8 ticks, L1 on this rank's block held to its plain version on
+    that state, then ``LifecycleSim`` detection and convergence with the
+    view checksums and the combined partial-sum digest (the main path:
+    counts 0 before it, read after)."""
+    from ringpop_tpu_torch.parallel import partition
+    from ringpop_tpu_torch.parallel.mesh import with_exchange_mesh
+
+    n, k = LIFE_N, LIFE_K
+    victims, faults = headline_faults(mesh.device, n)
+    params = with_exchange_mesh(lifecycle.LifecycleParams(n=n, k=k, rng="counter", exchange="shift"), mesh)
+    twin = lifecycle._run_block(params, lifecycle.init_state(params, seed=LIFE_SEED), faults, LIFE_TWIN_TICKS)
+    leaves = partition.host_gather(twin, mesh)
+    out = {"twin_digests": gathered_digests(leaves, lifecycle) if mesh.rank == 0 else None}
+    out["l1_block"] = l1_block_check(twin, mesh, victims, faults)
+    del twin, leaves
+    sim = lifecycle.LifecycleSim(n=n, k=k, seed=LIFE_SEED, rng="counter", exchange_mesh=mesh)
+    hint = partition.NamedSharding(mesh, partition.P("node", None))
+    torch.cuda.synchronize()
+    shard_reset()
+    shard_stats_reset(mesh)
+    (ticks, ok), detect_ms = event_timed(lambda: sim.run_until_detected(
+        victims, faults, max_ticks=LIFE_MAX_TICKS, check_every=LIFE_CHECK_EVERY, blocks_per_dispatch=8,
+        learned_sharding=hint))
+    exchange = exchange_record(mesh, max(ticks, 1))
+    (cticks, cok), converge_ms = event_timed(lambda: sim.run_until_converged(
+        faults, max_ticks=LIFE_MAX_TICKS, check_every=LIFE_CHECK_EVERY, blocks_per_dispatch=8))
+    cs = lifecycle.view_checksums(sim.state, faults, mesh)
+    digest = int(telemetry.tree_digest(sim.state, mesh))
+    torch.cuda.synchronize()
+    out.update({"launches": shard_launches(), "detect_ticks": ticks, "detected": ok, "converge_ticks": cticks,
+                "converged": cok, "detect_ms": detect_ms, "converge_ms": converge_ms,
+                "tick_ms": detect_ms / max(ticks, 1), "exchange": exchange, "digest": digest})
+    cs_np = partition.host_gather(cs, mesh, spec=partition.P("node"))
+    leaves = partition.host_gather(sim.state, mesh)
+    if mesh.rank == 0:
+        out["views_sum"] = int(cs_np.sum()) % 2**32
+        out["views_sha"] = hashlib.sha256(cs_np.astype("<u4").tobytes()).hexdigest()
+        out["digests"] = gathered_digests(leaves, lifecycle)
+        whole = lifecycle.LifecycleState(*(torch.from_numpy(np.ascontiguousarray(x)).to(mesh.device)
+                                           for x in leaves))
+        out["whole_digest"] = int(telemetry.tree_digest(whole))
+    return out
+
+
+def l1_block_check(state, mesh, victims, faults) -> dict:
+    """L1 takes a node rank's block (its rows walked, subjects global): on
+    this rank's block of a state with slots in flight, both modes ==
+    their plain versions."""
+    n = state.learned.shape[0] * mesh.size
+    lo, hi = mesh.block(n)
+    whole = lifecycle._whole_node_vectors(state, mesh)
+    base_key = lifecycle._base_key(whole)
+    order, ss, sk = lifecycle_kernel.walk_order(state.r_subject, lifecycle._rkey(state), n)
+    subjects = torch.as_tensor(victims, device=state.learned.device)
+    obs = lifecycle._observers(whole, subjects, faults, n)[lo:hi].contiguous()
+    got = lifecycle_kernel.slot_walk_cuda(state.learned, order, ss, sk, base_key, "detect", obs, FAULTY)
+    want = lifecycle_kernel.slot_walk_plain(state.learned, order, ss, sk, base_key, "detect", obs, FAULTY)
+    sums = lifecycle_kernel.slot_walk_cuda(state.learned, order, ss, sk, base_key, "checksum")
+    sums_plain = lifecycle_kernel.slot_walk_plain(state.learned, order, ss, sk, base_key, "checksum")
+    return {"rows": hi - lo, "slots": int((state.r_subject >= 0).sum()), "detect_equal": bool(torch.equal(got, want)),
+            "checksum_equal": bool(torch.equal(sums, sums_plain)),
+            "max_abs_err": int((sums - sums_plain).abs().max()) if sums.numel() else 0}
+
+
+def sharded_delta(mesh) -> dict:
+    """17c on this rank: the delta engine at 1M x 128 (shift, counter) over
+    the mesh, ``run_until_converged`` (the main path), gathered."""
+    from ringpop_tpu_torch.parallel import partition
+    from ringpop_tpu_torch.parallel.mesh import with_exchange_mesh
+
+    params = with_exchange_mesh(delta.DeltaParams(n=DELTA_N, k=DELTA_K, exchange="shift", rng="counter"), mesh)
+    state = delta.init_state(params, seed=DELTA_SEED)
+    shard_reset()
+    shard_stats_reset(mesh)
+    (state, ticks, ok), ms = event_timed(lambda: delta.run_until_converged(
+        params, state, max_ticks=DELTA_MAX_TICKS, check_every=DELTA_CHECK_EVERY))
+    exchange = exchange_record(mesh, max(ticks, 1))
+    fraction = float(delta.converged_fraction(state, mesh=mesh))  # S2, on the main path as in phase 6
+    out = {"ticks": ticks, "converged": ok, "ms": ms, "tick_ms": ms / max(ticks, 1), "launches": shard_launches(),
+           "exchange": exchange, "fraction": fraction}
+    leaves = partition.host_gather(state, mesh)
+    out["digests"] = gathered_digests(leaves, delta) if mesh.rank == 0 else None
+    return out
+
+
+def sharded_rank(rank: int, size: int, port: int, transport: str, results) -> None:
+    """One node rank of phase 17 (a spawned process): 17a, 17b and 17c over
+    a mesh of ``size`` ranks joined by ``transport``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from ringpop_tpu_torch.parallel import multihost
+    from ringpop_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}")
+        torch.cuda.set_device(dev)
+        multihost.init_distributed(f"127.0.0.1:{port}", size, rank, transport=transport)
+        mesh = make_mesh(transport=transport, device=dev)
+        out = {"rank": rank, "device": str(dev), "17a": sharded_100k(mesh)}
+        out["17b"] = sharded_headline(mesh)
+        out["17c"] = sharded_delta(mesh)
+        results.put((rank, True, out))
+    except BaseException:  # noqa: BLE001 - the parent reports it and fails
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_ranks(size: int, transport: str) -> list[dict]:
+    """Start ``size`` rank processes, wait for every result (or the
+    deadline), and stop every process; returns the ranks' records."""
+    import queue
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=sharded_rank, args=(r, size, port, transport, results)) for r in range(size)]
+    for proc in procs:
+        proc.start()
+    got, failed = {}, []
+    deadline = time.perf_counter() + SHARD_DEADLINE_S
+    try:
+        while len(got) + len(failed) < size:
+            rank, ok, out = results.get(timeout=max(1.0, deadline - time.perf_counter()))
+            (got.__setitem__(rank, out) if ok else failed.append((rank, out)))
+    except queue.Empty:
+        failed.append((-1, f"the ranks missed the {SHARD_DEADLINE_S} s deadline"))
+    finally:
+        for proc in procs:
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    for rank, tb in failed:
+        log(f"phase17: rank {rank} failed:\n{tb}")
+    check(not failed, f"phase17: every rank of {size} finished")
+    return [got[r] for r in range(size)]
+
+
+def run_sharded(dev: torch.device, card: str) -> dict:
+    """Phase 17: the unsharded references on the card, then the three cells
+    over SHARD_RANKS node ranks, each held to the references and the JAX
+    pins."""
+    from ringpop_tpu_torch.parallel import multihost
+
+    count = torch.cuda.device_count()
+    transport = multihost.default_transport(SHARD_RANKS)
+    log(f"phase17: {SHARD_RANKS} node ranks over {transport} ({count} card(s) visible: "
+        f"{'one card a rank' if transport == 'nccl' else 'every leg staged through host memory'}); {card}")
+    # -- the unsharded references on this card (not counted) --
+    params, victims, faults = sh100k_config(dev)
+    lifecycle._run_block(params, lifecycle.init_state(params, seed=SH100K_SEED, device=dev), faults, 1)  # warm-up
+    state = lifecycle.init_state(params, seed=SH100K_SEED, device=dev)
+    state, a_ms = event_timed(lambda: lifecycle._run_block(params, state, faults, SH100K_TICKS))
+    ref_a = {"tick_ms": a_ms / SH100K_TICKS,
+             "digests": leaf_digests(lifecycle.state_to_numpy(state), lifecycle.LifecycleState._fields)}
+    (state, blocks, done), ad_ms = event_timed(lambda: lifecycle._run_until_detected_device(
+        params, lifecycle.init_state(params, seed=SH100K_SEED, device=dev), faults,
+        torch.as_tensor(victims, device=dev), min_status=FAULTY, block_ticks=SH100K_BLOCK_TICKS,
+        max_blocks=SH100K_MAX_BLOCKS))
+    ref_a["detect"] = {"blocks": blocks, "done": bool(done), "ms": ad_ms,
+                       "digests": leaf_digests(lifecycle.state_to_numpy(state), lifecycle.LifecycleState._fields)}
+    hv, hfaults = headline_faults(dev, LIFE_N)
+    sim = lifecycle.LifecycleSim(n=LIFE_N, k=LIFE_K, seed=LIFE_SEED, rng="counter", device=dev)
+    (bticks, _), b_ms = event_timed(lambda: sim.run_until_detected(hv, hfaults, max_ticks=LIFE_MAX_TICKS,
+                                                            check_every=LIFE_CHECK_EVERY, blocks_per_dispatch=8))
+    ref_b = {"tick_ms": b_ms / bticks, "detect_ms": b_ms}
+    dparams = delta.DeltaParams(n=DELTA_N, k=DELTA_K, exchange="shift", rng="counter")
+    (_, cticks, _), c_ms = event_timed(lambda: delta.run_until_converged(
+        dparams, delta.init_state(dparams, seed=DELTA_SEED, device=dev), max_ticks=DELTA_MAX_TICKS,
+        check_every=DELTA_CHECK_EVERY))
+    ref_c = {"tick_ms": c_ms / cticks, "ms": c_ms}
+    del state, sim
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(SHARD_RANKS, transport)
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    # 17a: sharded100k, every gathered leaf == the unsharded run on this card
+    a = r0["17a"]
+    check(a["digests"] == ref_a["digests"], "17a: every leaf after 6 sharded ticks == the unsharded run's")
+    check((a["detect"]["blocks"], a["detect"]["done"]) == (ref_a["detect"]["blocks"], ref_a["detect"]["done"]),
+          f"17a: detect blocks and verdict == unsharded ({a['detect']['blocks']}, {a['detect']['done']})")
+    check(a["detect"]["digests"] == ref_a["detect"]["digests"], "17a: every leaf after the detect path == unsharded")
+    # 17b: the headline's pins
+    b = r0["17b"]
+    check(b["twin_digests"] == PIN_LIFE_TWIN, f"17b: tick-{LIFE_TWIN_TICKS} digests == PIN_LIFE_TWIN")
+    check(all(r["17b"]["l1_block"]["detect_equal"] and r["17b"]["l1_block"]["checksum_equal"] for r in ranks),
+          "17b: L1 on every rank's block == its plain version (both modes)")
+    check(b["detected"] and b["detect_ticks"] == PIN_LIFE_DETECT_TICKS,
+          f"17b: detected in {b['detect_ticks']} ticks (pin {PIN_LIFE_DETECT_TICKS})")
+    check(b["converged"] and b["converge_ticks"] == PIN_LIFE_CONVERGE_TICKS,
+          f"17b: converged {b['converge_ticks']} ticks later (pin {PIN_LIFE_CONVERGE_TICKS})")
+    check(b["digests"] == PIN_LIFE, "17b: every final leaf digest == PIN_LIFE")
+    check(b["views_sum"] == PIN_LIFE_VIEWS_SUM and b["views_sha"] == PIN_LIFE_VIEWS_SHA,
+          f"17b: view checksums sum {b['views_sum']} and sha == PIN_LIFE_VIEWS_*")
+    check(all(r["17b"]["digest"] == b["whole_digest"] for r in ranks),
+          f"17b: the partial-sum digest on every rank == tree_digest of the gathered state ({b['whole_digest']})")
+    # 17c: delta 1M x 128
+    c = r0["17c"]
+    check(c["converged"] and c["ticks"] == PIN_SHIFT_TICKS,
+          f"17c: converged in {c['ticks']} ticks (pin {PIN_SHIFT_TICKS})")
+    check(c["digests"] == PIN_SHIFT and c["fraction"] == 1.0, "17c: final leaf digests == PIN_SHIFT, fraction 1.0")
+    for cell in ("17a", "17b", "17c"):
+        per_rank = [r[cell]["launches"] for r in ranks]
+        check(all(x["row_reduce"] > 0 for x in per_rank), f"{cell}: S1 launched on every rank: {per_rank}")
+    check(all(r["17b"]["launches"]["slot_walk"] > 0 and r["17b"]["launches"]["first_live_learner"] > 0
+              and r["17b"]["launches"]["state_digest"] > 0 for r in ranks),
+          "17b: L1, L2 and D1 launched on every rank")
+    check(all(r["17c"]["launches"]["popcount_rows"] > 0 for r in ranks), "17c: S2 launched on every rank")
+    refs = {"17a": ref_a, "17b": ref_b, "17c": ref_c}
+    cells = {}
+    for cell in ("17a", "17b", "17c"):
+        rec = r0[cell]
+        cells[cell] = {"sharded_ms_per_tick": [r[cell]["tick_ms"] for r in ranks],
+                       "unsharded_ms_per_tick": refs[cell]["tick_ms"], "exchange_rank0": rec["exchange"],
+                       "launches_per_rank": [r[cell]["launches"] for r in ranks]}
+        ex = rec["exchange"]
+        log(f"phase{cell}: ms/tick sharded {[round(x, 3) for x in cells[cell]['sharded_ms_per_tick']]} (ranks) vs "
+            f"unsharded {refs[cell]['tick_ms']:.3f}; sends a leg {ex['sends_per_leg']} over {ex['legs']} legs; "
+            f"per tick {ex['sends_per_tick']:.1f} sends, {ex['bytes_per_tick'] / 1e6:.3f} MB sent "
+            f"({ex['send_bytes_per_tick'] / 1e6:.3f} MB legs + {ex['collective_bytes_per_tick'] / 1e6:.3f} MB "
+            f"collectives, {ex['collectives_per_tick']:.1f} a tick), {ex['staged_bytes_per_tick'] / 1e6:.3f} MB "
+            f"staged; launches by rank {cells[cell]['launches_per_rank']}; {card}")
+    log(f"phase17: sharded100k == unsharded (detect {a['detect']['blocks']} blocks), headline == PIN_LIFE* "
+        f"({b['detect_ticks']} + {b['converge_ticks']} ticks), delta == PIN_SHIFT ({c['ticks']} ticks) over "
+        f"{SHARD_RANKS} ranks; L1 on blocks == plain {[r['17b']['l1_block'] for r in ranks]}; ranks' wall "
+        f"{wall:.1f} s")
+    return {"sharded": {"ranks": SHARD_RANKS, "transport": transport, "device_count": count, "card": card,
+                        "cells": cells, "ranks_wall_s": wall,
+                        "l1_block": [r["17b"]["l1_block"] for r in ranks]}}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
@@ -3995,6 +4373,10 @@ def main() -> int:
     if sys.argv[1:] == ["--serve"]:
         log(json.dumps({"card": card, **run_serve(torch.device("cuda"))}))
         return 0
+    if sys.argv[1:] == ["--sharded"]:
+        build_kernels()
+        log(json.dumps(run_sharded(torch.device("cuda"), card)))
+        return 0
     if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
         rng = (sys.argv[2:] or ["counter"])[0]
         log(json.dumps({"card": card, "rng": rng, "detect_ms": detect_wall(torch.device("cuda"), rng)}))
@@ -4016,6 +4398,7 @@ def main() -> int:
     tel_kernels, tel_timings = phase("14", run_telemetry)
     fleet_timings = phase("15", run_fleet)
     serve_timings = phase("16", run_serve)
+    sharded_timings = phase("17", run_sharded, card)
     log(f"phase walls, s: {walls}")
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
@@ -4039,7 +4422,14 @@ def main() -> int:
     timings.update(fv_timings)
     timings.update(tel_timings)
     timings.update(fleet_timings)
+    # phase 17 runs S1, S2, L1, L2 and D1 on every rank's block: their counts by cell and rank
+    for rec in kernels:
+        if rec["name"] in SHARD_KERNELS.values():
+            key = next(k for k, v in SHARD_KERNELS.items() if v == rec["name"])
+            rec["launches_on_sharded"] = {cell: [c[key] for c in cells["launches_per_rank"]]
+                                          for cell, cells in sharded_timings["sharded"]["cells"].items()}
     timings.update(serve_timings)
+    timings.update(sharded_timings)
     timings["card"] = card
     timings["phase_walls_s"] = walls
     # the whole record, which the end of a long log may not hold

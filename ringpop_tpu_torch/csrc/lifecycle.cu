@@ -14,9 +14,11 @@
 //     tombstone key; written as int64[N].  Detect mode: anybad[s] = 1 iff
 //     some observer i (obs[i]) has m >= 0 and status(m) < min_status;
 //     anybad is bool[N] by subject id, pre-zeroed by the wrapper, and
-//     stays 0 for subjects without a slot.
-//     int32[N, W] + int32[K] order/subject/key + int32[N] base_key
-//     (+ bool[N] obs) -> int64[N] or bool[N].
+//     stays 0 for subjects without a slot.  The plane may be a block of
+//     R of the N rows (a node rank's block under a mesh): its rows are the
+//     nodes walked, while subjects and base_key stay global.
+//     int32[R, W] + int32[K] order/subject/key + int32[N] base_key
+//     (+ bool[R] obs) -> int64[R] or bool[N].
 //   L2 rp_first_live_learner: out[j] = min row r with bit j of learned[r]
 //     set and rows[r] (bool[N], or every row when null), for the slots j
 //     that want[j] names (bool[K], or every slot when null); 0 for the
@@ -190,7 +192,7 @@ __host__ __device__ inline WalkLayout walk_layout(int w, int k, int mode) {
 // MODE: 0 = checksum, 1 = detect.  VEC: words a row load.
 template <int MODE, int VEC>
 __global__ void __launch_bounds__(kThreads)
-lifecycle_slot_walk(const uint32_t* __restrict__ learned, int n, int w, int k,
+lifecycle_slot_walk(const uint32_t* __restrict__ learned, int rows, int n, int w, int k,
                     const int* __restrict__ order, const int* __restrict__ sorted_subj,
                     const int* __restrict__ sorted_key, const int* __restrict__ base_key,
                     const uint8_t* __restrict__ obs, int min_status,
@@ -286,9 +288,9 @@ lifecycle_slot_walk(const uint32_t* __restrict__ learned, int n, int w, int k,
   }
   const uint32_t c0 = hdr[0];
 
-  for (long long tile = (long long)blockIdx.x * kThreads; tile < n; tile += (long long)gridDim.x * kThreads) {
+  for (long long tile = (long long)blockIdx.x * kThreads; tile < rows; tile += (long long)gridDim.x * kThreads) {
     const long long i = tile + tid;
-    const bool in = i < n;
+    const bool in = i < rows;
     const uint32_t* row = learned + i * w;  // read only when i < n
     if (MODE == 0) {
       if (!in) continue;
@@ -591,16 +593,16 @@ int launch_resident(Kernel kernel, long long work, long long smem, int max_per_s
 }
 
 template <int MODE>
-int launch_walk(int vec, long long tiles, long long smem, cudaStream_t s, const uint32_t* p, int n, int w,
-                int k, const int* o, const int* ss, const int* sk, const int* bk, const uint8_t* obs,
+int launch_walk(int vec, long long tiles, long long smem, cudaStream_t s, const uint32_t* p, int rows, int n,
+                int w, int k, const int* o, const int* ss, const int* sk, const int* bk, const uint8_t* obs,
                 int min_status, unsigned long long* sums, uint8_t* anybad) {
   if (vec == 4)
-    return launch_resident(lifecycle_slot_walk<MODE, 4>, tiles, smem, kWalkBlocksPerSm, s, p, n, w, k, o, ss,
+    return launch_resident(lifecycle_slot_walk<MODE, 4>, tiles, smem, kWalkBlocksPerSm, s, p, rows, n, w, k, o, ss,
                            sk, bk, obs, min_status, sums, anybad);
   if (vec == 2)
-    return launch_resident(lifecycle_slot_walk<MODE, 2>, tiles, smem, kWalkBlocksPerSm, s, p, n, w, k, o, ss,
+    return launch_resident(lifecycle_slot_walk<MODE, 2>, tiles, smem, kWalkBlocksPerSm, s, p, rows, n, w, k, o, ss,
                            sk, bk, obs, min_status, sums, anybad);
-  return launch_resident(lifecycle_slot_walk<MODE, 1>, tiles, smem, kWalkBlocksPerSm, s, p, n, w, k, o, ss,
+  return launch_resident(lifecycle_slot_walk<MODE, 1>, tiles, smem, kWalkBlocksPerSm, s, p, rows, n, w, k, o, ss,
                          sk, bk, obs, min_status, sums, anybad);
 }
 
@@ -609,20 +611,22 @@ int launch_walk(int vec, long long tiles, long long smem, cudaStream_t s, const 
 // Shared memory bytes of one L1 block (mode 0 = checksum, 1 = detect).
 extern "C" long long rp_slot_walk_smem(int w, int k, int mode) { return 4LL * walk_layout(w, k, mode).total; }
 
-// mode: 0 = checksum (sums: int64[n]), 1 = detect (obs: bool[n], anybad:
-// bool[n] pre-filled with 0).  order/sorted_subj/sorted_key: int32[k], the
-// slots sorted by (subject asc, key desc), free slots (subject n) last.
-// vec: 4, 2 or 1, dividing w, with the plane's base aligned to 4 * vec
-// bytes.  n >= 1, 1 <= k < 2^24, w*32 >= k.
-extern "C" int rp_slot_walk(const void* learned, int n, int w, int k, const void* order,
+// mode: 0 = checksum (sums: int64[rows]), 1 = detect (obs: bool[rows],
+// anybad: bool[n] pre-filled with 0).  learned: the plane's first `rows`
+// rows, or a block of them; subjects (and base_key: int32[n]) range over
+// [0, n).  order/sorted_subj/sorted_key: int32[k], the slots sorted by
+// (subject asc, key desc), free slots (subject n) last.  vec: 4, 2 or 1,
+// dividing w, with the plane's base aligned to 4 * vec bytes.  rows >= 1,
+// n >= 1, 1 <= k < 2^24, w*32 >= k.
+extern "C" int rp_slot_walk(const void* learned, int rows, int n, int w, int k, const void* order,
                             const void* sorted_subj, const void* sorted_key, const void* base_key,
                             const void* obs, int min_status, int mode, int vec, void* sums, void* anybad,
                             void* stream) {
-  if (n < 1 || k < 1 || k >= (1 << 24) || w < 1 || 32LL * w < k || (mode != 0 && mode != 1) ||
+  if (rows < 1 || n < 1 || k < 1 || k >= (1 << 24) || w < 1 || 32LL * w < k || (mode != 0 && mode != 1) ||
       (vec != 1 && vec != 2 && vec != 4) || w % vec != 0)
     return (int)cudaErrorInvalidValue;
   const long long smem = rp_slot_walk_smem(w, k, mode);
-  const long long tiles = ((long long)n + kThreads - 1) / kThreads;
+  const long long tiles = ((long long)rows + kThreads - 1) / kThreads;
   auto s = static_cast<cudaStream_t>(stream);
   const auto* p = static_cast<const uint32_t*>(learned);
   const auto* o = static_cast<const int*>(order);
@@ -632,8 +636,8 @@ extern "C" int rp_slot_walk(const void* learned, int n, int w, int k, const void
   const auto* ob = static_cast<const uint8_t*>(obs);
   auto* su = static_cast<unsigned long long*>(sums);
   auto* ab = static_cast<uint8_t*>(anybad);
-  if (mode == 1) return launch_walk<1>(vec, tiles, smem, s, p, n, w, k, o, ss, sk, bk, ob, min_status, su, ab);
-  return launch_walk<0>(vec, tiles, smem, s, p, n, w, k, o, ss, sk, bk, ob, min_status, su, ab);
+  if (mode == 1) return launch_walk<1>(vec, tiles, smem, s, p, rows, n, w, k, o, ss, sk, bk, ob, min_status, su, ab);
+  return launch_walk<0>(vec, tiles, smem, s, p, rows, n, w, k, o, ss, sk, bk, ob, min_status, su, ab);
 }
 
 // Shared memory bytes of one L2 block.

@@ -69,8 +69,8 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.rp_slot_walk.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr,
-                                         ptr]
+            lib.rp_slot_walk.argtypes = [ptr, i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
+                                         ptr, ptr]
             lib.rp_slot_walk.restype = i32
             lib.rp_slot_walk_smem.argtypes = [i32, i32, i32]
             lib.rp_slot_walk_smem.restype = i64
@@ -129,38 +129,56 @@ def member_term(subject, key: torch.Tensor) -> torch.Tensor:
     return torch.where(include, h, 0)
 
 
-def slot_walk_plain(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torch.Tensor,
-                    sorted_key: torch.Tensor, base_key: torch.Tensor, mode: str,
-                    obs: Optional[torch.Tensor] = None, min_status: int = 0) -> torch.Tensor:
-    """The plain version of :func:`slot_walk`: the JAX package's walk, one
-    step per sorted slot over [N] columns, keeping each node's best learned
-    key of the current subject and combining at the subject's last slot."""
-    n = learned.shape[0]
+def slot_walk_keys_plain(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torch.Tensor,
+                         sorted_key: torch.Tensor, base_key: torch.Tensor):
+    """The pass of :func:`slot_walk_plain` that both modes share: the JAX
+    package's walk, one step per sorted slot over the plane's columns,
+    keeping each node's best learned key of the current subject.  Returns
+    (keys int32[R, K]: column j the node's governing key of slot j's
+    subject as of slot j, with the subject's base key; is_last bool[K]: the
+    slots that close their subject's run, whose column covers the whole
+    run).  :func:`slot_walk_finish_plain` reduces it in either mode, so one
+    pass serves every mode and observer mask."""
+    rows = learned.shape[0]
+    n = base_key.shape[0]
     k = order.shape[0]
     dev = learned.device
     # the sorted positions that close their subject's run (free slots close nothing)
     nxt = torch.cat([sorted_subj[1:], sorted_subj.new_full((1,), n + 1)])
     is_last = (sorted_subj != nxt) & (sorted_subj < n)
-    best = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    if mode == "checksum":
-        acc = torch.zeros(n, dtype=torch.int64, device=dev)
-    else:
-        anybad = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    best = torch.full((rows,), -1, dtype=torch.int32, device=dev)
+    keys = torch.empty((rows, k), dtype=torch.int32, device=dev)
     for j in range(k):
         s = sorted_subj[j]
-        valid = s < n
-        sc = s.clamp_max(n - 1)
         lcol = bit_column(learned, order[j])
-        best = torch.where(lcol & valid, torch.maximum(best, sorted_key[j]), best)
-        m = torch.maximum(best, base_key[sc])
-        fin = is_last[j]
-        if mode == "checksum":
-            acc = acc + torch.where(fin, member_term(sc, m), 0)
-        else:
-            bad = (obs & (m >= 0) & (key_state(m.clamp_min(0)) < min_status)).any()
-            anybad[torch.where(fin, sc, n).reshape(1)] = (bad & fin).reshape(1)
-        best = torch.where(fin, -1, best)
-    return acc & M32 if mode == "checksum" else anybad[:n]
+        best = torch.where(lcol & (s < n), torch.maximum(best, sorted_key[j]), best)
+        keys[:, j] = torch.maximum(best, base_key[s.clamp_max(n - 1)])
+        best = torch.where(is_last[j], -1, best)
+    return keys, is_last
+
+
+def slot_walk_finish_plain(keys: torch.Tensor, is_last: torch.Tensor, sorted_subj: torch.Tensor, n: int,
+                           mode: str, obs: Optional[torch.Tensor] = None, min_status: int = 0) -> torch.Tensor:
+    """:func:`slot_walk_plain`'s result from :func:`slot_walk_keys_plain`'s
+    pass: the closing slots' keys combined by mode."""
+    subj = sorted_subj.clamp_max(n - 1)
+    if mode == "checksum":
+        return torch.where(is_last, member_term(subj, keys), 0).sum(dim=1) & M32
+    bad = (obs[:, None] & (keys >= 0) & (key_state(keys.clamp_min(0)) < min_status)).any(dim=0)
+    # each subject closes one run; the other slots write False past the end
+    anybad = torch.zeros(n + 1, dtype=torch.bool, device=keys.device)
+    anybad[torch.where(is_last, subj, n)] = bad & is_last
+    return anybad[:n]
+
+
+def slot_walk_plain(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torch.Tensor,
+                    sorted_key: torch.Tensor, base_key: torch.Tensor, mode: str,
+                    obs: Optional[torch.Tensor] = None, min_status: int = 0) -> torch.Tensor:
+    """The plain version of :func:`slot_walk`: the JAX package's walk
+    (:func:`slot_walk_keys_plain`), each subject's governing keys combined
+    at the subject's last slot (:func:`slot_walk_finish_plain`)."""
+    keys, is_last = slot_walk_keys_plain(learned, order, sorted_subj, sorted_key, base_key)
+    return slot_walk_finish_plain(keys, is_last, sorted_subj, base_key.shape[0], mode, obs, min_status)
 
 
 def slot_walk_cuda(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torch.Tensor,
@@ -173,16 +191,17 @@ def slot_walk_cuda(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torc
         raise ValueError(f"unknown walk mode {mode!r}")
     _require_cuda(learned, "slot_walk_cuda")
     if learned.dtype != torch.int32 or learned.dim() != 2:
-        raise ValueError(f"slot_walk_cuda takes an int32[N, W] plane, got {learned.dtype}{list(learned.shape)}")
-    n, w = learned.shape
+        raise ValueError(f"slot_walk_cuda takes an int32[R, W] plane, got {learned.dtype}{list(learned.shape)}")
+    rows, w = learned.shape
+    n = base_key.shape[0] if base_key.dim() == 1 else -1
     k = order.shape[0]
     dev = learned.device
-    if not 1 <= k < (1 << 24) or 32 * w < k or n >= 2**31:
-        raise ValueError(f"slot_walk_cuda: unsupported shape N={n} W={w} K={k}")
-    if base_key.shape != (n,) or sorted_subj.shape != (k,) or sorted_key.shape != (k,):
-        raise ValueError("slot_walk_cuda: base_key must be [N] and the slot vectors [K]")
-    if mode == "detect" and (obs is None or obs.dtype != torch.bool or obs.shape != (n,)):
-        raise ValueError(f"slot_walk_cuda: detect mode needs a bool[{n}] observer mask")
+    if not 1 <= k < (1 << 24) or 32 * w < k or n >= 2**31 or not rows <= n:
+        raise ValueError(f"slot_walk_cuda: unsupported shape R={rows} N={n} W={w} K={k}")
+    if sorted_subj.shape != (k,) or sorted_key.shape != (k,):
+        raise ValueError("slot_walk_cuda: the slot vectors must be [K]")
+    if mode == "detect" and (obs is None or obs.dtype != torch.bool or obs.shape != (rows,)):
+        raise ValueError(f"slot_walk_cuda: detect mode needs a bool[{rows}] observer mask")
     tensors = [learned, order, sorted_subj, sorted_key, base_key] + ([obs] if mode == "detect" else [])
     if any(t.device != dev for t in tensors):
         raise ValueError("slot_walk_cuda: every tensor must be on the plane's device")
@@ -192,14 +211,14 @@ def slot_walk_cuda(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torc
     sorted_subj = sorted_subj.to(torch.int32).contiguous()
     sorted_key = sorted_key.to(torch.int32).contiguous()
     base_key = base_key.to(torch.int32).contiguous()
-    sums = torch.empty(n if mode == "checksum" else 0, dtype=torch.int64, device=dev)
+    sums = torch.empty(rows if mode == "checksum" else 0, dtype=torch.int64, device=dev)
     anybad = torch.zeros(n if mode == "detect" else 0, dtype=torch.bool, device=dev)
     obs_c = obs.contiguous() if mode == "detect" else None
-    if n:
+    if rows:
         lib = _library()
         with torch.cuda.device(dev):
             err = lib.rp_slot_walk(
-                learned.data_ptr(), n, w, k, order32.data_ptr(), sorted_subj.data_ptr(),
+                learned.data_ptr(), rows, n, w, k, order32.data_ptr(), sorted_subj.data_ptr(),
                 sorted_key.data_ptr(), base_key.data_ptr(),
                 None if obs_c is None else obs_c.data_ptr(), int(min_status), MODES[mode],
                 vec_words(w, learned.data_ptr()),
@@ -217,13 +236,15 @@ def slot_walk(learned: torch.Tensor, order: torch.Tensor, sorted_subj: torch.Ten
               sorted_key: torch.Tensor, base_key: torch.Tensor, mode: str,
               obs: Optional[torch.Tensor] = None, min_status: int = 0) -> torch.Tensor:
     """The subject-slot walk over slots in :func:`walk_order`'s order, with
-    ``base_key`` (int32[N], by subject id).  ``mode="checksum"``: int64[N]
-    holding uint32, per node the wrapping sum over subjects that hold a slot
-    of :func:`member_term` of the node's governing key.  ``mode="detect"``:
-    bool[N] by subject id, True where some node with ``obs`` set governs the
-    subject by a present key of status below ``min_status`` (False for
-    subjects without a slot).  The plain version on a CPU plane, L1 on a
-    CUDA plane."""
+    ``base_key`` (int32[N], by subject id).  ``learned`` holds the nodes
+    walked: all N rows, or a node rank's block of R rows (subjects stay
+    global).  ``mode="checksum"``: int64[R] holding uint32, per node the
+    wrapping sum over subjects that hold a slot of :func:`member_term` of
+    the node's governing key.  ``mode="detect"``: bool[N] by subject id,
+    True where some node with ``obs`` (bool[R]) set governs the subject by
+    a present key of status below ``min_status`` (False for subjects
+    without a slot).  The plain version on a CPU plane, L1 on a CUDA
+    plane."""
     if learned.device.type == "cpu":
         return slot_walk_plain(learned, order, sorted_subj, sorted_key, base_key, mode, obs, min_status)
     return slot_walk_cuda(learned, order, sorted_subj, sorted_key, base_key, mode, obs, min_status)

@@ -1,7 +1,10 @@
 """The port's transport and sharding plane (counterpart of
-``ringpop_tpu/parallel``).  So far only ``fabric``'s RPC and codec half.
+``ringpop_tpu/parallel``): ``fabric`` (the RPC and codec half), and the node
+mesh over ``torch.distributed`` ranks — ``partition`` (the per-leaf rule
+table, placement, digest partials), ``mesh``, ``shift`` (the exchange's
+roll legs) and ``multihost`` (process-group bring-up).
 
 This package imports nothing: ``parallel.fabric`` is numpy-only, and the
 serve tier's frontend processes reach it through ``net/channel.py`` and
 ``serve/shm.py`` without starting a device runtime, so the modules that
-will import torch here (ROADMAP A12) stay out of this file."""
+import torch load only when named."""

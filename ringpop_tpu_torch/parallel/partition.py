@@ -1,0 +1,309 @@
+"""Canonical per-leaf partition rules for every sim-plane state.
+
+Counterpart of ``ringpop_tpu/parallel/partition.py``: one ordered list of
+``(leaf-name regex, spec)`` rules, matched against the "/"-joined path name
+of every leaf (first match wins; no match replicates).  A spec here is a
+:class:`P`, a tuple of mesh axis names or None per array axis — the port's
+own stand-in for ``jax.sharding.PartitionSpec``.
+
+Placement and gather over a :class:`parallel.mesh.Mesh`:
+
+* :func:`shard_put` gives this rank's block of every node-sharded leaf
+  (``process_block`` rows of its node axis) and every other leaf whole,
+  on the mesh's device;
+* :func:`host_gather` is its inverse, a collective: every node-sharded
+  leaf ``all_gather``-ed into the global array, as host numpy;
+* :func:`process_block` is the ownership rule, contiguous equal blocks in
+  rank order, with the same divisibility error.
+
+Digest partials: ``telemetry.tree_digest`` is, per leaf, a wrapping uint32
+sum of ``mix32(value ^ mix32(flat index))``, so :func:`leaf_partial_sums`
+over each rank's rows at their GLOBAL flat indices (kernel D1 on the card,
+its ``offset`` being ``lo * row_elems`` mod 2**32) add up exactly, and
+:func:`combine_leaf_partials` applies the digest's outer mix to the sum.
+
+The fleet's batch-axis placement (``fleet_shard_put``,
+``fleet_host_gather``) is ROADMAP A12b.
+
+This module imports torch; ``parallel/__init__.py`` does not import it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import re
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+M32 = 0xFFFF_FFFF
+A12B = "ROADMAP A12b"
+
+
+class P(tuple):
+    """A partition spec: one mesh axis name (or None) per array axis;
+    ``P()`` replicates."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+class NamedSharding(NamedTuple):
+    """A spec bound to a mesh: where one leaf lives."""
+
+    mesh: object
+    spec: P
+
+
+# -- the table ----------------------------------------------------------------
+
+# Ordered (regex, spec) rules matched against "/"-joined path names (first
+# match wins; a leaf no rule matches replicates).  Names cover DeltaState,
+# LifecycleState, TelemetryState, DeltaFaults, chaos.FaultPlan, and any
+# dict/NamedTuple nesting of them — the JAX package's table, rule for rule.
+PARTITION_RULES: list[tuple[str, P]] = [
+    # big per-(node, rumor) planes: packed planes shard words, unpacked
+    # planes slots (packbits.check_rumor_shardable is the k rule)
+    (r"(^|/)(learned|pcount|ride_ok|piggybacked|expired)$", P("node", "rumor")),
+    # topology tier ids int32[TIER_LEVELS, N]: the node axis is last
+    (r"(^|/)(tier_ids)$", P(None, "node")),
+    # per-node vectors (engine state, telemetry masks, fault legs); the
+    # per-tier suspicion counters [N, N_TIERS] shard their node axis
+    (
+        r"(^|/)(base_status|base_inc|base_present|base_pending|base_deadline"
+        r"|self_inc|pings|ping_reqs|probes_failed|incarnation_bumps"
+        r"|base_timer_fires|up|base_up|group|drop_node|crash_tick"
+        r"|restart_tick|flap_period|flap_phase|flap_down"
+        r"|suspects_by_tier|false_suspects_by_tier)$",
+        P("node"),
+    ),
+    # rumor-table vectors
+    (r"(^|/)(r_subject|r_inc|r_status|r_deadline|timer_fires)$", P("rumor")),
+    # everything else replicates: tick/key scalars, decl_* placement
+    # vectors, heal_attempts, drop_rate, part_from/part_until, reach[G, G],
+    # the [4] tier_drop table and the suspect_ticks scalar
+]
+
+
+def spec_for(name: str) -> P:
+    """The canonical spec for a leaf path name (first rule wins; no match
+    replicates)."""
+    for pattern, spec in PARTITION_RULES:
+        if re.search(pattern, name):
+            return spec
+    return P()
+
+
+# -- trees: NamedTuples, dataclasses, tuples, lists, dicts; None is empty ------
+
+
+def _children(tree):
+    """(name, child) pairs of a tree node, in the JAX package's pytree
+    order (fields in order, dict keys sorted), or None for a leaf."""
+    if isinstance(tree, P):
+        return None
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(zip(tree._fields, tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [(f.name, getattr(tree, f.name)) for f in dataclasses.fields(tree)]
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if isinstance(tree, (tuple, list)):
+        return [(str(i), x) for i, x in enumerate(tree)]
+    return None
+
+
+def named_leaves(tree, prefix: str = "") -> list[tuple[str, object]]:
+    """(path name, leaf) for every leaf, None skipped, in pytree order."""
+    if tree is None:
+        return []
+    kids = _children(tree)
+    if kids is None:
+        return [(prefix, tree)]
+    out = []
+    for name, child in kids:
+        out += named_leaves(child, f"{prefix}/{name}" if prefix else name)
+    return out
+
+
+def _tree_map_named(fn, tree, prefix: str = ""):
+    """``tree`` rebuilt with ``fn(name, leaf)`` at every leaf (None stays)."""
+    if tree is None:
+        return None
+    kids = _children(tree)
+    if kids is None:
+        return fn(prefix, tree)
+    vals = [_tree_map_named(fn, child, f"{prefix}/{name}" if prefix else name) for name, child in kids]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*vals)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{name: v for (name, _), v in zip(kids, vals)})
+    if isinstance(tree, dict):
+        return {k: v for k, v in zip(sorted(tree), vals)}
+    return type(tree)(vals)
+
+
+def partition_spec(tree, batch_axes: int = 0, batch_axis: Optional[str] = None):
+    """The tree with a :class:`P` at every leaf, from the canonical table.
+    ``batch_axes`` prepends that many axes to every spec (a fleet's [B, ...]
+    batch), replicated, or the first over ``batch_axis`` when named."""
+
+    def one(name, _leaf):
+        spec = spec_for(name)
+        if batch_axes:
+            spec = P(batch_axis, *([None] * (batch_axes - 1)), *spec)
+        return spec
+
+    return _tree_map_named(one, tree)
+
+
+def named_shardings(tree, mesh, batch_axes: int = 0, batch_axis: Optional[str] = None):
+    """The tree with a :class:`NamedSharding` over ``mesh`` at every leaf
+    (only the structure and leaf names of ``tree`` are read)."""
+    specs = partition_spec(tree, batch_axes=batch_axes, batch_axis=batch_axis)
+    return _tree_map_named(lambda _name, spec: NamedSharding(mesh, spec), specs)
+
+
+def _node_axis(spec: P) -> Optional[int]:
+    for i, ax in enumerate(spec):
+        if ax == "node" or (isinstance(ax, tuple) and "node" in ax):
+            return i
+    return None
+
+
+# -- process-block ownership --------------------------------------------------
+
+
+def process_block(n: int, rank: int, nprocs: int) -> tuple[int, int]:
+    """Node rows [lo, hi) owned by ``rank`` of ``nprocs``: contiguous equal
+    blocks in rank order.  ``n`` must divide evenly."""
+    if n % nprocs:
+        raise ValueError(
+            f"n={n} must divide over {nprocs} processes (pad n or change the "
+            f"process count; GSPMD imposes the same divisibility on the mesh path)"
+        )
+    block = n // nprocs
+    if not 0 <= rank < nprocs:
+        raise ValueError(f"rank {rank} outside [0, {nprocs})")
+    return rank * block, (rank + 1) * block
+
+
+# -- placement: whole or local leaves -> this rank's blocks --------------------
+
+
+def shard_put(tree, mesh, global_n: int, batch_axes: int = 0):
+    """This rank's placement of ``tree`` on ``mesh.device``: every
+    node-sharded leaf cut to the rank's ``process_block`` rows of its node
+    axis (a leaf whose node axis already holds the block is taken as it
+    is), every other leaf whole.  Leaves may be tensors or numpy arrays."""
+    lo, hi = process_block(global_n, mesh.rank, mesh.size)
+    if mesh.shape.get("rumor", 1) != 1:
+        raise NotImplementedError(f"shard_put over a rumor axis (word-sharded planes) is not ported yet ({A12B})")
+
+    def place(name, leaf):
+        t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(np.asarray(leaf))
+        spec = spec_for(name)
+        if batch_axes:
+            spec = P(*([None] * batch_axes), *spec)
+        ax = _node_axis(spec)
+        if ax is not None and t.dim() > ax:
+            size = t.shape[ax]
+            if size == global_n:
+                t = t.narrow(ax, lo, hi - lo)
+            elif size != hi - lo:
+                raise ValueError(f"leaf {name!r}: node axis of {size} is neither n={global_n} nor the "
+                                 f"block of {hi - lo}")
+        return t.to(mesh.device).clone()
+
+    return _tree_map_named(place, tree)
+
+
+def host_gather(tree, mesh, batch_axes: int = 0, spec: Optional[P] = None):
+    """The inverse of :func:`shard_put`, a collective every rank calls
+    with a tree of the same structure: every node-sharded leaf gathered
+    from all ranks into the global array, as host numpy of the tensor's
+    dtype; other leaves are this rank's copy.  ``spec`` overrides the
+    table for every leaf (``P("node")`` for a bare per-node block, such as
+    ``lifecycle.view_checksums`` under a mesh)."""
+
+    def gather(name, leaf):
+        spec_ = spec_for(name) if spec is None else spec
+        if batch_axes:
+            spec_ = P(*([None] * batch_axes), *spec_)
+        ax = _node_axis(spec_)
+        if not isinstance(leaf, torch.Tensor):
+            return np.asarray(leaf)
+        if ax is None or leaf.dim() <= ax or not mesh.sharded:
+            return leaf.detach().cpu().numpy()
+        parts = mesh.all_gather(leaf.contiguous())
+        return torch.cat(list(parts), dim=ax).cpu().numpy()
+
+    return _tree_map_named(gather, tree)
+
+
+def fleet_shard_put(local_tree, mesh, global_b: int):
+    """The fleet's batch-axis placement: ROADMAP A12b."""
+    raise NotImplementedError(f"fleet_shard_put (the fleet's batch-sharded placement) is not ported yet ({A12B})")
+
+
+def fleet_host_gather(tree):
+    """The fleet's batch-axis gather: ROADMAP A12b."""
+    raise NotImplementedError(f"fleet_host_gather (the fleet's batch-sharded gather) is not ported yet ({A12B})")
+
+
+# -- digest partials ----------------------------------------------------------
+
+
+def leaf_partial_sums(tree, lo: int = 0, include_replicated: bool = True) -> torch.Tensor:
+    """int64[L] holding uint32: per leaf, the digest's inner sum over this
+    block, node-sharded leaves (node axis 0) at global flat indices from
+    ``lo * row_elems`` (mod 2**32, as the JAX package's offset wraps);
+    other leaves contribute only with ``include_replicated`` (one rank).
+    Summing every rank's vector and :func:`combine_leaf_partials` gives the
+    whole tree's ``tree_digest``.  D1 on the card."""
+    from ringpop_tpu_torch.sim.telemetry import leaf_digest_sum
+
+    out = []
+    dev = None
+    for name, leaf in named_leaves(tree):
+        leaf = torch.as_tensor(leaf)
+        dev = leaf.device
+        sharded = _node_axis(spec_for(name)) == 0
+        if not sharded and not include_replicated:
+            out.append(torch.zeros((), dtype=torch.int64, device=dev))
+            continue
+        row_elems = int(math.prod(leaf.shape[1:])) if leaf.dim() else 0
+        offset = (lo * row_elems) & M32 if sharded else 0
+        out.append(leaf_digest_sum(leaf, offset=offset).to(torch.int64))
+    if not out:
+        return torch.zeros(0, dtype=torch.int64)
+    return torch.stack(out)
+
+
+def combine_leaf_partials(partials: Sequence) -> int:
+    """Fold per-rank partial vectors (each L uint32 values) into the global
+    ``tree_digest``: per-leaf wrapping sum across ranks, then the digest's
+    outer per-leaf mix and accumulate.  Host numpy."""
+    rows = [np.asarray(p.cpu() if isinstance(p, torch.Tensor) else p).astype(np.int64) & M32 for p in partials]
+    total = np.zeros_like(rows[0])
+    for p in rows:
+        total = (total + p) & M32
+    acc = 0
+    for li, leaf_sum in enumerate(total.tolist()):
+        acc = (acc + _mix32(leaf_sum ^ ((li * 0x9E37_79B9) & M32))) & M32
+    return acc
+
+
+def _mix32(x: int) -> int:
+    """murmur3 fmix32 on a Python int (the digest's outer mix)."""
+    x &= M32
+    x ^= x >> 16
+    x = (x * 0x85EB_CA6B) & M32
+    x ^= x >> 13
+    x = (x * 0xC2B2_AE35) & M32
+    return x ^ (x >> 16)

@@ -32,8 +32,14 @@ takes a time-varying ``chaos.FaultPlan`` where it takes a ``DeltaFaults``:
 :func:`resolve_faults` evaluates any object with an ``at_tick`` method at
 the state's tick.
 
-Not ported yet, refused with NotImplementedError: the sharded exchange
-(``exchange_mesh``, ROADMAP A12).
+Sharded over node ranks (``params.exchange_mesh``, a ``parallel.mesh.Mesh``
+of more than one rank): the state is this rank's block of rows
+(``partition.shard_put``), the faults stay whole on every rank, and every
+[N] vector and draw of the tick is computed whole on every rank.  The
+planes' cross-rank steps are the shift exchange's two roll legs
+(``parallel/shift``), the uniform exchange's gathers of the packed planes,
+and the row reduces' combines (``packbits.*_across``), so the gathered
+result is the unsharded tick's, bit for bit.
 """
 
 from __future__ import annotations
@@ -46,12 +52,15 @@ import torch
 from torch.profiler import record_function
 
 from ringpop_tpu_torch.device import DeviceLike, resolve_device
+from ringpop_tpu_torch.parallel.shift import shard_roll
 from ringpop_tpu_torch.sim import prng, threefry
 from ringpop_tpu_torch.sim.packbits import (
     and_reduce_rows,
-    or_reduce_rows,
+    and_reduce_rows_across,
+    or_reduce_rows_across,
     pack_bool,
     popcount_rows,
+    popcount_rows_across,
     row_mask,
     unpack_bits,
 )
@@ -106,9 +115,16 @@ class DeltaParams:
     # PRNG family: "threefry" = the jax.random draws (sim/threefry.py) the
     # frozen goldens pin; "counter" = the stateless stream of sim/prng.py
     rng: str = "threefry"
-    # the sharded exchange of the JAX package, refused until ROADMAP A12
-    # (its exchange_h / exchange_pipelined tuning fields come with it)
+    # a parallel.mesh.Mesh of node ranks: the engine then takes and returns
+    # this rank's block of rows (parallel/mesh.with_exchange_mesh)
     exchange_mesh: Optional[Any] = None
+    # the shift legs' sub-block factor H (H + 1 sends a rolled leaf a leg,
+    # parallel/shift), read only with a mesh; exchange_pipelined is the JAX
+    # package's switch between its fused and sequential leg regions, kept
+    # for its params: the port's legs are the same two shard_roll calls
+    # either way, so it is not read
+    exchange_h: int = 2
+    exchange_pipelined: bool = True
 
     def resolved_max_p(self) -> int:
         return resolve_max_p(self.n, self.p_factor, self.max_p)
@@ -227,24 +243,48 @@ def tier_pair_drop(faults: DeltaFaults, a: torch.Tensor, b: torch.Tensor) -> tor
     return drop
 
 
+def sharding_of(params):
+    """The mesh the engine shards over: ``params.exchange_mesh`` when it
+    has more than one node rank (its blocks must divide n), else None."""
+    mesh = params.exchange_mesh
+    if mesh is None or mesh.shape.get("node", 1) <= 1:
+        return None
+    mesh.block(params.n)  # ValueError when the ranks do not divide n
+    return mesh
+
+
+def whole_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A node-sharded leaf whole: ``x`` itself, or under a mesh every
+    rank's block gathered."""
+    return x if mesh is None else mesh.gather_rows(x)
+
+
 def init_state(
     params: DeltaParams, seed: int = 0, sources: Optional[np.ndarray] = None,
     device: DeviceLike = None,
 ) -> DeltaState:
     """K rumors, each initially known only to its source node (default:
     rumor j starts at node j mod N).  ``key`` is ``prng.prng_key(seed)``,
-    the value ``jax.random.PRNGKey(seed)`` has."""
-    dev = resolve_device(device)
+    the value ``jax.random.PRNGKey(seed)`` has.  Under a mesh
+    (:func:`sharding_of`), this rank's block, on the mesh's device unless
+    ``device`` is given."""
+    mesh = sharding_of(params)
+    dev = resolve_device(params.exchange_mesh.device if params.exchange_mesh is not None and device is None
+                         else device)
     n, k = params.n, params.k
+    lo, hi = mesh.block(n) if mesh is not None else (0, n)
     if sources is None:
         sources = np.arange(k, dtype=np.int64) % n
-    learned_b = torch.zeros((n, k), dtype=torch.bool, device=dev)
-    learned_b[torch.as_tensor(np.asarray(sources, np.int64), device=dev),
-              torch.arange(k, device=dev)] = True
+    rows, cols = np.asarray(sources, np.int64), np.arange(k)
+    if mesh is not None:  # the sources this rank's rows hold
+        own = (rows >= lo) & (rows < hi)
+        rows, cols = rows[own] - lo, cols[own]
+    learned_b = torch.zeros((hi - lo, k), dtype=torch.bool, device=dev)
+    learned_b[torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)] = True
     return DeltaState(
         learned=pack_bool(learned_b),
-        pcount=torch.zeros((n, k), dtype=torch.int8, device=dev),
-        ride_ok=pack_bool(torch.zeros((n, k), dtype=torch.int8, device=dev) < clamped_max_p(params)),
+        pcount=torch.zeros((hi - lo, k), dtype=torch.int8, device=dev),
+        ride_ok=pack_bool(torch.zeros((hi - lo, k), dtype=torch.int8, device=dev) < clamped_max_p(params)),
         tick=torch.zeros((), dtype=torch.int32, device=dev),
         key=prng.prng_key(seed, dev),
     )
@@ -253,11 +293,7 @@ def init_state(
 def _check_supported(params: DeltaParams) -> None:
     if params.rng not in ("threefry", "counter"):
         raise ValueError(f"unknown rng family {params.rng!r}")
-    if params.exchange_mesh is not None:
-        raise NotImplementedError(
-            "exchange_mesh (the sharded shift exchange) is not ported yet "
-            "(ROADMAP Queue A12)"
-        )
+    sharding_of(params)
 
 
 def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaults()) -> DeltaState:
@@ -272,6 +308,11 @@ def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaul
     max_p = clamped_max_p(params)
     shift_mode = params.exchange == "shift"
     use_counter = params.rng == "counter"
+    # under a mesh the planes are this rank's rows [lo, hi); every [N]
+    # vector below is whole, and ``loc`` cuts this rank's rows out of it
+    mesh = sharding_of(params)
+    lo, hi = mesh.block(n) if mesh is not None else (0, n)
+    loc = slice(lo, hi)
 
     with record_function("ping-target"):
         if use_counter:
@@ -313,23 +354,36 @@ def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaul
     with record_function("rumor-exchange"):
         if shift_mode:
             ride_ok_w = state.ride_ok
-            cmask = row_mask(conn)
+            cmask = row_mask(conn)[loc]
             riding_w = state.learned & ride_ok_w
             # request leg: sender i's rumors land at targets[i]; node j is
             # pinged only by j - s, so delivery is a row gather.  torch's %
             # takes the divisor's sign (jnp.mod), so (i - s) % n is in [0, n)
             sent_w = riding_w & cmask
             idx_fwd = (i_all - s) % n
-            inbound_w = sent_w.index_select(0, idx_fwd)
-            got_pinged = conn.index_select(0, idx_fwd)
+            got_pinged = conn.index_select(0, idx_fwd)[loc]
+            if mesh is None:
+                inbound_w = sent_w.index_select(0, idx_fwd)
+            else:
+                # the shift legs over the ranks' blocks (parallel/shift): the
+                # shift picks their send plan on the host, one sync a tick
+                s_host = int(s)
+                (inbound_w,) = shard_roll((sent_w,), s_host, mesh, "node", h=params.exchange_h)
             learned1_w = state.learned | inbound_w
             # response leg: the target's riding rumors come back to the pinger
             answerable_w = learned1_w & ride_ok_w
-            resp_src = answerable_w.index_select(0, (i_all + s) % n)
+            if mesh is None:
+                resp_src = answerable_w.index_select(0, (i_all + s) % n)
+            else:
+                (resp_src,) = shard_roll((answerable_w,), n - s_host, mesh, "node", h=params.exchange_h)
             learned2_w = learned1_w | (resp_src & cmask)
         else:
-            learned0_b = unpack_bits(state.learned, k)
-            ride_ok_b = state.pcount < max_p
+            # the scatter by target reads every row: under a mesh the packed
+            # planes are gathered whole (the gate from the carried ride_ok,
+            # which is pack_bool(pcount < max_p) by construction)
+            learned0_b = unpack_bits(whole_rows(state.learned, mesh), k)
+            ride_ok_b = (state.pcount < max_p if mesh is None
+                         else unpack_bits(mesh.gather_rows(state.ride_ok), k))
             riding_b = learned0_b & ride_ok_b
             sent_b = riding_b & conn[:, None]
             # scatter-or by target: a max over duplicate targets on a zero plane
@@ -342,18 +396,18 @@ def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaul
             learned1_b = learned0_b | inbound_b
             answerable_b = learned1_b & ride_ok_b
             resp_b = answerable_b[targets] & conn[:, None]
-            learned2_b = learned1_b | resp_b
+            learned2_b = (learned1_b | resp_b)[loc]
             learned2_w = pack_bool(learned2_b)
 
     with record_function("piggyback-counters"):
         if shift_mode:
             # bump = sent + (riding & got_pinged) = riding * (conn + got)
             riding_bit = unpack_bits(riding_w, k)
-            bump = riding_bit.to(torch.int8) * (conn.to(torch.int8) + got_pinged.to(torch.int8))[:, None]
+            bump = riding_bit.to(torch.int8) * (conn[loc].to(torch.int8) + got_pinged.to(torch.int8))[:, None]
             newly_bit = unpack_bits(learned2_w & ~state.learned, k)
         else:
-            bump = sent_b.to(torch.int8) + (riding_b & got_pinged[:, None]).to(torch.int8)
-            newly_bit = learned2_b & ~learned0_b
+            bump = (sent_b.to(torch.int8) + (riding_b & got_pinged[:, None]).to(torch.int8))[loc]
+            newly_bit = learned2_b & ~learned0_b[loc]
 
         # sender bumps on success, receiver once per busy tick; newly learned
         # rumors start at 0.  A bump lands only where pcount < max_p <= 126,
@@ -365,8 +419,11 @@ def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaul
         # re-seeded.  The two row reduces read the up mask directly instead
         # of a masked copy of the plane
         mid_ride_w = pack_bool(pcount_mid < max_p)
-        fully = unpack_bits(and_reduce_rows(learned2_w, up), k)
-        stuck = ~unpack_bits(or_reduce_rows(learned2_w & mid_ride_w, up), k) & ~fully
+        up_loc = None if up is None else up[loc]
+        fully_w = and_reduce_rows_across(learned2_w, up_loc, mesh)
+        live_riding_w = or_reduce_rows_across(learned2_w & mid_ride_w, up_loc, mesh)
+        fully = unpack_bits(fully_w, k)
+        stuck = ~unpack_bits(live_riding_w, k) & ~fully
         reset_w = learned2_w & pack_bool(stuck)[None, :]
         pcount = pcount_mid.masked_fill(unpack_bits(reset_w, k), 0)
         # the carried invariant: riding resumes where the reset re-opened
@@ -378,13 +435,18 @@ def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaul
     )
 
 
-def converged_fraction(state: DeltaState, faults: DeltaFaults = DeltaFaults()) -> torch.Tensor:
+def converged_fraction(state: DeltaState, faults: DeltaFaults = DeltaFaults(), mesh=None) -> torch.Tensor:
     """Fraction of (live node, rumor) pairs delivered, float32 0-d: per-row
     popcounts (exact in float32) summed in float32.  The sum's order is not
-    the JAX package's, so the two agree to ~1e-7 relative, not bit for bit."""
+    the JAX package's, so the two agree to ~1e-7 relative, not bit for bit.
+    With a ``mesh`` of node ranks (``state`` this rank's block), the
+    per-row counts are gathered and summed whole on every rank: the
+    unsharded port's value, bit for bit."""
     faults = resolve_faults(faults, state.tick)
-    n, k = state.learned.shape[0], state.pcount.shape[1]
-    bits = popcount_rows(state.learned).to(torch.float32)
+    k = state.pcount.shape[1]
+    sharded = mesh is not None and mesh.shape.get("node", 1) > 1
+    bits = (popcount_rows_across(state.learned, mesh) if sharded else popcount_rows(state.learned)).to(torch.float32)
+    n = bits.shape[0]
     if faults.up is not None:
         live = faults.up
         denom = live.sum(dtype=torch.float32).clamp_min(1.0) * k
@@ -392,12 +454,17 @@ def converged_fraction(state: DeltaState, faults: DeltaFaults = DeltaFaults()) -
     return bits.sum() / (n * k)
 
 
-def converged(state: DeltaState, faults: DeltaFaults = DeltaFaults()) -> torch.Tensor:
+def converged(state: DeltaState, faults: DeltaFaults = DeltaFaults(), mesh=None) -> torch.Tensor:
     """bool 0-d tensor on the state's device: have all rumors reached every
-    live node?  (Dead rows are vacuously done.)"""
+    live node?  (Dead rows are vacuously done.)  With a ``mesh`` of node
+    ranks, ``state`` is this rank's block and the AND spans the ranks."""
     faults = resolve_faults(faults, state.tick)
     k = state.pcount.shape[1]
-    return unpack_bits(and_reduce_rows(state.learned, faults.up), k).all()
+    if mesh is None or mesh.shape.get("node", 1) <= 1:
+        return unpack_bits(and_reduce_rows(state.learned, faults.up), k).all()
+    lo, hi = mesh.block(state.learned.shape[0] * mesh.size)
+    up = None if faults.up is None else faults.up[lo:hi]
+    return unpack_bits(and_reduce_rows_across(state.learned, up, mesh), k).all()
 
 
 def until_loop(run_block, state, max_blocks: int, pred):
@@ -432,8 +499,9 @@ def run_until_converged(
             s = step(params, s, faults)
         return s
 
+    mesh = sharding_of(params)
     state, blocks, done = until_loop(
-        run_block, state, -(-max_ticks // check_every), lambda s: converged(s, faults)
+        run_block, state, -(-max_ticks // check_every), lambda s: converged(s, faults, mesh)
     )
     return state, blocks * check_every, done
 
@@ -445,7 +513,10 @@ class DeltaSim:
     record dict, e.g. a ``telemetry.TelemetrySink``) turns on the run
     journal: ``run_until_converged`` then runs in ``journal_every``-tick
     blocks and hands over one ``telemetry.delta_record`` a block; with no
-    sink it runs exactly the journal-free loop."""
+    sink it runs exactly the journal-free loop.  With ``exchange_mesh`` (a
+    mesh of node ranks) the state is this rank's block, on the mesh's
+    device unless ``device`` is given, and every rank must call each
+    method in step with the others."""
 
     def __init__(self, n: int, k: int, seed: int = 0, telemetry_sink=None,
                  device: DeviceLike = None, **kw):
@@ -471,7 +542,7 @@ class DeltaSim:
             block = min(journal_every, max_ticks - ticks)
             self.state, t, ok = run_until_converged(self.params, self.state, faults, max_ticks=block)
             ticks += t
-            self.telemetry_sink(delta_record(self.state, faults))
+            self.telemetry_sink(delta_record(self.state, faults, sharding_of(self.params)))
             if t == 0 and not ok:  # budget too small for one check block
                 break
         return ticks, ok

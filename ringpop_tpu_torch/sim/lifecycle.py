@@ -49,9 +49,21 @@ protocol events, reading only what it computes anyway: on the card its
 launch of D1 (``csrc/telemetry.cu``).  ``faults`` may be a time-varying
 ``chaos.FaultPlan``, evaluated at the state's tick.
 
-Not ported yet, each refused with NotImplementedError: the sharded
-exchange and layout hints (``exchange_mesh``, ``learned_sharding``,
-``state_shardings`` — A12) and the AOT warm start (A15).
+Sharded over node ranks (``params.exchange_mesh``, a ``parallel.mesh.Mesh``
+of more than one rank), the engine takes and returns this rank's block of
+rows of the planes and the per-node vectors; the rumor table, the tick and
+the key are whole on every rank, and so are the faults.  A tick gathers the
+per-node vectors once and computes every [N] and [K] vector and every draw
+whole on every rank; its cross-rank steps on the planes are the shift
+exchange's two roll legs (``parallel/shift``; the uniform exchange gathers
+the packed planes), the K prober rows and the K subject rows (each owner
+supplies its rows), the heal pair's two rows, the three row reduces (S1 on
+each block, then the ranks combine), and L2's first live learner (each
+rank's first row, the lowest over the ranks that hold one).  The queries
+take a ``mesh`` the same way: L1 walks each rank's rows and the ranks OR
+their detect flags, and ``view_checksums`` stays on the rank that owns the
+observer.  Telemetry accumulation under a mesh is ROADMAP A12b; the AOT
+warm start (A15) is refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ from torch.profiler import record_function
 from ringpop_tpu_torch.device import DeviceLike, resolve_device
 from ringpop_tpu_torch.ops import lifecycle_kernel
 from ringpop_tpu_torch.sim import delta, prng, telemetry as _tm, threefry
+from ringpop_tpu_torch.parallel.shift import shard_roll
 from ringpop_tpu_torch.sim.delta import (
     DeltaFaults,
     check_tier_legs,
@@ -76,16 +89,19 @@ from ringpop_tpu_torch.sim.delta import (
     pair_connected,
     resolve_faults,
     resolve_max_p,
+    sharding_of,
     tier_pair,
     tier_pair_drop,
     until_loop,
+    whole_rows,
 )
 from ringpop_tpu_torch.sim.packbits import (
-    and_reduce_rows,
+    and_reduce_rows_across,
     as_i32,
     bit_column,
+    check_rumor_shardable,
     n_words,
-    or_reduce_rows,
+    or_reduce_rows_across,
     pack_bool,
     row_mask,
     set_bit,
@@ -160,9 +176,10 @@ class LifecycleParams:
     # PRNG family: "threefry" = the jax.random draws (sim/threefry.py) the
     # frozen goldens pin; "counter" = the stateless stream of sim/prng.py
     rng: str = "threefry"
-    # the sharded exchange of the JAX package and its tuning fields, refused
-    # until ROADMAP A12 (exchange_h and exchange_pipelined are read only with
-    # a mesh)
+    # a parallel.mesh.Mesh of node ranks: the engine then takes and returns
+    # this rank's block (parallel/mesh.with_exchange_mesh); the shift legs'
+    # sub-block factor H is read only with a mesh, and exchange_pipelined
+    # is kept for the JAX package's params and not read (delta.DeltaParams)
     exchange_mesh: Optional[Any] = None
     exchange_h: int = 2
     exchange_pipelined: bool = True
@@ -174,11 +191,7 @@ class LifecycleParams:
 def _check_supported(params: LifecycleParams) -> None:
     if params.rng not in ("threefry", "counter"):
         raise ValueError(f"unknown rng family {params.rng!r}")
-    if params.exchange_mesh is not None:
-        raise NotImplementedError(
-            "exchange_mesh (the sharded shift exchange) is not ported yet "
-            "(ROADMAP Queue A12)"
-        )
+    sharding_of(params)
     if params.rng == "counter" and params.ping_req_size >= prng.D_COLUMN_SPAN:
         raise ValueError(
             f"ping_req_size={params.ping_req_size} overflows the counter RNG's "
@@ -189,11 +202,14 @@ def _check_supported(params: LifecycleParams) -> None:
 
 def init_state(params: LifecycleParams, seed: int = 0, device: DeviceLike = None) -> LifecycleState:
     """The initial state on ``device`` (the card unless the caller asks for
-    the CPU); ``key`` is ``prng.prng_key(seed)``, the value
-    ``jax.random.PRNGKey(seed)`` has.  On the card, K is refused past the
-    widest plane the lifecycle kernels take (``lifecycle_kernel.MAX_WORDS``
-    words) before anything is allocated."""
-    dev = resolve_device(device)
+    the CPU; under a mesh, the mesh's device unless ``device`` is given);
+    ``key`` is ``prng.prng_key(seed)``, the value ``jax.random.PRNGKey(seed)``
+    has.  On the card, K is refused past the widest plane the lifecycle
+    kernels take (``lifecycle_kernel.MAX_WORDS`` words) before anything is
+    allocated."""
+    sharding_of(params)  # ValueError when the ranks do not divide n
+    dev = resolve_device(params.exchange_mesh.device if params.exchange_mesh is not None and device is None
+                         else device)
     if dev.type == "cuda":
         lifecycle_kernel.check_width(n_words(params.k), "lifecycle.init_state")
     return init_state_from_key(params, prng.prng_key(seed, dev), dev)
@@ -204,9 +220,13 @@ def init_state_from_key(params: LifecycleParams, key, device: DeviceLike = None)
     tensor, or the JAX package's uint32[2] as numpy-convertible values.  The
     Monte-Carlo fleet (``sim/montecarlo``) builds its replicas this way.  On
     the card, K is refused past the widest plane the lifecycle kernels take
-    rather than at the first tick."""
-    dev = resolve_device(device)
-    n, k = params.n, params.k
+    rather than at the first tick.  Under a mesh (``delta.sharding_of``),
+    this rank's block: its rows of the planes and per-node vectors."""
+    mesh = sharding_of(params)
+    dev = resolve_device(params.exchange_mesh.device if params.exchange_mesh is not None and device is None
+                         else device)
+    k = params.k
+    n = params.n // mesh.size if mesh is not None else params.n
     if dev.type == "cuda":
         lifecycle_kernel.check_width(n_words(k), "lifecycle.init_state")
     if isinstance(key, torch.Tensor):
@@ -292,6 +312,59 @@ def _bel_rumor_dense(learned_b, r_subject, rkey, active, targets):
     return torch.where(bmask, rkey[None, :], -1).amax(dim=1).to(torch.int32)
 
 
+# -- the cross-rank steps of a sharded tick ---------------------------------------
+
+_A12B = "ROADMAP A12b"
+# the per-node vectors: node-sharded leaves a sharded tick gathers whole
+_NODE_VECTORS = ("base_status", "base_inc", "base_present", "base_pending", "base_deadline", "self_inc")
+
+
+def _whole_node_vectors(state: LifecycleState, mesh) -> LifecycleState:
+    """``state`` with its per-node vectors gathered whole from every
+    rank's block (one all_gather of an int32 stack; the planes stay this
+    rank's rows); ``state`` itself with ``mesh`` None."""
+    if mesh is None:
+        return state
+    stack = torch.stack([getattr(state, f).to(torch.int32) for f in _NODE_VECTORS])
+    whole = mesh.all_gather(stack).transpose(0, 1).reshape(len(_NODE_VECTORS), -1)
+    return state._replace(**{f: whole[i].to(getattr(state, f).dtype) for i, f in enumerate(_NODE_VECTORS)})
+
+
+def _rows(mesh, plane: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor:
+    """``plane[rows]`` of a plane that is whole, or under a mesh this
+    rank's block (the owners supply the rows: ``Mesh.rows_of``)."""
+    return plane[rows] if mesh is None else mesh.rows_of(plane, rows, n)
+
+
+def _block_rows(mesh, rows: torch.Tensor, ok: torch.Tensor, n: int):
+    """Global ``rows`` (in [0, n) where ``ok``) as indices into this rank's
+    block, with ``ok`` kept only where this rank owns the row: each owner
+    writes its own rows.  Unsharded, ``rows`` clamped into [0, n)."""
+    rows = rows.clamp(0, n - 1)
+    if mesh is None:
+        return rows, ok
+    lo, hi = mesh.block(n)
+    return (rows - lo).clamp(0, hi - lo - 1), ok & (rows >= lo) & (rows < hi)
+
+
+def _first_live_across(local_first: torch.Tensor, has_parts: torch.Tensor, mesh, k: int, block: int,
+                       want: torch.Tensor) -> torch.Tensor:
+    """L2's answer over every rank's block: each rank's lowest live
+    learner (a row of its block; 0 also where it has none, so the rank's own
+    OR words ``has_parts`` say where it has one) offset by its first row,
+    the lowest over the ranks that have one; 0 where none has (the argmax
+    of an all-False column) and for slots not in ``want``.  With ``mesh``
+    None the block is the plane and ``local_first`` the answer."""
+    if mesh is None:
+        return local_first
+    firsts = mesh.all_gather(local_first).to(torch.int64)
+    has = unpack_bits(has_parts, k)
+    offsets = torch.arange(has.shape[0], dtype=torch.int64, device=firsts.device)[:, None] * block
+    none = torch.iinfo(torch.int64).max
+    best = torch.where(has, firsts + offsets, none).amin(dim=0)
+    return torch.where(want & (best < none), best, 0).to(torch.int32)
+
+
 def step(
     params: LifecycleParams,
     state: LifecycleState,
@@ -309,6 +382,15 @@ def step(
     faults = resolve_faults(faults, state.tick)
     n, k = params.n, params.k
     dev = state.learned.device
+    # under a mesh the planes are this rank's rows [lo, hi); the per-node
+    # vectors are gathered whole here, every [N] vector below is whole, and
+    # ``loc`` cuts this rank's rows out of one
+    mesh = sharding_of(params)
+    lo, hi = mesh.block(n) if mesh is not None else (0, n)
+    loc = slice(lo, hi)
+    if mesh is not None and telemetry is not None:
+        raise NotImplementedError(f"telemetry accumulation under a mesh is not ported yet ({_A12B})")
+    state = _whole_node_vectors(state, mesh)
     with record_function("tick-prologue"):
         m = min(params.alloc_per_tick, params.k, params.n)
         maxp = clamped_max_p(params)
@@ -359,7 +441,7 @@ def step(
             # each subject has exactly one prober (s - shift) mod n: K bit
             # gathers + one scatter-max instead of the O(N·K) masked reduce
             prober = (state.r_subject.to(torch.int64) - shift) % n
-            pbit = bit_column(state.learned[prober.clamp(0, n - 1)], torch.arange(k, device=dev))
+            pbit = bit_column(_rows(mesh, state.learned, prober.clamp(0, n - 1), n), torch.arange(k, device=dev))
             bel_vals = torch.where(active & pbit, rkey, -1)
             bel_rumor = torch.full((n + 1,), -1, dtype=torch.int32, device=dev).scatter_reduce_(
                 0, torch.where(active, prober, n), bel_vals, "amax", include_self=True)[:n]
@@ -367,7 +449,9 @@ def step(
             targets = (prng.draw_randint(cseed, ctick, prng.D_TARGET, i_all, 0, n - 1) if use_counter
                        else threefry.randint(k_target, (n,), 0, n - 1)).to(torch.int64)
             targets = torch.where(targets >= i_all, targets + 1, targets)
-            learned0_b = unpack_bits(state.learned, k)
+            # the scatter by target reads every row: under a mesh the packed
+            # plane is gathered whole
+            learned0_b = unpack_bits(whole_rows(state.learned, mesh), k)
             bel_rumor = _bel_rumor_dense(learned0_b, state.r_subject, rkey, active, targets)
         bel = torch.maximum(bel_rumor, base_key[targets])
         bel_status = _status_of(bel.clamp_min(0))
@@ -387,21 +471,33 @@ def step(
 
         if shift_mode:
             ride_ok_w = state.ride_ok
-            dmask = row_mask(delivered)
+            dmask = row_mask(delivered)[loc]
             riding_w = state.learned & ride_ok_w & active_w[None, :]
             sent_w = riding_w & dmask
-            # out[i] = in[(i - s) mod n]: rolls as row gathers
+            # out[i] = in[(i - s) mod n]: rolls as row gathers, or under a
+            # mesh the shift legs over the ranks' blocks (parallel/shift)
             idx_fwd = (i_all - shift) % n
-            inbound_w = sent_w.index_select(0, idx_fwd)
-            got_pinged = delivered.index_select(0, idx_fwd)
+            got_pinged = delivered.index_select(0, idx_fwd)[loc]
+            if mesh is None:
+                inbound_w = sent_w.index_select(0, idx_fwd)
+            else:
+                # the shift picks the legs' send plan on the host: one sync a tick
+                s_host = int(shift)
+                (inbound_w,) = shard_roll((sent_w,), s_host, mesh, "node", h=params.exchange_h)
             learned1_w = state.learned | inbound_w
             answerable_w = learned1_w & ride_ok_w & active_w[None, :]
-            resp_src = answerable_w.index_select(0, (i_all + shift) % n)
+            if mesh is None:
+                resp_src = answerable_w.index_select(0, (i_all + shift) % n)
+            else:
+                (resp_src,) = shard_roll((answerable_w,), n - s_host, mesh, "node", h=params.exchange_h)
             resp_w = resp_src & dmask
             learned2_w = learned1_w | resp_w
             newly_w = learned2_w & ~state.learned
         else:
-            ride_ok_b = state.pcount < maxp
+            # under a mesh the gate comes from the carried ride_ok, gathered
+            # whole (pack_bool(pcount < max_p) by construction)
+            ride_ok_b = (state.pcount < maxp if mesh is None
+                         else unpack_bits(mesh.gather_rows(state.ride_ok), k))
             riding_b = learned0_b & active[None, :] & ride_ok_b
             sent_b = riding_b & delivered[:, None]
             # segment_max of bools by target: a max over duplicate targets
@@ -415,7 +511,7 @@ def step(
             answerable_b = learned1_b & active[None, :] & ride_ok_b
             resp_b = answerable_b[targets] & delivered[:, None]
             learned2_b = learned1_b | resp_b
-            learned2_w = pack_bool(learned2_b)
+            learned2_w = pack_bool(learned2_b[loc])
 
     with record_function("heal"):
         # one probabilistic attempt per tick: a random connected pair swaps
@@ -438,11 +534,17 @@ def step(
                 & pair_connected(faults, h[None], p[None])[0]
             )
             heal_rows2 = torch.stack([h, p])
-            rows_hp = learned2_w[heal_rows2]  # [2, W]
+            rows_hp = _rows(mesh, learned2_w, heal_rows2, n)  # [2, W]
             merged_row = (rows_hp[0] | rows_hp[1]) & active_w
-            # the 2-row swap, in place: learned2_w is this tick's own plane,
-            # and its only other reader (newly_w) is taken above
-            learned2_w[heal_rows2] = torch.where(attempt, merged_row[None, :], rows_hp)
+            if mesh is None:
+                # the 2-row swap, in place: learned2_w is this tick's own
+                # plane, and its only other reader (newly_w) is taken above
+                learned2_w[heal_rows2] = torch.where(attempt, merged_row[None, :], rows_hp)
+            else:
+                # each owner writes its own row of the pair
+                node_ids = torch.arange(lo, hi, device=dev)
+                healed = attempt & ((node_ids == h) | (node_ids == p))
+                learned2_w = torch.where(healed[:, None], merged_row[None, :], learned2_w)
             merged_bits = unpack_bits(merged_row, k)
         learned2h_w = learned2_w
 
@@ -451,26 +553,35 @@ def step(
         if shift_mode:
             # bump = sent + (riding & got_pinged) = riding * (delivered + got)
             bump = unpack_bits(riding_w, k).to(torch.int8) * (
-                delivered.to(torch.int8) + got_pinged.to(torch.int8))[:, None]
+                delivered[loc].to(torch.int8) + got_pinged.to(torch.int8))[:, None]
             newly_bit = unpack_bits(newly_w, k)
         else:
-            bump = sent_b.to(torch.int8) + (riding_b & got_pinged[:, None]).to(torch.int8)
-            newly_bit = learned2_b & ~learned0_b
+            bump = (sent_b.to(torch.int8) + (riding_b & got_pinged[:, None]).to(torch.int8))[loc]
+            newly_bit = (learned2_b & ~learned0_b)[loc]
         # a bump lands only where pcount < max_p <= 126: the int8 sum stays <= 127
         pcount_a = (state.pcount + bump).clamp_max(maxp).masked_fill(newly_bit, 0)
         if params.heal_prob > 0:
             # heal resets (a join transfer restarts dissemination of all it
             # carried), as the same 2-row write
-            pcount_a[heal_rows2] = torch.where(
-                attempt & merged_bits[None, :], _like(pcount_a, 0), pcount_a[heal_rows2])
+            if mesh is None:
+                pcount_a[heal_rows2] = torch.where(
+                    attempt & merged_bits[None, :], _like(pcount_a, 0), pcount_a[heal_rows2])
+            else:
+                pcount_a = pcount_a.masked_fill(healed[:, None] & merged_bits[None, :], 0)
 
         # full-sync analog: re-seed rumors that expired short of full
         # coverage.  The three row reduces read the up mask directly
         mid_ride_w = pack_bool(pcount_a < maxp)
-        fully_learned = unpack_bits(and_reduce_rows(learned2h_w, up_leg), k) & active
-        has_live_learner = unpack_bits(or_reduce_rows(learned2h_w, up_leg), k)
         riding_now_w = learned2h_w & mid_ride_w & active_w[None, :]
-        stuck = active & ~unpack_bits(or_reduce_rows(riding_now_w, up_leg), k) & ~fully_learned
+        up_loc = None if up_leg is None else up_leg[loc]
+        # S1 over each block, the ranks' words combined; the OR keeps each
+        # rank's own words for L2's combine below
+        fully_w = and_reduce_rows_across(learned2h_w, up_loc, mesh)
+        live_w, live_parts = or_reduce_rows_across(learned2h_w, up_loc, mesh, partials=True)
+        riding_live_w = or_reduce_rows_across(riding_now_w, up_loc, mesh)
+        fully_learned = unpack_bits(fully_w, k) & active
+        has_live_learner = unpack_bits(live_w, k)
+        stuck = active & ~unpack_bits(riding_live_w, k) & ~fully_learned
 
     with record_function("timers-fold"):
         # -- timers fire: slot rumors (state_transitions.go:90-117)
@@ -491,7 +602,8 @@ def step(
         # seed of a fired transition: the first live node that learned the
         # rumor (L2 on the card), for the slots of fire_s | fire_f only — the
         # JAX package's lax.cond, decided on the card with no host sync
-        slot_seed = lifecycle_kernel.first_live_learner(learned2h_w, up_leg, k, want=fire_sf)
+        slot_seed = _first_live_across(lifecycle_kernel.first_live_learner(learned2h_w, up_loc, k, want=fire_sf),
+                                       live_parts, mesh, k, hi - lo, fire_sf)
         seed_node = _segment_max(torch.where(fire_sf, slot_seed, -1), subj, n).clamp_min(-1)
         r_deadline = state.r_deadline
 
@@ -574,7 +686,7 @@ def step(
         # -- refutation candidates (memberlist.go:337-354): only (node ==
         # slot subject) pairs self-detect, so K bit gathers + one scatter
         subj_c = subj.clamp(0, n - 1)
-        own_bit = bit_column(learned3_w[subj_c], torch.arange(k, device=dev))
+        own_bit = bit_column(_rows(mesh, learned3_w, subj_c, n), torch.arange(k, device=dev))
         slot_self_detract = (
             active & own_bit & is_detraction(state.r_status) & (state.r_inc >= state.self_inc[subj_c])
         )
@@ -645,13 +757,14 @@ def step(
         # rumors are seeded by their declarers below
         seed_rows = torch.where(new_status == ALIVE, cand_subj, seed_node[cand_subj].to(torch.int64))
         seed_ok = place & (new_status != SUSPECT) & (seed_rows >= 0)
-        learned5_w = set_bit(learned4_w, seed_rows.clamp(0, n - 1), free_slots, seed_ok)
+        seed_rows, seed_ok = _block_rows(mesh, seed_rows, seed_ok, n)
+        learned5_w = set_bit(learned4_w, seed_rows, free_slots, seed_ok)
         # suspect rumors: every declarer that targeted the subject seeds it
         subj_to_slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
         subj_to_slot[cand_subj] = torch.where(place & (new_status == SUSPECT), free_slots, -1)
         decl_slot = subj_to_slot[targets]
         decl_ok = declare & (decl_slot >= 0)
-        learned6_w = set_bit_per_row(learned5_w, decl_slot.clamp(0, k - 1), decl_ok)
+        learned6_w = set_bit_per_row(learned5_w, decl_slot.clamp(0, k - 1)[loc], decl_ok[loc])
 
     with record_function("piggyback-counters"):
         # -- pcount pass B: the deferred stuck/freed/placed clears
@@ -696,6 +809,8 @@ def step(
         tick=state.tick + 1,
         key=key,
     )
+    if mesh is not None:
+        new_state = new_state._replace(**{f: getattr(new_state, f)[loc].clone() for f in _NODE_VECTORS})
     if telemetry is None:
         return new_state
 
@@ -746,18 +861,19 @@ def admit(params: LifecycleParams, state: LifecycleState, idx: int) -> Lifecycle
     """Admit (or re-admit) node ``idx``: the join path's Alive rumor at a
     fresh incarnation, seeded only at the joiner, in the first free slot
     (``swim/join_sender.go``).  Reads the rumor table on the host; raises if
-    it is full."""
+    it is full.  Under a mesh, ``state`` is this rank's block."""
     free = np.flatnonzero(state.r_subject.cpu().numpy() < 0)
     if free.size == 0:
         raise RuntimeError("rumor table full; cannot admit now")
     k0 = int(free[0])
     now = int(state.tick) + 1
-    n = params.n
+    mesh = sharding_of(params)
+    lo, hi = mesh.block(params.n) if mesh is not None else (0, params.n)
     dev = state.learned.device
     w0 = k0 >> 5
     bitv = int(as_i32(torch.tensor(1 << (k0 & 31))))
     col = (state.learned[:, w0] & ~bitv) | torch.where(
-        torch.arange(n, device=dev) == idx, bitv, 0).to(torch.int32)
+        torch.arange(lo, hi, device=dev) == idx, bitv, 0).to(torch.int32)
     # slot k0's counters reset to 0, so its carried ride gate opens (unless
     # max_p = 0, where nothing ever rides)
     if clamped_max_p(params) > 0:
@@ -774,7 +890,8 @@ def admit(params: LifecycleParams, state: LifecycleState, idx: int) -> Lifecycle
     r_inc[k0] = now
     r_status[k0] = ALIVE
     r_deadline[k0] = NO_DEADLINE
-    self_inc[idx] = now
+    if lo <= idx < hi:  # the joiner's owner bumps its incarnation
+        self_inc[idx - lo] = now
     return state._replace(
         r_subject=r_subject, r_inc=r_inc, r_status=r_status, r_deadline=r_deadline,
         learned=learned, pcount=pcount, ride_ok=ride_ok, self_inc=self_inc,
@@ -817,8 +934,9 @@ def believed_status(state: LifecycleState, subjects) -> torch.Tensor:
     return torch.where(bk >= 0, _status_of(bk.clamp_min(0)), _like(_status_of(bk), -1))
 
 
-def _observers(state: LifecycleState, subjects: torch.Tensor, faults: DeltaFaults) -> torch.Tensor:
-    n = state.learned.shape[0]
+def _observers(state: LifecycleState, subjects: torch.Tensor, faults: DeltaFaults,
+               n: Optional[int] = None) -> torch.Tensor:
+    n = state.learned.shape[0] if n is None else n
     dev = state.learned.device
     up = faults.up if faults.up is not None else torch.ones(n, dtype=torch.bool, device=dev)
     is_subject = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -892,23 +1010,34 @@ def _detection_fraction_large(
     return torch.as_tensor(frac.astype(np.float32), device=state.learned.device)
 
 
-def _slot_covered(state: LifecycleState) -> torch.Tensor:
+def _slot_covered(state: LifecycleState, n: Optional[int] = None) -> torch.Tensor:
     """bool[N]: which subject ids hold at least one in-flight rumor slot."""
-    n = state.learned.shape[0]
+    n = state.learned.shape[0] if n is None else n
     active = state.r_subject >= 0
     return _scatter_any(n, torch.where(active, state.r_subject, n), active)
 
 
 def _walk_subject_slots(state: LifecycleState, base_key: torch.Tensor, mode: str,
-                        obs: Optional[torch.Tensor] = None, min_status: int = 0) -> torch.Tensor:
+                        obs: Optional[torch.Tensor] = None, min_status: int = 0,
+                        learned: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The per-subject slot walk under :func:`detection_complete` and
     :func:`view_checksums`: the K slots sorted by (subject asc, key desc),
     free slots last, each node's governing key per covered subject combined
-    by ``mode`` (``ops.lifecycle_kernel.slot_walk``: L1 on the card)."""
-    n = state.learned.shape[0]
+    by ``mode`` (``ops.lifecycle_kernel.slot_walk``: L1 on the card).  The
+    walk reads ``learned`` (default: the state's plane), whose rows may be a
+    rank's block; subjects range over ``base_key``'s N."""
+    n = base_key.shape[0]
     order, sorted_subj, sorted_key = lifecycle_kernel.walk_order(state.r_subject, _rkey(state), n)
-    return lifecycle_kernel.slot_walk(state.learned, order, sorted_subj, sorted_key, base_key, mode,
-                                      obs, min_status)
+    return lifecycle_kernel.slot_walk(state.learned if learned is None else learned, order, sorted_subj,
+                                      sorted_key, base_key, mode, obs, min_status)
+
+
+def _mesh_of(mesh, learned_sharding=None):
+    """The mesh a query spans: ``mesh``, else the hint's, when it has more
+    than one node rank; else None."""
+    if mesh is None and learned_sharding is not None:
+        mesh = learned_sharding.mesh
+    return mesh if mesh is not None and mesh.shape.get("node", 1) > 1 else None
 
 
 def detection_complete(
@@ -918,48 +1047,79 @@ def detection_complete(
     min_status: int = FAULTY,
     *,
     learned_sharding=None,
+    mesh=None,
 ) -> torch.Tensor:
     """bool 0-d tensor on the state's device: does every live observer
     believe every subject has reached ``min_status`` (or see it evicted)?
     Same predicate as ``(detection_fraction(...) >= 1).all()``, including
     "no live observers → not complete", in O(N·K) through the slot walk.
-    ``learned_sharding`` (a mesh layout hint) is refused: ROADMAP A12."""
-    if learned_sharding is not None:
-        raise NotImplementedError("learned_sharding (a mesh layout hint) is not ported yet (ROADMAP Queue A12)")
+
+    With a ``mesh`` of node ranks (or ``learned_sharding``'s mesh),
+    ``state`` is this rank's block and the answer is the whole state's, on
+    every rank (a collective).  ``learned_sharding`` (a
+    ``partition.NamedSharding``) names the layout the walk reads the plane
+    in, and so only the route: a spec whose axis 0 is ``"node"`` (or no
+    hint) walks each rank's rows and ORs the ranks' flags; a replicated
+    spec gathers the plane whole once per check and walks it on every rank.
+    The value is the same either way."""
     faults = resolve_faults(faults, state.tick)
+    mesh = _mesh_of(mesh, learned_sharding)
     with record_function("detect-walk"):
         subjects = _subjects(subjects, state.learned.device)
+        if mesh is None:
+            base_bad = state.base_present & (state.base_status < min_status)
+            obs = _observers(state, subjects, faults)
+            anybad = _walk_subject_slots(state, _base_key(state), "detect", obs, min_status)
+            not_detected = torch.where(_slot_covered(state), anybad, base_bad)[subjects]
+            return obs.any() & ~not_detected.any()
+        n = state.learned.shape[0] * mesh.size
+        lo, hi = mesh.block(n)
+        state = _whole_node_vectors(state, mesh)
         base_bad = state.base_present & (state.base_status < min_status)
-        obs = _observers(state, subjects, faults)
-        anybad = _walk_subject_slots(state, _base_key(state), "detect", obs, min_status)
-        not_detected = torch.where(_slot_covered(state), anybad, base_bad)[subjects]
+        obs = _observers(state, subjects, faults, n)
+        if learned_sharding is not None and learned_sharding.spec[:1] != ("node",):
+            anybad = _walk_subject_slots(state, _base_key(state), "detect", obs, min_status,
+                                         learned=mesh.gather_rows(state.learned))
+        else:
+            local = _walk_subject_slots(state, _base_key(state), "detect", obs[lo:hi], min_status)
+            anybad = unpack_bits(mesh.or_words(pack_bool(local)), n)
+        not_detected = torch.where(_slot_covered(state, n), anybad, base_bad)[subjects]
         return obs.any() & ~not_detected.any()
 
 
-def view_checksums(state: LifecycleState, faults: DeltaFaults = DeltaFaults()) -> torch.Tensor:
+def view_checksums(state: LifecycleState, faults: DeltaFaults = DeltaFaults(), mesh=None) -> torch.Tensor:
     """int64[N] holding uint32: an order-invariant checksum of each node's
     membership view — the wrapping uint32 sum of ``mix32(mix32(s) ^ key)``
     over every subject ``s`` present in the node's view with its governing
     key, tombstones excluded (``memberlist.go:106-128``).  Subjects with a
     slot go through the slot walk (L1 on the card); the rest are the same
     in every view: one shared term.  ``faults`` is accepted for symmetry
-    with the other queries and not read."""
+    with the other queries and not read.  With a ``mesh`` of node ranks,
+    ``state`` is this rank's block and so is the result (its observers'
+    checksums: ``partition.host_gather`` assembles them)."""
     del faults
+    mesh = _mesh_of(mesh)
     with record_function("view-checksum"):
-        n = state.learned.shape[0]
+        if mesh is not None:
+            state = _whole_node_vectors(state, mesh)
         base_key = _base_key(state)
+        n = base_key.shape[0]
         acc = _walk_subject_slots(state, base_key, "checksum")
         i_all = torch.arange(n, dtype=torch.int64, device=state.learned.device)
-        base_terms = torch.where(~_slot_covered(state), lifecycle_kernel.member_term(i_all, base_key), 0)
+        base_terms = torch.where(~_slot_covered(state, n), lifecycle_kernel.member_term(i_all, base_key), 0)
         return (acc + base_terms.sum()) & 0xFFFF_FFFF
 
 
-def checksums_converged(state: LifecycleState, faults: DeltaFaults = DeltaFaults()) -> torch.Tensor:
+def checksums_converged(state: LifecycleState, faults: DeltaFaults = DeltaFaults(), mesh=None) -> torch.Tensor:
     """bool 0-d tensor: do all live nodes' view checksums agree (and is any
     node live)?  The reference's convergence criterion for protocol tests
-    (``swim/test_utils.go:164-199``)."""
+    (``swim/test_utils.go:164-199``).  With a ``mesh`` of node ranks the
+    checksums are gathered whole (a collective)."""
     faults = resolve_faults(faults, state.tick)
-    cs = view_checksums(state, faults)
+    mesh = _mesh_of(mesh)
+    cs = view_checksums(state, faults, mesh)
+    if mesh is not None:
+        cs = mesh.gather_rows(cs)
     up = faults.up if faults.up is not None else torch.ones(cs.shape[0], dtype=torch.bool, device=cs.device)
     first = cs[up.to(torch.int32).argmax()]
     return (torch.where(up, cs, first) == first).all() & up.any()
@@ -980,10 +1140,10 @@ def _run_block(params: LifecycleParams, state: LifecycleState, faults, ticks: in
     return state, telemetry
 
 
-def _quiescent(state: LifecycleState, faults) -> torch.Tensor:
+def _quiescent(state: LifecycleState, faults, mesh=None) -> torch.Tensor:
     """No rumor slot in flight and every live view checksum agrees (both
     sides evaluated, as the JAX package does: no host branch)."""
-    return ~(state.r_subject >= 0).any() & checksums_converged(state, faults)
+    return ~(state.r_subject >= 0).any() & checksums_converged(state, faults, mesh)
 
 
 def _carry_loop(params: LifecycleParams, state, faults, telemetry, block_ticks: int, max_blocks: int, pred):
@@ -1005,18 +1165,23 @@ def _run_until_converged_device(params: LifecycleParams, state: LifecycleState, 
     each block (``delta.until_loop``: one host sync per block).  Returns
     (state, blocks_run, converged), with the accumulated telemetry appended
     when a telemetry accumulator rides the carry."""
-    return _carry_loop(params, state, faults, telemetry, block_ticks, max_blocks, lambda s: _quiescent(s, faults))
+    mesh = sharding_of(params)
+    return _carry_loop(params, state, faults, telemetry, block_ticks, max_blocks,
+                       lambda s: _quiescent(s, faults, mesh))
 
 
 def _run_until_detected_device(params: LifecycleParams, state: LifecycleState, faults,
                                subjects: torch.Tensor, *, min_status: int, block_ticks: int,
-                               max_blocks: int, telemetry=None):
+                               max_blocks: int, telemetry=None, learned_sharding=None):
     """Up to ``max_blocks`` blocks of ``block_ticks`` ticks until
     :func:`detection_complete` holds, tested on entry and after each block.
     Returns (state, blocks_run, detected), with the telemetry appended as
-    :func:`_run_until_converged_device` does."""
+    :func:`_run_until_converged_device` does.  Under a mesh the test spans
+    the ranks (``learned_sharding`` picks its route)."""
+    mesh = sharding_of(params)
     return _carry_loop(params, state, faults, telemetry, block_ticks, max_blocks,
-                       lambda s: detection_complete(s, subjects, faults, min_status))
+                       lambda s: detection_complete(s, subjects, faults, min_status,
+                                                    learned_sharding=learned_sharding, mesh=mesh))
 
 
 class LifecycleSim:
@@ -1032,7 +1197,9 @@ class LifecycleSim:
     with ``journal_views`` also the wrapped sum of the view checksums
     (``views_sum``) and their live agreement (``views_agree``).
     ``telemetry_tiers`` arms the per-tier suspicion counters.  ``aot`` is
-    refused (ROADMAP A15)."""
+    refused (ROADMAP A15).  With ``exchange_mesh`` (a mesh of node ranks)
+    the state is this rank's block, every rank calls each method in step
+    with the others, and telemetry is refused (ROADMAP A12b)."""
 
     def __init__(self, n: int, seed: int = 0, telemetry=None, journal_views: bool = False,
                  aot: Optional[str] = None, telemetry_tiers: bool = False, device: DeviceLike = None, **kw):
@@ -1040,6 +1207,8 @@ class LifecycleSim:
             raise NotImplementedError("the AOT warm start (util/aot) is not ported yet (ROADMAP Queue A15)")
         self.params = LifecycleParams(n=n, **kw)
         _check_supported(self.params)
+        if telemetry and sharding_of(self.params) is not None:
+            raise NotImplementedError(f"telemetry accumulation under a mesh is not ported yet ({_A12B})")
         self.state = init_state(self.params, seed=seed, device=device)
         self.telemetry = None
         self.telemetry_sink = None
@@ -1152,18 +1321,16 @@ class LifecycleSim:
         learned_sharding=None,
     ):
         """Tick until every live observer believes every subject has reached
-        ``min_status``.  Returns (ticks_used, detected).  ``learned_sharding``
-        is refused (ROADMAP A12)."""
-        if learned_sharding is not None:
-            raise NotImplementedError(
-                "learned_sharding (a mesh layout hint) is not ported yet (ROADMAP Queue A12)")
+        ``min_status``.  Returns (ticks_used, detected).  Under a mesh,
+        ``learned_sharding`` picks the detection test's route
+        (:func:`detection_complete`); the result is the same either way."""
         subjects = _subjects(list(subjects), self.state.learned.device)
 
         def dispatch(max_blocks):
             if self.telemetry is None:
                 self.state, blocks, done = _run_until_detected_device(
                     self.params, self.state, faults, subjects, min_status=min_status,
-                    block_ticks=check_every, max_blocks=max_blocks)
+                    block_ticks=check_every, max_blocks=max_blocks, learned_sharding=learned_sharding)
             else:
                 self.state, blocks, done, self.telemetry = _run_until_detected_device(
                     self.params, self.state, faults, subjects, min_status=min_status,
@@ -1172,6 +1339,20 @@ class LifecycleSim:
             return blocks, done
 
         return self._run_until(dispatch, max_ticks, check_every, blocks_per_dispatch, time_budget_s)
+
+
+def state_shardings(mesh, k: Optional[int] = None) -> LifecycleState:
+    """A ``LifecycleState`` of ``partition.NamedSharding`` over ``mesh``,
+    one a leaf, from the canonical rule table
+    (``partition.PARTITION_RULES``): per-node vectors and the big planes on
+    the node axis, the rumor table on the rumor axis, the rest replicated.
+    ``k`` is validated against the mesh's rumor axis
+    (``packbits.check_rumor_shardable``)."""
+    from ringpop_tpu_torch.parallel.partition import named_shardings
+
+    if k is not None:
+        check_rumor_shardable(k, mesh.shape.get("rumor", 1))
+    return named_shardings(LifecycleState(**{f: 0 for f in LifecycleState._fields}), mesh)
 
 
 # -- carrying a JAX state across ------------------------------------------------

@@ -29,7 +29,7 @@ sweeps on top of this.
 Not ported yet, each refused with NotImplementedError: the fleet meshes and
 shardings (``mesh=``, ``make_fleet_mesh``, ``fleet_save_mesh``,
 ``fleet_state_shardings``, ``fleet_shardings``,
-``fleet_faults_shardings``: ROADMAP A12) and the AOT warm start (``aot=``:
+``fleet_faults_shardings``: ROADMAP A12b) and the AOT warm start (``aot=``:
 A15).
 
 Reference analogs: failure detection `swim/node.go:470-513`; the suspicion
@@ -59,7 +59,7 @@ from ringpop_tpu_torch.sim.lifecycle import (
     step,
 )
 
-_MESH_REFUSAL = "the fleet meshes and shardings are not ported yet (ROADMAP Queue A12)"
+_MESH_REFUSAL = "the fleet meshes and shardings are not ported yet (ROADMAP A12b)"
 _AOT_REFUSAL = "the AOT warm start (util/aot) is not ported yet (ROADMAP Queue A15)"
 
 
@@ -87,7 +87,7 @@ def init_replicas(params: LifecycleParams, seeds: Sequence[int], mesh=None,
     key is ``prng.prng_key(seeds[b])``, the value ``jax.random.PRNGKey``
     gives for any seed Python accepts (seeds >= 2**32 and negative seeds
     included), so its stream is exactly ``LifecycleSim(seed=...)``'s.
-    ``mesh`` is refused (ROADMAP A12)."""
+    ``mesh`` is refused (ROADMAP A12b)."""
     return _stack(_init_solo(params, seeds, mesh, device))
 
 
@@ -99,27 +99,27 @@ def _init_solo(params: LifecycleParams, seeds: Sequence[int], mesh, device: Devi
 
 
 def make_fleet_mesh(n_devices: Optional[int] = None, shape=None):
-    """Refused: a block-sharded fleet mesh is ROADMAP A12."""
+    """Refused: a block-sharded fleet mesh is ROADMAP A12b."""
     raise NotImplementedError(_MESH_REFUSAL)
 
 
 def fleet_save_mesh():
-    """Refused: the process-spanning checkpoint mesh is ROADMAP A12."""
+    """Refused: the process-spanning checkpoint mesh is ROADMAP A12b."""
     raise NotImplementedError(_MESH_REFUSAL)
 
 
 def fleet_state_shardings(mesh, k=None):
-    """Refused: fleet shardings are ROADMAP A12."""
+    """Refused: fleet shardings are ROADMAP A12b."""
     raise NotImplementedError(_MESH_REFUSAL)
 
 
 def fleet_shardings(tree, mesh):
-    """Refused: fleet shardings are ROADMAP A12."""
+    """Refused: fleet shardings are ROADMAP A12b."""
     raise NotImplementedError(_MESH_REFUSAL)
 
 
 def fleet_faults_shardings(faults, mesh):
-    """Refused: fleet shardings are ROADMAP A12."""
+    """Refused: fleet shardings are ROADMAP A12b."""
     raise NotImplementedError(_MESH_REFUSAL)
 
 
@@ -250,7 +250,7 @@ class MonteCarlo:
     into per-scenario verdicts.  ``telemetry_tiers`` arms the per-tier
     suspicion counters.
 
-    ``mesh`` is refused (ROADMAP A12) and ``aot`` is refused (A15), where
+    ``mesh`` is refused (ROADMAP A12b) and ``aot`` is refused (A15), where
     ``aot_info`` stays ``{}``.
 
     >>> mc = MonteCarlo(LifecycleParams(n=512, k=32), seeds=range(32))

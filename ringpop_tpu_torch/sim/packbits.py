@@ -267,3 +267,33 @@ def check_rumor_shardable(k: int, rumor_shards: int) -> None:
             f"n_words(k)={n_words(k)} words / slot-alignment would not "
             f"divide evenly"
         )
+
+
+# -- cross-rank forms: each node rank reduces its own rows, the ranks combine --
+
+
+def or_reduce_rows_across(p: torch.Tensor, rows: Optional[torch.Tensor], mesh, partials: bool = False):
+    """:func:`or_reduce_rows` of a node-sharded plane, ``p`` and ``rows``
+    being this rank's block: S1 over the block, then the ranks' words ORed
+    (``Mesh.or_words``); with ``mesh`` None, the plane is whole and S1
+    alone answers.  With ``partials``, also every rank's own words [P, W]."""
+    words = or_reduce_rows(p, rows)
+    if mesh is None:
+        return (words, words[None]) if partials else words
+    return mesh.or_words(words, partials)
+
+
+def and_reduce_rows_across(p: torch.Tensor, rows: Optional[torch.Tensor], mesh) -> torch.Tensor:
+    """:func:`and_reduce_rows` of a node-sharded plane (this rank's block):
+    S1 over the block, then the ranks' words ANDed; S1 alone with ``mesh``
+    None."""
+    words = and_reduce_rows(p, rows)
+    return words if mesh is None else mesh.and_words(words)
+
+
+def popcount_rows_across(p: torch.Tensor, mesh) -> torch.Tensor:
+    """:func:`popcount_rows` of a node-sharded plane, gathered: int32[N],
+    S2 over this rank's block, then every rank's counts in rank order; S2
+    alone with ``mesh`` None."""
+    counts = popcount_rows(p)
+    return counts if mesh is None else mesh.gather_rows(counts)

@@ -32,7 +32,7 @@ JAX package's JSON sidecar) and restores bit-exactly.
 
 Not ported yet, each refused with NotImplementedError: the process-sliced
 sweep (``global_b`` other than the slice's own B, ``fleet_shard_put``) and
-the fleet mesh (``mesh=``): ROADMAP A12; the AOT warm start (``aot=``):
+the fleet mesh (``mesh=``): ROADMAP A12b; the AOT warm start (``aot=``):
 A15.
 """
 
@@ -51,7 +51,7 @@ from ringpop_tpu_torch.sim.chaos import FaultPlan
 from ringpop_tpu_torch.sim.lifecycle import LifecycleParams
 from ringpop_tpu_torch.sim.montecarlo import _AOT_REFUSAL, MonteCarlo
 
-_SLICE_REFUSAL = "process-sliced fleet sweeps are not ported yet (ROADMAP Queue A12)"
+_SLICE_REFUSAL = "process-sliced fleet sweeps are not ported yet (ROADMAP A12b)"
 
 
 # -- grid construction (host-side) --------------------------------------------
@@ -245,7 +245,7 @@ def scored_fleet(
 
 def fleet_shard_put(carry, mesh, global_b: int):
     """Refused: placing a process slice on the process-spanning save mesh
-    is ROADMAP A12."""
+    is ROADMAP A12b."""
     raise NotImplementedError(_SLICE_REFUSAL)
 
 
@@ -270,7 +270,7 @@ class FleetSweep:
     cannot change what the fleet computed.
 
     ``mesh`` and a ``global_b`` other than ``len(meta)`` (a process slice)
-    are refused (ROADMAP A12).
+    are refused (ROADMAP A12b).
     """
 
     def __init__(
@@ -448,7 +448,7 @@ class FleetSweep:
         the carry restores into a fresh sweep on ``device``, validated leaf
         by leaf, and the pre-kill block records merge back from the
         sidecar so the final verdicts cover the whole horizon.  A
-        checkpoint of a process-sliced sweep is refused (ROADMAP A12)."""
+        checkpoint of a process-sliced sweep is refused (ROADMAP A12b)."""
         import glob as _glob
 
         from ringpop_tpu_torch.sim import snapshot

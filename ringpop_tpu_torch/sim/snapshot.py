@@ -20,7 +20,7 @@ Counterpart of ``ringpop_tpu/sim/snapshot.py``, file for file:
 
 Not ported yet, each refused with NotImplementedError: the orbax state
 checkpoints (``save_state_orbax`` / ``load_state_orbax``, whose point is
-sharded multi-process writes: ROADMAP A12) and the host-plane membership
+sharded multi-process writes: ROADMAP A12b) and the host-plane membership
 export and import (``export_membership`` / ``import_membership``, which
 need the host memberlist: A14).
 """
@@ -157,15 +157,15 @@ def load_state(path: str, cls: Type[T], params=None, device: DeviceLike = None) 
 
 def save_state_orbax(path: str, state, wait: bool = False, checkpointer=None):
     """Refused: the orbax checkpoints exist for sharded, multi-process
-    writes (ROADMAP A12).  :func:`save_state` writes the same state."""
+    writes (ROADMAP A12b).  :func:`save_state` writes the same state."""
     raise NotImplementedError("orbax state checkpoints (sharded, multi-process writes) are not ported yet "
-                              "(ROADMAP Queue A12); save_state writes the npz snapshot")
+                              "(ROADMAP A12b); save_state writes the npz snapshot")
 
 
 def load_state_orbax(path: str, example, shardings=None):
-    """Refused with :func:`save_state_orbax` (ROADMAP A12)."""
+    """Refused with :func:`save_state_orbax` (ROADMAP A12b)."""
     raise NotImplementedError("orbax state checkpoints (sharded, multi-process reads) are not ported yet "
-                              "(ROADMAP Queue A12); load_state reads the npz snapshot")
+                              "(ROADMAP A12b); load_state reads the npz snapshot")
 
 
 # -- fleet carry checkpoints -----------------------------------------------------
@@ -275,15 +275,15 @@ def load_carry(path: str, example, device: DeviceLike = None):
 
 def save_carry_orbax(path: str, carry) -> None:
     """Refused: the port writes the carry with :func:`save_carry` (one npz);
-    the process-spanning orbax store is ROADMAP A12."""
+    the process-spanning orbax store is ROADMAP A12b."""
     raise NotImplementedError("the orbax fleet carry (process-spanning, sharded) is not ported yet "
-                              "(ROADMAP Queue A12); save_carry writes the npz carry")
+                              "(ROADMAP A12b); save_carry writes the npz carry")
 
 
 def load_carry_orbax(path: str, example, shardings=None):
-    """Refused with :func:`save_carry_orbax` (ROADMAP A12)."""
+    """Refused with :func:`save_carry_orbax` (ROADMAP A12b)."""
     raise NotImplementedError("the orbax fleet carry (process-spanning, sharded) is not ported yet "
-                              "(ROADMAP Queue A12); load_carry reads the npz carry")
+                              "(ROADMAP A12b); load_carry reads the npz carry")
 
 
 # -- host-plane membership export/import -------------------------------------

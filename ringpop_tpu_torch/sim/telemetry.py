@@ -516,25 +516,50 @@ def tree_digest_plain(tree) -> torch.Tensor:
     return acc & M32
 
 
-def tree_digest(tree) -> torch.Tensor:
+def tree_digest(tree, mesh=None) -> torch.Tensor:
     """0-d int64 holding uint32, on the state's device: a position-sensitive
     digest of every leaf of an integer/bool state (both engines' states
     qualify): the wrapping sum over leaves ``li`` of ``mix32(leaf sum ^ li *
     0x9E3779B9)``.  Two states digest equal iff every leaf is bit-equal (up
-    to hash collision).  One launch of D1 (after a zero fill) on the card."""
+    to hash collision).  One launch of D1 (after a zero fill) on the card.
+
+    With a ``mesh`` of node ranks, ``tree`` is this rank's block (a
+    collective): each rank's partial sums over its rows at their global
+    flat indices (``partition.leaf_partial_sums``, one D1 launch a leaf on
+    the card), gathered and combined — the whole state's digest."""
+    if mesh is not None and mesh.shape.get("node", 1) > 1:
+        return _sharded_tree_digest(tree, mesh)
     leaves = _leaf_list(tree)
     if not leaves or leaves[0].device.type == "cpu":
         return tree_digest_plain(tree)
     return telemetry_kernel.state_digest_cuda(leaves)
 
 
-def delta_record(state, faults: DeltaFaults = DeltaFaults()) -> dict:
+def _sharded_tree_digest(tree, mesh) -> torch.Tensor:
+    """:func:`tree_digest` of a tree whose node-sharded leaves are this
+    rank's rows: partial sums gathered from every rank and combined."""
+    from ringpop_tpu_torch.parallel.partition import (
+        combine_leaf_partials,
+        leaf_partial_sums,
+        named_leaves,
+        spec_for,
+    )
+
+    block = next(leaf.shape[0] for name, leaf in named_leaves(tree) if spec_for(name)[:1] == ("node",))
+    partial = leaf_partial_sums(tree, lo=mesh.rank * block, include_replicated=mesh.rank == 0)
+    total = combine_leaf_partials(list(mesh.all_gather(partial)))
+    return torch.tensor(total, dtype=torch.int64, device=partial.device)
+
+
+def delta_record(state, faults: DeltaFaults = DeltaFaults(), mesh=None) -> dict:
     """The delta engine's per-block journal record (0-d tensors): coverage
-    fraction and the state digest, its convergence series."""
+    fraction and the state digest, its convergence series.  With a
+    ``mesh`` of node ranks, ``state`` is this rank's block and both values
+    are the whole state's (a collective)."""
     return {
         "tick": state.tick,
-        "coverage": converged_fraction(state, faults),
-        "digest": tree_digest(state),
+        "coverage": converged_fraction(state, faults, mesh),
+        "digest": tree_digest(state, mesh),
     }
 
 

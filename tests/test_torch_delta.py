@@ -21,6 +21,8 @@ at the cap, ``scatter_reduce_`` over duplicate targets, and the float32
 order of the survival product.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,7 @@ import torch
 from ringpop_tpu.sim import delta as jd
 from ringpop_tpu.sim.packbits import pack_bool
 
+from ringpop_tpu_torch.parallel.mesh import Mesh
 from ringpop_tpu_torch.sim import delta as td
 
 
@@ -175,9 +178,16 @@ def test_refusals_name_their_roadmap_item():
     for step in (lambda: jd.step(jdefault, jd.init_state(jdefault), jf), lambda: td.step(default, state, tf)):
         with pytest.raises(ValueError, match="tier legs need rng='counter'"):
             step()
-    meshed = td.DeltaParams(n=64, k=32, rng="counter", exchange_mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        td.step(meshed, state)
+    # the sharded exchange (A12) is ported: a mesh of one node rank holds the
+    # whole state and steps it as the unsharded engine does; ranks that do
+    # not divide n are refused (tests/test_torch_sharded.py runs 2 and 4)
+    counter = td.DeltaParams(n=64, k=32, rng="counter")
+    one = Mesh(size=1, rank=0, device=torch.device("cpu"), transport="gloo")
+    assert torch.equal(td.step(dataclasses.replace(counter, exchange_mesh=one), state).learned,
+                       td.step(counter, state).learned)
+    three = Mesh(size=3, rank=0, device=torch.device("cpu"), transport="gloo")
+    with pytest.raises(ValueError, match="must divide"):
+        td.step(dataclasses.replace(counter, exchange_mesh=three), state)
     # the run journal (A7) is ported: a sink takes one record a block
     records = []
     sim = td.DeltaSim(64, 32, rng="counter", telemetry_sink=records.append, device="cpu")

@@ -20,6 +20,8 @@ import torch
 from ringpop_tpu.sim import lifecycle as jl
 
 from ringpop_tpu_torch.ops import lifecycle_kernel as lk
+from ringpop_tpu_torch.parallel.mesh import Mesh
+from ringpop_tpu_torch.parallel.partition import P, NamedSharding
 from ringpop_tpu_torch.sim import lifecycle as tl
 from ringpop_tpu_torch.sim import telemetry as tt
 from test_torch_lifecycle import _assert_same_queries, _faults, _jstep, _pair, _run_both, _victims, assert_same_state
@@ -137,6 +139,12 @@ def test_run_until_tick_counts_and_budgets():
     assert_same_state(jsim.state, tsim.state, "run + tick")
 
 
+def _cpu_mesh(size):
+    """A mesh object of ``size`` node ranks, this process rank 0: enough for
+    the checks that refuse before any collective."""
+    return Mesh(size=size, rank=0, device=torch.device("cpu"), transport="gloo")
+
+
 def test_refusals_name_their_roadmap_item():
     default = tl.LifecycleParams(n=64, k=32)
     assert default.rng == "threefry"  # the JAX default, kept so a call means the same
@@ -155,19 +163,27 @@ def test_refusals_name_their_roadmap_item():
         tl.LifecycleSim(64, k=32, rng="philox", device="cpu")
     counter = tl.LifecycleParams(n=64, k=32, rng="counter")
     state = tl.init_state(counter, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tl.step(tl.LifecycleParams(n=64, k=32, rng="counter", exchange_mesh=object()), state)
+    # the sharded exchange (A12) is ported: ranks that do not divide n are
+    # refused, and telemetry under a mesh is A12b
+    # (tests/test_torch_sharded.py runs 2 and 4 ranks)
+    with pytest.raises(ValueError, match="must divide"):
+        tl.step(tl.LifecycleParams(n=64, k=32, rng="counter", exchange_mesh=_cpu_mesh(3)), state)
+    with pytest.raises(NotImplementedError, match="A12b"):
+        tl.step(tl.LifecycleParams(n=64, k=32, rng="counter", exchange_mesh=_cpu_mesh(2)), state,
+                telemetry=tt.zeros(counter, device="cpu"))
     # telemetry (A7) is ported: a step with an accumulator returns the pair
     out, tel = tl.step(counter, state, telemetry=tt.zeros(counter, device="cpu"))
     assert int(tel.ticks) == 1 and torch.equal(out.learned, tl.step(counter, state).learned)
     assert tl.LifecycleSim(64, k=32, rng="counter", telemetry=True, device="cpu").telemetry is not None
     with pytest.raises(NotImplementedError, match="A15"):
         tl.LifecycleSim(64, k=32, rng="counter", aot="tag", device="cpu")
+    # learned_sharding (A12) is a route hint: over one node rank it changes nothing
+    hint = NamedSharding(_cpu_mesh(1), P("node", None))
     sim = tl.LifecycleSim(64, k=32, rng="counter", device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        sim.run_until_detected([1], learned_sharding=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        tl.detection_complete(state, [1], learned_sharding=object())
+    plain = tl.LifecycleSim(64, k=32, rng="counter", device="cpu")
+    assert sim.run_until_detected([1], learned_sharding=hint) == plain.run_until_detected([1])
+    assert torch.equal(sim.state.learned, plain.state.learned)
+    assert bool(tl.detection_complete(state, [1], learned_sharding=hint)) == bool(tl.detection_complete(state, [1]))
     with pytest.raises(ValueError, match="column span"):
         tl.step(tl.LifecycleParams(n=64, k=32, rng="counter", ping_req_size=256), state)
 

@@ -91,7 +91,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "ops.telemetry_kernel", "sim.delta", "sim.lifecycle", "sim.threefry", "sim.telemetry", "sim.chaos",
               "sim.topology", "sim.montecarlo", "sim.scenarios", "sim.snapshot", "options", "obs.flight", "swim.member",
               "bench", "errors", "logging", "util.metrics", "obs.trace", "parallel.fabric", "net.channel",
-              "serve.client", "serve.shm", "serve.service", "serve.bench"):
+              "serve.client", "serve.shm", "serve.service", "serve.bench", "parallel.partition", "parallel.mesh",
+              "parallel.shift", "parallel.multihost"):
         assert f"ringpop_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -104,6 +105,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
     )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_parallel_package_imports_without_torch():
+    """``ringpop_tpu_torch.parallel`` stays import-free: the serve tier's
+    frontends reach ``parallel.fabric`` through it without starting torch,
+    and the sharding modules beside it (partition, mesh, shift,
+    multihost) load only when named."""
+    code = (
+        "import sys\n"
+        "import ringpop_tpu_torch.parallel, ringpop_tpu_torch.parallel.fabric\n"
+        "bad = [m for m in sys.modules if m == 'torch' or m.startswith('torch.') or m == 'jax'\n"
+        "       or m.startswith('jax.') or m == 'ringpop_tpu' or m.startswith('ringpop_tpu.')]\n"
+        "print(len(bad), bad[:5])\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 

@@ -1,0 +1,208 @@
+"""Spawned rank groups for the port's sharding tests: P processes on the
+CPU, joined by ``torch.distributed`` over gloo, each holding one node rank
+of a ``parallel.mesh.Mesh``.
+
+``multiprocessing``'s spawn re-imports the module that holds a worker's
+function, so this module imports neither ``jax`` nor the JAX package: the
+tests compute the JAX side in the parent and compare.  :func:`run_group`
+starts one group for a list of jobs and returns rank 0's results; a group
+that does not finish by its deadline is killed and fails its test instead
+of the suite's time limit (each process group also times its collectives
+out after 60 s).
+"""
+
+from __future__ import annotations
+
+import queue
+import socket
+import traceback
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+GROUP_DEADLINE_S = 240
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_group(size: int, jobs: list, deadline_s: float = GROUP_DEADLINE_S) -> dict:
+    """Run ``jobs`` (a list of (name, job function name, payload)) in one
+    group of ``size`` spawned ranks; returns {name: rank 0's result}.
+    Raises RuntimeError with a rank's traceback when any job fails, and
+    when the group misses its deadline."""
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_rank_main, args=(rank, size, port, jobs, results), daemon=True)
+             for rank in range(size)]
+    for proc in procs:
+        proc.start()
+    got = {}
+    try:
+        for _ in range(size):
+            rank, ok, out = results.get(timeout=deadline_s)
+            if not ok:
+                raise RuntimeError(f"rank {rank} of {size} failed:\n{out}")
+            got[rank] = out
+    except queue.Empty:
+        raise RuntimeError(f"a group of {size} ranks missed its {deadline_s} s deadline") from None
+    finally:
+        for proc in procs:
+            proc.join(timeout=10)
+            if proc.is_alive():
+                proc.kill()
+    return got[0]
+
+
+def _rank_main(rank: int, size: int, port: int, jobs: list, results) -> None:
+    torch.set_num_threads(1)
+    try:
+        from ringpop_tpu_torch.parallel import mesh as pmesh, multihost
+
+        multihost.init_distributed(f"127.0.0.1:{port}", size, rank, transport="gloo", timeout_s=60)
+        mesh = pmesh.make_mesh(device="cpu")
+        out = {name: JOBS[job](mesh, payload) for name, job, payload in jobs}
+        results.put((rank, True, out))
+    except BaseException:  # noqa: BLE001 - the parent re-raises it
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+# -- jobs: each takes (mesh, payload) and returns picklable host values --------
+
+
+def rolls(mesh, payload: dict) -> dict:
+    """``shard_roll`` and ``shard_roll_pipelined`` of a global plane and an
+    int vector, gathered whole, at every (h, shift) of the payload, with
+    the sends of each leg."""
+    from ringpop_tpu_torch.parallel import shift
+
+    n = payload["n"]
+    x = torch.as_tensor(payload["x"])
+    v = torch.as_tensor(payload["v"])
+    lrn, ride = torch.as_tensor(payload["learned"]), torch.as_tensor(payload["ride"])
+    lo, hi = mesh.block(n)
+    out = {}
+    for h in payload["hs"]:
+        for s in payload["shifts"]:
+            shift.reset_stats()
+            a, b = shift.shard_roll((x[lo:hi], v[lo:hi]), s, mesh, "node", h=h)
+            sends = list(shift.leg_sends)
+            shift.reset_stats()
+            pa, resp = shift.shard_roll_pipelined(
+                (x[lo:hi],), s, mesh, "node", carry=(lrn[lo:hi], ride[lo:hi]),
+                leg2_of=lambda inb, l, r: (l | inb) & r, h=h)
+            out[(h, s)] = {"x": mesh.gather_rows(a).numpy(), "v": mesh.gather_rows(b).numpy(),
+                           "pipelined_x": mesh.gather_rows(pa).numpy(), "resp": mesh.gather_rows(resp).numpy(),
+                           "sends": sends, "pipelined_sends": list(shift.leg_sends)}
+    return out
+
+
+def _faults(spec: dict, device):
+    from ringpop_tpu_torch.sim import chaos
+    from ringpop_tpu_torch.sim.delta import DeltaFaults
+
+    if spec.get("plan"):
+        return chaos.scenario_plan(spec["plan"], spec["n"], seed=spec["seed"], horizon=spec["ticks"], device=device)
+    up = np.ones(spec["n"], bool)
+    up[spec["down"]] = False
+    return DeltaFaults(up=torch.as_tensor(up), drop_rate=torch.tensor(spec["drop"], dtype=torch.float32))
+
+
+def engine_run(mesh, spec: dict) -> dict:
+    """One sharded run of an engine: ``spec["ticks"]`` steps from
+    ``init_state``, every leaf gathered whole (``partition.host_gather``),
+    with its queries; the lifecycle runs also take the detect path from
+    the start (blocks, verdict, leaves) under each ``learned_sharding``
+    route and then the converge loop."""
+    from ringpop_tpu_torch.parallel import partition
+    from ringpop_tpu_torch.parallel.mesh import with_exchange_mesh
+    from ringpop_tpu_torch.sim import delta, lifecycle, telemetry
+
+    faults = _faults(spec, mesh.device)
+    engine = delta if spec["engine"] == "delta" else lifecycle
+    if spec["engine"] == "delta":
+        params = delta.DeltaParams(n=spec["n"], k=spec["k"], rng=spec["rng"], exchange=spec["exchange"])
+    else:
+        params = lifecycle.LifecycleParams(n=spec["n"], k=spec["k"], rng=spec["rng"], exchange=spec["exchange"],
+                                           suspect_ticks=spec["suspect_ticks"], heal_prob=spec["heal_prob"])
+    params = with_exchange_mesh(params, mesh, h=spec.get("h"), pipelined=spec.get("pipelined"))
+    state = engine.init_state(params, seed=spec["seed"], device=mesh.device)
+    for _ in range(spec["ticks"]):
+        state = engine.step(params, state, faults)
+    out = {"leaves": partition.host_gather(state, mesh), "digest": int(telemetry.tree_digest(state, mesh))}
+    if spec["engine"] == "delta":
+        out["converged"] = bool(delta.converged(state, faults, mesh))
+        out["fraction"] = float(delta.converged_fraction(state, faults, mesh))
+        if spec.get("loop"):
+            state, ticks, done = delta.run_until_converged(params, state, faults, max_ticks=64, check_every=8)
+            out["run"] = (ticks, bool(done), partition.host_gather(state, mesh))
+        return out
+    out["views"] = partition.host_gather(lifecycle.view_checksums(state, faults, mesh), mesh, spec=partition.P("node"))
+    out["views_converged"] = bool(lifecycle.checksums_converged(state, faults, mesh))
+    out["detected_now"] = bool(lifecycle.detection_complete(state, spec["down"], faults, mesh=mesh))
+    if spec.get("detect"):
+        subjects = torch.as_tensor(spec["down"])
+        detect = {}
+        for route, hint in (("none", None), ("node", partition.P("node", None)), ("replicated", partition.P())):
+            sharding = None if hint is None else partition.NamedSharding(mesh, hint)
+            s, blocks, done = lifecycle._run_until_detected_device(
+                params, lifecycle.init_state(params, seed=spec["seed"], device=mesh.device), faults, subjects,
+                min_status=lifecycle.FAULTY, block_ticks=8, max_blocks=8, learned_sharding=sharding)
+            detect[route] = (int(blocks), bool(done), partition.host_gather(s, mesh))
+        s, blocks, done = lifecycle._run_until_converged_device(params, s, faults, block_ticks=8, max_blocks=8)
+        out["detect"] = detect
+        out["converge"] = (int(blocks), bool(done), partition.host_gather(s, mesh))
+    return out
+
+
+def refusals(mesh, payload: dict) -> dict:
+    """The refusals that need a live group: a rumor axis above 1 (A12b)."""
+    from ringpop_tpu_torch.parallel import mesh as pmesh, multihost
+
+    out = {}
+    for name, call in (("make_mesh", lambda: pmesh.make_mesh(shape=(mesh.size // 2, 2), device="cpu")),
+                       ("make_multihost_mesh", lambda: multihost.make_multihost_mesh(rumor_shards=2, device="cpu"))):
+        try:
+            call()
+            out[name] = "no error"
+        except NotImplementedError as e:
+            out[name] = str(e)
+    return out
+
+
+def sim_run(mesh, spec: dict) -> dict:
+    """``DeltaSim``/``LifecycleSim`` bound to the mesh through their
+    ``exchange_mesh`` argument: the wrappers' run loops on this rank's
+    block."""
+    from ringpop_tpu_torch.parallel import partition
+    from ringpop_tpu_torch.sim import delta, lifecycle
+
+    faults = _faults(spec, mesh.device)
+    if spec["engine"] == "delta":
+        records = []
+        sim = delta.DeltaSim(spec["n"], spec["k"], seed=spec["seed"], rng=spec["rng"], exchange_mesh=mesh,
+                             telemetry_sink=records.append)
+        got = sim.run_until_converged(faults, max_ticks=64, journal_every=16)
+        recs = [{k: (v.item() if isinstance(v, torch.Tensor) else v) for k, v in r.items()} for r in records]
+        return {"result": got, "records": recs, "leaves": partition.host_gather(sim.state, mesh)}
+    sim = lifecycle.LifecycleSim(spec["n"], k=spec["k"], seed=spec["seed"], rng=spec["rng"],
+                                 suspect_ticks=spec["suspect_ticks"], exchange_mesh=mesh)
+    got = sim.run_until_detected(spec["down"], faults, check_every=8)
+    conv = sim.run_until_converged(faults, check_every=8)
+    state = lifecycle.admit(sim.params, sim.state, spec["down"][0])
+    return {"result": got, "converge": conv, "leaves": partition.host_gather(state, mesh)}
+
+
+JOBS = {"rolls": rolls, "engine_run": engine_run, "refusals": refusals, "sim_run": sim_run}
+
+__all__ = ["run_group", "free_port"]
