@@ -226,6 +226,24 @@ scale on bench.py's own stream, threefry:
    cell prints its ms a tick sharded (each rank, CUDA events) against
    unsharded, the exchange's sends a leg and its bytes a tick (legs,
    collectives, staged), and S1, S2, L1, L2 and D1's launches on each rank.
+18. the rumor axis: the engines on (P, R) meshes, rank p·R + r holding node
+   rows block p and word block r of the packed planes (slot block r of
+   ``pcount``), with telemetry under the mesh.  The unsharded chaos twins
+   and churn100k on this card first.  8 ranks on simbench's own 4 x 2: a)
+   ``sharded100k`` as 17a, every leaf, the blocks and the verdict == the
+   unsharded run's; b) simbench's chaos twin (``_chaos_sharded_twin``:
+   4096 x 64, ``suspect_ticks`` 6, 24 ticks of the churn, flap, asym and
+   topology smoke plans at horizon 64): every leaf == the unsharded run's
+   == ``PIN_CHAOS_TWIN``, and the digest combined on every rank == the pin;
+   c) churn100k (100,000 x 256, horizon 256) with telemetry on and a
+   ``TelemetrySink`` journal: its 16 block records and verdict ==
+   ``PIN_TEL_CHURN``, every float exact, on every rank; then S1, S2, L1,
+   L2, P1, D1 and R1 == their plain versions on every rank's block.  4
+   ranks on 2 x 2: d) the headline at 1,000,000 x 256 to ``PIN_LIFE_TWIN``,
+   ``PIN_LIFE_DETECT_TICKS`` and ``PIN_LIFE*``, and the delta at 1,000,000 x
+   128 to ``PIN_SHIFT``.  Each rank prints its ms a tick sharded against
+   unsharded, the collectives, bytes sent and bytes staged a tick on each
+   axis, and its launches; every cell's kernels launched on every rank.
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -246,7 +264,7 @@ in one call); ``--threefry`` builds the kernels and runs steps 10-11
 alone; ``--fullview`` builds them and runs steps 12-13 alone;
 ``--telemetry`` builds them and runs step 14 alone; ``--fleet`` builds them
 and runs step 15 alone; ``--serve`` runs step 16 alone (no kernel build); ``--sharded`` builds
-the kernels and runs step 17 alone.  ``kernel_compare.py``
+the kernels and runs steps 17 and 18 alone, ``--rumor-axis`` step 18 alone.  ``kernel_compare.py``
 times D1, C1 and F1 against another checkout's in alternating pairs.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
@@ -2970,15 +2988,16 @@ def tel_headline_run(dev, n: int = LIFE_N, k: int = LIFE_K, journal=None):
     return {"detect": list(detect), "converge": list(converge), "records": sink.records}, sim
 
 
-def tel_chaos_run(dev, plan, n: int, k: int, scenario: str, tiers: bool = False, journal=None):
+def tel_chaos_run(dev, plan, n: int, k: int, scenario: str, tiers: bool = False, journal=None, mesh=None):
     """A chaos or topology scenario as simbench runs it
     (``_run_chaos_scenario``): the lifecycle engine under ``plan`` for
     TEL_HORIZON ticks in TEL_BLOCK-tick blocks with telemetry on (the
-    per-tier counters with ``tiers``), then ``score_blocks``.  Returns
-    ({"records", "score"}, the sim)."""
+    per-tier counters with ``tiers``), then ``score_blocks``.  With a
+    ``mesh`` the sim is this rank's block (every rank's records are the
+    whole state's).  Returns ({"records", "score"}, the sim)."""
     sink = telemetry.TelemetrySink(journal=journal)
     sim = lifecycle.LifecycleSim(n=n, k=k, seed=TEL_SEED, suspect_ticks=TEL_SUSPECT_TICKS, rng="counter",
-                                 telemetry=sink, telemetry_tiers=tiers, device=dev)
+                                 telemetry=sink, telemetry_tiers=tiers, device=dev, exchange_mesh=mesh)
     for _ in range(TEL_HORIZON // TEL_BLOCK):
         sim.run(TEL_BLOCK, plan)
     score = chaos.score_blocks(sink.records, plan, n=n, scenario=scenario)
@@ -3968,6 +3987,86 @@ SHARD_RANKS = 4
 SH100K_N, SH100K_K, SH100K_TICKS, SH100K_VICTIMS, SH100K_SEED = 100_000, 256, 6, 100, 0
 SH100K_BLOCK_TICKS, SH100K_MAX_BLOCKS = 32, 16
 SHARD_DEADLINE_S = 600
+
+# -- phase 18: the rumor axis (word-sharded planes on (P, R) meshes) --
+RUMOR_SHAPE = (4, 2)  # simbench's own mesh for sharded100k and the chaos twins (devs.reshape(4, 2))
+RUMOR_HEADLINE_SHAPE = (2, 2)  # the headline and the delta at full width on a rumor-sharded mesh
+# simbench's _chaos_sharded_twin (cli/simbench.py:1557-1610): 4096 x 64, suspect_ticks 6, 24 ticks,
+# horizon 64, counter, seed 0; its four plans (churn100k, flap1k, asym_partition, topo_chaos)
+TWIN_N, TWIN_K, TWIN_TICKS, TWIN_HORIZON, TWIN_SUSPECT_TICKS, TWIN_SEED = 4096, 64, 24, 64, 6, 0
+TWIN_PLANS = (("churn", "chaos"), ("flap", "chaos"), ("asym", "chaos"), ("smoke", "topo"))
+# pinned from the JAX package (ringpop_tpu.sim.lifecycle, .chaos, .topology) run unsharded on the CPU;
+# tests/test_torch_rumor_axis_chaos.py recomputes them
+PIN_CHAOS_TWIN = {  # each twin plan after TWIN_TICKS ticks: tree_digest and every leaf's sha256
+    "churn": {"digest": 3759649303, "leaves": {
+        "r_subject": "7cde0d6ee7feae75c099e0e84479adf6bfc7fcfb2c979852084f3102b4ce26ca",
+        "r_inc": "909083e5fba17a93db05b75674edb904baba5ab944734ff345eb8f49b10c7a48",
+        "r_status": "6f65a6c57b40c2c49ed678a66651f7be99a070423c24fcbb5456ab3dd128b442",
+        "r_deadline": "afb72b91b887072333e39d4cb4ac51bd3dcc393c79fff512eaf52ed4025185a6",
+        "learned": "ef0abdda2fc4e1b88dac4cb67a9c36230d07d2033099adef8737ab56aba274c0",
+        "pcount": "27fed56edde0638592f764f680474d135a505bb60870ac755afe352c66a5f641",
+        "ride_ok": "2d864c0b789a43214eee8524d3182075125e5ca2cd527f3582ec87ffd94076bc",
+        "base_status": "0b4a295fcf49865fe114d58e46f8a5f634caed09d0f4bfffb2e721af9fea6f14",
+        "base_inc": "4fe7b59af6de3b665b67788cc2f99892ab827efae3a467342b3bb4e3bc8e5bfe",
+        "base_present": "3431383721510cf1c211de027cf958c183e16db5fabb6b230eb284c85e196aa9",
+        "base_pending": "eeecfb0d7a311474ab28edadad682b4efa45d13ee5faa47cb0e4f62eceafcd32",
+        "base_deadline": "942679b524d9ba976d681a4991cfed3c5ba83934beec2f4b191ff10b781224e5",
+        "self_inc": "a4e2a80093091e23de13b47d14b357feeed92caec1f9df846e13193b02e4870d",
+        "tick": "17fa9c7f5e9039a2d46e73e17d8e094a796ee4c313199bad42db4ee1dc30d865",
+        "key": "af5570f5a1810b7af78caf4bc70a660f0df51e42baf91d4de5b2328de0e83dfc",
+    }},
+    "flap": {"digest": 1785704893, "leaves": {
+        "r_subject": "aceb6f74b841d22c9da3185f4163efbc244b33df3115ec148c79425b0b2a0d53",
+        "r_inc": "8d0c0fbb46f2dd758022c4d26d4ab8d3927548adb573aff50ba65cfb4619b7b0",
+        "r_status": "66e75a142b4d24ee83d1fe88231c9e4c49fb04ce8fde41e529dabe2b68ecbdfb",
+        "r_deadline": "86fd95ba7617ab5745bf50410d0f63abf0fec35980e11fc8459484c966f202e7",
+        "learned": "89ab276c873b0cbf3bdc6790031af9183e74ad6307785d35475470ef11ecfcd0",
+        "pcount": "ab89e5c18b7b40fbf441e82c366ecea56883dae600cd9d3f96f5c08ac335c94a",
+        "ride_ok": "2d864c0b789a43214eee8524d3182075125e5ca2cd527f3582ec87ffd94076bc",
+        "base_status": "c25e3e5c628e17dc68aea173877d4e30496e1cc1c1e585f07c6c792ba9a66c76",
+        "base_inc": "1bdfa06973c24ca55dec18f84bbc6471d64fc94736fd5f39430b2b5b1d8f554e",
+        "base_present": "3431383721510cf1c211de027cf958c183e16db5fabb6b230eb284c85e196aa9",
+        "base_pending": "d76ca13c222ba1eb566ff65c566cf14c677cb888d68c2610ca813a7ff98771ad",
+        "base_deadline": "0b9b3314c6246a4bf3c1fc85d719cf6d6602a27f026d1cce8d971b7cd42b62ca",
+        "self_inc": "c6bd80e25e12ec0891cd1358cc86031c4b395e6e174c498cc7cac0e3462003c3",
+        "tick": "17fa9c7f5e9039a2d46e73e17d8e094a796ee4c313199bad42db4ee1dc30d865",
+        "key": "af5570f5a1810b7af78caf4bc70a660f0df51e42baf91d4de5b2328de0e83dfc",
+    }},
+    "asym": {"digest": 4163614190, "leaves": {
+        "r_subject": "8787a7d4ba45f7e67616e207e35ff4e16a598850cbba0c74babd0aeb4c90bd17",
+        "r_inc": "350e3dff9f9b65500ee1d9020941a9fe519f674df221faa553c38eb44409bd81",
+        "r_status": "8451adc36dbec35baf8e7bcda1939ed816102c91a3524fc19f85ada17cba1b27",
+        "r_deadline": "cfbabb1957a30f3a47b28d160aa0c7410d40e8f8a1d4dab8b683cdd4120157a9",
+        "learned": "49c54b706c03454b64c32011d9487a6cc174bb0b6e5bf1dae997369d39ea9743",
+        "pcount": "9204db97e8ed0751be8a6d4ac2b62b0c5f5420e755fd45a0a2f17b2ced1bab2d",
+        "ride_ok": "2d864c0b789a43214eee8524d3182075125e5ca2cd527f3582ec87ffd94076bc",
+        "base_status": "1abcecd7e688784c7a366974d6e86d637ee5f008c7bffe59ec492fbd6e7370a6",
+        "base_inc": "4fe7b59af6de3b665b67788cc2f99892ab827efae3a467342b3bb4e3bc8e5bfe",
+        "base_present": "3431383721510cf1c211de027cf958c183e16db5fabb6b230eb284c85e196aa9",
+        "base_pending": "facab2846fe32d368d9783f18b18d1c325407943154b4428760e2f601de2109a",
+        "base_deadline": "a199c38190102f5ee2ae0c89a9e811181dc94284f489d784341c7116289cfa7c",
+        "self_inc": "47d4e647011e2b48164aa1fc59372355df1b089d815498dffab348e9f2d02d6b",
+        "tick": "17fa9c7f5e9039a2d46e73e17d8e094a796ee4c313199bad42db4ee1dc30d865",
+        "key": "af5570f5a1810b7af78caf4bc70a660f0df51e42baf91d4de5b2328de0e83dfc",
+    }},
+    "smoke": {"digest": 2078675485, "leaves": {
+        "r_subject": "b7f9bdd5bf533c94fc2d7672f90801a9324ad8ccd91ab5840f655886a1c85a42",
+        "r_inc": "de76bd288874c3d06041c6e4a4eceadb2f27c7dff983c9c51d1e254e15557915",
+        "r_status": "b64bf18d187450dfda3390499413684c1e0b5df3b6fd85fdcde932beaa587423",
+        "r_deadline": "008e6a6f401915b6dc57988e62704ac6635b1144c82ee4b35a07e2412588d052",
+        "learned": "38f4349b8ae96fbb19aeba1b06c833249a9c7ab3d655ae82016818bd4ea3ce61",
+        "pcount": "49ce18372c569a38c86348445c51329df8e131fc36a9216cd3b6386e71ffcda4",
+        "ride_ok": "2d864c0b789a43214eee8524d3182075125e5ca2cd527f3582ec87ffd94076bc",
+        "base_status": "94f973012af0d3b089dd51b15b1715319f1a2add9a6154b5fcad88f50bea6f18",
+        "base_inc": "4fe7b59af6de3b665b67788cc2f99892ab827efae3a467342b3bb4e3bc8e5bfe",
+        "base_present": "3431383721510cf1c211de027cf958c183e16db5fabb6b230eb284c85e196aa9",
+        "base_pending": "648788974252983ad2631412fea7992bba67056290af42980ac5083881747157",
+        "base_deadline": "15986cdff4719d4717551e87d042de088466087385bbb09eca5e234482797081",
+        "self_inc": "178e2bfc418242dd6257b4acc01e0972738aa74ff2a1b4a24abf98a88e5374bb",
+        "tick": "17fa9c7f5e9039a2d46e73e17d8e094a796ee4c313199bad42db4ee1dc30d865",
+        "key": "af5570f5a1810b7af78caf4bc70a660f0df51e42baf91d4de5b2328de0e83dfc",
+    }},
+}
 # the kernels a sharded tick runs, by their wrappers' launch-count names
 SHARD_KERNELS = {"row_reduce": "packbits_row_reduce", "popcount_rows": "packbits_popcount_rows",
                  "slot_walk": "lifecycle_slot_walk", "first_live_learner": "lifecycle_first_live_learner",
@@ -4021,13 +4120,16 @@ def exchange_record(mesh, ticks: int) -> dict:
     the bytes staged through host memory for gloo."""
     from ringpop_tpu_torch.parallel import shift
 
+    def per_tick(stats: dict) -> dict:
+        return {"sends_per_tick": stats["sends"] / ticks, "send_bytes_per_tick": stats["send_bytes"] / ticks,
+                "collectives_per_tick": stats["collectives"] / ticks,
+                "collective_bytes_per_tick": stats["collective_bytes"] / ticks,
+                "staged_bytes_per_tick": stats["staged_bytes"] / ticks,
+                "bytes_per_tick": (stats["send_bytes"] + stats["collective_bytes"]) / ticks}
+
     legs = list(shift.leg_sends)
-    return {"legs": len(legs), "sends_per_leg": sorted(set(legs)),
-            "sends_per_tick": mesh.stats["sends"] / ticks, "send_bytes_per_tick": mesh.stats["send_bytes"] / ticks,
-            "collectives_per_tick": mesh.stats["collectives"] / ticks,
-            "collective_bytes_per_tick": mesh.stats["collective_bytes"] / ticks,
-            "staged_bytes_per_tick": mesh.stats["staged_bytes"] / ticks,
-            "bytes_per_tick": (mesh.stats["send_bytes"] + mesh.stats["collective_bytes"]) / ticks}
+    return {"legs": len(legs), "sends_per_leg": sorted(set(legs)), **per_tick(mesh.stats),
+            "by_axis": {axis: per_tick(stats) for axis, stats in mesh.axis_stats.items()}}
 
 
 def shard_stats_reset(mesh) -> None:
@@ -4124,15 +4226,16 @@ def l1_block_check(state, mesh, victims, faults) -> dict:
     their plain versions."""
     n = state.learned.shape[0] * mesh.size
     lo, hi = mesh.block(n)
-    whole = lifecycle._whole_node_vectors(state, mesh)
+    whole = lifecycle._whole_word_rows(state, mesh)  # the rank's rows, every word (a rumor-axis gather)
+    rows = whole.learned
     base_key = lifecycle._base_key(whole)
     order, ss, sk = lifecycle_kernel.walk_order(state.r_subject, lifecycle._rkey(state), n)
     subjects = torch.as_tensor(victims, device=state.learned.device)
     obs = lifecycle._observers(whole, subjects, faults, n)[lo:hi].contiguous()
-    got = lifecycle_kernel.slot_walk_cuda(state.learned, order, ss, sk, base_key, "detect", obs, FAULTY)
-    want = lifecycle_kernel.slot_walk_plain(state.learned, order, ss, sk, base_key, "detect", obs, FAULTY)
-    sums = lifecycle_kernel.slot_walk_cuda(state.learned, order, ss, sk, base_key, "checksum")
-    sums_plain = lifecycle_kernel.slot_walk_plain(state.learned, order, ss, sk, base_key, "checksum")
+    got = lifecycle_kernel.slot_walk_cuda(rows, order, ss, sk, base_key, "detect", obs, FAULTY)
+    want = lifecycle_kernel.slot_walk_plain(rows, order, ss, sk, base_key, "detect", obs, FAULTY)
+    sums = lifecycle_kernel.slot_walk_cuda(rows, order, ss, sk, base_key, "checksum")
+    sums_plain = lifecycle_kernel.slot_walk_plain(rows, order, ss, sk, base_key, "checksum")
     return {"rows": hi - lo, "slots": int((state.r_subject >= 0).sum()), "detect_equal": bool(torch.equal(got, want)),
             "checksum_equal": bool(torch.equal(sums, sums_plain)),
             "max_abs_err": int((sums - sums_plain).abs().max()) if sums.numel() else 0}
@@ -4159,9 +4262,12 @@ def sharded_delta(mesh) -> dict:
     return out
 
 
-def sharded_rank(rank: int, size: int, port: int, transport: str, results) -> None:
-    """One node rank of phase 17 (a spawned process): 17a, 17b and 17c over
-    a mesh of ``size`` ranks joined by ``transport``."""
+def sharded_rank(rank: int, size: int, port: int, transport: str, results, shape=None,
+                 cells=("17a", "17b", "17c")) -> None:
+    """One rank of phase 17 or 18 (a spawned process): ``cells`` in order
+    over a mesh of ``size`` ranks of ``shape`` (P, R) (default (size, 1))
+    joined by ``transport``; in phase 18, then each kernel of the path ==
+    its plain version on this rank's block."""
     import traceback
 
     import torch.distributed as dist
@@ -4169,14 +4275,16 @@ def sharded_rank(rank: int, size: int, port: int, transport: str, results) -> No
     from ringpop_tpu_torch.parallel import multihost
     from ringpop_tpu_torch.parallel.mesh import make_mesh
 
+    cell_fns = {"17a": sharded_100k, "17b": sharded_headline, "17c": sharded_delta, "18a": sharded_100k,
+                "18b": chaos_twins, "18c": churn_telemetry, "18d": headline_and_delta}
     try:
         dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}")
         torch.cuda.set_device(dev)
         multihost.init_distributed(f"127.0.0.1:{port}", size, rank, transport=transport)
-        mesh = make_mesh(transport=transport, device=dev)
-        out = {"rank": rank, "device": str(dev), "17a": sharded_100k(mesh)}
-        out["17b"] = sharded_headline(mesh)
-        out["17c"] = sharded_delta(mesh)
+        mesh = make_mesh(shape=shape, transport=transport, device=dev)
+        out = {"rank": rank, "device": str(dev), "coords": mesh.coords}
+        for cell in cells:
+            out[cell] = cell_fns[cell](mesh)
         results.put((rank, True, out))
     except BaseException:  # noqa: BLE001 - the parent reports it and fails
         results.put((rank, False, traceback.format_exc()))
@@ -4185,9 +4293,11 @@ def sharded_rank(rank: int, size: int, port: int, transport: str, results) -> No
             dist.destroy_process_group()
 
 
-def spawn_ranks(size: int, transport: str) -> list[dict]:
-    """Start ``size`` rank processes, wait for every result (or the
-    deadline), and stop every process; returns the ranks' records."""
+def spawn_ranks(size: int, transport: str, shape=None, cells=("17a", "17b", "17c"), what: str = "phase17"
+                ) -> list[dict]:
+    """Start ``size`` rank processes (``sharded_rank``), wait for every
+    result (or the deadline), and stop every process; returns the ranks'
+    records."""
     import queue
     import socket
 
@@ -4198,7 +4308,8 @@ def spawn_ranks(size: int, transport: str) -> list[dict]:
         port = s.getsockname()[1]
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    procs = [ctx.Process(target=sharded_rank, args=(r, size, port, transport, results)) for r in range(size)]
+    procs = [ctx.Process(target=sharded_rank, args=(r, size, port, transport, results, shape, cells))
+             for r in range(size)]
     for proc in procs:
         proc.start()
     got, failed = {}, []
@@ -4216,22 +4327,16 @@ def spawn_ranks(size: int, transport: str) -> list[dict]:
                 proc.kill()
                 proc.join()
     for rank, tb in failed:
-        log(f"phase17: rank {rank} failed:\n{tb}")
-    check(not failed, f"phase17: every rank of {size} finished")
+        log(f"{what}: rank {rank} failed:\n{tb}")
+    check(not failed, f"{what}: every rank of {size} finished")
     return [got[r] for r in range(size)]
 
 
-def run_sharded(dev: torch.device, card: str) -> dict:
-    """Phase 17: the unsharded references on the card, then the three cells
-    over SHARD_RANKS node ranks, each held to the references and the JAX
-    pins."""
-    from ringpop_tpu_torch.parallel import multihost
-
-    count = torch.cuda.device_count()
-    transport = multihost.default_transport(SHARD_RANKS)
-    log(f"phase17: {SHARD_RANKS} node ranks over {transport} ({count} card(s) visible: "
-        f"{'one card a rank' if transport == 'nccl' else 'every leg staged through host memory'}); {card}")
-    # -- the unsharded references on this card (not counted) --
+def sharded_references(dev: torch.device) -> dict:
+    """The unsharded runs on this card that phases 17 and 18 hold their
+    sharded cells to (not counted): sharded100k's 6 ticks and detect path
+    (leaf digests, CUDA-event ms), the headline's ``run_until_detected``
+    and the delta's ``run_until_converged`` (ms a tick)."""
     params, victims, faults = sh100k_config(dev)
     lifecycle._run_block(params, lifecycle.init_state(params, seed=SH100K_SEED, device=dev), faults, 1)  # warm-up
     state = lifecycle.init_state(params, seed=SH100K_SEED, device=dev)
@@ -4256,7 +4361,19 @@ def run_sharded(dev: torch.device, card: str) -> dict:
     ref_c = {"tick_ms": c_ms / cticks, "ms": c_ms}
     del state, sim
     torch.cuda.empty_cache()
+    return {"a": ref_a, "b": ref_b, "c": ref_c}
 
+
+def run_sharded(dev: torch.device, card: str, refs: dict) -> dict:
+    """Phase 17: the three cells over SHARD_RANKS node ranks, each held to
+    the unsharded references (``sharded_references``) and the JAX pins."""
+    from ringpop_tpu_torch.parallel import multihost
+
+    count = torch.cuda.device_count()
+    transport = multihost.default_transport(SHARD_RANKS)
+    log(f"phase17: {SHARD_RANKS} node ranks over {transport} ({count} card(s) visible: "
+        f"{'one card a rank' if transport == 'nccl' else 'every leg staged through host memory'}); {card}")
+    ref_a, ref_b, ref_c = refs["a"], refs["b"], refs["c"]
     t0 = time.perf_counter()
     ranks = spawn_ranks(SHARD_RANKS, transport)
     wall = time.perf_counter() - t0
@@ -4316,6 +4433,285 @@ def run_sharded(dev: torch.device, card: str) -> dict:
                         "l1_block": [r["17b"]["l1_block"] for r in ranks]}}
 
 
+# -- phase 18: the rumor axis ---------------------------------------------------
+
+# churn100k's tick whose state the kernels are held to their plain versions
+# on, rank by rank: two crash waves in (ticks 8 and 16), their suspicions in flight
+CHURN_CHECK_TICK = 24
+# the kernels a rumor-sharded tick, its queries and its telemetry run, by
+# their wrappers' launch-count names
+RUMOR_KERNELS = {**SHARD_KERNELS, "accumulate": "telemetry_accumulate", "f32_sums": "telemetry_f32_sums"}
+# which of them each cell's main path must launch on every rank
+RUMOR_CELL_KERNELS = {"18a": ("row_reduce", "first_live_learner"),
+                      "18b": ("row_reduce", "first_live_learner", "state_digest"),
+                      "18c": ("row_reduce", "first_live_learner", "state_digest", "accumulate", "f32_sums"),
+                      "18d_headline": ("row_reduce", "slot_walk", "first_live_learner", "state_digest"),
+                      "18d_delta": ("row_reduce", "popcount_rows")}
+
+
+def rumor_launches() -> dict[str, int]:
+    """Every launch count phase 18 reads (``shard_launches`` and P1, R1)."""
+    return {**shard_launches(), "accumulate": telemetry_kernel.launches["accumulate"],
+            "f32_sums": telemetry_kernel.launches["f32_sums"]}
+
+
+def lead_rank(mesh) -> bool:
+    return mesh.coords == {"node": 0, "rumor": 0}
+
+
+def twin_params() -> lifecycle.LifecycleParams:
+    return lifecycle.LifecycleParams(n=TWIN_N, k=TWIN_K, suspect_ticks=TWIN_SUSPECT_TICKS, rng="counter")
+
+
+def twin_plan(name: str, builder: str, dev):
+    build = topology.topo_scenario_plan if builder == "topo" else chaos.scenario_plan
+    return build(name, TWIN_N, seed=TWIN_SEED, horizon=TWIN_HORIZON, device=dev)
+
+
+def chaos_twins(mesh) -> dict:
+    """18b on this rank: simbench's chaos twin, each plan's TWIN_TICKS ticks
+    over the mesh and its digest combined from the ranks (the main path:
+    counts 0 before the four plans, read after), then the leaves
+    gathered."""
+    from ringpop_tpu_torch.parallel import partition
+    from ringpop_tpu_torch.parallel.mesh import with_exchange_mesh
+
+    params = with_exchange_mesh(twin_params(), mesh)
+    plans = {name: twin_plan(name, builder, mesh.device) for name, builder in TWIN_PLANS}
+    states, ms, digests = {}, 0.0, {}
+    shard_reset()
+    shard_stats_reset(mesh)
+    for name, plan in plans.items():
+        states[name], t = event_timed(lambda: lifecycle._run_block(
+            params, lifecycle.init_state(params, seed=TWIN_SEED), plan, TWIN_TICKS))
+        ms += t
+    exchange = exchange_record(mesh, TWIN_TICKS * len(plans))
+    for name, state in states.items():
+        digests[name] = int(telemetry.tree_digest(state, mesh))
+    launches = rumor_launches()
+    out = {"tick_ms": ms / (TWIN_TICKS * len(plans)), "launches": launches, "exchange": exchange, "plans": {}}
+    for name, state in states.items():
+        leaves = partition.host_gather(state, mesh)
+        out["plans"][name] = {"digest": digests[name],
+                              "digests": gathered_digests(leaves, lifecycle) if lead_rank(mesh) else None}
+    return out
+
+
+def churn_telemetry(mesh) -> dict:
+    """18c on this rank: churn100k with telemetry on over the mesh
+    (``tel_chaos_run``, rank (0, 0) writing the journal: the main path,
+    counts 0 before it, read after), then every kernel of the slice held to
+    its plain version on this rank's block of the same run's state at
+    CHURN_CHECK_TICK (``block_kernel_checks``)."""
+    from ringpop_tpu_torch.parallel.mesh import with_exchange_mesh
+
+    plan = chaos.scenario_plan("churn", TEL_CHURN_N, seed=TEL_SEED, horizon=TEL_HORIZON, device=mesh.device)
+    journal, path = None, OUT_DIR / "phase18_churn100k.jsonl"
+    if lead_rank(mesh):
+        OUT_DIR.mkdir(exist_ok=True)
+        journal = telemetry.TelemetryJournal(str(path))
+        journal.header("lifecycle", "churn100k", {"n": TEL_CHURN_N, "k": TEL_CHURN_K, "seed": TEL_SEED,
+                                                   "mesh": list(mesh.shape.values())})
+    shard_reset()
+    shard_stats_reset(mesh)
+    (res, sim), ms = event_timed(lambda: tel_chaos_run(mesh.device, plan, TEL_CHURN_N, TEL_CHURN_K, "churn100k",
+                                                       journal=journal, mesh=mesh))
+    launches = rumor_launches()
+    exchange = exchange_record(mesh, TEL_HORIZON)
+    out = {"tick_ms": ms / TEL_HORIZON, "launches": launches, "exchange": exchange, "records": res["records"],
+           "score": res["score"]}
+    if journal is not None:
+        journal.close()
+        out["journal"] = telemetry.read_journal(str(path))
+    # the kernels on a block with slots in flight: the first two crash waves' suspicions at tick CHURN_CHECK_TICK
+    params = with_exchange_mesh(lifecycle.LifecycleParams(n=TEL_CHURN_N, k=TEL_CHURN_K, suspect_ticks=TEL_SUSPECT_TICKS,
+                                                          rng="counter"), mesh)
+    mid = lifecycle._run_block(params, lifecycle.init_state(params, seed=TEL_SEED), plan, CHURN_CHECK_TICK)
+    out["block_kernels"] = block_kernel_checks(mesh, mid, plan)
+    return out
+
+
+def block_kernel_checks(mesh, state, plan) -> dict:
+    """S1, S2, L1, L2, P1, D1 and R1 == their plain versions on this rank's
+    block of ``state`` (churn100k's at CHURN_CHECK_TICK, slots in flight;
+    these launches are made after the cell's counts were read): S1 OR and
+    AND over the live rows
+    and S2 on the word block [rows, W/R], L1 both modes on the rank's rows
+    with every word, L2 on the word block (every slot wanted), P1 on legs
+    of the block's shapes (its planes, random masks), D1 on every leaf of
+    the block at its global flat offset, R1 bit for bit on a record's
+    inputs gathered whole (a uint32 plane, an int32 and a bool vector)."""
+    from ringpop_tpu_torch.parallel import partition
+
+    n, k = TEL_CHURN_N, TEL_CHURN_K
+    lo, hi = mesh.block(n)
+    slots, words = delta.rumor_block(mesh, k)
+    kl = slots.stop - slots.start
+    faults = delta.resolve_faults(plan, state.tick)
+    up = faults.up[lo:hi]
+    plane = state.learned
+    where = f"rank {mesh.coords} block [{hi - lo}, {plane.shape[1]}]"
+    check(torch.equal(packbits_kernel.reduce_rows_cuda(plane, "or", up), packbits.or_reduce_rows_plain(plane, up))
+          and torch.equal(packbits_kernel.reduce_rows_cuda(plane, "and", up), packbits.and_reduce_rows_plain(plane, up)),
+          f"18c: S1 (OR, AND over the live rows) == plain on {where}")
+    check(torch.equal(packbits_kernel.popcount_rows_cuda(plane), packbits.popcount_rows_plain(plane)),
+          f"18c: S2 == plain on {where}")
+    victims = np.flatnonzero(~faults.up.cpu().numpy())
+    l1 = l1_block_check(state, mesh, victims, faults)
+    check(l1["slots"] > 0 and l1["detect_equal"] and l1["checksum_equal"],
+          f"18c: L1 (both modes) == plain on {where} with slots in flight: {l1}")
+    check(torch.equal(lifecycle_kernel.first_live_learner_cuda(plane, up, kl),
+                      lifecycle_kernel.first_live_learner_plain(plane, up, kl)), f"18c: L2 == plain on {where}")
+    gen = torch.Generator(device=mesh.device)
+    gen.manual_seed(SEED + 18 + mesh.rank)
+    inp = random_accumulate_inputs(gen, hi - lo, plane.shape[1], mesh.device, "random")
+    inp["legs"].update(sent_w=plane, resp_w=state.ride_ok, ride_ok=state.ride_ok, mid_ride_w=plane & state.ride_ok)
+    got = {name: x.clone() for name, x in inp["acc"].items()}
+    want = {name: x.clone() for name, x in inp["acc"].items()}
+    telemetry_kernel.accumulate_cuda(got, **inp["legs"])
+    telemetry.accumulate_plain(want, **inp["legs"])
+    check(all(torch.equal(got[name], want[name]) for name in got), f"18c: P1 == plain on {where}")
+    d1 = 0
+    for name, leaf in partition.named_leaves(state):
+        if partition._plane_rumor_axis(partition.spec_for(name)) is not None:
+            leaf = mesh.gather_cols(leaf)
+        node_sharded = partition.spec_for(name)[:1] == ("node",)
+        offset = (lo * (leaf.numel() // leaf.shape[0])) & 0xFFFF_FFFF if node_sharded else 0
+        got_d = telemetry_kernel.state_digest_cuda([leaf.contiguous()], offset=offset, final=False)
+        check(torch.equal(got_d, telemetry.leaf_digest_sum_plain(leaf, offset)),
+              f"18c: D1 == plain on {where}, leaf {name} at offset {offset}")
+        d1 += 1
+    whole = partition.host_gather({"learned": state.learned, "base_inc": state.base_inc,
+                                   "base_present": state.base_present}, mesh)
+    inputs = [(torch.from_numpy(whole["learned"]).to(mesh.device), True, False),
+              (torch.from_numpy(whole["base_inc"]).to(mesh.device), False, False),
+              (torch.from_numpy(whole["base_present"]).to(mesh.device), False, False)]
+    check_r1(inputs, f"18c: on the gathered [{n}, {whole['learned'].shape[1]}] and [{n}] inputs")
+    return {"rows": hi - lo, "words": plane.shape[1], "l1": l1, "d1_leaves": d1, "max_abs_err": 0}
+
+
+def headline_and_delta(mesh) -> dict:
+    """18d on this rank: the headline (17b's cell) and the delta (17c's)
+    on a rumor-sharded mesh."""
+    return {"headline": sharded_headline(mesh), "delta": sharded_delta(mesh)}
+
+
+def rank_line(cell: str, r: dict, rec: dict, unsharded_ms: float, card: str) -> str:
+    """One rank's line: ms a tick sharded and unsharded, per axis the
+    collectives, bytes sent and bytes staged a tick, and the launches."""
+    axes = "; ".join(
+        f"{axis}: {ex['collectives_per_tick']:.1f} collectives {ex['collective_bytes_per_tick'] / 1e6:.3f} MB, "
+        f"{ex['sends_per_tick']:.1f} sends {ex['send_bytes_per_tick'] / 1e6:.3f} MB, "
+        f"{ex['staged_bytes_per_tick'] / 1e6:.3f} MB staged" for axis, ex in rec["exchange"]["by_axis"].items())
+    return (f"phase{cell}: rank {r['rank']} {r['coords']}: ms/tick sharded {rec['tick_ms']:.3f} vs unsharded "
+            f"{unsharded_ms:.3f}; a tick {axes}; launches {rec['launches']}; {card}")
+
+
+def run_rumor_axis(dev: torch.device, card: str, refs: dict) -> dict:
+    """Phase 18: the rumor axis.  The unsharded chaos twins and churn100k on
+    this card (the twins == PIN_CHAOS_TWIN), then RUMOR_SHAPE's ranks run
+    18a (sharded100k == the unsharded run), 18b (the four twins == the
+    unsharded runs and the pins) and 18c (churn100k's journal == PIN_TEL_CHURN),
+    and RUMOR_HEADLINE_SHAPE's ranks 18d (the headline == PIN_LIFE*, the
+    delta == PIN_SHIFT)."""
+    from ringpop_tpu_torch.parallel import multihost
+
+    fields = lifecycle.LifecycleState._fields
+    params = twin_params()
+    twin_ref = {}
+    for name, builder in TWIN_PLANS:
+        plan = twin_plan(name, builder, dev)
+        state, ms = event_timed(lambda: lifecycle._run_block(
+            params, lifecycle.init_state(params, seed=TWIN_SEED, device=dev), plan, TWIN_TICKS))
+        twin_ref[name] = {"tick_ms": ms / TWIN_TICKS, "digest": int(telemetry.tree_digest(state)),
+                          "digests": leaf_digests(lifecycle.state_to_numpy(state), fields)}
+        check(twin_ref[name]["digests"] == PIN_CHAOS_TWIN[name]["leaves"]
+              and twin_ref[name]["digest"] == PIN_CHAOS_TWIN[name]["digest"],
+              f"18b: the unsharded {name} twin on this card == PIN_CHAOS_TWIN")
+    plan = chaos.scenario_plan("churn", TEL_CHURN_N, seed=TEL_SEED, horizon=TEL_HORIZON, device=dev)
+    (res, sim), churn_ms = event_timed(lambda: tel_chaos_run(dev, plan, TEL_CHURN_N, TEL_CHURN_K, "churn100k"))
+    check(records_match(res["records"], PIN_TEL_CHURN["records"]), "18c: the unsharded churn100k == PIN_TEL_CHURN")
+    del sim, state
+    torch.cuda.empty_cache()
+    unsharded = {"18a": refs["a"]["tick_ms"], "18b": statistics.fmean(r["tick_ms"] for r in twin_ref.values()),
+                 "18c": churn_ms / TEL_HORIZON, "18d_headline": refs["b"]["tick_ms"], "18d_delta": refs["c"]["tick_ms"]}
+
+    size, size_d = RUMOR_SHAPE[0] * RUMOR_SHAPE[1], RUMOR_HEADLINE_SHAPE[0] * RUMOR_HEADLINE_SHAPE[1]
+    transport, transport_d = multihost.default_transport(size), multihost.default_transport(size_d)
+    log(f"phase18: {RUMOR_SHAPE} ranks over {transport} for 18a-c, {RUMOR_HEADLINE_SHAPE} over {transport_d} for "
+        f"18d ({torch.cuda.device_count()} card(s) visible); {card}")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(size, transport, RUMOR_SHAPE, ("18a", "18b", "18c"), "phase18")
+    wall_abc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks_d = spawn_ranks(size_d, transport_d, RUMOR_HEADLINE_SHAPE, ("18d",), "phase18d")
+    wall_d = time.perf_counter() - t0
+    r0, d0 = ranks[0], ranks_d[0]
+    # 18a: sharded100k at its own 4 x 2 == the unsharded run on this card
+    a, ref_a = r0["18a"], refs["a"]
+    check(a["digests"] == ref_a["digests"], "18a: every leaf after 6 ticks on 4 x 2 == the unsharded run's")
+    check((a["detect"]["blocks"], a["detect"]["done"]) == (ref_a["detect"]["blocks"], ref_a["detect"]["done"]),
+          f"18a: detect blocks and verdict == unsharded ({a['detect']['blocks']}, {a['detect']['done']})")
+    check(a["detect"]["digests"] == ref_a["detect"]["digests"], "18a: every leaf after the detect path == unsharded")
+    # 18b: the chaos twins
+    for name, _ in TWIN_PLANS:
+        got = r0["18b"]["plans"][name]
+        check(got["digests"] == twin_ref[name]["digests"], f"18b: {name}: every leaf on 4 x 2 == the unsharded run's")
+        check(all(r["18b"]["plans"][name]["digest"] == PIN_CHAOS_TWIN[name]["digest"] for r in ranks),
+              f"18b: {name}: the digest combined on every rank == PIN_CHAOS_TWIN ({got['digest']})")
+    # 18c: churn100k's journal over the mesh
+    c = r0["18c"]
+    check(records_match(c["records"], PIN_TEL_CHURN["records"]),
+          f"18c: block records on 4 x 2 == the JAX pins: {record_diff(c['records'], PIN_TEL_CHURN['records'])}")
+    check(c["score"] == PIN_TEL_CHURN["score"], f"18c: the verdict == the JAX pin: {c['score']}")
+    check(all(r["18c"]["records"] == c["records"] for r in ranks), "18c: every rank's records are the same")
+    check(c["journal"][-1] == json.loads(json.dumps(c["score"])) and len(c["journal"]) == 2 + len(c["records"]),
+          "18c: the scored journal round-trips")
+    check(all(r["18c"]["launches"]["accumulate"] == TEL_HORIZON
+              and r["18c"]["launches"]["f32_sums"] == 2 * TEL_HORIZON // TEL_BLOCK for r in ranks),
+          "18c: P1 once a tick and R1 twice a block on every rank")
+    # 18d: the headline and the delta at full width on 2 x 2
+    b = d0["18d"]["headline"]
+    check(b["twin_digests"] == PIN_LIFE_TWIN, f"18d: tick-{LIFE_TWIN_TICKS} digests == PIN_LIFE_TWIN")
+    check(all(r["18d"]["headline"]["l1_block"]["detect_equal"] and r["18d"]["headline"]["l1_block"]["checksum_equal"]
+              for r in ranks_d), "18d: L1 on every rank's rows (every word) == its plain version (both modes)")
+    check(b["detected"] and b["detect_ticks"] == PIN_LIFE_DETECT_TICKS,
+          f"18d: detected in {b['detect_ticks']} ticks (pin {PIN_LIFE_DETECT_TICKS})")
+    check(b["converged"] and b["converge_ticks"] == PIN_LIFE_CONVERGE_TICKS,
+          f"18d: converged {b['converge_ticks']} ticks later (pin {PIN_LIFE_CONVERGE_TICKS})")
+    check(b["digests"] == PIN_LIFE, "18d: every final leaf digest == PIN_LIFE")
+    check(b["views_sum"] == PIN_LIFE_VIEWS_SUM and b["views_sha"] == PIN_LIFE_VIEWS_SHA,
+          f"18d: view checksums sum {b['views_sum']} and sha == PIN_LIFE_VIEWS_*")
+    check(all(r["18d"]["headline"]["digest"] == b["whole_digest"] for r in ranks_d),
+          f"18d: the combined digest on every rank == tree_digest of the gathered state ({b['whole_digest']})")
+    dd = d0["18d"]["delta"]
+    check(dd["converged"] and dd["ticks"] == PIN_SHIFT_TICKS,
+          f"18d: the delta converged in {dd['ticks']} ticks (pin {PIN_SHIFT_TICKS})")
+    check(dd["digests"] == PIN_SHIFT and dd["fraction"] == 1.0, "18d: the delta's leaf digests == PIN_SHIFT")
+    # every cell's kernels launched on every rank of its main path
+    per_cell = {"18a": [r["18a"] for r in ranks], "18b": [r["18b"] for r in ranks], "18c": [r["18c"] for r in ranks],
+                "18d_headline": [r["18d"]["headline"] for r in ranks_d], "18d_delta": [r["18d"]["delta"] for r in ranks_d]}
+    cells = {}
+    for cell, recs in per_cell.items():
+        launches = [{name: rec["launches"].get(name, 0) for name in RUMOR_KERNELS} for rec in recs]
+        for name in RUMOR_CELL_KERNELS[cell]:
+            check(all(x[name] > 0 for x in launches), f"{cell}: {RUMOR_KERNELS[name]} launched on every rank: {launches}")
+        group_ranks = ranks if cell[:3] != "18d" else ranks_d
+        for r, rec in zip(group_ranks, recs):
+            log(rank_line(cell, r, rec, unsharded[cell], card))
+        cells[cell] = {"sharded_ms_per_tick": [rec["tick_ms"] for rec in recs], "unsharded_ms_per_tick": unsharded[cell],
+                       "exchange_per_rank": [rec["exchange"] for rec in recs], "launches_per_rank": launches}
+    blocks = [r["18c"]["block_kernels"] for r in ranks]
+    log(f"phase18: sharded100k == unsharded on {RUMOR_SHAPE} (detect {a['detect']['blocks']} blocks), the four chaos "
+        f"twins == PIN_CHAOS_TWIN, churn100k's {len(c['records'])} records and verdict == PIN_TEL_CHURN; headline == "
+        f"PIN_LIFE* ({b['detect_ticks']} + {b['converge_ticks']} ticks) and delta == PIN_SHIFT on "
+        f"{RUMOR_HEADLINE_SHAPE}; S1, S2, L1, L2, P1, D1, R1 == plain on every rank's block {blocks}; ranks' wall "
+        f"{wall_abc:.1f} + {wall_d:.1f} s; {card}")
+    return {"rumor_axis": {"shape": list(RUMOR_SHAPE), "headline_shape": list(RUMOR_HEADLINE_SHAPE),
+                           "transport": transport, "card": card, "cells": cells,
+                           "ranks_wall_s": [wall_abc, wall_d], "block_kernels": blocks}}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
@@ -4373,9 +4769,12 @@ def main() -> int:
     if sys.argv[1:] == ["--serve"]:
         log(json.dumps({"card": card, **run_serve(torch.device("cuda"))}))
         return 0
-    if sys.argv[1:] == ["--sharded"]:
+    if sys.argv[1:] in (["--sharded"], ["--rumor-axis"]):
         build_kernels()
-        log(json.dumps(run_sharded(torch.device("cuda"), card)))
+        refs = sharded_references(torch.device("cuda"))
+        out = {} if sys.argv[1] == "--rumor-axis" else run_sharded(torch.device("cuda"), card, refs)
+        out.update(run_rumor_axis(torch.device("cuda"), card, refs))
+        log(json.dumps(out))
         return 0
     if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
         rng = (sys.argv[2:] or ["counter"])[0]
@@ -4398,7 +4797,9 @@ def main() -> int:
     tel_kernels, tel_timings = phase("14", run_telemetry)
     fleet_timings = phase("15", run_fleet)
     serve_timings = phase("16", run_serve)
-    sharded_timings = phase("17", run_sharded, card)
+    refs = phase("17-18 references", sharded_references)
+    sharded_timings = phase("17", run_sharded, card, refs)
+    rumor_timings = phase("18", run_rumor_axis, card, refs)
     log(f"phase walls, s: {walls}")
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
@@ -4428,8 +4829,15 @@ def main() -> int:
             key = next(k for k, v in SHARD_KERNELS.items() if v == rec["name"])
             rec["launches_on_sharded"] = {cell: [c[key] for c in cells["launches_per_rank"]]
                                           for cell, cells in sharded_timings["sharded"]["cells"].items()}
+    # phase 18 runs S1, S2, L1, L2, P1, D1 and R1 on every rank's block: their counts by cell and rank
+    for rec in kernels:
+        if rec["name"] in RUMOR_KERNELS.values():
+            key = next(k for k, v in RUMOR_KERNELS.items() if v == rec["name"])
+            rec["launches_on_rumor_axis"] = {cell: [c[key] for c in cells["launches_per_rank"]]
+                                             for cell, cells in rumor_timings["rumor_axis"]["cells"].items()}
     timings.update(serve_timings)
     timings.update(sharded_timings)
+    timings.update(rumor_timings)
     timings["card"] = card
     timings["phase_walls_s"] = walls
     # the whole record, which the end of a long log may not hold

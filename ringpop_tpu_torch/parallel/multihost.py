@@ -1,9 +1,9 @@
-"""Process-group bring-up for the sim plane's node mesh.
+"""Process-group bring-up for the sim plane's ("node", "rumor") mesh.
 
 Counterpart of ``ringpop_tpu/parallel/multihost.py``.  The JAX package
 spans hosts with ``jax.distributed`` and one global device mesh; the port
-runs one process a node rank over ``torch.distributed``, and one process
-is one granule of the mesh (its rows are one contiguous block).  Nothing
+runs one process a rank of the mesh over ``torch.distributed`` (rank
+``p·R + r`` holds node rows block p and word block r).  Nothing
 here knows of a cluster: the caller (or its launcher's environment) names
 the rendezvous address, the world size and the rank.
 
@@ -26,6 +26,9 @@ import torch
 # this long instead of hanging them
 DEFAULT_TIMEOUT_S = 60
 
+# the default group's collective timeout, which the mesh's subgroups take too
+_group_timeout_s = DEFAULT_TIMEOUT_S
+
 
 def _dist():
     import torch.distributed as dist
@@ -37,6 +40,12 @@ def distributed_initialized() -> bool:
     """Is the default process group up?"""
     dist = _dist()
     return dist.is_available() and dist.is_initialized()
+
+
+def group_timeout_s() -> float:
+    """The collective timeout :func:`init_distributed` gave the default
+    group (``DEFAULT_TIMEOUT_S`` when another caller brought it up)."""
+    return _group_timeout_s
 
 
 def default_transport(world_size: int, device=None) -> str:
@@ -65,6 +74,7 @@ def init_distributed(
     times out after ``timeout_s``.  Returns True when the group is (now)
     up, False when no address is configured (single process: build the
     mesh-free engines instead)."""
+    global _group_timeout_s
     if distributed_initialized():
         return True
     env = os.environ
@@ -86,6 +96,7 @@ def init_distributed(
         transport = default_transport(num_processes)
     if transport not in ("nccl", "gloo"):
         raise ValueError(f"unknown transport {transport!r}; 'nccl' or 'gloo'")
+    _group_timeout_s = timeout_s
     _dist().init_process_group(
         backend=transport,
         init_method=f"tcp://{coordinator_address}",
@@ -98,12 +109,13 @@ def init_distributed(
 
 def make_multihost_mesh(rumor_shards: Optional[int] = None, transport: Optional[str] = None, device=None):
     """The global ("node", "rumor") mesh over every process of the job, one
-    process a granule: the node axis is the world size and the rumor axis
-    stays inside a granule, so it is 1 (a rumor axis above 1 is ROADMAP
-    A12b)."""
+    process a rank: a rumor axis of ``rumor_shards`` (default 1) and a node
+    axis of the world size over it, which it must divide.  A collective
+    (``mesh.make_mesh`` builds the axes' subgroups)."""
     from ringpop_tpu_torch.parallel.mesh import make_mesh
 
-    if rumor_shards not in (None, 1):
-        raise NotImplementedError(
-            f"rumor_shards={rumor_shards} (word-sharded planes) is not ported yet (ROADMAP A12b)")
-    return make_mesh(transport=transport, device=device)
+    r = 1 if rumor_shards is None else int(rumor_shards)
+    size = _dist().get_world_size() if distributed_initialized() else 1
+    if r < 1 or size % r:
+        raise ValueError(f"rumor_shards={rumor_shards} must divide the {size} processes of the job")
+    return make_mesh(shape=(size // r, r), transport=transport, device=device)

@@ -6,21 +6,32 @@ of every leaf (first match wins; no match replicates).  A spec here is a
 :class:`P`, a tuple of mesh axis names or None per array axis — the port's
 own stand-in for ``jax.sharding.PartitionSpec``.
 
-Placement and gather over a :class:`parallel.mesh.Mesh`:
+Placement and gather over a :class:`parallel.mesh.Mesh` of (P, R) ranks:
 
 * :func:`shard_put` gives this rank's block of every node-sharded leaf
-  (``process_block`` rows of its node axis) and every other leaf whole,
-  on the mesh's device;
-* :func:`host_gather` is its inverse, a collective: every node-sharded
-  leaf ``all_gather``-ed into the global array, as host numpy;
+  (``process_block`` rows of its node axis) and, of the per-(node, rumor)
+  planes, its block of the rumor axis too (words of the packed planes,
+  slots of ``pcount``); every other leaf whole, on the mesh's device.  The
+  [K] rumor-table vectors (``r_subject``, ``r_inc``, ``r_status``,
+  ``r_deadline``, ``timer_fires``) stay whole on every rank: the table's
+  spec names the rumor axis, as the JAX package's does, but the port's
+  tick reads it whole, and a replicated copy is bit-equal and simpler;
+* :func:`host_gather` is its inverse, a collective: every plane's word or
+  slot blocks ``all_gather``-ed over the rumor axis, every node-sharded
+  leaf over the node axis, as host numpy; the rumor-table vectors are
+  this rank's copy (counted once);
 * :func:`process_block` is the ownership rule, contiguous equal blocks in
   rank order, with the same divisibility error.
 
 Digest partials: ``telemetry.tree_digest`` is, per leaf, a wrapping uint32
 sum of ``mix32(value ^ mix32(flat index))``, so :func:`leaf_partial_sums`
-over each rank's rows at their GLOBAL flat indices (kernel D1 on the card,
-its ``offset`` being ``lo * row_elems`` mod 2**32) add up exactly, and
-:func:`combine_leaf_partials` applies the digest's outer mix to the sum.
+over each node rank's rows at their GLOBAL flat indices (kernel D1 on the
+card, its ``offset`` being ``lo * row_elems`` mod 2**32) add up exactly,
+and :func:`combine_leaf_partials` applies the digest's outer mix to the
+sum.  A rank's [rows, W/R] word block is not one contiguous flat range, so
+the digest first gathers a plane's row block over the rumor axis
+(``Mesh.gather_cols``) and takes the partial of whole rows; D1 stays one
+contiguous range a launch.
 
 The fleet's batch-axis placement (``fleet_shard_put``,
 ``fleet_host_gather``) is ROADMAP A12b.
@@ -169,11 +180,21 @@ def named_shardings(tree, mesh, batch_axes: int = 0, batch_axis: Optional[str] =
     return _tree_map_named(lambda _name, spec: NamedSharding(mesh, spec), specs)
 
 
-def _node_axis(spec: P) -> Optional[int]:
+def _axis_of(spec: P, name: str) -> Optional[int]:
     for i, ax in enumerate(spec):
-        if ax == "node" or (isinstance(ax, tuple) and "node" in ax):
+        if ax == name or (isinstance(ax, tuple) and name in ax):
             return i
     return None
+
+
+def _node_axis(spec: P) -> Optional[int]:
+    return _axis_of(spec, "node")
+
+
+def _plane_rumor_axis(spec: P) -> Optional[int]:
+    """The rumor axis of a per-(node, rumor) plane's spec; None for a leaf
+    with no node axis (the [K] rumor-table vectors, held whole)."""
+    return _axis_of(spec, "rumor") if _node_axis(spec) is not None else None
 
 
 # -- process-block ownership --------------------------------------------------
@@ -200,10 +221,11 @@ def shard_put(tree, mesh, global_n: int, batch_axes: int = 0):
     """This rank's placement of ``tree`` on ``mesh.device``: every
     node-sharded leaf cut to the rank's ``process_block`` rows of its node
     axis (a leaf whose node axis already holds the block is taken as it
-    is), every other leaf whole.  Leaves may be tensors or numpy arrays."""
+    is), and every per-(node, rumor) plane also cut to the rank's block of
+    its rumor axis, which it must hold whole (``Mesh.col_block``); every
+    other leaf whole.  Leaves may be tensors or numpy arrays."""
     lo, hi = process_block(global_n, mesh.rank, mesh.size)
-    if mesh.shape.get("rumor", 1) != 1:
-        raise NotImplementedError(f"shard_put over a rumor axis (word-sharded planes) is not ported yet ({A12B})")
+    rumor = mesh.shape.get("rumor", 1)
 
     def place(name, leaf):
         t = leaf if isinstance(leaf, torch.Tensor) else torch.as_tensor(np.asarray(leaf))
@@ -218,6 +240,10 @@ def shard_put(tree, mesh, global_n: int, batch_axes: int = 0):
             elif size != hi - lo:
                 raise ValueError(f"leaf {name!r}: node axis of {size} is neither n={global_n} nor the "
                                  f"block of {hi - lo}")
+        rax = _plane_rumor_axis(spec)
+        if rumor > 1 and rax is not None and t.dim() > rax:
+            c0, c1 = mesh.col_block(t.shape[rax])
+            t = t.narrow(rax, c0, c1 - c0)
         return t.to(mesh.device).clone()
 
     return _tree_map_named(place, tree)
@@ -225,23 +251,28 @@ def shard_put(tree, mesh, global_n: int, batch_axes: int = 0):
 
 def host_gather(tree, mesh, batch_axes: int = 0, spec: Optional[P] = None):
     """The inverse of :func:`shard_put`, a collective every rank calls
-    with a tree of the same structure: every node-sharded leaf gathered
-    from all ranks into the global array, as host numpy of the tensor's
-    dtype; other leaves are this rank's copy.  ``spec`` overrides the
-    table for every leaf (``P("node")`` for a bare per-node block, such as
+    with a tree of the same structure: every per-(node, rumor) plane's
+    blocks gathered over the rumor axis, and every node-sharded leaf over
+    the node axis, into the global array, as host numpy of the tensor's
+    dtype; other leaves (the rumor-table vectors among them) are this
+    rank's copy.  ``spec`` overrides the table for every leaf
+    (``P("node")`` for a bare per-node block, such as
     ``lifecycle.view_checksums`` under a mesh)."""
 
     def gather(name, leaf):
         spec_ = spec_for(name) if spec is None else spec
         if batch_axes:
             spec_ = P(*([None] * batch_axes), *spec_)
-        ax = _node_axis(spec_)
         if not isinstance(leaf, torch.Tensor):
             return np.asarray(leaf)
-        if ax is None or leaf.dim() <= ax or not mesh.sharded:
-            return leaf.detach().cpu().numpy()
-        parts = mesh.all_gather(leaf.contiguous())
-        return torch.cat(list(parts), dim=ax).cpu().numpy()
+        t = leaf
+        rax = _plane_rumor_axis(spec_)
+        if rax is not None and t.dim() > rax and mesh.shape.get("rumor", 1) > 1:
+            t = torch.cat(list(mesh.all_gather(t.contiguous(), "rumor")), dim=rax)
+        ax = _node_axis(spec_)
+        if ax is not None and t.dim() > ax and mesh.size > 1:
+            t = torch.cat(list(mesh.all_gather(t.contiguous())), dim=ax)
+        return t.detach().cpu().numpy()
 
     return _tree_map_named(gather, tree)
 
@@ -261,7 +292,8 @@ def fleet_host_gather(tree):
 
 def leaf_partial_sums(tree, lo: int = 0, include_replicated: bool = True) -> torch.Tensor:
     """int64[L] holding uint32: per leaf, the digest's inner sum over this
-    block, node-sharded leaves (node axis 0) at global flat indices from
+    block, node-sharded leaves (node axis 0, every other axis whole: gather
+    a word block's columns first) at global flat indices from
     ``lo * row_elems`` (mod 2**32, as the JAX package's offset wraps);
     other leaves contribute only with ``include_replicated`` (one rank).
     Summing every rank's vector and :func:`combine_leaf_partials` gives the

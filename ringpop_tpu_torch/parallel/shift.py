@@ -4,7 +4,9 @@ Counterpart of ``ringpop_tpu/parallel/shift.py``, written as
 ``torch.distributed`` point-to-point sends (``Mesh.exchange``, one
 ``batch_isend_irecv`` a leg) between node ranks that each hold an
 ``nb``-row block.  A leg rolls a node-sharded plane cyclically:
-``out[i] = x[(i - s) mod n]``.
+``out[i] = x[(i - s) mod n]``.  On a (P, R) mesh a leg runs over the node
+axis of this rank's rumor column: each of the R word blocks rolls on its
+own, between the P ranks that hold it, by the same shift.
 
 The decomposition is the JAX package's.  Split each rank's block into
 ``H`` equal sub-blocks of ``sub = nb/H`` rows and write ``s = hq·sub +
@@ -80,7 +82,7 @@ def _issue(plan: list, pieces_of, mesh) -> list:
     (``pieces_of(si)``, a list), sent to the rank ``ring`` steps on and
     received from the rank ``ring`` steps back; local where ring is 0.
     Returns ``recv[p][leaf]``."""
-    s_shards, me = mesh.size, mesh.rank
+    s_shards, me = mesh.shape["node"], mesh.coords["node"]
     sends, recvs, slots = [], [], []
     recv = []
     for p, (ring, si) in enumerate(plan):
@@ -92,7 +94,7 @@ def _issue(plan: list, pieces_of, mesh) -> list:
                 recvs.append((piece, (me - ring) % s_shards, tag))
                 slots.append((p, li))
         recv.append(list(pieces))
-    got = mesh.exchange(sends, recvs)
+    got = mesh.exchange(sends, recvs, "node")
     for (p, li), t in zip(slots, got):
         recv[p][li] = t
     leg_sends.append(len(sends))
@@ -125,7 +127,7 @@ def shard_roll(leaves: tuple, shift, mesh, axis: str = "node", specs=None, h: in
     n, nb, h, sub = _layout(leaves, mesh, axis, h)
     _, hq, rh = _split(shift, n, sub)
     subs = [x.reshape((h, sub) + tuple(x.shape[1:])) for x in leaves]
-    recv = _issue(_window_plan(hq, h, mesh.size), lambda si: [sx[si] for sx in subs], mesh)
+    recv = _issue(_window_plan(hq, h, mesh.shape["node"]), lambda si: [sx[si] for sx in subs], mesh)
     return tuple(torch.cat([_stitch_sub(recv, li, d, rh, sub) for d in range(h)], dim=0)
                  for li in range(len(leaves)))
 

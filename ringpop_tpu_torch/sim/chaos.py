@@ -23,6 +23,12 @@ touches the device.  Builders take ``device`` (the card unless the caller
 asks for the CPU), as the engines' entry points do.  Plans batch: a leg with
 one more axis than its solo rank carries a leading scenario axis
 (``stack_plans``, ``index_plan``, ``slice_plan``).
+
+Under a (P, R) mesh a plan is whole on every rank, on the rank's device:
+the partition table names its [N] legs ``P("node")`` and ``tier_ids``
+``P(None, "node")``, as the JAX package's does, but the engines evaluate
+``faults_at`` whole (every [N] vector of a tick is whole on every rank)
+and cut their own rows out, which is bit-equal and needs no gather.
 """
 
 from __future__ import annotations

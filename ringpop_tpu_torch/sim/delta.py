@@ -32,14 +32,18 @@ takes a time-varying ``chaos.FaultPlan`` where it takes a ``DeltaFaults``:
 :func:`resolve_faults` evaluates any object with an ``at_tick`` method at
 the state's tick.
 
-Sharded over node ranks (``params.exchange_mesh``, a ``parallel.mesh.Mesh``
-of more than one rank): the state is this rank's block of rows
-(``partition.shard_put``), the faults stay whole on every rank, and every
-[N] vector and draw of the tick is computed whole on every rank.  The
-planes' cross-rank steps are the shift exchange's two roll legs
-(``parallel/shift``), the uniform exchange's gathers of the packed planes,
-and the row reduces' combines (``packbits.*_across``), so the gathered
-result is the unsharded tick's, bit for bit.
+Sharded over a (P, R) mesh (``params.exchange_mesh``, a
+``parallel.mesh.Mesh`` of more than one rank): the state is this rank's
+block (``partition.shard_put``): node rows block p, and word block r of
+the packed planes (slot block r of ``pcount``); the faults stay whole on
+every rank, and every [N] vector and draw of the tick is computed whole on
+every rank.  Every step of the tick on a slot is that slot's own, so each
+word block runs the tick by itself: the planes' cross-rank steps are the
+shift exchange's two roll legs (``parallel/shift``) and the uniform
+exchange's row gathers, over the node axis, and the row reduces' combines
+(``packbits.*_across``), over the node axis too; only the queries combine
+over the rumor axis.  The gathered result is the unsharded tick's, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ from ringpop_tpu_torch.sim import prng, threefry
 from ringpop_tpu_torch.sim.packbits import (
     and_reduce_rows,
     and_reduce_rows_across,
+    check_rumor_shardable,
+    n_words,
     or_reduce_rows_across,
     pack_bool,
     popcount_rows,
@@ -115,8 +121,8 @@ class DeltaParams:
     # PRNG family: "threefry" = the jax.random draws (sim/threefry.py) the
     # frozen goldens pin; "counter" = the stateless stream of sim/prng.py
     rng: str = "threefry"
-    # a parallel.mesh.Mesh of node ranks: the engine then takes and returns
-    # this rank's block of rows (parallel/mesh.with_exchange_mesh)
+    # a parallel.mesh.Mesh of (P, R) ranks: the engine then takes and returns
+    # this rank's block (parallel/mesh.with_exchange_mesh)
     exchange_mesh: Optional[Any] = None
     # the shift legs' sub-block factor H (H + 1 sends a rolled leaf a leg,
     # parallel/shift), read only with a mesh; exchange_pipelined is the JAX
@@ -245,12 +251,30 @@ def tier_pair_drop(faults: DeltaFaults, a: torch.Tensor, b: torch.Tensor) -> tor
 
 def sharding_of(params):
     """The mesh the engine shards over: ``params.exchange_mesh`` when it
-    has more than one node rank (its blocks must divide n), else None."""
+    has more than one rank (its node blocks must divide n, and k must
+    shard over its rumor axis: ``packbits.check_rumor_shardable``), else
+    None."""
     mesh = params.exchange_mesh
-    if mesh is None or mesh.shape.get("node", 1) <= 1:
+    if mesh is None or not mesh.sharded:
         return None
     mesh.block(params.n)  # ValueError when the ranks do not divide n
+    check_rumor_shardable(params.k, mesh.shape["rumor"])
     return mesh
+
+
+def rumor_block(mesh, k: int) -> tuple[slice, slice]:
+    """(slots, words): this rank's block of the rumor axis of a k-slot
+    table, the whole axis with ``mesh`` None or one rumor rank."""
+    if mesh is None or mesh.shape["rumor"] == 1:
+        return slice(0, k), slice(0, n_words(k))
+    s0, s1 = mesh.col_block(k)
+    return slice(s0, s1), slice(s0 // 32, s1 // 32)
+
+
+def node_mesh(mesh):
+    """``mesh`` when its node axis has more than one rank (the planes'
+    rows are then a block and the rolls cross ranks), else None."""
+    return mesh if mesh is not None and mesh.shape["node"] > 1 else None
 
 
 def whole_rows(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -266,8 +290,8 @@ def init_state(
     """K rumors, each initially known only to its source node (default:
     rumor j starts at node j mod N).  ``key`` is ``prng.prng_key(seed)``,
     the value ``jax.random.PRNGKey(seed)`` has.  Under a mesh
-    (:func:`sharding_of`), this rank's block, on the mesh's device unless
-    ``device`` is given."""
+    (:func:`sharding_of`), this rank's block (its rows, and its word and
+    slot block), on the mesh's device unless ``device`` is given."""
     mesh = sharding_of(params)
     dev = resolve_device(params.exchange_mesh.device if params.exchange_mesh is not None and device is None
                          else device)
@@ -281,10 +305,12 @@ def init_state(
         rows, cols = rows[own] - lo, cols[own]
     learned_b = torch.zeros((hi - lo, k), dtype=torch.bool, device=dev)
     learned_b[torch.as_tensor(rows, device=dev), torch.as_tensor(cols, device=dev)] = True
+    slots, words = rumor_block(mesh, k)
+    kl = slots.stop - slots.start
     return DeltaState(
-        learned=pack_bool(learned_b),
-        pcount=torch.zeros((hi - lo, k), dtype=torch.int8, device=dev),
-        ride_ok=pack_bool(torch.zeros((hi - lo, k), dtype=torch.int8, device=dev) < clamped_max_p(params)),
+        learned=pack_bool(learned_b)[:, words].contiguous(),
+        pcount=torch.zeros((hi - lo, kl), dtype=torch.int8, device=dev),
+        ride_ok=pack_bool(torch.zeros((hi - lo, kl), dtype=torch.int8, device=dev) < clamped_max_p(params)),
         tick=torch.zeros((), dtype=torch.int32, device=dev),
         key=prng.prng_key(seed, dev),
     )
@@ -308,11 +334,17 @@ def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaul
     max_p = clamped_max_p(params)
     shift_mode = params.exchange == "shift"
     use_counter = params.rng == "counter"
-    # under a mesh the planes are this rank's rows [lo, hi); every [N]
-    # vector below is whole, and ``loc`` cuts this rank's rows out of it
+    # under a mesh the planes are this rank's rows [lo, hi) and its kl
+    # slots' words; every [N] vector below is whole, and ``loc`` cuts this
+    # rank's rows out of one.  Every plane step is per slot, so the word
+    # block runs the tick on its own: the cross-rank steps are over the
+    # node axis (``rolls``: the roll legs, None with one node rank)
     mesh = sharding_of(params)
+    rolls = node_mesh(mesh)
     lo, hi = mesh.block(n) if mesh is not None else (0, n)
     loc = slice(lo, hi)
+    slots, _ = rumor_block(mesh, k)
+    kl = slots.stop - slots.start
 
     with record_function("ping-target"):
         if use_counter:
@@ -362,33 +394,34 @@ def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaul
             sent_w = riding_w & cmask
             idx_fwd = (i_all - s) % n
             got_pinged = conn.index_select(0, idx_fwd)[loc]
-            if mesh is None:
+            if rolls is None:
                 inbound_w = sent_w.index_select(0, idx_fwd)
             else:
                 # the shift legs over the ranks' blocks (parallel/shift): the
                 # shift picks their send plan on the host, one sync a tick
                 s_host = int(s)
-                (inbound_w,) = shard_roll((sent_w,), s_host, mesh, "node", h=params.exchange_h)
+                (inbound_w,) = shard_roll((sent_w,), s_host, rolls, "node", h=params.exchange_h)
             learned1_w = state.learned | inbound_w
             # response leg: the target's riding rumors come back to the pinger
             answerable_w = learned1_w & ride_ok_w
-            if mesh is None:
+            if rolls is None:
                 resp_src = answerable_w.index_select(0, (i_all + s) % n)
             else:
-                (resp_src,) = shard_roll((answerable_w,), n - s_host, mesh, "node", h=params.exchange_h)
+                (resp_src,) = shard_roll((answerable_w,), n - s_host, rolls, "node", h=params.exchange_h)
             learned2_w = learned1_w | (resp_src & cmask)
         else:
             # the scatter by target reads every row: under a mesh the packed
-            # planes are gathered whole (the gate from the carried ride_ok,
-            # which is pack_bool(pcount < max_p) by construction)
-            learned0_b = unpack_bits(whole_rows(state.learned, mesh), k)
+            # planes' rows are gathered whole over the node axis (the gate
+            # from the carried ride_ok, which is pack_bool(pcount < max_p)
+            # by construction)
+            learned0_b = unpack_bits(whole_rows(state.learned, mesh), kl)
             ride_ok_b = (state.pcount < max_p if mesh is None
-                         else unpack_bits(mesh.gather_rows(state.ride_ok), k))
+                         else unpack_bits(mesh.gather_rows(state.ride_ok), kl))
             riding_b = learned0_b & ride_ok_b
             sent_b = riding_b & conn[:, None]
             # scatter-or by target: a max over duplicate targets on a zero plane
-            inbound_b = torch.zeros((n, k), dtype=torch.uint8, device=dev).scatter_reduce_(
-                0, targets[:, None].expand(n, k), sent_b.to(torch.uint8), "amax", include_self=True
+            inbound_b = torch.zeros((n, kl), dtype=torch.uint8, device=dev).scatter_reduce_(
+                0, targets[:, None].expand(n, kl), sent_b.to(torch.uint8), "amax", include_self=True
             ).to(torch.bool)
             got_pinged = torch.zeros(n, dtype=torch.uint8, device=dev).scatter_reduce_(
                 0, targets, conn.to(torch.uint8), "amax", include_self=True
@@ -402,9 +435,9 @@ def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaul
     with record_function("piggyback-counters"):
         if shift_mode:
             # bump = sent + (riding & got_pinged) = riding * (conn + got)
-            riding_bit = unpack_bits(riding_w, k)
+            riding_bit = unpack_bits(riding_w, kl)
             bump = riding_bit.to(torch.int8) * (conn[loc].to(torch.int8) + got_pinged.to(torch.int8))[:, None]
-            newly_bit = unpack_bits(learned2_w & ~state.learned, k)
+            newly_bit = unpack_bits(learned2_w & ~state.learned, kl)
         else:
             bump = (sent_b.to(torch.int8) + (riding_b & got_pinged[:, None]).to(torch.int8))[loc]
             newly_bit = learned2_b & ~learned0_b[loc]
@@ -422,10 +455,10 @@ def step(params: DeltaParams, state: DeltaState, faults: DeltaFaults = DeltaFaul
         up_loc = None if up is None else up[loc]
         fully_w = and_reduce_rows_across(learned2_w, up_loc, mesh)
         live_riding_w = or_reduce_rows_across(learned2_w & mid_ride_w, up_loc, mesh)
-        fully = unpack_bits(fully_w, k)
-        stuck = ~unpack_bits(live_riding_w, k) & ~fully
+        fully = unpack_bits(fully_w, kl)
+        stuck = ~unpack_bits(live_riding_w, kl) & ~fully
         reset_w = learned2_w & pack_bool(stuck)[None, :]
-        pcount = pcount_mid.masked_fill(unpack_bits(reset_w, k), 0)
+        pcount = pcount_mid.masked_fill(unpack_bits(reset_w, kl), 0)
         # the carried invariant: riding resumes where the reset re-opened
         # counters, plus wherever the mid gate was already open
         ride_ok_next = mid_ride_w | reset_w
@@ -439,12 +472,13 @@ def converged_fraction(state: DeltaState, faults: DeltaFaults = DeltaFaults(), m
     """Fraction of (live node, rumor) pairs delivered, float32 0-d: per-row
     popcounts (exact in float32) summed in float32.  The sum's order is not
     the JAX package's, so the two agree to ~1e-7 relative, not bit for bit.
-    With a ``mesh`` of node ranks (``state`` this rank's block), the
-    per-row counts are gathered and summed whole on every rank: the
-    unsharded port's value, bit for bit."""
+    With a ``mesh`` (``state`` this rank's block), the per-row counts of the
+    word blocks are added over the rumor axis, gathered over the node axis
+    and summed whole on every rank: the unsharded port's value, bit for
+    bit."""
     faults = resolve_faults(faults, state.tick)
-    k = state.pcount.shape[1]
-    sharded = mesh is not None and mesh.shape.get("node", 1) > 1
+    sharded = mesh is not None and mesh.sharded
+    k = state.pcount.shape[1] * (mesh.shape["rumor"] if sharded else 1)
     bits = (popcount_rows_across(state.learned, mesh) if sharded else popcount_rows(state.learned)).to(torch.float32)
     n = bits.shape[0]
     if faults.up is not None:
@@ -456,15 +490,17 @@ def converged_fraction(state: DeltaState, faults: DeltaFaults = DeltaFaults(), m
 
 def converged(state: DeltaState, faults: DeltaFaults = DeltaFaults(), mesh=None) -> torch.Tensor:
     """bool 0-d tensor on the state's device: have all rumors reached every
-    live node?  (Dead rows are vacuously done.)  With a ``mesh`` of node
-    ranks, ``state`` is this rank's block and the AND spans the ranks."""
+    live node?  (Dead rows are vacuously done.)  With a ``mesh``, ``state``
+    is this rank's block: the AND spans the node axis, and the word blocks'
+    answers are ANDed over the rumor axis."""
     faults = resolve_faults(faults, state.tick)
     k = state.pcount.shape[1]
-    if mesh is None or mesh.shape.get("node", 1) <= 1:
+    if mesh is None or not mesh.sharded:
         return unpack_bits(and_reduce_rows(state.learned, faults.up), k).all()
     lo, hi = mesh.block(state.learned.shape[0] * mesh.size)
     up = None if faults.up is None else faults.up[lo:hi]
-    return unpack_bits(and_reduce_rows_across(state.learned, up, mesh), k).all()
+    done = unpack_bits(and_reduce_rows_across(state.learned, up, mesh), k).all()
+    return mesh.all_gather(done, "rumor").all() if mesh.shape["rumor"] > 1 else done
 
 
 def until_loop(run_block, state, max_blocks: int, pred):
@@ -514,7 +550,7 @@ class DeltaSim:
     journal: ``run_until_converged`` then runs in ``journal_every``-tick
     blocks and hands over one ``telemetry.delta_record`` a block; with no
     sink it runs exactly the journal-free loop.  With ``exchange_mesh`` (a
-    mesh of node ranks) the state is this rank's block, on the mesh's
+    (P, R) mesh) the state is this rank's block, on the mesh's
     device unless ``device`` is given, and every rank must call each
     method in step with the others."""
 

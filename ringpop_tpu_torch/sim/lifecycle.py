@@ -49,21 +49,28 @@ protocol events, reading only what it computes anyway: on the card its
 launch of D1 (``csrc/telemetry.cu``).  ``faults`` may be a time-varying
 ``chaos.FaultPlan``, evaluated at the state's tick.
 
-Sharded over node ranks (``params.exchange_mesh``, a ``parallel.mesh.Mesh``
-of more than one rank), the engine takes and returns this rank's block of
-rows of the planes and the per-node vectors; the rumor table, the tick and
-the key are whole on every rank, and so are the faults.  A tick gathers the
-per-node vectors once and computes every [N] and [K] vector and every draw
-whole on every rank; its cross-rank steps on the planes are the shift
+Sharded over a (P, R) mesh (``params.exchange_mesh``, a
+``parallel.mesh.Mesh`` of more than one rank), the engine takes and returns
+this rank's block: node rows block p of the planes and the per-node
+vectors, and word block r of the packed planes (slot block r of
+``pcount``); the rumor table, the tick and the key are whole on every
+rank, and so are the faults.  A tick gathers the per-node vectors once and
+computes every [N] and [K] vector and every draw whole on every rank.
+Its cross-rank steps on the planes run over the node axis: the shift
 exchange's two roll legs (``parallel/shift``; the uniform exchange gathers
-the packed planes), the K prober rows and the K subject rows (each owner
-supplies its rows), the heal pair's two rows, the three row reduces (S1 on
-each block, then the ranks combine), and L2's first live learner (each
-rank's first row, the lowest over the ranks that hold one).  The queries
-take a ``mesh`` the same way: L1 walks each rank's rows and the ranks OR
-their detect flags, and ``view_checksums`` stays on the rank that owns the
-observer.  Telemetry accumulation under a mesh is ROADMAP A12b; the AOT
-warm start (A15) is refused with NotImplementedError.
+the rows), the prober and subject rows of this rank's slots and the heal
+pair's two rows (each owner supplies its rows), the three row reduces (S1
+on each block, then the node axis combines), and L2's first live learner
+(each rank's first row, the lowest over the node ranks that hold one).
+The [K]-axis vectors the tick needs whole are gathered over the rumor axis
+from the slot blocks: the prober's and the subject's own bits, the three
+reduces' words and L2's answer (one gather each).  The queries take a
+``mesh`` the same way: they gather a rank's rows over the rumor axis, then
+L1 walks each node rank's rows and the node ranks OR their detect flags,
+and ``view_checksums`` stays on the ranks that own the observer.  With a
+telemetry accumulator its planes are word blocks and its per-node counters
+row blocks (``telemetry.zeros``); ``telemetry.fetch`` gathers them.  The
+AOT warm start (A15) is refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -87,8 +94,10 @@ from ringpop_tpu_torch.sim.delta import (
     has_drop,
     leg_survives,
     pair_connected,
+    node_mesh,
     resolve_faults,
     resolve_max_p,
+    rumor_block,
     sharding_of,
     tier_pair,
     tier_pair_drop,
@@ -176,7 +185,7 @@ class LifecycleParams:
     # PRNG family: "threefry" = the jax.random draws (sim/threefry.py) the
     # frozen goldens pin; "counter" = the stateless stream of sim/prng.py
     rng: str = "threefry"
-    # a parallel.mesh.Mesh of node ranks: the engine then takes and returns
+    # a parallel.mesh.Mesh of (P, R) ranks: the engine then takes and returns
     # this rank's block (parallel/mesh.with_exchange_mesh); the shift legs'
     # sub-block factor H is read only with a mesh, and exchange_pipelined
     # is kept for the JAX package's params and not read (delta.DeltaParams)
@@ -221,12 +230,15 @@ def init_state_from_key(params: LifecycleParams, key, device: DeviceLike = None)
     Monte-Carlo fleet (``sim/montecarlo``) builds its replicas this way.  On
     the card, K is refused past the widest plane the lifecycle kernels take
     rather than at the first tick.  Under a mesh (``delta.sharding_of``),
-    this rank's block: its rows of the planes and per-node vectors."""
+    this rank's block: its rows of the planes and per-node vectors, and its
+    word (slot) block of the planes."""
     mesh = sharding_of(params)
     dev = resolve_device(params.exchange_mesh.device if params.exchange_mesh is not None and device is None
                          else device)
     k = params.k
     n = params.n // mesh.size if mesh is not None else params.n
+    slots, words = rumor_block(mesh, k)
+    kl = slots.stop - slots.start
     if dev.type == "cuda":
         lifecycle_kernel.check_width(n_words(k), "lifecycle.init_state")
     if isinstance(key, torch.Tensor):
@@ -241,9 +253,9 @@ def init_state_from_key(params: LifecycleParams, key, device: DeviceLike = None)
         r_inc=torch.zeros((k,), **i32),
         r_status=torch.zeros((k,), dtype=torch.int8, device=dev),
         r_deadline=torch.full((k,), NO_DEADLINE, **i32),
-        learned=torch.zeros((n, n_words(k)), **i32),
-        pcount=torch.zeros((n, k), dtype=torch.int8, device=dev),
-        ride_ok=pack_bool(torch.zeros((n, k), dtype=torch.int8, device=dev) < clamped_max_p(params)),
+        learned=torch.zeros((n, words.stop - words.start), **i32),
+        pcount=torch.zeros((n, kl), dtype=torch.int8, device=dev),
+        ride_ok=pack_bool(torch.zeros((n, kl), dtype=torch.int8, device=dev) < clamped_max_p(params)),
         base_status=torch.zeros((n,), dtype=torch.int8, device=dev),
         base_inc=torch.zeros((n,), **i32),
         base_present=torch.ones((n,), dtype=torch.bool, device=dev),
@@ -314,7 +326,6 @@ def _bel_rumor_dense(learned_b, r_subject, rkey, active, targets):
 
 # -- the cross-rank steps of a sharded tick ---------------------------------------
 
-_A12B = "ROADMAP A12b"
 # the per-node vectors: node-sharded leaves a sharded tick gathers whole
 _NODE_VECTORS = ("base_status", "base_inc", "base_present", "base_pending", "base_deadline", "self_inc")
 
@@ -334,6 +345,33 @@ def _rows(mesh, plane: torch.Tensor, rows: torch.Tensor, n: int) -> torch.Tensor
     """``plane[rows]`` of a plane that is whole, or under a mesh this
     rank's block (the owners supply the rows: ``Mesh.rows_of``)."""
     return plane[rows] if mesh is None else mesh.rows_of(plane, rows, n)
+
+
+def _whole_slots(mesh, x: torch.Tensor) -> torch.Tensor:
+    """A [..., kl] slot block (or [..., W/R] word block) whole along its
+    last axis: every rumor rank's block in order (``Mesh.gather_cols``);
+    ``x`` itself with ``mesh`` None or one rumor rank."""
+    return x if mesh is None else mesh.gather_cols(x)
+
+
+def _own_slot_bits(mesh, plane: torch.Tensor, rows: torch.Tensor, n: int, slots: slice) -> torch.Tensor:
+    """bool[K]: slot j's bit of global row ``rows[j]`` (in [0, n)), for
+    every slot j.  A rank reads the rows of its own slots (``rows[slots]``,
+    their owners supplying them over the node axis) and the rumor axis
+    gathers the slot blocks."""
+    kl = slots.stop - slots.start
+    got = _rows(mesh, plane, rows[slots], n)
+    return _whole_slots(mesh, bit_column(got, torch.arange(kl, device=plane.device)))
+
+
+def _local_slots(slots: torch.Tensor, ok: torch.Tensor, block: slice, k: int):
+    """Global slot indices (in [0, k)) as indices into this rank's slot
+    block, with ``ok`` kept only where the slot is in the block (each word
+    block writes its own bits); unchanged when the block is the whole
+    axis."""
+    if block.stop - block.start == k:
+        return slots, ok
+    return (slots - block.start).clamp_min(0), ok & (slots >= block.start) & (slots < block.stop)
 
 
 def _block_rows(mesh, rows: torch.Tensor, ok: torch.Tensor, n: int):
@@ -382,14 +420,16 @@ def step(
     faults = resolve_faults(faults, state.tick)
     n, k = params.n, params.k
     dev = state.learned.device
-    # under a mesh the planes are this rank's rows [lo, hi); the per-node
-    # vectors are gathered whole here, every [N] vector below is whole, and
-    # ``loc`` cuts this rank's rows out of one
+    # under a mesh the planes are this rank's rows [lo, hi) of its slot
+    # block ``sl`` (kl slots, word block ``wl``); the per-node vectors are
+    # gathered whole here, every [N] and [K] vector below is whole, ``loc``
+    # cuts this rank's rows out of one and ``sl``/``wl`` its slots and words
     mesh = sharding_of(params)
+    rolls = node_mesh(mesh)
     lo, hi = mesh.block(n) if mesh is not None else (0, n)
     loc = slice(lo, hi)
-    if mesh is not None and telemetry is not None:
-        raise NotImplementedError(f"telemetry accumulation under a mesh is not ported yet ({_A12B})")
+    sl, wl = rumor_block(mesh, k)
+    kl = sl.stop - sl.start
     state = _whole_node_vectors(state, mesh)
     with record_function("tick-prologue"):
         m = min(params.alloc_per_tick, params.k, params.n)
@@ -430,7 +470,7 @@ def step(
         subj_rumor_max = _segment_max(rkey, subj, n).clamp_min(-1)
         base_key = torch.where(state.base_present, _key_of(state.base_inc, state.base_status), -1)
         eff_max = torch.maximum(subj_rumor_max, base_key)
-        active_w = pack_bool(active)  # [W], tail bits zero
+        active_w = pack_bool(active)[wl]  # this rank's words, tail bits zero
 
     with record_function("ping-target"):
         shift_mode = params.exchange == "shift"
@@ -441,7 +481,7 @@ def step(
             # each subject has exactly one prober (s - shift) mod n: K bit
             # gathers + one scatter-max instead of the O(N·K) masked reduce
             prober = (state.r_subject.to(torch.int64) - shift) % n
-            pbit = bit_column(_rows(mesh, state.learned, prober.clamp(0, n - 1), n), torch.arange(k, device=dev))
+            pbit = _own_slot_bits(mesh, state.learned, prober.clamp(0, n - 1), n, sl)
             bel_vals = torch.where(active & pbit, rkey, -1)
             bel_rumor = torch.full((n + 1,), -1, dtype=torch.int32, device=dev).scatter_reduce_(
                 0, torch.where(active, prober, n), bel_vals, "amax", include_self=True)[:n]
@@ -450,9 +490,12 @@ def step(
                        else threefry.randint(k_target, (n,), 0, n - 1)).to(torch.int64)
             targets = torch.where(targets >= i_all, targets + 1, targets)
             # the scatter by target reads every row: under a mesh the packed
-            # plane is gathered whole
-            learned0_b = unpack_bits(whole_rows(state.learned, mesh), k)
-            bel_rumor = _bel_rumor_dense(learned0_b, state.r_subject, rkey, active, targets)
+            # plane's rows are gathered whole over the node axis, and the
+            # rumor axis takes the max of the slot blocks' beliefs
+            learned0_b = unpack_bits(whole_rows(state.learned, mesh), kl)
+            bel_rumor = _bel_rumor_dense(learned0_b, state.r_subject[sl], rkey[sl], active[sl], targets)
+            if mesh is not None and mesh.shape["rumor"] > 1:
+                bel_rumor = mesh.all_gather(bel_rumor, "rumor").amax(dim=0)
         bel = torch.maximum(bel_rumor, base_key[targets])
         bel_status = _status_of(bel.clamp_min(0))
         believes_pingable = (bel >= 0) & is_pingable(bel_status)
@@ -478,18 +521,18 @@ def step(
             # mesh the shift legs over the ranks' blocks (parallel/shift)
             idx_fwd = (i_all - shift) % n
             got_pinged = delivered.index_select(0, idx_fwd)[loc]
-            if mesh is None:
+            if rolls is None:
                 inbound_w = sent_w.index_select(0, idx_fwd)
             else:
                 # the shift picks the legs' send plan on the host: one sync a tick
                 s_host = int(shift)
-                (inbound_w,) = shard_roll((sent_w,), s_host, mesh, "node", h=params.exchange_h)
+                (inbound_w,) = shard_roll((sent_w,), s_host, rolls, "node", h=params.exchange_h)
             learned1_w = state.learned | inbound_w
             answerable_w = learned1_w & ride_ok_w & active_w[None, :]
-            if mesh is None:
+            if rolls is None:
                 resp_src = answerable_w.index_select(0, (i_all + shift) % n)
             else:
-                (resp_src,) = shard_roll((answerable_w,), n - s_host, mesh, "node", h=params.exchange_h)
+                (resp_src,) = shard_roll((answerable_w,), n - s_host, rolls, "node", h=params.exchange_h)
             resp_w = resp_src & dmask
             learned2_w = learned1_w | resp_w
             newly_w = learned2_w & ~state.learned
@@ -497,18 +540,18 @@ def step(
             # under a mesh the gate comes from the carried ride_ok, gathered
             # whole (pack_bool(pcount < max_p) by construction)
             ride_ok_b = (state.pcount < maxp if mesh is None
-                         else unpack_bits(mesh.gather_rows(state.ride_ok), k))
-            riding_b = learned0_b & active[None, :] & ride_ok_b
+                         else unpack_bits(mesh.gather_rows(state.ride_ok), kl))
+            riding_b = learned0_b & active[sl][None, :] & ride_ok_b
             sent_b = riding_b & delivered[:, None]
             # segment_max of bools by target: a max over duplicate targets
-            inbound_b = torch.zeros((n, k), dtype=torch.uint8, device=dev).scatter_reduce_(
-                0, targets[:, None].expand(n, k), sent_b.to(torch.uint8), "amax", include_self=True
+            inbound_b = torch.zeros((n, kl), dtype=torch.uint8, device=dev).scatter_reduce_(
+                0, targets[:, None].expand(n, kl), sent_b.to(torch.uint8), "amax", include_self=True
             ).to(torch.bool)
             got_pinged = torch.zeros(n, dtype=torch.uint8, device=dev).scatter_reduce_(
                 0, targets, delivered.to(torch.uint8), "amax", include_self=True
             ).to(torch.bool)
             learned1_b = learned0_b | inbound_b
-            answerable_b = learned1_b & active[None, :] & ride_ok_b
+            answerable_b = learned1_b & active[sl][None, :] & ride_ok_b
             resp_b = answerable_b[targets] & delivered[:, None]
             learned2_b = learned1_b | resp_b
             learned2_w = pack_bool(learned2_b[loc])
@@ -545,16 +588,16 @@ def step(
                 node_ids = torch.arange(lo, hi, device=dev)
                 healed = attempt & ((node_ids == h) | (node_ids == p))
                 learned2_w = torch.where(healed[:, None], merged_row[None, :], learned2_w)
-            merged_bits = unpack_bits(merged_row, k)
+            merged_bits = unpack_bits(merged_row, kl)
         learned2h_w = learned2_w
 
     with record_function("piggyback-counters"):
         # -- pcount pass A: bump + newly-learned + heal resets
         if shift_mode:
             # bump = sent + (riding & got_pinged) = riding * (delivered + got)
-            bump = unpack_bits(riding_w, k).to(torch.int8) * (
+            bump = unpack_bits(riding_w, kl).to(torch.int8) * (
                 delivered[loc].to(torch.int8) + got_pinged.to(torch.int8))[:, None]
-            newly_bit = unpack_bits(newly_w, k)
+            newly_bit = unpack_bits(newly_w, kl)
         else:
             bump = (sent_b.to(torch.int8) + (riding_b & got_pinged[:, None]).to(torch.int8))[loc]
             newly_bit = (learned2_b & ~learned0_b)[loc]
@@ -574,11 +617,14 @@ def step(
         mid_ride_w = pack_bool(pcount_a < maxp)
         riding_now_w = learned2h_w & mid_ride_w & active_w[None, :]
         up_loc = None if up_leg is None else up_leg[loc]
-        # S1 over each block, the ranks' words combined; the OR keeps each
-        # rank's own words for L2's combine below
+        # S1 over each block, the node axis' words combined; the OR keeps
+        # each node rank's own words for L2's combine below.  The three
+        # word blocks are gathered whole over the rumor axis in one go
         fully_w = and_reduce_rows_across(learned2h_w, up_loc, mesh)
         live_w, live_parts = or_reduce_rows_across(learned2h_w, up_loc, mesh, partials=True)
         riding_live_w = or_reduce_rows_across(riding_now_w, up_loc, mesh)
+        if kl != k:
+            fully_w, live_w, riding_live_w = mesh.gather_cols(torch.stack([fully_w, live_w, riding_live_w])).unbind(0)
         fully_learned = unpack_bits(fully_w, k) & active
         has_live_learner = unpack_bits(live_w, k)
         stuck = active & ~unpack_bits(riding_live_w, k) & ~fully_learned
@@ -602,8 +648,9 @@ def step(
         # seed of a fired transition: the first live node that learned the
         # rumor (L2 on the card), for the slots of fire_s | fire_f only — the
         # JAX package's lax.cond, decided on the card with no host sync
-        slot_seed = _first_live_across(lifecycle_kernel.first_live_learner(learned2h_w, up_loc, k, want=fire_sf),
-                                       live_parts, mesh, k, hi - lo, fire_sf)
+        slot_seed = _whole_slots(mesh, _first_live_across(
+            lifecycle_kernel.first_live_learner(learned2h_w, up_loc, kl, want=fire_sf[sl]),
+            live_parts, mesh, kl, hi - lo, fire_sf[sl]))
         seed_node = _segment_max(torch.where(fire_sf, slot_seed, -1), subj, n).clamp_min(-1)
         r_deadline = state.r_deadline
 
@@ -655,7 +702,7 @@ def step(
         # learners have crashed
         freed = freed_by_evict | (active & fold_mask[subj_c]) | (active & ~has_live_learner)
         r_subject = torch.where(freed, _like(state.r_subject, -1), state.r_subject)
-        learned3_w = learned2h_w & ~pack_bool(freed)[None, :]
+        learned3_w = learned2h_w & ~pack_bool(freed)[wl][None, :]
         active = r_subject >= 0
         base_key = torch.where(base_present, _key_of(base_inc, base_status), -1)
         subj = torch.where(active, r_subject, n).to(torch.int64)
@@ -686,7 +733,7 @@ def step(
         # -- refutation candidates (memberlist.go:337-354): only (node ==
         # slot subject) pairs self-detect, so K bit gathers + one scatter
         subj_c = subj.clamp(0, n - 1)
-        own_bit = bit_column(_rows(mesh, learned3_w, subj_c, n), torch.arange(k, device=dev))
+        own_bit = _own_slot_bits(mesh, learned3_w, subj_c, n, sl)
         slot_self_detract = (
             active & own_bit & is_detraction(state.r_status) & (state.r_inc >= state.self_inc[subj_c])
         )
@@ -750,7 +797,7 @@ def step(
         # fresh slots start unlearned, then get seeded
         placed_col = torch.zeros(k, dtype=torch.bool, device=dev)
         placed_col[free_slots] = place
-        learned4_w = learned3_w & ~pack_bool(placed_col)[None, :]
+        learned4_w = learned3_w & ~pack_bool(placed_col)[wl][None, :]
 
         # seed row per placed candidate: refute → the subject itself; timer
         # transition → first live learner of the precursor.  Fresh suspect
@@ -758,22 +805,24 @@ def step(
         seed_rows = torch.where(new_status == ALIVE, cand_subj, seed_node[cand_subj].to(torch.int64))
         seed_ok = place & (new_status != SUSPECT) & (seed_rows >= 0)
         seed_rows, seed_ok = _block_rows(mesh, seed_rows, seed_ok, n)
-        learned5_w = set_bit(learned4_w, seed_rows, free_slots, seed_ok)
+        seed_slots, seed_ok = _local_slots(free_slots, seed_ok, sl, k)
+        learned5_w = set_bit(learned4_w, seed_rows, seed_slots, seed_ok)
         # suspect rumors: every declarer that targeted the subject seeds it
         subj_to_slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
         subj_to_slot[cand_subj] = torch.where(place & (new_status == SUSPECT), free_slots, -1)
         decl_slot = subj_to_slot[targets]
         decl_ok = declare & (decl_slot >= 0)
-        learned6_w = set_bit_per_row(learned5_w, decl_slot.clamp(0, k - 1)[loc], decl_ok[loc])
+        decl_cols, decl_on = _local_slots(decl_slot.clamp(0, k - 1)[loc], decl_ok[loc], sl, k)
+        learned6_w = set_bit_per_row(learned5_w, decl_cols, decl_on)
 
     with record_function("piggyback-counters"):
         # -- pcount pass B: the deferred stuck/freed/placed clears
         cleared = freed | placed_col
-        learned2h_b = unpack_bits(learned2h_w, k)
-        pcount_final = pcount_a.masked_fill(cleared[None, :] | (stuck[None, :] & learned2h_b), 0)
+        learned2h_b = unpack_bits(learned2h_w, kl)
+        pcount_final = pcount_a.masked_fill(cleared[sl][None, :] | (stuck[sl][None, :] & learned2h_b), 0)
         # the carried gate invariant ride_ok == pack(pcount < max_p): a reset
         # to zero opens the gate iff max_p > 0
-        reset_w = pack_bool(cleared)[None, :] | (pack_bool(stuck)[None, :] & learned2h_w)
+        reset_w = pack_bool(cleared)[wl][None, :] | (pack_bool(stuck)[wl][None, :] & learned2h_w)
         if maxp <= 0:
             reset_w = torch.zeros_like(reset_w)
         ride_next = mid_ride_w | reset_w
@@ -817,26 +866,27 @@ def step(
     # -- telemetry: reads of what the tick computed above, written nowhere
     # but the accumulators (the JAX package's "telemetry" scope)
     with record_function("telemetry"):
+        # under a mesh the accumulator holds this rank's rows (and words)
         if not shift_mode:
-            sent_w, resp_w = pack_bool(sent_b), pack_bool(resp_b)
+            sent_w, resp_w = pack_bool(sent_b[loc]), pack_bool(resp_b[loc])
         # per-tier suspicion flow (armed accumulators and a topology-carrying
         # plan): the tier of each accuser -> target pair, and whether the
         # plan had the target live
         declared = declared_tier = declared_up = None
         if telemetry.suspects_by_tier is not None and has_topo:
-            declared = decl_ok
-            declared_tier = tier_pair(faults, i_all, targets)
-            declared_up = up[targets]
+            declared = decl_ok[loc]
+            declared_tier = tier_pair(faults, i_all[loc], targets[loc])
+            declared_up = up[targets[loc]]
         telemetry = _tm.accumulate(
             telemetry,
             declared=declared,
             declared_tier=declared_tier,
             declared_up=declared_up,
-            delivered=delivered,
-            probing=probing,
-            peer_ok=peer_ok,
-            refute=refute,
-            placed=placed_subject,
+            delivered=delivered[loc],
+            probing=probing[loc],
+            peer_ok=peer_ok[loc],
+            refute=refute[loc],
+            placed=placed_subject[loc],
             sent_w=sent_w,
             resp_w=resp_w,
             # the gates that closed this tick: the tick-entry gate less the
@@ -846,7 +896,7 @@ def step(
             # timers count at retirement, not at firing: a fired timer that
             # could not place its successor refires every tick until it lands
             fired=slot_fired_ok | fire_t,
-            base_fired=base_fired_ok,
+            base_fired=base_fired_ok[loc],
             place=place,
             new_status=new_status,
             heal_attempt=attempt if params.heal_prob > 0 else None,
@@ -869,21 +919,24 @@ def admit(params: LifecycleParams, state: LifecycleState, idx: int) -> Lifecycle
     now = int(state.tick) + 1
     mesh = sharding_of(params)
     lo, hi = mesh.block(params.n) if mesh is not None else (0, params.n)
+    sl, _ = rumor_block(mesh, params.k)
     dev = state.learned.device
-    w0 = k0 >> 5
-    bitv = int(as_i32(torch.tensor(1 << (k0 & 31))))
-    col = (state.learned[:, w0] & ~bitv) | torch.where(
-        torch.arange(lo, hi, device=dev) == idx, bitv, 0).to(torch.int32)
-    # slot k0's counters reset to 0, so its carried ride gate opens (unless
-    # max_p = 0, where nothing ever rides)
-    if clamped_max_p(params) > 0:
-        ride_col = state.ride_ok[:, w0] | bitv
-    else:
-        ride_col = state.ride_ok[:, w0] & ~bitv
     learned, pcount, ride_ok = state.learned.clone(), state.pcount.clone(), state.ride_ok.clone()
-    learned[:, w0] = col
-    pcount[:, k0] = 0
-    ride_ok[:, w0] = ride_col
+    if sl.start <= k0 < sl.stop:  # the slot's word block writes its bits
+        kb = k0 - sl.start
+        w0 = kb >> 5
+        bitv = int(as_i32(torch.tensor(1 << (kb & 31))))
+        col = (state.learned[:, w0] & ~bitv) | torch.where(
+            torch.arange(lo, hi, device=dev) == idx, bitv, 0).to(torch.int32)
+        # slot k0's counters reset to 0, so its carried ride gate opens
+        # (unless max_p = 0, where nothing ever rides)
+        if clamped_max_p(params) > 0:
+            ride_col = state.ride_ok[:, w0] | bitv
+        else:
+            ride_col = state.ride_ok[:, w0] & ~bitv
+        learned[:, w0] = col
+        pcount[:, kb] = 0
+        ride_ok[:, w0] = ride_col
     r_subject, r_inc, r_status, r_deadline, self_inc = (
         x.clone() for x in (state.r_subject, state.r_inc, state.r_status, state.r_deadline, state.self_inc))
     r_subject[k0] = idx
@@ -1034,10 +1087,19 @@ def _walk_subject_slots(state: LifecycleState, base_key: torch.Tensor, mode: str
 
 def _mesh_of(mesh, learned_sharding=None):
     """The mesh a query spans: ``mesh``, else the hint's, when it has more
-    than one node rank; else None."""
+    than one rank; else None."""
     if mesh is None and learned_sharding is not None:
         mesh = learned_sharding.mesh
-    return mesh if mesh is not None and mesh.shape.get("node", 1) > 1 else None
+    return mesh if mesh is not None and mesh.sharded else None
+
+
+def _whole_word_rows(state: LifecycleState, mesh) -> LifecycleState:
+    """``state`` with its per-node vectors gathered whole and ``learned``
+    this rank's rows with every word (its word block gathered over the
+    rumor axis): what the slot walk reads, as the JAX package's
+    ``learned_sharding=P("node", None)`` hint lays it out."""
+    state = _whole_node_vectors(state, mesh)
+    return state._replace(learned=_whole_slots(mesh, state.learned))
 
 
 def detection_complete(
@@ -1054,9 +1116,9 @@ def detection_complete(
     Same predicate as ``(detection_fraction(...) >= 1).all()``, including
     "no live observers → not complete", in O(N·K) through the slot walk.
 
-    With a ``mesh`` of node ranks (or ``learned_sharding``'s mesh),
-    ``state`` is this rank's block and the answer is the whole state's, on
-    every rank (a collective).  ``learned_sharding`` (a
+    With a ``mesh`` (or ``learned_sharding``'s mesh), ``state`` is this
+    rank's block and the answer is the whole state's, on every rank (a
+    collective); a rank's rows are first gathered over the rumor axis.  ``learned_sharding`` (a
     ``partition.NamedSharding``) names the layout the walk reads the plane
     in, and so only the route: a spec whose axis 0 is ``"node"`` (or no
     hint) walks each rank's rows and ORs the ranks' flags; a replicated
@@ -1074,7 +1136,7 @@ def detection_complete(
             return obs.any() & ~not_detected.any()
         n = state.learned.shape[0] * mesh.size
         lo, hi = mesh.block(n)
-        state = _whole_node_vectors(state, mesh)
+        state = _whole_word_rows(state, mesh)
         base_bad = state.base_present & (state.base_status < min_status)
         obs = _observers(state, subjects, faults, n)
         if learned_sharding is not None and learned_sharding.spec[:1] != ("node",):
@@ -1094,14 +1156,15 @@ def view_checksums(state: LifecycleState, faults: DeltaFaults = DeltaFaults(), m
     key, tombstones excluded (``memberlist.go:106-128``).  Subjects with a
     slot go through the slot walk (L1 on the card); the rest are the same
     in every view: one shared term.  ``faults`` is accepted for symmetry
-    with the other queries and not read.  With a ``mesh`` of node ranks,
-    ``state`` is this rank's block and so is the result (its observers'
-    checksums: ``partition.host_gather`` assembles them)."""
+    with the other queries and not read.  With a ``mesh``, ``state`` is
+    this rank's block and the result its rows' (its observers' checksums:
+    ``partition.host_gather`` assembles them, and every rumor rank of a row
+    block holds the same)."""
     del faults
     mesh = _mesh_of(mesh)
     with record_function("view-checksum"):
         if mesh is not None:
-            state = _whole_node_vectors(state, mesh)
+            state = _whole_word_rows(state, mesh)
         base_key = _base_key(state)
         n = base_key.shape[0]
         acc = _walk_subject_slots(state, base_key, "checksum")
@@ -1113,8 +1176,8 @@ def view_checksums(state: LifecycleState, faults: DeltaFaults = DeltaFaults(), m
 def checksums_converged(state: LifecycleState, faults: DeltaFaults = DeltaFaults(), mesh=None) -> torch.Tensor:
     """bool 0-d tensor: do all live nodes' view checksums agree (and is any
     node live)?  The reference's convergence criterion for protocol tests
-    (``swim/test_utils.go:164-199``).  With a ``mesh`` of node ranks the
-    checksums are gathered whole (a collective)."""
+    (``swim/test_utils.go:164-199``).  With a ``mesh`` the checksums are
+    gathered whole over the node axis (a collective)."""
     faults = resolve_faults(faults, state.tick)
     mesh = _mesh_of(mesh)
     cs = view_checksums(state, faults, mesh)
@@ -1197,9 +1260,10 @@ class LifecycleSim:
     with ``journal_views`` also the wrapped sum of the view checksums
     (``views_sum``) and their live agreement (``views_agree``).
     ``telemetry_tiers`` arms the per-tier suspicion counters.  ``aot`` is
-    refused (ROADMAP A15).  With ``exchange_mesh`` (a mesh of node ranks)
-    the state is this rank's block, every rank calls each method in step
-    with the others, and telemetry is refused (ROADMAP A12b)."""
+    refused (ROADMAP A15).  With ``exchange_mesh`` (a (P, R) mesh) the
+    state and the accumulators are this rank's block, every rank calls each
+    method in step with the others, and every rank's records are the whole
+    state's."""
 
     def __init__(self, n: int, seed: int = 0, telemetry=None, journal_views: bool = False,
                  aot: Optional[str] = None, telemetry_tiers: bool = False, device: DeviceLike = None, **kw):
@@ -1207,8 +1271,6 @@ class LifecycleSim:
             raise NotImplementedError("the AOT warm start (util/aot) is not ported yet (ROADMAP Queue A15)")
         self.params = LifecycleParams(n=n, **kw)
         _check_supported(self.params)
-        if telemetry and sharding_of(self.params) is not None:
-            raise NotImplementedError(f"telemetry accumulation under a mesh is not ported yet ({_A12B})")
         self.state = init_state(self.params, seed=seed, device=device)
         self.telemetry = None
         self.telemetry_sink = None
@@ -1239,7 +1301,7 @@ class LifecycleSim:
         (one copy); None when telemetry is off."""
         if self.telemetry is None:
             return None
-        record, self.telemetry = _tm.fetch(self.telemetry, self.state, faults)
+        record, self.telemetry = _tm.fetch(self.telemetry, self.state, faults, sharding_of(self.params))
         return {k: (v.item() if isinstance(v, torch.Tensor) else v) for k, v in record.items()}
 
     def _flush(self, faults: DeltaFaults) -> None:
@@ -1248,11 +1310,13 @@ class LifecycleSim:
         checksums' wrapped sum and live agreement (L1's checksum mode)."""
         if self.telemetry_sink is None:
             return
-        record, self.telemetry = _tm.fetch(self.telemetry, self.state, faults)
-        extra = {"state_digest": _tm.tree_digest(self.state)}
+        mesh = sharding_of(self.params)
+        record, self.telemetry = _tm.fetch(self.telemetry, self.state, faults, mesh)
+        extra = {"state_digest": _tm.tree_digest(self.state, mesh)}
         if self.journal_views:
-            extra["views_sum"] = view_checksums(self.state, faults).sum() & 0xFFFF_FFFF
-            extra["views_agree"] = checksums_converged(self.state, faults)
+            views = view_checksums(self.state, faults, mesh)
+            extra["views_sum"] = (views if mesh is None else mesh.gather_rows(views)).sum() & 0xFFFF_FFFF
+            extra["views_agree"] = checksums_converged(self.state, faults, mesh)
         self.telemetry_sink(record, **extra)
 
     def _run_until(self, dispatch, max_ticks: int, check_every: int, blocks_per_dispatch: int,
@@ -1345,13 +1409,14 @@ def state_shardings(mesh, k: Optional[int] = None) -> LifecycleState:
     """A ``LifecycleState`` of ``partition.NamedSharding`` over ``mesh``,
     one a leaf, from the canonical rule table
     (``partition.PARTITION_RULES``): per-node vectors and the big planes on
-    the node axis, the rumor table on the rumor axis, the rest replicated.
-    ``k`` is validated against the mesh's rumor axis
+    the node axis, the planes' words (slots) and the rumor table on the
+    rumor axis, the rest replicated (the port holds the rumor table whole:
+    ``partition``).  ``k`` is validated against the mesh's rumor axis
     (``packbits.check_rumor_shardable``)."""
     from ringpop_tpu_torch.parallel.partition import named_shardings
 
     if k is not None:
-        check_rumor_shardable(k, mesh.shape.get("rumor", 1))
+        check_rumor_shardable(k, mesh.shape["rumor"])
     return named_shardings(LifecycleState(**{f: 0 for f in LifecycleState._fields}), mesh)
 
 

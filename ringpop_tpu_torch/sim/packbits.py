@@ -270,13 +270,20 @@ def check_rumor_shardable(k: int, rumor_shards: int) -> None:
 
 
 # -- cross-rank forms: each node rank reduces its own rows, the ranks combine --
+#
+# On a (P, R) mesh a rank's block is [rows, W/R] words: the row reduces
+# combine over the node axis only (each word block is reduced by its own
+# column of ranks), so their words are this rank's word block; a caller
+# that needs the whole [W] row gathers it over the rumor axis
+# (``Mesh.gather_cols``).  The popcounts sum over both axes.
 
 
 def or_reduce_rows_across(p: torch.Tensor, rows: Optional[torch.Tensor], mesh, partials: bool = False):
     """:func:`or_reduce_rows` of a node-sharded plane, ``p`` and ``rows``
-    being this rank's block: S1 over the block, then the ranks' words ORed
-    (``Mesh.or_words``); with ``mesh`` None, the plane is whole and S1
-    alone answers.  With ``partials``, also every rank's own words [P, W]."""
+    being this rank's block: S1 over the block, then the node axis' words
+    ORed (``Mesh.or_words``); with ``mesh`` None, the plane is whole and S1
+    alone answers.  With ``partials``, also every node rank's own words
+    [P, W]."""
     words = or_reduce_rows(p, rows)
     if mesh is None:
         return (words, words[None]) if partials else words
@@ -285,15 +292,20 @@ def or_reduce_rows_across(p: torch.Tensor, rows: Optional[torch.Tensor], mesh, p
 
 def and_reduce_rows_across(p: torch.Tensor, rows: Optional[torch.Tensor], mesh) -> torch.Tensor:
     """:func:`and_reduce_rows` of a node-sharded plane (this rank's block):
-    S1 over the block, then the ranks' words ANDed; S1 alone with ``mesh``
-    None."""
+    S1 over the block, then the node axis' words ANDed; S1 alone with
+    ``mesh`` None."""
     words = and_reduce_rows(p, rows)
     return words if mesh is None else mesh.and_words(words)
 
 
 def popcount_rows_across(p: torch.Tensor, mesh) -> torch.Tensor:
     """:func:`popcount_rows` of a node-sharded plane, gathered: int32[N],
-    S2 over this rank's block, then every rank's counts in rank order; S2
-    alone with ``mesh`` None."""
+    S2 over this rank's block, the rumor axis' counts of each row added
+    (exact integers), then every node rank's rows in order; S2 alone with
+    ``mesh`` None."""
     counts = popcount_rows(p)
-    return counts if mesh is None else mesh.gather_rows(counts)
+    if mesh is None:
+        return counts
+    if mesh.shape.get("rumor", 1) > 1:
+        counts = mesh.all_gather(counts, "rumor").sum(dim=0, dtype=torch.int32)
+    return mesh.gather_rows(counts)

@@ -27,6 +27,15 @@ overflow: int32 accumulators hold per-tick increments of at most N (or 32
 per packed word); a fetch resets them.  :func:`fetch` reports the N·T-scaling
 sums in float32, as the JAX package does, added in the order XLA:CPU adds
 them (:func:`f32_sum_plain`), so the two agree bit for bit at every size.
+
+Under a (P, R) mesh (``lifecycle.LifecycleSim(telemetry=..., exchange_mesh=
+...)``) the accumulators are shaped like the rank's block: the per-node
+counters its rows, the packed planes its rows of its word block, the [K],
+[M] and scalar legs whole; :func:`accumulate` is elementwise, so it runs on
+the block as it is.  :func:`fetch` gathers the accumulators and the census
+vectors whole over both axes and reduces them in the JAX package's order
+on every rank, and :func:`tree_digest` gathers a plane's row block over
+the rumor axis and combines the node ranks' partial sums.
 """
 
 from __future__ import annotations
@@ -42,8 +51,16 @@ import torch
 
 from ringpop_tpu_torch.device import DeviceLike, resolve_device
 from ringpop_tpu_torch.ops import telemetry_kernel
-from ringpop_tpu_torch.sim.delta import N_TIERS, TIER_NAMES, DeltaFaults, converged_fraction, resolve_faults
-from ringpop_tpu_torch.sim.packbits import _POPCOUNT8, M32, mix32, n_words
+from ringpop_tpu_torch.sim.delta import (
+    N_TIERS,
+    TIER_NAMES,
+    DeltaFaults,
+    converged_fraction,
+    resolve_faults,
+    rumor_block,
+    sharding_of,
+)
+from ringpop_tpu_torch.sim.packbits import _POPCOUNT8, M32, mix32
 from ringpop_tpu_torch.swim.member import ALIVE, FAULTY, SUSPECT, TOMBSTONE
 
 # record-key suffixes for the per-tier counters ("same_rack", ...)
@@ -95,10 +112,16 @@ def placement_budget(params) -> int:
 def zeros(params, tiers: bool = False, device: DeviceLike = None) -> TelemetryState:
     """A zeroed accumulator for a ``LifecycleParams`` config on ``device``
     (the card unless the caller asks for the CPU).  ``tiers`` arms the
-    per-tier suspicion counters (topology runs)."""
+    per-tier suspicion counters (topology runs).  Under the params' mesh
+    (``delta.sharding_of``), this rank's block: its rows of the per-node
+    counters and its rows and words of the planes."""
     dev = resolve_device(device)
+    mesh = sharding_of(params)
     n, k = params.n, params.k
     m = placement_budget(params)
+    _, words = rumor_block(mesh, k)
+    if mesh is not None:
+        n = n // mesh.shape["node"]
     i32 = dict(dtype=torch.int32, device=dev)
     tier_kw = (
         {"suspects_by_tier": torch.zeros((n, N_TIERS), **i32),
@@ -111,8 +134,8 @@ def zeros(params, tiers: bool = False, device: DeviceLike = None) -> TelemetrySt
         ping_reqs=torch.zeros((n,), **i32),
         probes_failed=torch.zeros((n,), **i32),
         incarnation_bumps=torch.zeros((n,), **i32),
-        piggybacked=torch.zeros((n, n_words(k)), **i32),
-        expired=torch.zeros((n, n_words(k)), **i32),
+        piggybacked=torch.zeros((n, words.stop - words.start), **i32),
+        expired=torch.zeros((n, words.stop - words.start), **i32),
         timer_fires=torch.zeros((k,), **i32),
         base_timer_fires=torch.zeros((n,), **i32),
         decl_alive=torch.zeros((m,), **i32),
@@ -378,17 +401,46 @@ def _census(state, faults: DeltaFaults) -> tuple[dict, list]:
     return out, [(down, False, False), (down & (~present | (status >= FAULTY)), False, False)]
 
 
-def fetch(tel: TelemetryState, state, faults: DeltaFaults = DeltaFaults()) -> tuple[dict, TelemetryState]:
+# the accumulators that are whole on every rank under a mesh
+_WHOLE_LEGS = ("timer_fires", "decl_alive", "decl_suspect", "decl_faulty", "decl_tombstone", "heal_attempts",
+               "ticks")
+
+
+def _whole(tel: TelemetryState, state, mesh):
+    """The accumulators and the census' per-node vectors (``base_present``,
+    ``base_status``) gathered whole from every rank's block, on the
+    device: the planes over both axes, the per-node counters over the node
+    axis (``partition.host_gather``); the other leaves as they are."""
+    from ringpop_tpu_torch.parallel.partition import host_gather
+
+    dev = tel.pings.device
+    blocks = tel._replace(**{name: None for name in _WHOLE_LEGS})
+    gathered = host_gather(blocks, mesh)
+    whole = {name: None if x is None else torch.as_tensor(x, device=dev)
+             for name, x in zip(TelemetryState._fields, gathered)}
+    whole.update({name: getattr(tel, name) for name in _WHOLE_LEGS})
+    census = host_gather({"base_present": state.base_present, "base_status": state.base_status}, mesh)
+    state = state._replace(**{name: torch.as_tensor(x, device=dev) for name, x in census.items()})
+    return TelemetryState(**whole), state
+
+
+def fetch(tel: TelemetryState, state, faults: DeltaFaults = DeltaFaults(), mesh=None) -> tuple[dict, TelemetryState]:
     """Reduce the block's accumulators to a scalar record and reset them.
     Returns ``(record, zeroed_tel)``: a flat dict of 0-d tensors on the
     device (``_to_host`` brings them over in one copy).  The float32 sums
     are the JAX package's, bit for bit (:func:`f32_sums`: one R1 call for
     the record on the card).  A time-varying plan is resolved at the
     state's tick; the directed-partition attribution reads the unresolved
-    plan's group/reach, which are time-invariant."""
+    plan's group/reach, which are time-invariant.  With a ``mesh`` (``tel``
+    and ``state`` this rank's blocks; a collective) the inputs are gathered
+    whole first (:func:`_whole`), so every rank's record is the unsharded
+    one."""
     raw_group = getattr(faults, "group", None)
     raw_reach = getattr(faults, "reach", None)
     faults = resolve_faults(faults, state.tick)
+    local = tel
+    if mesh is not None and mesh.sharded:
+        tel, state = _whole(tel, state, mesh)
     sums = [(tel.pings, False, False), (tel.ping_reqs, False, False), (tel.probes_failed, False, False),
             (tel.incarnation_bumps, False, False), (tel.piggybacked, True, False), (tel.expired, True, False),
             (tel.timer_fires, False, False), (tel.base_timer_fires, False, False)]
@@ -444,7 +496,7 @@ def fetch(tel: TelemetryState, state, faults: DeltaFaults = DeltaFaults()) -> tu
         record["detect_frac"] = torch.where(down_total > 0, detected / down_total.clamp_min(1.0), one)
     else:
         record["detect_frac"] = one
-    fresh = TelemetryState(*(None if x is None else torch.zeros_like(x) for x in tel))
+    fresh = TelemetryState(*(None if x is None else torch.zeros_like(x) for x in local))
     return record, fresh
 
 
@@ -523,11 +575,13 @@ def tree_digest(tree, mesh=None) -> torch.Tensor:
     0x9E3779B9)``.  Two states digest equal iff every leaf is bit-equal (up
     to hash collision).  One launch of D1 (after a zero fill) on the card.
 
-    With a ``mesh`` of node ranks, ``tree`` is this rank's block (a
-    collective): each rank's partial sums over its rows at their global
-    flat indices (``partition.leaf_partial_sums``, one D1 launch a leaf on
-    the card), gathered and combined — the whole state's digest."""
-    if mesh is not None and mesh.shape.get("node", 1) > 1:
+    With a ``mesh``, ``tree`` is this rank's block (a collective): each
+    plane's row block gathered over the rumor axis, then each node rank's
+    partial sums over its rows at their global flat indices
+    (``partition.leaf_partial_sums``, one D1 launch a leaf on the card),
+    gathered over the node axis and combined — the whole state's digest,
+    on every rank."""
+    if mesh is not None and mesh.sharded:
         return _sharded_tree_digest(tree, mesh)
     leaves = _leaf_list(tree)
     if not leaves or leaves[0].device.type == "cpu":
@@ -537,14 +591,21 @@ def tree_digest(tree, mesh=None) -> torch.Tensor:
 
 def _sharded_tree_digest(tree, mesh) -> torch.Tensor:
     """:func:`tree_digest` of a tree whose node-sharded leaves are this
-    rank's rows: partial sums gathered from every rank and combined."""
+    rank's rows (and its word block of the planes): partial sums of whole
+    rows gathered from the node axis and combined."""
     from ringpop_tpu_torch.parallel.partition import (
+        _plane_rumor_axis,
+        _tree_map_named,
         combine_leaf_partials,
         leaf_partial_sums,
         named_leaves,
         spec_for,
     )
 
+    if mesh.shape["rumor"] > 1:
+        tree = _tree_map_named(
+            lambda name, leaf: mesh.gather_cols(leaf) if _plane_rumor_axis(spec_for(name)) is not None else leaf,
+            tree)
     block = next(leaf.shape[0] for name, leaf in named_leaves(tree) if spec_for(name)[:1] == ("node",))
     partial = leaf_partial_sums(tree, lo=mesh.rank * block, include_replicated=mesh.rank == 0)
     total = combine_leaf_partials(list(mesh.all_gather(partial)))
@@ -554,8 +615,8 @@ def _sharded_tree_digest(tree, mesh) -> torch.Tensor:
 def delta_record(state, faults: DeltaFaults = DeltaFaults(), mesh=None) -> dict:
     """The delta engine's per-block journal record (0-d tensors): coverage
     fraction and the state digest, its convergence series.  With a
-    ``mesh`` of node ranks, ``state`` is this rank's block and both values
-    are the whole state's (a collective)."""
+    ``mesh``, ``state`` is this rank's block and both values are the whole
+    state's (a collective)."""
     return {
         "tick": state.tick,
         "coverage": converged_fraction(state, faults, mesh),

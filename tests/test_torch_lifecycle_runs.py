@@ -139,10 +139,11 @@ def test_run_until_tick_counts_and_budgets():
     assert_same_state(jsim.state, tsim.state, "run + tick")
 
 
-def _cpu_mesh(size):
-    """A mesh object of ``size`` node ranks, this process rank 0: enough for
-    the checks that refuse before any collective."""
-    return Mesh(size=size, rank=0, device=torch.device("cpu"), transport="gloo")
+def _cpu_mesh(size, rumor=1):
+    """A mesh object of ``size`` node ranks by ``rumor`` rumor ranks, this
+    process at (0, 0): enough for the checks that refuse before any
+    collective."""
+    return Mesh(size=size, rank=0, device=torch.device("cpu"), transport="gloo", rumor_size=rumor)
 
 
 def test_refusals_name_their_roadmap_item():
@@ -163,14 +164,20 @@ def test_refusals_name_their_roadmap_item():
         tl.LifecycleSim(64, k=32, rng="philox", device="cpu")
     counter = tl.LifecycleParams(n=64, k=32, rng="counter")
     state = tl.init_state(counter, device="cpu")
-    # the sharded exchange (A12) is ported: ranks that do not divide n are
-    # refused, and telemetry under a mesh is A12b
-    # (tests/test_torch_sharded.py runs 2 and 4 ranks)
+    # the sharded exchange (A12) and the rumor axis with telemetry under a
+    # mesh (A12b) are ported: ranks that do not divide n are refused, and so
+    # is a k that does not shard over the rumor axis (the JAX package's
+    # ValueError); a mesh's accumulator is the rank's block
+    # (tests/test_torch_sharded.py and tests/test_torch_rumor_axis*.py run
+    # the ranks)
     with pytest.raises(ValueError, match="must divide"):
         tl.step(tl.LifecycleParams(n=64, k=32, rng="counter", exchange_mesh=_cpu_mesh(3)), state)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        tl.step(tl.LifecycleParams(n=64, k=32, rng="counter", exchange_mesh=_cpu_mesh(2)), state,
+    with pytest.raises(ValueError, match="cannot shard over a 2-way rumor axis"):
+        tl.step(tl.LifecycleParams(n=64, k=32, rng="counter", exchange_mesh=_cpu_mesh(1, rumor=2)), state,
                 telemetry=tt.zeros(counter, device="cpu"))
+    block = tt.zeros(tl.LifecycleParams(n=64, k=64, rng="counter", exchange_mesh=_cpu_mesh(2, rumor=2)),
+                     device="cpu")
+    assert block.pings.shape == (32,) and block.piggybacked.shape == (32, 1) and block.timer_fires.shape == (64,)
     # telemetry (A7) is ported: a step with an accumulator returns the pair
     out, tel = tl.step(counter, state, telemetry=tt.zeros(counter, device="cpu"))
     assert int(tel.ticks) == 1 and torch.equal(out.learned, tl.step(counter, state).learned)

@@ -18,7 +18,6 @@ unsharded one.  The lifecycle engine's runs are in
 ``tests/test_torch_sharded_lifecycle.py``; the helpers here serve both.
 """
 
-import dataclasses
 import functools
 
 import jax
@@ -240,17 +239,19 @@ def test_partition_tables_and_shardings():
 
 
 def test_a12b_refusals_and_divisibility():
-    """Each item left for A12b refuses with a NotImplementedError naming it;
-    ranks that do not divide n raise ValueError as ``process_block`` does."""
+    """Each item still left for A12b (the fleet's meshes, the orbax
+    checkpoints, the process-sliced sweep) refuses with a
+    NotImplementedError naming it; its first half is ported: telemetry
+    under a mesh builds the rank's block of accumulators, and a rumor axis
+    places word blocks.  Ranks that do not divide n raise ValueError as
+    ``process_block`` does, and so does a ``rumor_shards`` that does not
+    divide the job."""
     mesh = Mesh(size=2, rank=0, device=torch.device("cpu"), transport="gloo")
     life = tl.LifecycleParams(n=64, k=32, rng="counter", exchange_mesh=mesh)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        tl.LifecycleSim(64, k=32, rng="counter", telemetry=True, exchange_mesh=mesh)
+    sim = tl.LifecycleSim(64, k=32, rng="counter", telemetry=True, exchange_mesh=mesh)
+    assert sim.telemetry.pings.shape == (32,) and sim.telemetry.piggybacked.shape == (32, 1)
     block = tl.init_state(life, device="cpu")
-    from ringpop_tpu_torch.sim import telemetry as tt
-
-    with pytest.raises(NotImplementedError, match="A12b"):
-        tl.step(life, block, telemetry=tt.zeros(dataclasses.replace(life, exchange_mesh=None), device="cpu"))
+    assert block.learned.shape == (32, 1) and block.r_subject.shape == (32,)
     with pytest.raises(NotImplementedError, match="A12b"):
         montecarlo.make_fleet_mesh()
     with pytest.raises(NotImplementedError, match="A12b"):
@@ -259,10 +260,12 @@ def test_a12b_refusals_and_divisibility():
         partition.fleet_host_gather({})
     with pytest.raises(NotImplementedError, match="A12b"):
         snapshot.save_state_orbax("/nonexistent", block)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        multihost.make_multihost_mesh(rumor_shards=2)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        partition.shard_put(block, _RumorMesh(), 64)
+    with pytest.raises(ValueError, match="must divide"):
+        multihost.make_multihost_mesh(rumor_shards=3)
+    whole = tl.init_state(tl.LifecycleParams(n=64, k=64, rng="counter"), seed=2, device="cpu")
+    placed = partition.shard_put(whole, _RumorMesh(), 64)
+    assert torch.equal(placed.learned, whole.learned[:32, 1:]) and torch.equal(placed.pcount, whole.pcount[:32, 32:])
+    assert torch.equal(placed.r_subject, whole.r_subject) and torch.equal(placed.base_inc, whole.base_inc[:32])
     assert "A12b" in scenarios._SLICE_REFUSAL
     for bad in (td.DeltaParams(n=63, k=32, exchange_mesh=mesh), tl.LifecycleParams(n=63, k=32, exchange_mesh=mesh)):
         engine = td if isinstance(bad, td.DeltaParams) else tl
@@ -273,18 +276,19 @@ def test_a12b_refusals_and_divisibility():
 
 
 class _RumorMesh(Mesh):
-    """A mesh object claiming a rumor axis of 2 (``make_mesh`` refuses to
-    build one; this stands in for it)."""
+    """The (2, 2) mesh's rank at (0, 1), without a process group: enough
+    for placement, which needs no collective."""
 
     def __init__(self):
-        super().__init__(size=2, rank=0, device=torch.device("cpu"), transport="gloo")
-
-    @property
-    def shape(self):
-        return {"node": 2, "rumor": 2}
+        super().__init__(size=2, rank=0, device=torch.device("cpu"), transport="gloo", rumor_size=2, rumor_rank=1)
 
 
 @pytest.mark.parametrize("p", [2, 4])
 def test_rumor_axis_refused_in_a_live_group(p):
+    """A rumor axis of 2 in a live group of p ranks, refused before the
+    rumor axis was ported, now builds: ``make_mesh(shape=(p/2, 2))`` and
+    ``make_multihost_mesh(rumor_shards=2)`` give rank 0 at (0, 0) of a
+    (p/2, 2) mesh."""
     got = group(p)["refusals"]
-    assert "A12b" in got["make_mesh"] and "A12b" in got["make_multihost_mesh"], got
+    want = ({"node": p // 2, "rumor": 2}, {"node": 0, "rumor": 0})
+    assert got["make_mesh"] == want and got["make_multihost_mesh"] == want, got

@@ -1,6 +1,6 @@
-"""Spawned rank groups for the port's sharding tests: P processes on the
-CPU, joined by ``torch.distributed`` over gloo, each holding one node rank
-of a ``parallel.mesh.Mesh``.
+"""Spawned rank groups for the port's sharding tests: P·R processes on the
+CPU, joined by ``torch.distributed`` over gloo, each holding one rank of a
+(P, R) ``parallel.mesh.Mesh`` (R = 1 unless a group names its shape).
 
 ``multiprocessing``'s spawn re-imports the module that holds a worker's
 function, so this module imports neither ``jax`` nor the JAX package: the
@@ -13,6 +13,7 @@ out after 60 s).
 
 from __future__ import annotations
 
+import hashlib
 import queue
 import socket
 import traceback
@@ -30,15 +31,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_group(size: int, jobs: list, deadline_s: float = GROUP_DEADLINE_S) -> dict:
+def run_group(size: int, jobs: list, deadline_s: float = GROUP_DEADLINE_S, shape=None) -> dict:
     """Run ``jobs`` (a list of (name, job function name, payload)) in one
-    group of ``size`` spawned ranks; returns {name: rank 0's result}.
-    Raises RuntimeError with a rank's traceback when any job fails, and
-    when the group misses its deadline."""
+    group of ``size`` spawned ranks on a mesh of ``shape`` (P, R) (default
+    (size, 1)); returns {name: rank 0's result}.  Raises RuntimeError with
+    a rank's traceback when any job fails, and when the group misses its
+    deadline."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_rank_main, args=(rank, size, port, jobs, results), daemon=True)
+    procs = [ctx.Process(target=_rank_main, args=(rank, size, port, jobs, results, shape), daemon=True)
              for rank in range(size)]
     for proc in procs:
         proc.start()
@@ -59,13 +61,13 @@ def run_group(size: int, jobs: list, deadline_s: float = GROUP_DEADLINE_S) -> di
     return got[0]
 
 
-def _rank_main(rank: int, size: int, port: int, jobs: list, results) -> None:
+def _rank_main(rank: int, size: int, port: int, jobs: list, results, shape=None) -> None:
     torch.set_num_threads(1)
     try:
         from ringpop_tpu_torch.parallel import mesh as pmesh, multihost
 
         multihost.init_distributed(f"127.0.0.1:{port}", size, rank, transport="gloo", timeout_s=60)
-        mesh = pmesh.make_mesh(device="cpu")
+        mesh = pmesh.make_mesh(shape=shape, device="cpu")
         out = {name: JOBS[job](mesh, payload) for name, job, payload in jobs}
         results.put((rank, True, out))
     except BaseException:  # noqa: BLE001 - the parent re-raises it
@@ -108,11 +110,13 @@ def rolls(mesh, payload: dict) -> dict:
 
 
 def _faults(spec: dict, device):
-    from ringpop_tpu_torch.sim import chaos
+    from ringpop_tpu_torch.sim import chaos, topology
     from ringpop_tpu_torch.sim.delta import DeltaFaults
 
     if spec.get("plan"):
-        return chaos.scenario_plan(spec["plan"], spec["n"], seed=spec["seed"], horizon=spec["ticks"], device=device)
+        horizon = spec.get("horizon", spec["ticks"])
+        build = topology.topo_scenario_plan if spec.get("builder") == "topo" else chaos.scenario_plan
+        return build(spec["plan"], spec["n"], seed=spec["seed"], horizon=horizon, device=device)
     up = np.ones(spec["n"], bool)
     up[spec["down"]] = False
     return DeltaFaults(up=torch.as_tensor(up), drop_rate=torch.tensor(spec["drop"], dtype=torch.float32))
@@ -137,9 +141,13 @@ def engine_run(mesh, spec: dict) -> dict:
                                            suspect_ticks=spec["suspect_ticks"], heal_prob=spec["heal_prob"])
     params = with_exchange_mesh(params, mesh, h=spec.get("h"), pipelined=spec.get("pipelined"))
     state = engine.init_state(params, seed=spec["seed"], device=mesh.device)
+    hashes = [leaf_hashes(state, mesh, engine)] if spec.get("every_tick") else None
     for _ in range(spec["ticks"]):
         state = engine.step(params, state, faults)
-    out = {"leaves": partition.host_gather(state, mesh), "digest": int(telemetry.tree_digest(state, mesh))}
+        if hashes is not None:
+            hashes.append(leaf_hashes(state, mesh, engine))
+    out = {"leaves": partition.host_gather(state, mesh), "digest": int(telemetry.tree_digest(state, mesh)),
+           "tick_hashes": hashes}
     if spec["engine"] == "delta":
         out["converged"] = bool(delta.converged(state, faults, mesh))
         out["fraction"] = float(delta.converged_fraction(state, faults, mesh))
@@ -165,16 +173,97 @@ def engine_run(mesh, spec: dict) -> dict:
     return out
 
 
+def leaf_hashes(state, mesh, engine) -> list:
+    """sha256 of every leaf of ``state`` (this rank's block) gathered
+    whole, in the JAX package's dtypes (``engine.state_to_numpy``)."""
+    from ringpop_tpu_torch.parallel import partition
+
+    whole = type(state)(*(torch.from_numpy(np.ascontiguousarray(x)) for x in partition.host_gather(state, mesh)))
+    return [hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest() for x in engine.state_to_numpy(whole)]
+
+
+def telemetry_run(mesh, spec: dict) -> dict:
+    """``LifecycleSim`` with a ``TelemetrySink`` (and ``journal_views``)
+    bound to the mesh: ``spec["blocks"]`` runs of ``spec["block"]`` ticks,
+    then ``run_until_detected`` over the down nodes when the spec has no
+    plan; the sink's records and the final leaves."""
+    from ringpop_tpu_torch.parallel import partition
+    from ringpop_tpu_torch.sim import lifecycle, telemetry
+
+    faults = _faults(spec, mesh.device)
+    sink = telemetry.TelemetrySink()
+    sim = lifecycle.LifecycleSim(spec["n"], k=spec["k"], seed=spec["seed"], rng=spec["rng"],
+                                 suspect_ticks=spec["suspect_ticks"], exchange=spec["exchange"],
+                                 heal_prob=spec["heal_prob"], telemetry=sink, telemetry_tiers=spec.get("tiers", False), journal_views=True,
+                                 exchange_mesh=mesh)
+    for _ in range(spec["blocks"]):
+        sim.run(spec["block"], faults)
+    detect = None if spec["plan"] else sim.run_until_detected(spec["down"], faults, check_every=8)
+    return {"records": sink.records, "detect": detect, "fetched": sim.fetch_telemetry(faults),
+            "leaves": partition.host_gather(sim.state, mesh)}
+
+
+def tel_chaos(mesh, spec: dict) -> dict:
+    """``chip_smoke.tel_chaos_run`` (simbench's chaos recipe with a
+    ``TelemetrySink``) on the mesh: its records and verdict, and the final
+    leaves gathered."""
+    import chip_smoke
+    from ringpop_tpu_torch.parallel import partition
+
+    got, sim = chip_smoke.tel_chaos_run(mesh.device, _faults(spec, mesh.device), spec["n"], spec["k"],
+                                        spec["scenario"], tiers=spec.get("tiers", False), mesh=mesh)
+    return {**got, "leaves": partition.host_gather(sim.state, mesh)}
+
+
+def axis_checks(mesh, payload: dict) -> dict:
+    """The mesh's own shape and coordinates, ``make_multihost_mesh``'s,
+    ``shard_put`` of a whole state against the engine's own block, and
+    the ValueError an engine raises for a k that does not shard over the
+    rumor axis."""
+    from ringpop_tpu_torch.parallel import multihost, partition
+    from ringpop_tpu_torch.parallel.mesh import with_exchange_mesh
+    from ringpop_tpu_torch.sim import delta, lifecycle
+
+    out = {"shape": mesh.shape, "coords": mesh.coords}
+    multi = multihost.make_multihost_mesh(rumor_shards=mesh.shape["rumor"], device="cpu")
+    out["multihost"] = (multi.shape, multi.coords)
+    n, k = payload["n"], payload["k"]
+    for engine, params in ((delta, delta.DeltaParams(n=n, k=k, rng="counter")),
+                           (lifecycle, lifecycle.LifecycleParams(n=n, k=k, rng="counter"))):
+        whole = engine.init_state(params, seed=3, device="cpu")
+        own = engine.init_state(with_exchange_mesh(params, mesh), seed=3)
+        placed = partition.shard_put(whole, mesh, n)
+        out[engine.__name__] = all(torch.equal(a, b) for a, b in zip(placed, own))
+        back = partition.host_gather(placed, mesh)
+        out[engine.__name__ + "_gather"] = all(np.array_equal(a, b.numpy()) for a, b in zip(back, whole))
+    errors = {}
+    for name, call in (("delta", lambda: delta.init_state(
+                            with_exchange_mesh(delta.DeltaParams(n=n, k=payload["bad_k"]), mesh), device="cpu")),
+                       ("lifecycle", lambda: lifecycle.step(
+                            with_exchange_mesh(lifecycle.LifecycleParams(n=n, k=payload["bad_k"]), mesh),
+                            lifecycle.init_state(lifecycle.LifecycleParams(n=n, k=payload["bad_k"]), device="cpu")))):
+        try:
+            call()
+            errors[name] = "no error"
+        except ValueError as e:
+            errors[name] = str(e)
+    out["errors"] = errors
+    return out
+
+
 def refusals(mesh, payload: dict) -> dict:
-    """The refusals that need a live group: a rumor axis above 1 (A12b)."""
+    """A rumor axis above 1 in a live group, refused before ROADMAP A12b's
+    first half: ``make_mesh`` and ``make_multihost_mesh`` now build the
+    mesh (shape and coordinates); what still raises (NotImplementedError)
+    is reported by its message."""
     from ringpop_tpu_torch.parallel import mesh as pmesh, multihost
 
     out = {}
     for name, call in (("make_mesh", lambda: pmesh.make_mesh(shape=(mesh.size // 2, 2), device="cpu")),
                        ("make_multihost_mesh", lambda: multihost.make_multihost_mesh(rumor_shards=2, device="cpu"))):
         try:
-            call()
-            out[name] = "no error"
+            got = call()
+            out[name] = (got.shape, got.coords)
         except NotImplementedError as e:
             out[name] = str(e)
     return out
@@ -203,6 +292,7 @@ def sim_run(mesh, spec: dict) -> dict:
     return {"result": got, "converge": conv, "leaves": partition.host_gather(state, mesh)}
 
 
-JOBS = {"rolls": rolls, "engine_run": engine_run, "refusals": refusals, "sim_run": sim_run}
+JOBS = {"rolls": rolls, "engine_run": engine_run, "refusals": refusals, "sim_run": sim_run,
+        "telemetry_run": telemetry_run, "tel_chaos": tel_chaos, "axis_checks": axis_checks}
 
 __all__ = ["run_group", "free_port"]
