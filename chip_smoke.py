@@ -4,8 +4,8 @@ the SWIM dissemination engine, the SWIM failure-detection engine, the
 threefry stream, the headline benchmark record, the exact full-view
 engine with its lockstep conformance gate, the telemetry plane with the
 chaos and topology fault plans, the scenario fleet, the serve tier's
-collector with its transports, and the SWIM engines sharded over node
-ranks.
+collector with its transports, the SWIM engines sharded over node and
+rumor ranks, and the fleet's meshes with its multi-process checkpoints.
 
     python3 chip_smoke.py
 
@@ -244,6 +244,25 @@ scale on bench.py's own stream, threefry:
    128 to ``PIN_SHIFT``.  Each rank prints its ms a tick sharded against
    unsharded, the collectives, bytes sent and bytes staged a tick on each
    axis, and its launches; every cell's kernels launched on every rank.
+19. the fleet's meshes, the process-sliced sweep and its checkpoints
+   (``sim/montecarlo`` on a ``("batch", "node", "rumor")`` fleet mesh,
+   ``FleetSweep(global_b=)``, the multi-process store of ``sim/snapshot``),
+   at the counter stream.  a) simbench's fleet twin (4096 x 64, B = 6, 24
+   ticks with telemetry, then 16 ticks of ``run_until_detected``)
+   unsharded on this card (== ``PIN_FLEET_TWIN``), then over a (2, 2, 2)
+   fleet mesh of 8 ranks: every rank's records, detection ticks, flags and
+   digests == the unsharded run's; then S1, S2, L1, L2, P1, D1 and R1 ==
+   their plain versions on every rank's block of a replica with slots in
+   flight.  b)
+   simbench's ``fleet_scale`` sweep (4096 x 64, B = 64: ``b_doses`` 16 of
+   its 512, horizon 32) at P = 1, at P = 2 (each process its slice, saved
+   at tick 16 into the store, each writing only its rows) and restored
+   here at P = 1: digests and scores == each other == ``PIN_FLEET_SCALE``,
+   and the P = 2 ranks' device-memory peak under 0.75 of the P = 1 run's.
+   c) the P = 2 checkpoint restored onto a (2, 2, 1) fleet mesh of 4 ranks
+   and run on: == ``PIN_FLEET_SCALE``.  Each cell prints its walls and ms a
+   fleet tick sharded and unsharded, per axis the collectives and bytes a
+   tick, the store's bytes and seconds, and each rank's launches.
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -264,7 +283,8 @@ in one call); ``--threefry`` builds the kernels and runs steps 10-11
 alone; ``--fullview`` builds them and runs steps 12-13 alone;
 ``--telemetry`` builds them and runs step 14 alone; ``--fleet`` builds them
 and runs step 15 alone; ``--serve`` runs step 16 alone (no kernel build); ``--sharded`` builds
-the kernels and runs steps 17 and 18 alone, ``--rumor-axis`` step 18 alone.  ``kernel_compare.py``
+the kernels and runs steps 17 and 18 alone, ``--rumor-axis`` step 18 alone, ``--fleet-mesh`` step 19
+alone.  ``kernel_compare.py``
 times D1, C1 and F1 against another checkout's in alternating pairs.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
@@ -4264,24 +4284,31 @@ def sharded_delta(mesh) -> dict:
 
 def sharded_rank(rank: int, size: int, port: int, transport: str, results, shape=None,
                  cells=("17a", "17b", "17c")) -> None:
-    """One rank of phase 17 or 18 (a spawned process): ``cells`` in order
-    over a mesh of ``size`` ranks of ``shape`` (P, R) (default (size, 1))
-    joined by ``transport``; in phase 18, then each kernel of the path ==
-    its plain version on this rank's block."""
+    """One rank of phase 17, 18 or 19 (a spawned process): ``cells`` in
+    order over a mesh of ``size`` ranks of ``shape`` (P, R) (default (size,
+    1)), or a fleet mesh of (Bm, P, R), joined by ``transport``; in phases
+    18 and 19, then each kernel of the path == its plain version on this
+    rank's block."""
     import traceback
 
     import torch.distributed as dist
 
     from ringpop_tpu_torch.parallel import multihost
-    from ringpop_tpu_torch.parallel.mesh import make_mesh
+    from ringpop_tpu_torch.parallel.mesh import make_fleet_mesh, make_mesh
 
     cell_fns = {"17a": sharded_100k, "17b": sharded_headline, "17c": sharded_delta, "18a": sharded_100k,
-                "18b": chaos_twins, "18c": churn_telemetry, "18d": headline_and_delta}
+                "18b": chaos_twins, "18c": churn_telemetry, "18d": headline_and_delta, "19a": fleet_twin_cell,
+                "19b_p1": fleet_scale_cell,
+                "19b_p2": lambda mesh: fleet_scale_cell(mesh, fleet_ckpt_path(), FSCALE_SAVE_AT),
+                "19c": lambda mesh: fleet_restore_cell(mesh, fleet_ckpt_path())}
     try:
         dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}")
         torch.cuda.set_device(dev)
         multihost.init_distributed(f"127.0.0.1:{port}", size, rank, transport=transport)
-        mesh = make_mesh(shape=shape, transport=transport, device=dev)
+        if shape is not None and len(shape) == 3:
+            mesh = make_fleet_mesh(shape=shape, transport=transport, device=dev)
+        else:
+            mesh = make_mesh(shape=shape, transport=transport, device=dev)
         out = {"rank": rank, "device": str(dev), "coords": mesh.coords}
         for cell in cells:
             out[cell] = cell_fns[cell](mesh)
@@ -4531,10 +4558,12 @@ def churn_telemetry(mesh) -> dict:
     return out
 
 
-def block_kernel_checks(mesh, state, plan) -> dict:
+def block_kernel_checks(mesh, state, plan, n: int = TEL_CHURN_N, k: int = TEL_CHURN_K, cell: str = "18c") -> dict:
     """S1, S2, L1, L2, P1, D1 and R1 == their plain versions on this rank's
-    block of ``state`` (churn100k's at CHURN_CHECK_TICK, slots in flight;
-    these launches are made after the cell's counts were read): S1 OR and
+    block of ``state`` (18c: churn100k's at CHURN_CHECK_TICK, slots in
+    flight; 19a: a replica of the fleet twin's; these launches are made
+    after the cell's counts were read), ``mesh`` the (P, R) mesh the state
+    is sharded over: S1 OR and
     AND over the live rows
     and S2 on the word block [rows, W/R], L1 both modes on the rank's rows
     with every word, L2 on the word block (every slot wanted), P1 on legs
@@ -4543,7 +4572,6 @@ def block_kernel_checks(mesh, state, plan) -> dict:
     inputs gathered whole (a uint32 plane, an int32 and a bool vector)."""
     from ringpop_tpu_torch.parallel import partition
 
-    n, k = TEL_CHURN_N, TEL_CHURN_K
     lo, hi = mesh.block(n)
     slots, words = delta.rumor_block(mesh, k)
     kl = slots.stop - slots.start
@@ -4553,15 +4581,15 @@ def block_kernel_checks(mesh, state, plan) -> dict:
     where = f"rank {mesh.coords} block [{hi - lo}, {plane.shape[1]}]"
     check(torch.equal(packbits_kernel.reduce_rows_cuda(plane, "or", up), packbits.or_reduce_rows_plain(plane, up))
           and torch.equal(packbits_kernel.reduce_rows_cuda(plane, "and", up), packbits.and_reduce_rows_plain(plane, up)),
-          f"18c: S1 (OR, AND over the live rows) == plain on {where}")
+          f"{cell}: S1 (OR, AND over the live rows) == plain on {where}")
     check(torch.equal(packbits_kernel.popcount_rows_cuda(plane), packbits.popcount_rows_plain(plane)),
-          f"18c: S2 == plain on {where}")
+          f"{cell}: S2 == plain on {where}")
     victims = np.flatnonzero(~faults.up.cpu().numpy())
     l1 = l1_block_check(state, mesh, victims, faults)
     check(l1["slots"] > 0 and l1["detect_equal"] and l1["checksum_equal"],
-          f"18c: L1 (both modes) == plain on {where} with slots in flight: {l1}")
+          f"{cell}: L1 (both modes) == plain on {where} with slots in flight: {l1}")
     check(torch.equal(lifecycle_kernel.first_live_learner_cuda(plane, up, kl),
-                      lifecycle_kernel.first_live_learner_plain(plane, up, kl)), f"18c: L2 == plain on {where}")
+                      lifecycle_kernel.first_live_learner_plain(plane, up, kl)), f"{cell}: L2 == plain on {where}")
     gen = torch.Generator(device=mesh.device)
     gen.manual_seed(SEED + 18 + mesh.rank)
     inp = random_accumulate_inputs(gen, hi - lo, plane.shape[1], mesh.device, "random")
@@ -4570,7 +4598,7 @@ def block_kernel_checks(mesh, state, plan) -> dict:
     want = {name: x.clone() for name, x in inp["acc"].items()}
     telemetry_kernel.accumulate_cuda(got, **inp["legs"])
     telemetry.accumulate_plain(want, **inp["legs"])
-    check(all(torch.equal(got[name], want[name]) for name in got), f"18c: P1 == plain on {where}")
+    check(all(torch.equal(got[name], want[name]) for name in got), f"{cell}: P1 == plain on {where}")
     d1 = 0
     for name, leaf in partition.named_leaves(state):
         if partition._plane_rumor_axis(partition.spec_for(name)) is not None:
@@ -4579,14 +4607,14 @@ def block_kernel_checks(mesh, state, plan) -> dict:
         offset = (lo * (leaf.numel() // leaf.shape[0])) & 0xFFFF_FFFF if node_sharded else 0
         got_d = telemetry_kernel.state_digest_cuda([leaf.contiguous()], offset=offset, final=False)
         check(torch.equal(got_d, telemetry.leaf_digest_sum_plain(leaf, offset)),
-              f"18c: D1 == plain on {where}, leaf {name} at offset {offset}")
+              f"{cell}: D1 == plain on {where}, leaf {name} at offset {offset}")
         d1 += 1
     whole = partition.host_gather({"learned": state.learned, "base_inc": state.base_inc,
                                    "base_present": state.base_present}, mesh)
     inputs = [(torch.from_numpy(whole["learned"]).to(mesh.device), True, False),
               (torch.from_numpy(whole["base_inc"]).to(mesh.device), False, False),
               (torch.from_numpy(whole["base_present"]).to(mesh.device), False, False)]
-    check_r1(inputs, f"18c: on the gathered [{n}, {whole['learned'].shape[1]}] and [{n}] inputs")
+    check_r1(inputs, f"{cell}: on the gathered [{n}, {whole['learned'].shape[1]}] and [{n}] inputs")
     return {"rows": hi - lo, "words": plane.shape[1], "l1": l1, "d1_leaves": d1, "max_abs_err": 0}
 
 
@@ -4712,6 +4740,332 @@ def run_rumor_axis(dev: torch.device, card: str, refs: dict) -> dict:
                            "ranks_wall_s": [wall_abc, wall_d], "block_kernels": blocks}}
 
 
+# -- phase 19: the fleet's meshes, the process-sliced sweep and its checkpoints --
+
+# simbench's fleet twin (_fleet_sharded_twin, ringpop_tpu/cli/simbench.py:1319-1370, as
+# bench_fleet_scale calls it with full=True): n 4096 x k 64, suspect_ticks 10, counter, 4 victims
+# from default_rng(seed), doses [0, n // 64, n // 32] x losses (0, 0.05) (B = 6), churn_seed seed +
+# 777, grid_seeds, 24 ticks with telemetry, seed 0; unsharded and over a (2, 2, 2) fleet mesh
+FTWIN_N, FTWIN_K, FTWIN_TICKS, FTWIN_SEED, FTWIN_SUSPECT_TICKS, FTWIN_SHAPE = 4096, 64, 24, 0, 10, (2, 2, 2)
+# then both fleets run run_until_detected for this long, checked every 8 ticks: L1 and the batch
+# axis' detection flags on the main path
+FTWIN_DETECT_TICKS, FTWIN_CHECK_EVERY = 16, 8
+# simbench's fleet_scale legs 1-2 (cli/simbench.py:1424-1462, the worker cli/fleet_bench.py:63-200)
+# at full width: 4096 x 64, losses 0 / 0.05 / 0.1 / 0.15, suspect_ticks 10, counter, horizon 32 in
+# 16-tick blocks, saved at 16, seed 0; b_doses cut from simbench's 512 to 16 (B 2048 -> 64)
+FSCALE_N, FSCALE_K, FSCALE_B_DOSES, FSCALE_LOSSES = 4096, 64, 16, (0.0, 0.05, 0.1, 0.15)
+FSCALE_HORIZON, FSCALE_BLOCK, FSCALE_SAVE_AT, FSCALE_SEED, FSCALE_SUSPECT_TICKS = 32, 16, 16, 0, 10
+FSCALE_P, FSCALE_MESH = 2, (2, 2, 1)  # 19b's sliced run; 19c's fleet mesh
+FSCALE_MEM_FRAC = 0.75  # simbench.py:1505: the P = 2 ranks' peak under this share of the P = 1 run's
+# the kernels of phase 19's path and, by cell, the ones every rank must launch
+FLEET_MESH_KERNELS = {"19a": ("row_reduce", "slot_walk", "first_live_learner", "accumulate", "state_digest",
+                              "f32_sums"),
+                      "19b": ("row_reduce", "first_live_learner", "accumulate", "state_digest", "f32_sums"),
+                      "19c": ("row_reduce", "first_live_learner", "accumulate", "state_digest", "f32_sums")}
+# pinned from the JAX package (ringpop_tpu.sim.montecarlo, .scenarios) run unsharded on the CPU;
+# tests/test_torch_chip_smoke_pins_fleet_mesh.py recomputes them
+PIN_FLEET_TWIN = {  # the twin's digests after its 24 ticks; the detection leg's ticks, flags and digests after
+    "digests": [3649510496, 3736333607, 1554371877, 282829271, 1430575962, 2101753252],
+    "detect": [[0, 0, -1, 0, 16, -1], [True, True, False, True, True, False]],
+    "detect_digests": [725736707, 3540596554, 530570103, 698668351, 2700286302, 994100329],
+}
+PIN_FLEET_SCALE = {  # every scenario's digest at the horizon, and the scores' scores_sha256
+    "digests": {
+        "0": 837275278, "1": 817098182, "2": 4234126247, "3": 3797387813, "4": 1167183807, "5": 2583633012,
+        "6": 165917314, "7": 2775113829, "8": 1767017289, "9": 257369324, "10": 3002621251, "11": 3030655987,
+        "12": 3390055662, "13": 1491874131, "14": 140828778, "15": 1916413176, "16": 1146317761, "17": 2058881738,
+        "18": 1248703846, "19": 3042980656, "20": 1957500368, "21": 1823632675, "22": 178624856, "23": 392301968,
+        "24": 3007312984, "25": 3391996479, "26": 2609635789, "27": 1214024432, "28": 4093240144, "29": 3434442224,
+        "30": 1491705505, "31": 1967016262, "32": 127005454, "33": 487117158, "34": 3425295850, "35": 818982208,
+        "36": 3073627106, "37": 4035139196, "38": 2909317966, "39": 2187767115, "40": 1361204472, "41": 2267755991,
+        "42": 3421338124, "43": 3207271160, "44": 2757883856, "45": 91626334, "46": 1884888172, "47": 4016512750,
+        "48": 669497924, "49": 1477411995, "50": 4049222655, "51": 2456291663, "52": 70408509, "53": 2682294011,
+        "54": 3659872509, "55": 2542636109, "56": 2185733998, "57": 3798764584, "58": 3867492975, "59": 3365355896,
+        "60": 2434099682, "61": 244232086, "62": 2147246612, "63": 746767259,
+    },
+    "scores_sha256": "0a44094d1ff89d7b4328410b5c7a113e1f3fc4363dd0acdd71bef82555ed7c8f",
+}
+
+
+def scores_sha256(scores: list) -> str:
+    """sha256 of score records as JSON, keys sorted and every number a
+    float, so that records Python holds equal (1 == 1.0 == True) hash
+    alike."""
+    def canon(x):
+        if isinstance(x, dict):
+            return {str(key): canon(v) for key, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [canon(v) for v in x]
+        return float(x) if isinstance(x, (bool, int, float)) else x
+
+    return hashlib.sha256(json.dumps(canon(scores), sort_keys=True).encode()).hexdigest()
+
+
+def fleet_twin_grid(dev, n: int = FTWIN_N, k: int = FTWIN_K):
+    """The fleet twin's configuration: (params, victims, plan, seeds)."""
+    params = lifecycle.LifecycleParams(n=n, k=k, suspect_ticks=FTWIN_SUSPECT_TICKS, rng="counter")
+    victims = sorted(np.random.default_rng(FTWIN_SEED).choice(n, size=4, replace=False).tolist())
+    plan, meta = scenarios.scenario_grid(n, victims=victims, doses=[0, n // 64, n // 32], losses=(0.0, 0.05),
+                                         churn_seed=FTWIN_SEED + 777, device=dev)
+    return params, victims, plan, scenarios.grid_seeds(meta, FTWIN_SEED)
+
+
+def fleet_twin_run(dev, n: int = FTWIN_N, k: int = FTWIN_K, mesh=None):
+    """simbench's fleet twin on ``dev`` (on ``mesh``, a fleet mesh, when
+    given): the grid's fleet with telemetry on, FTWIN_TICKS ticks and a
+    fetch (the records; their digests in scenario order), then
+    ``run_until_detected`` for FTWIN_DETECT_TICKS ticks (the ticks, the
+    flags and every replica's digest).  Returns (that, the fleet)."""
+    params, victims, plan, seeds = fleet_twin_grid(dev, n, k)
+    mc = montecarlo.MonteCarlo(params, seeds, telemetry=True, mesh=mesh, device=dev)
+    mc.advance(FTWIN_TICKS, plan)
+    records = mc.fetch_telemetry(plan)
+    ticks, detected = mc.run_until_detected(victims, plan, max_ticks=FTWIN_DETECT_TICKS, check_every=FTWIN_CHECK_EVERY)
+    return {"records": records, "digests": [r["state_digest"] for r in records],
+            "detect": [ticks.tolist(), detected.tolist()], "detect_digests": mc.digests()}, mc
+
+
+def fleet_scale_grid(dev, n: int = FSCALE_N, k: int = FSCALE_K, b_doses: int = FSCALE_B_DOSES,
+                     losses=FSCALE_LOSSES):
+    """``fleet_bench.build_grid``'s grid: 4 victims from
+    ``default_rng(seed)``, ``mc_churn_doses(b_doses, n // 32)`` x ``losses``,
+    churn_seed seed + 777, ``grid_seeds``.  Returns (params, plan, meta,
+    seeds)."""
+    params = lifecycle.LifecycleParams(n=n, k=k, suspect_ticks=FSCALE_SUSPECT_TICKS, rng="counter")
+    victims = sorted(np.random.default_rng(FSCALE_SEED).choice(n, size=4, replace=False).tolist())
+    doses = scenarios.mc_churn_doses(b_doses, n // 32)
+    plan, meta = scenarios.scenario_grid(n, victims=victims, doses=doses, losses=losses,
+                                         churn_seed=FSCALE_SEED + 777, device=dev)
+    return params, plan, meta, scenarios.grid_seeds(meta, FSCALE_SEED)
+
+
+def fleet_scale_sweep(dev, path: str | None = None, save_at: int = 0, restore: bool = False, mesh=None,
+                      horizon: int = FSCALE_HORIZON, **grid_kw) -> dict:
+    """One process of ``fleet_bench``'s ``sweep`` / ``sweep-restore`` legs:
+    this process's ``process_block`` slice of the grid (the whole grid on a
+    fleet ``mesh``) as a scored ``FleetSweep``, saved at ``save_at`` into
+    ``path`` and run on, or restored from ``path`` (at this process count
+    or onto ``mesh``) and run on, to the horizon.  Returns its digests,
+    scores, header, wall and save or restore seconds."""
+    from ringpop_tpu_torch.parallel import multihost, partition
+
+    params, plan, meta, seeds = fleet_scale_grid(dev, **grid_kw)
+    b = len(meta)
+    if mesh is None:
+        lo, hi = partition.process_block(b, multihost.process_index(), multihost.process_count())
+        plan, meta, seeds = chaos.slice_plan(plan, lo, hi), meta[lo:hi], seeds[lo:hi]
+    kw = {"scenario": "fleet_scale", "device": dev, "mesh": mesh, "global_b": None if mesh is not None else b}
+    out = {}
+    t0 = time.perf_counter()
+    if restore:
+        sweep = scenarios.FleetSweep.restore(path, params, plan, meta, seeds, **kw)
+        out["restore_s"] = time.perf_counter() - t0
+    else:
+        sweep = scenarios.FleetSweep(params, plan, meta, seeds, horizon=horizon, journal_every=FSCALE_BLOCK, **kw)
+        if save_at:
+            sweep.run(until_tick=save_at)
+            t1 = time.perf_counter()
+            sweep.save(path)
+            out["save_s"] = time.perf_counter() - t1
+    sweep.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out.update(wall_s=time.perf_counter() - t0, digests=sweep.digests(), scores=sweep.scores(),
+               header=sweep.header_params())
+    return out
+
+
+def fleet_reset(mesh) -> None:
+    """Every rank at this point, then the counts and the mesh's stats 0."""
+    import torch.distributed as dist
+
+    torch.cuda.synchronize()
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier(device_ids=[mesh.device.index] if mesh.transport == "nccl" else None)
+    mesh.reset_stats()
+    shard_reset()
+
+
+def fleet_twin_cell(mesh) -> dict:
+    """19a on this rank: the fleet twin over the fleet mesh (the main path,
+    counts 0 before it, read after), then every kernel of the path held to
+    its plain version on this rank's block of one of its replicas, the one
+    with the most slots in flight."""
+    fleet_reset(mesh)
+    (out, mc), ms = event_timed(lambda: fleet_twin_run(mesh.device, mesh=mesh))
+    ticks = int(mc._states[0].tick)
+    out.update(tick_ms=ms / ticks, launches=rumor_launches(), exchange=exchange_record(mesh, ticks), block=mc.block,
+               coords=mesh.coords)
+    # the rank's replica with the most rumor slots in flight (the table is whole on every rank of its group)
+    i = max(range(len(mc._states)), key=lambda j: (int((mc._states[j].r_subject >= 0).sum()), -j))
+    _, _, plan, _ = fleet_twin_grid(mesh.device)
+    out["block_kernels"] = block_kernel_checks(mesh.inner, mc._states[i], chaos.index_plan(plan, mc.block[0] + i),
+                                               FTWIN_N, FTWIN_K, "19a")
+    return out
+
+
+def fleet_memory(out: dict) -> dict:
+    """The process's device-memory peak since the last reset and its host
+    peak RSS, in MB."""
+    import resource
+
+    out["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2**20
+    out["peak_rss_mb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+    return out
+
+
+def fleet_scale_cell(mesh, path: str | None = None, save_at: int = 0) -> dict:
+    """19b on this rank: its slice of the scored sweep (saved at ``save_at``
+    into ``path`` when given), the device peak reset just before."""
+    fleet_reset(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    out = fleet_scale_sweep(mesh.device, path, save_at)
+    out["launches"] = rumor_launches()
+    if path is not None:
+        from ringpop_tpu_torch.parallel import multihost
+
+        shard = Path(path) / f"shard-{multihost.process_index():05d}.npz"
+        out["bytes_written"] = shard.stat().st_size if shard.exists() else 0
+    return fleet_memory(out)
+
+
+def fleet_restore_cell(mesh, path: str) -> dict:
+    """19c on this rank: the P = 2 checkpoint restored onto the fleet mesh
+    and run to the horizon."""
+    fleet_reset(mesh)
+    out = fleet_scale_sweep(mesh.device, path, restore=True, mesh=mesh)
+    ticks = FSCALE_HORIZON - FSCALE_SAVE_AT
+    out.update(launches=rumor_launches(), coords=mesh.coords, exchange=exchange_record(mesh, ticks),
+               tick_ms=(out["wall_s"] - out["restore_s"]) * 1e3 / ticks)
+    return out
+
+
+def fleet_ckpt_path() -> str:
+    return str((OUT_DIR / "phase19_fleet_ckpt").resolve())
+
+
+def fleet_merged(ranks: list) -> dict:
+    """The per-scenario digests and scores of a process-sliced run's ranks."""
+    digests, scores = {}, []
+    for r in ranks:
+        digests.update(r["digests"])
+        scores += r["scores"]
+    return {"digests": digests, "scores": sorted(scores, key=lambda sc: sc["scenario_id"])}
+
+
+def check_fleet_launches(cell: str, ranks: list) -> None:
+    for name in FLEET_MESH_KERNELS[cell]:
+        check(all(r["launches"][name] > 0 for r in ranks),
+              f"{cell}: {RUMOR_KERNELS[name]} launched on every rank: {[r['launches'][name] for r in ranks]}")
+
+
+def run_fleet_mesh(dev: torch.device, card: str) -> dict:
+    """Phase 19: the fleet's meshes, the process-sliced sweep and its
+    checkpoints.  19a simbench's fleet twin unsharded on this card (==
+    PIN_FLEET_TWIN), then over a (2, 2, 2) fleet mesh of 8 ranks (every
+    rank's records == the unsharded run's; the kernels == plain on every
+    rank's block); 19b fleet_scale's scored sweep at P = 1, at P = 2 saved
+    at tick 16, and restored here at P = 1 (digests and scores == each other
+    and PIN_FLEET_SCALE; the P = 2 ranks' device peak under FSCALE_MEM_FRAC
+    of the P = 1 run's); 19c the P = 2 checkpoint restored onto a (2, 2, 1)
+    fleet mesh (== PIN_FLEET_SCALE)."""
+    from ringpop_tpu_torch.parallel import multihost
+
+    out = {"card": card}
+    shard_reset()
+    (ref, ref_mc), ref_ms = event_timed(lambda: fleet_twin_run(dev))
+    ref_launches = rumor_launches()
+    ref_ticks = int(ref_mc._states[0].tick)
+    del ref_mc
+    check(ref["digests"] == PIN_FLEET_TWIN["digests"], f"19a: the unsharded twin's 6 digests == PIN_FLEET_TWIN")
+    check(ref["detect"] == PIN_FLEET_TWIN["detect"] and ref["detect_digests"] == PIN_FLEET_TWIN["detect_digests"],
+          f"19a: the unsharded twin's detection leg {ref['detect']} == PIN_FLEET_TWIN")
+    size = FTWIN_SHAPE[0] * FTWIN_SHAPE[1] * FTWIN_SHAPE[2]
+    transport = multihost.default_transport(size)
+    log(f"phase19: {FTWIN_SHAPE} (batch x node x rumor) ranks over {transport} for 19a; {card}")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(size, transport, FTWIN_SHAPE, ("19a",), "phase19a")
+    wall_a = time.perf_counter() - t0
+    twin = [r["19a"] for r in ranks]
+    for r in twin:
+        check(r["records"] == ref["records"], f"19a: rank {r['coords']}: every record over the mesh == unsharded")
+        check(r["detect"] == ref["detect"] and r["detect_digests"] == ref["detect_digests"],
+              f"19a: rank {r['coords']}: detection {r['detect']} and digests == unsharded")
+    check_fleet_launches("19a", twin)
+    for r in twin:
+        log(f"phase19a: rank {r['coords']} replicas {r['block']}: ms a fleet tick {r['tick_ms']:.3f} over the mesh vs "
+            f"{ref_ms / ref_ticks:.3f} unsharded; by axis a tick {json.dumps(r['exchange']['by_axis'])}; "
+            f"launches {r['launches']}; {card}")
+    out["19a"] = {"ranks_wall_s": wall_a, "unsharded_ms_per_tick": ref_ms / ref_ticks, "unsharded_launches": ref_launches,
+                  "sharded_ms_per_tick": [r["tick_ms"] for r in twin], "exchange_per_rank": [r["exchange"] for r in twin],
+                  "launches_per_rank": [r["launches"] for r in twin], "block_kernels": [r["block_kernels"] for r in twin]}
+
+    # 19b: P = 1, P = 2 saved mid-sweep, P = 1 restored
+    path = fleet_ckpt_path()
+    OUT_DIR.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    p1 = spawn_ranks(1, multihost.default_transport(1), None, ("19b_p1",), "phase19b")[0]["19b_p1"]
+    p1_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p2 = [r["19b_p2"] for r in spawn_ranks(FSCALE_P, multihost.default_transport(FSCALE_P), None, ("19b_p2",),
+                                          "phase19b")]
+    p2_wall = time.perf_counter() - t0
+    shard_reset()
+    restored = fleet_scale_sweep(dev, path, restore=True)
+    restored_launches = rumor_launches()
+    want = {"digests": {int(k): v for k, v in PIN_FLEET_SCALE["digests"].items()}}
+    check(p1["digests"] == want["digests"] and scores_sha256(p1["scores"]) == PIN_FLEET_SCALE["scores_sha256"],
+          f"19b: P = 1: the {len(p1['digests'])} digests and scores == PIN_FLEET_SCALE")
+    merged = fleet_merged(p2)
+    check(merged["digests"] == p1["digests"] and merged["scores"] == p1["scores"],
+          "19b: P = 2 (saved at tick 16): every digest and score == the P = 1 run's")
+    check(restored["digests"] == p1["digests"] and restored["scores"] == p1["scores"]
+          and restored["header"]["resumed"]["saved_process_count"] == FSCALE_P,
+          f"19b: restored at P = 1 from the P = {FSCALE_P} checkpoint: every digest and score == the P = 1 run's")
+    mem_frac = max(r["peak_device_mb"] for r in p2) / p1["peak_device_mb"]
+    check(mem_frac < FSCALE_MEM_FRAC, f"19b: the P = 2 ranks' device peak is {mem_frac:.3f} of the P = 1 run's "
+          f"(< {FSCALE_MEM_FRAC})")
+    check_fleet_launches("19b", [p1, *p2, {"launches": restored_launches}])
+    log(f"phase19b: fleet_scale {FSCALE_N} x {FSCALE_K}, B {len(p1['digests'])}, {FSCALE_HORIZON} ticks: P = 1 "
+        f"{p1['wall_s']:.3f} s ({p1['wall_s'] * 1e3 / FSCALE_HORIZON:.3f} ms a fleet tick), P = 2 "
+        f"{[round(r['wall_s'], 3) for r in p2]} s (save {[round(r['save_s'], 3) for r in p2]} s, "
+        f"{[r['bytes_written'] for r in p2]} bytes a rank), restored at P = 1 {restored['wall_s']:.3f} s (restore "
+        f"{restored['restore_s']:.3f} s); device peak P = 1 {p1['peak_device_mb']:.1f} MB, P = 2 "
+        f"{[round(r['peak_device_mb'], 1) for r in p2]} MB (frac {mem_frac:.3f}); host peak RSS P = 1 "
+        f"{p1['peak_rss_mb']:.1f} MB, P = 2 {[round(r['peak_rss_mb'], 1) for r in p2]} MB; launches P = 1 "
+        f"{p1['launches']}, P = 2 {[r['launches'] for r in p2]}, restored {restored_launches}; processes' walls "
+        f"{p1_wall:.1f} / {p2_wall:.1f} s; {card}")
+    out["19b"] = {"b": len(p1["digests"]), "p1_wall_s": p1["wall_s"], "p2_wall_s": [r["wall_s"] for r in p2],
+                  "save_s": [r["save_s"] for r in p2], "bytes_written": [r["bytes_written"] for r in p2],
+                  "restore_s": restored["restore_s"], "restored_wall_s": restored["wall_s"],
+                  "peak_device_mb": [p1["peak_device_mb"]] + [r["peak_device_mb"] for r in p2], "mem_frac": mem_frac,
+                  "peak_rss_mb": [p1["peak_rss_mb"]] + [r["peak_rss_mb"] for r in p2],
+                  "launches_per_rank": [p1["launches"]] + [r["launches"] for r in p2] + [restored_launches]}
+
+    # 19c: the P = 2 checkpoint restored onto a (2, 2, 1) fleet mesh
+    size = FSCALE_MESH[0] * FSCALE_MESH[1] * FSCALE_MESH[2]
+    t0 = time.perf_counter()
+    mesh_ranks = [r["19c"] for r in spawn_ranks(size, multihost.default_transport(size), FSCALE_MESH, ("19c",),
+                                                "phase19c")]
+    wall_c = time.perf_counter() - t0
+    for r in mesh_ranks:
+        check(r["digests"] == want["digests"] and scores_sha256(r["scores"]) == PIN_FLEET_SCALE["scores_sha256"],
+              f"19c: rank {r['coords']}: restored onto {FSCALE_MESH}, every digest and score == PIN_FLEET_SCALE")
+    check_fleet_launches("19c", mesh_ranks)
+    for r in mesh_ranks:
+        log(f"phase19c: rank {r['coords']}: restored onto {FSCALE_MESH} in {r['restore_s']:.3f} s, then ms a fleet "
+            f"tick {r['tick_ms']:.3f} over the mesh vs {p1['wall_s'] * 1e3 / FSCALE_HORIZON:.3f} at P = 1; by axis a "
+            f"tick {json.dumps(r['exchange']['by_axis'])}; launches {r['launches']}; {card}")
+    out["19c"] = {"ranks_wall_s": wall_c, "restore_s": [r["restore_s"] for r in mesh_ranks],
+                  "wall_s": [r["wall_s"] for r in mesh_ranks], "sharded_ms_per_tick": [r["tick_ms"] for r in mesh_ranks],
+                  "exchange_per_rank": [r["exchange"] for r in mesh_ranks],
+                  "launches_per_rank": [r["launches"] for r in mesh_ranks]}
+    log(f"phase19: twin == PIN_FLEET_TWIN on {FTWIN_SHAPE} (ranks' wall {wall_a:.1f} s), fleet_scale at P = 1, "
+        f"P = {FSCALE_P} and restored == PIN_FLEET_SCALE, device peak frac {mem_frac:.3f}, restored onto "
+        f"{FSCALE_MESH} == PIN_FLEET_SCALE; {card}")
+    return {"fleet_mesh": out}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
@@ -4776,6 +5130,13 @@ def main() -> int:
         out.update(run_rumor_axis(torch.device("cuda"), card, refs))
         log(json.dumps(out))
         return 0
+    if sys.argv[1:] == ["--fleet-mesh"]:
+        build_kernels()
+        t0 = time.perf_counter()
+        out = run_fleet_mesh(torch.device("cuda"), card)
+        log(f"phase 19 wall {time.perf_counter() - t0:.1f} s; {card}")
+        log(json.dumps(out))
+        return 0
     if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
         rng = (sys.argv[2:] or ["counter"])[0]
         log(json.dumps({"card": card, "rng": rng, "detect_ms": detect_wall(torch.device("cuda"), rng)}))
@@ -4800,6 +5161,7 @@ def main() -> int:
     refs = phase("17-18 references", sharded_references)
     sharded_timings = phase("17", run_sharded, card, refs)
     rumor_timings = phase("18", run_rumor_axis, card, refs)
+    fleet_mesh_timings = phase("19", run_fleet_mesh, card)
     log(f"phase walls, s: {walls}")
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
@@ -4835,9 +5197,17 @@ def main() -> int:
             key = next(k for k, v in RUMOR_KERNELS.items() if v == rec["name"])
             rec["launches_on_rumor_axis"] = {cell: [c[key] for c in cells["launches_per_rank"]]
                                              for cell, cells in rumor_timings["rumor_axis"]["cells"].items()}
+    # phase 19 runs S1, L1, L2, P1, D1 and R1 on every rank's block: their counts by cell and rank
+    for rec in kernels:
+        if rec["name"] in RUMOR_KERNELS.values():
+            key = next(k for k, v in RUMOR_KERNELS.items() if v == rec["name"])
+            rec["launches_on_fleet_mesh"] = {cell: [c[key] for c in cells["launches_per_rank"]]
+                                             for cell, cells in fleet_mesh_timings["fleet_mesh"].items()
+                                             if cell != "card"}
     timings.update(serve_timings)
     timings.update(sharded_timings)
     timings.update(rumor_timings)
+    timings.update(fleet_mesh_timings)
     timings["card"] = card
     timings["phase_walls_s"] = walls
     # the whole record, which the end of a long log may not hold

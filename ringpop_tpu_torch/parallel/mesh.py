@@ -33,6 +33,11 @@ refuses two ranks on one card and has no bitwise reduce, so the bitwise
 combines are an ``all_gather`` followed by a local reduce on both
 transports, and a single card runs its ranks over gloo
 (``multihost.default_transport``).
+
+A fleet of independent replicas adds a third axis in front
+(:class:`FleetMesh`, ``("batch", "node", "rumor")``): batch coordinate b
+holds its block of the replicas, each stepped over the (P, R) mesh of b's
+ranks, and the batch axis carries only the fleet's gathers.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ import torch
 from ringpop_tpu_torch.parallel.partition import NamedSharding, named_shardings, process_block
 
 AXES = ("node", "rumor")
+FLEET_AXES = ("batch", "node", "rumor")
 TRANSPORTS = ("nccl", "gloo")
 
 
@@ -236,34 +242,18 @@ class Mesh:
         return [self._home(buf, like, axis) for buf, like in bufs]
 
 
-def make_mesh(n_devices: Optional[int] = None, shape: Optional[tuple[int, int]] = None,
-              transport: Optional[str] = None, device=None, group=None) -> Mesh:
-    """The ("node", "rumor") mesh over the ranks of ``group`` (the default
-    group when None), which ``multihost.init_distributed`` brought up: one
-    process a rank, rank ``p·R + r`` at (p, r).  ``n_devices`` (default: the
-    group's size) must be the group's size; ``shape`` (P, R) defaults to
-    ``(size, 1)`` and must cover the group.  A collective: every rank
-    builds the axes' subgroups in one fixed order (``dist.new_group``: the
-    R columns, then the P rows; an axis of one rank gets none).
-    ``transport`` must be the group's backend (None takes it).  ``device``
-    defaults to ``cuda:{rank mod cards}`` when a card is visible (one card a
-    rank under NCCL), else the CPU."""
-    from ringpop_tpu_torch.parallel import multihost
-
+def _bring_up(what: str, n_devices: Optional[int], transport: Optional[str], device, group):
+    """The group a mesh spans, checked: (size, rank, transport, device,
+    global rank of a group rank).  ``n_devices`` must be the group's size and
+    ``transport`` its backend (None takes it); ``device`` defaults to
+    ``cuda:{rank mod cards}`` when a card is visible, else the CPU."""
     dist = _dist()
     if not dist.is_initialized():
-        raise RuntimeError("make_mesh needs torch.distributed up (multihost.init_distributed)")
+        raise RuntimeError(f"{what} needs torch.distributed up (multihost.init_distributed)")
     size = dist.get_world_size(group)
     rank = dist.get_rank(group)
-    if n_devices is None:
-        n_devices = size
-    if n_devices != size:
+    if n_devices is not None and n_devices != size:
         raise ValueError(f"a mesh of {n_devices} ranks needs a group of that many processes, have {size}")
-    if shape is None:
-        shape = (size, 1)
-    p_size, r_size = (int(x) for x in shape)
-    if p_size < 1 or r_size < 1 or p_size * r_size != size:
-        raise ValueError(f"mesh shape {tuple(shape)} does not cover the group's {size} ranks")
     backend = str(dist.get_backend(group)).lower()
     if transport is None:
         transport = backend
@@ -278,25 +268,178 @@ def make_mesh(n_devices: Optional[int] = None, shape: Optional[tuple[int, int]] 
         if dev.type != "cuda":
             raise ValueError("the nccl transport moves CUDA tensors; use gloo for a CPU mesh")
         torch.cuda.set_device(dev)
-    p, r = divmod(rank, r_size)
 
     def global_rank(q: int) -> int:
         return q if group is None else dist.get_global_rank(group, q)
 
-    timeout = timedelta(seconds=multihost.group_timeout_s())
-    node_group = rumor_group = None
+    return size, rank, transport, dev, global_rank
+
+
+def _new_group(ranks: list, timeout: timedelta):
+    return _dist().new_group(ranks, timeout=timeout)
+
+
+def _axis_groups(ranks: list, p_size: int, r_size: int, coords, timeout: timedelta, mine: bool = True):
+    """The node and rumor subgroups of a (P, R) block of global ``ranks``
+    (row-major): the R columns, then the P rows, each made on every rank of
+    the job in this order (an axis of one rank gets none; with R = 1 the
+    node axis is the block's own group).  Returns this rank's (node group,
+    rumor group) at ``coords`` (p, r) when ``mine``, else (None, None)."""
+    p, r = coords
+    kept = {}
     if r_size > 1:
         if p_size > 1:
             for col in range(r_size):
-                g = dist.new_group([global_rank(q * r_size + col) for q in range(p_size)], timeout=timeout)
+                g = _new_group([ranks[q * r_size + col] for q in range(p_size)], timeout)
                 if col == r:
-                    node_group = g
+                    kept["node"] = g
         for row in range(p_size):
-            g = dist.new_group([global_rank(row * r_size + q) for q in range(r_size)], timeout=timeout)
+            g = _new_group([ranks[row * r_size + q] for q in range(r_size)], timeout)
             if row == p:
-                rumor_group = g
+                kept["rumor"] = g
+    if not mine:
+        return None, None
+    return kept.get("node"), kept.get("rumor")
+
+
+def make_mesh(n_devices: Optional[int] = None, shape: Optional[tuple[int, int]] = None,
+              transport: Optional[str] = None, device=None, group=None) -> Mesh:
+    """The ("node", "rumor") mesh over the ranks of ``group`` (the default
+    group when None), which ``multihost.init_distributed`` brought up: one
+    process a rank, rank ``p·R + r`` at (p, r).  ``n_devices`` (default: the
+    group's size) must be the group's size; ``shape`` (P, R) defaults to
+    ``(size, 1)`` and must cover the group.  A collective: every rank
+    builds the axes' subgroups in one fixed order (``dist.new_group``: the
+    R columns, then the P rows; an axis of one rank gets none).
+    ``transport`` must be the group's backend (None takes it).  ``device``
+    defaults to ``cuda:{rank mod cards}`` when a card is visible (one card a
+    rank under NCCL), else the CPU."""
+    from ringpop_tpu_torch.parallel import multihost
+
+    size, rank, transport, dev, global_rank = _bring_up("make_mesh", n_devices, transport, device, group)
+    if shape is None:
+        shape = (size, 1)
+    p_size, r_size = (int(x) for x in shape)
+    if p_size < 1 or r_size < 1 or p_size * r_size != size:
+        raise ValueError(f"mesh shape {tuple(shape)} does not cover the group's {size} ranks")
+    p, r = divmod(rank, r_size)
+    timeout = timedelta(seconds=multihost.group_timeout_s())
+    node_group, rumor_group = _axis_groups([global_rank(q) for q in range(size)], p_size, r_size, (p, r), timeout)
     return Mesh(size=p_size, rank=p, device=dev, transport=transport, group=group, rumor_size=r_size,
                 rumor_rank=r, node_group=node_group, rumor_group=rumor_group)
+
+
+@dataclass(eq=False)
+class FleetMesh:
+    """A ("batch", "node", "rumor") mesh of Bm·P·R ranks for a fleet of
+    independent replicas: rank ``b·P·R + p·R + r`` sits at batch coordinate
+    ``b``, node ``p`` and rumor ``r`` (the JAX package's row-major
+    ``devices.reshape(Bm, P, R)``).  ``inner`` is the (P, R) :class:`Mesh` of
+    this rank's batch group, the P·R ranks that share ``b``: each replica
+    of the group's block of the batch steps over it.  ``batch`` is the
+    batch axis as a one-axis :class:`Mesh` of the Bm ranks that share
+    ``(p, r)``: replicas are independent, so it carries no collective inside
+    a tick, only the fleet's gathers (detection flags, telemetry records,
+    digests, whole-fleet reads).  ``axis_stats`` counts each axis'
+    collectives and bytes, ``stats`` their sum."""
+
+    batch: Mesh
+    inner: Mesh
+
+    @property
+    def shape(self) -> dict:
+        return {"batch": self.batch.size, **self.inner.shape}
+
+    @property
+    def coords(self) -> dict:
+        return {"batch": self.batch.rank, **self.inner.coords}
+
+    @property
+    def device(self) -> torch.device:
+        return self.inner.device
+
+    @property
+    def transport(self) -> str:
+        return self.inner.transport
+
+    @property
+    def sharded(self) -> bool:
+        return self.batch.size > 1 or self.inner.sharded
+
+    @property
+    def axis_stats(self) -> dict:
+        return {"batch": self.batch.axis_stats["node"], **self.inner.axis_stats}
+
+    @property
+    def stats(self) -> dict:
+        out = _new_stats()
+        for stats in self.axis_stats.values():
+            for key, v in stats.items():
+                out[key] += v
+        return out
+
+    def reset_stats(self) -> None:
+        self.batch.reset_stats()
+        self.inner.reset_stats()
+
+    def block(self, b: int) -> tuple[int, int]:
+        """This rank's replicas [lo, hi) of a fleet of ``b``."""
+        return self.batch.block(b)
+
+
+def make_fleet_mesh(shape: Optional[tuple[int, int, int]] = None, transport: Optional[str] = None, device=None,
+                    group=None) -> FleetMesh:
+    """The fleet's (Bm, P, R) mesh over the ranks of ``group`` (the default
+    group when None): ``shape`` defaults to ``(size, 1, 1)``, every rank a
+    batch coordinate.  Without ``torch.distributed`` up, the one-rank mesh
+    (1, 1, 1).  A collective when it makes subgroups: every rank of the job
+    makes, in this order, each batch group's (its P·R ranks, when Bm > 1
+    and P·R > 1), each batch group's node and rumor subgroups
+    (``make_mesh``'s order), then the batch axis' group of each (p, r);
+    with P·R = 1 the batch axis is the group itself.  ``transport`` and
+    ``device`` as ``make_mesh``'s."""
+    from ringpop_tpu_torch.parallel import multihost
+
+    dist = _dist()
+    if not dist.is_initialized():
+        if shape not in (None, (1, 1, 1)):
+            raise RuntimeError("a fleet mesh of more than one rank needs torch.distributed up "
+                               "(multihost.init_distributed)")
+        dev = torch.device(device if device is not None else ("cuda" if torch.cuda.is_available() else "cpu"))
+        one = {"device": dev, "transport": transport or "gloo"}
+        return FleetMesh(batch=Mesh(size=1, rank=0, **one), inner=Mesh(size=1, rank=0, **one))
+    size, rank, transport, dev, global_rank = _bring_up("make_fleet_mesh", None, transport, device, group)
+    if shape is None:
+        shape = (size, 1, 1)
+    b_size, p_size, r_size = (int(x) for x in shape)
+    if min(b_size, p_size, r_size) < 1 or b_size * p_size * r_size != size:
+        raise ValueError(f"fleet mesh shape {tuple(shape)} does not cover the group's {size} ranks")
+    block = p_size * r_size
+    b, q = divmod(rank, block)
+    p, r = divmod(q, r_size)
+    timeout = timedelta(seconds=multihost.group_timeout_s())
+    ranks = [global_rank(x) for x in range(size)]
+    inner_group = group if b_size == 1 else None
+    if b_size > 1 and block > 1:
+        for bb in range(b_size):
+            g = _new_group(ranks[bb * block:(bb + 1) * block], timeout)
+            if bb == b:
+                inner_group = g
+    node_group = rumor_group = None
+    for bb in range(b_size):
+        got = _axis_groups(ranks[bb * block:(bb + 1) * block], p_size, r_size, (p, r), timeout, mine=bb == b)
+        if bb == b:
+            node_group, rumor_group = got
+    batch_group = group if block == 1 else None
+    if b_size > 1 and block > 1:
+        for x in range(block):
+            g = _new_group([ranks[bb * block + x] for bb in range(b_size)], timeout)
+            if x == q:
+                batch_group = g
+    inner = Mesh(size=p_size, rank=p, device=dev, transport=transport, group=inner_group, rumor_size=r_size,
+                 rumor_rank=r, node_group=node_group, rumor_group=rumor_group)
+    return FleetMesh(batch=Mesh(size=b_size, rank=b, device=dev, transport=transport, group=batch_group),
+                     inner=inner)
 
 
 def delta_shardings(mesh: Mesh):
@@ -345,5 +488,5 @@ def sharded_delta_step(params, mesh: Mesh):
     return functools.partial(step, with_exchange_mesh(params, mesh))
 
 
-__all__ = ["AXES", "Mesh", "NamedSharding", "make_mesh", "delta_shardings", "shard_delta_state", "with_exchange_mesh",
-           "sharded_delta_step"]
+__all__ = ["AXES", "FLEET_AXES", "FleetMesh", "Mesh", "NamedSharding", "make_mesh", "make_fleet_mesh",
+           "delta_shardings", "shard_delta_state", "with_exchange_mesh", "sharded_delta_step"]

@@ -12,6 +12,11 @@ rule, applied only when the caller names none): NCCL when every rank has a
 card of its own, else gloo, which stages CUDA tensors through host memory
 (``parallel.mesh.Mesh`` counts those bytes).  NCCL refuses two ranks on one
 card, so a single card runs its ranks over gloo.
+
+A process-sliced fleet sweep (``sim/scenarios.FleetSweep(global_b=)``)
+runs one process a block of the batch: :func:`process_count` and
+:func:`process_index` name the slice and :func:`barrier` orders the
+checkpoint store's writes.
 """
 
 from __future__ import annotations
@@ -40,6 +45,25 @@ def distributed_initialized() -> bool:
     """Is the default process group up?"""
     dist = _dist()
     return dist.is_available() and dist.is_initialized()
+
+
+def process_count() -> int:
+    """The processes of the job: the default group's size, 1 when it is not
+    up (the JAX package's ``jax.process_count``)."""
+    return _dist().get_world_size() if distributed_initialized() else 1
+
+
+def process_index() -> int:
+    """This process's rank in the default group, 0 when it is not up
+    (``jax.process_index``)."""
+    return _dist().get_rank() if distributed_initialized() else 0
+
+
+def barrier() -> None:
+    """Wait for every process of the job (the default group); nothing with
+    one process.  The multi-process checkpoint store's barriers."""
+    if process_count() > 1:
+        _dist().barrier()
 
 
 def group_timeout_s() -> float:

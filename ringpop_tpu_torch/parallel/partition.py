@@ -33,8 +33,14 @@ the digest first gathers a plane's row block over the rumor axis
 (``Mesh.gather_cols``) and takes the partial of whole rows; D1 stays one
 contiguous range a launch.
 
-The fleet's batch-axis placement (``fleet_shard_put``,
-``fleet_host_gather``) is ROADMAP A12b.
+A fleet's [B, ...] leaves take the batch prefix (``partition_spec(tree,
+batch_axes=1, batch_axis="batch")``).  :func:`fleet_shard_put` tags this
+process's block of the batch with its global offset as a :class:`Shard`
+(what the multi-process checkpoint store writes), and
+:func:`fleet_host_gather` returns a rank's own rows, touching no other
+rank's.  :func:`place_blocks` does the same for a rank's blocks on any
+mesh, by the table (:func:`block_of`: which mesh axis splits each array
+axis, and which rank of the ranks holding one block writes it).
 
 This module imports torch; ``parallel/__init__.py`` does not import it.
 """
@@ -50,7 +56,6 @@ import numpy as np
 import torch
 
 M32 = 0xFFFF_FFFF
-A12B = "ROADMAP A12b"
 
 
 class P(tuple):
@@ -164,13 +169,16 @@ def partition_spec(tree, batch_axes: int = 0, batch_axis: Optional[str] = None):
     ``batch_axes`` prepends that many axes to every spec (a fleet's [B, ...]
     batch), replicated, or the first over ``batch_axis`` when named."""
 
-    def one(name, _leaf):
-        spec = spec_for(name)
-        if batch_axes:
-            spec = P(batch_axis, *([None] * (batch_axes - 1)), *spec)
-        return spec
+    return _tree_map_named(lambda name, _leaf: batched_spec(name, batch_axes, batch_axis), tree)
 
-    return _tree_map_named(one, tree)
+
+def batched_spec(name: str, batch_axes: int = 0, batch_axis: Optional[str] = None) -> P:
+    """The table's spec of leaf ``name`` with ``batch_axes`` leading axes,
+    the first over ``batch_axis`` when named, else replicated."""
+    spec = spec_for(name)
+    if not batch_axes:
+        return spec
+    return P(batch_axis, *([None] * (batch_axes - 1)), *spec)
 
 
 def named_shardings(tree, mesh, batch_axes: int = 0, batch_axis: Optional[str] = None):
@@ -277,14 +285,131 @@ def host_gather(tree, mesh, batch_axes: int = 0, spec: Optional[P] = None):
     return _tree_map_named(gather, tree)
 
 
+# -- blocks with their global place: the checkpoint store's unit ---------------
+
+
+class Shard:
+    """One rank's block of a global leaf, as the multi-process checkpoint
+    store writes it: ``data`` (a tensor or a numpy array), ``offset`` (where
+    it starts in the global leaf, one int an axis), ``shape`` (the global
+    leaf's) and ``owner`` (whether this rank writes it: of the ranks that
+    hold the same block, one does)."""
+
+    __slots__ = ("data", "offset", "shape", "owner")
+
+    def __init__(self, data, offset: Sequence[int], shape: Sequence[int], owner: bool = True):
+        self.data = data
+        self.offset = tuple(int(x) for x in offset)
+        self.shape = tuple(int(x) for x in shape)
+        self.owner = bool(owner)
+
+    def __repr__(self) -> str:
+        return f"Shard(offset={self.offset}, shape={self.shape}, owner={self.owner}, block={tuple(self.data.shape)})"
+
+
+def _split_axes(spec: P, mesh, ndim: int) -> list:
+    """Per array axis of an ``ndim``-axis leaf of ``spec``, the mesh axis
+    that splits it on ``mesh`` (None: whole on every rank): the batch and
+    node axes where the mesh has more than one rank on them, the rumor axis
+    only on a plane (the port holds the rumor-table vectors whole)."""
+    sizes = mesh.shape
+    plane_rumor = _plane_rumor_axis(spec)
+    out = []
+    for i in range(ndim):
+        ax = spec[i] if i < len(spec) else None
+        if ax in ("batch", "node") and sizes.get(ax, 1) > 1:
+            out.append(ax)
+        elif ax == "rumor" and i == plane_rumor and sizes.get("rumor", 1) > 1:
+            out.append(ax)
+        else:
+            out.append(None)
+    return out
+
+
+def block_of(spec: P, mesh, shape: Sequence[int]) -> tuple[tuple, tuple, bool]:
+    """(offset, block shape, owner) of this rank's block of a global leaf of
+    ``shape`` laid out by ``spec`` on ``mesh`` (a ``Mesh`` or a
+    ``FleetMesh``): every split axis in ``process_block``'s contiguous equal
+    blocks (which must divide), every other axis whole.  ``owner``: this
+    rank is at coordinate 0 of every mesh axis that does not split the
+    leaf, so each block has one writer."""
+    axes = _split_axes(spec, mesh, len(shape))
+    coords, sizes = mesh.coords, mesh.shape
+    offset, block = [], []
+    for g, ax in zip(shape, axes):
+        lo, hi = (0, int(g)) if ax is None else process_block(int(g), coords[ax], sizes[ax])
+        offset.append(lo)
+        block.append(hi - lo)
+    owner = all(coords[ax] == 0 for ax, size in sizes.items() if size > 1 and ax not in axes)
+    return tuple(offset), tuple(block), owner
+
+
+def global_shape_of(spec: P, mesh, block: Sequence[int]) -> tuple:
+    """The global shape of a leaf whose block on this rank has shape
+    ``block`` (the inverse of :func:`block_of`'s block shape)."""
+    axes = _split_axes(spec, mesh, len(block))
+    return tuple(int(b) * (1 if ax is None else mesh.shape[ax]) for b, ax in zip(block, axes))
+
+
+def place_blocks(tree, mesh, batch_axes: int = 0):
+    """Every leaf of ``tree`` (this rank's blocks on ``mesh``, tensors or
+    numpy arrays) as a :class:`Shard`: its global shape and offset by the
+    table (``batch_axes`` leading batch axes, the first over the mesh's
+    ``"batch"`` axis where it has one)."""
+    batch_axis = "batch" if "batch" in mesh.shape else None
+
+    def place(name, leaf):
+        spec = batched_spec(name, batch_axes, batch_axis)
+        shape = global_shape_of(spec, mesh, tuple(leaf.shape))
+        offset, _, owner = block_of(spec, mesh, shape)
+        return Shard(leaf, offset, shape, owner)
+
+    return _tree_map_named(place, tree)
+
+
 def fleet_shard_put(local_tree, mesh, global_b: int):
-    """The fleet's batch-axis placement: ROADMAP A12b."""
-    raise NotImplementedError(f"fleet_shard_put (the fleet's batch-sharded placement) is not ported yet ({A12B})")
+    """This process's slice of a fleet, placed on the batch axis of
+    ``mesh`` (``montecarlo.fleet_save_mesh``): every leaf of ``local_tree``
+    is ``[B_local, ...]``, the ``process_block(global_b, rank, nprocs)``
+    rows of a ``[global_b, ...]`` fleet leaf, and comes back as
+    :func:`place_blocks` places it, a :class:`Shard` at its global row
+    offset, so that the checkpoint store writes each process's rows from
+    that process alone.  A mesh that puts rows this process does not hold
+    on its rank (its batch axis does not follow process order) raises
+    ValueError, as the JAX package's does.  Single-process, the local
+    slice is the whole fleet."""
+    from ringpop_tpu_torch.parallel import multihost
+
+    if "batch" not in mesh.shape:
+        raise ValueError("fleet_shard_put places a fleet's batch axis: the mesh needs a 'batch' axis "
+                         "(montecarlo.fleet_save_mesh)")
+    nprocs = multihost.process_count()
+    lo = process_block(global_b, multihost.process_index(), nprocs)[0] if nprocs > 1 else 0
+    start, stop = (x - lo for x in mesh.block(global_b))
+
+    def local_rows(_name, leaf):
+        if start < 0 or stop > leaf.shape[0]:
+            raise ValueError(
+                "mesh places non-local fleet rows on this rank — the mesh's batch axis does not follow "
+                "process_block order (build it with montecarlo.fleet_save_mesh)")
+        return leaf[start:stop]
+
+    return place_blocks(_tree_map_named(local_rows, local_tree), mesh, batch_axes=1)
 
 
 def fleet_host_gather(tree):
-    """The fleet's batch-axis gather: ROADMAP A12b."""
-    raise NotImplementedError(f"fleet_host_gather (the fleet's batch-sharded gather) is not ported yet ({A12B})")
+    """The inverse of :func:`fleet_shard_put`: per leaf, this rank's own
+    contiguous rows as host numpy (a :class:`Shard`'s block, a tensor's or
+    an array's values); it never reads another rank's."""
+
+    def gather(_name, leaf):
+        if isinstance(leaf, Shard):
+            leaf = leaf.data
+        if isinstance(leaf, torch.Tensor):
+            return leaf.detach().cpu().numpy()
+        return np.asarray(leaf)
+
+    return _tree_map_named(gather, tree)
 
 
 # -- digest partials ----------------------------------------------------------

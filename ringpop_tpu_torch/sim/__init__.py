@@ -40,13 +40,14 @@ Counterpart of ``ringpop_tpu/sim``.  Ported so far:
 * :mod:`ringpop_tpu_torch.sim.montecarlo` — the Monte-Carlo fleet
   (``MonteCarlo``): B lockstep replicas differing in seed and fault
   scenario, each stepped through the solo lifecycle tick and read as one
-  batched state; the detection-latency studies;
+  batched state, whole or block-sharded over a fleet mesh; the
+  detection-latency studies;
 * :mod:`ringpop_tpu_torch.sim.scenarios` — the scenario-grid compiler,
-  the scored and resumable fleet sweep (``FleetSweep``), response
-  surfaces and the adaptive cliff search;
+  the scored and resumable fleet sweep (``FleetSweep``, process-sliced or
+  on a fleet mesh), response surfaces and the adaptive cliff search;
 * :mod:`ringpop_tpu_torch.sim.snapshot` — engine snapshots in the JAX
-  package's ``.npz`` format (either package loads the other's) and the
-  fleet's npz carry checkpoint.
+  package's ``.npz`` format (either package loads the other's), the
+  fleet's npz carry, and the multi-process checkpoint store.
 
 This module imports none of them, so importing the package costs nothing.
 """

@@ -26,11 +26,22 @@ replica axis on any ``DeltaFaults`` leaf (decided by rank,
 (``chaos.stack_plans``).  ``sim/scenarios.py`` builds parameter-grid
 sweeps on top of this.
 
-Not ported yet, each refused with NotImplementedError: the fleet meshes and
-shardings (``mesh=``, ``make_fleet_mesh``, ``fleet_save_mesh``,
-``fleet_state_shardings``, ``fleet_shardings``,
-``fleet_faults_shardings``: ROADMAP A12b) and the AOT warm start (``aot=``:
-A15).
+On a mesh (``mesh=``): a ``make_fleet_mesh`` mesh (``"batch"``, ``"node"``,
+``"rumor"``) gives batch coordinate b the replicas
+``partition.process_block(B, b, Bm)``, each stepped through the sharded
+solo ``step`` over b's (P, R) mesh with the rank's rows and word block; a
+rank holds only its replicas' blocks, and replica ``lo + i`` reads
+scenario ``lo + i``'s faults.  Scenarios are independent, so the batch
+axis carries no collective inside a tick: only the detection loop's flags
+(one gather a block, so every batch group steps until every replica has
+detected, as the unsharded loop does), ``fetch_telemetry``'s records and
+digests (gathered in scenario order, every rank the same list) and the
+whole-fleet reads of ``states`` and ``telemetry``.  A (P, R) mesh with no
+batch axis keeps the JAX package's other layout: every rank holds every
+replica, each sharded.
+
+Not ported yet, refused with NotImplementedError: the AOT warm start
+(``aot=``: A15).
 
 Reference analogs: failure detection `swim/node.go:470-513`; the suspicion
 timeout sweep scenario (BASELINE `sweep100k`).
@@ -59,7 +70,6 @@ from ringpop_tpu_torch.sim.lifecycle import (
     step,
 )
 
-_MESH_REFUSAL = "the fleet meshes and shardings are not ported yet (ROADMAP A12b)"
 _AOT_REFUSAL = "the AOT warm start (util/aot) is not ported yet (ROADMAP Queue A15)"
 
 
@@ -83,44 +93,118 @@ def _unstack(tree) -> list:
 def init_replicas(params: LifecycleParams, seeds: Sequence[int], mesh=None,
                   device: DeviceLike = None) -> LifecycleState:
     """Batched state: every leaf gains a leading replica axis B, on
-    ``device`` (the card unless the caller asks for the CPU).  Replica b's
-    key is ``prng.prng_key(seeds[b])``, the value ``jax.random.PRNGKey``
-    gives for any seed Python accepts (seeds >= 2**32 and negative seeds
-    included), so its stream is exactly ``LifecycleSim(seed=...)``'s.
-    ``mesh`` is refused (ROADMAP A12b)."""
-    return _stack(_init_solo(params, seeds, mesh, device))
+    ``device`` (the card unless the caller asks for the CPU; the mesh's
+    device on a mesh).  Replica b's key is ``prng.prng_key(seeds[b])``, the
+    value ``jax.random.PRNGKey`` gives for any seed Python accepts (seeds >=
+    2**32 and negative seeds included), so its stream is exactly
+    ``LifecycleSim(seed=...)``'s.  On a ``mesh``, this rank's block: its
+    replicas (its batch block of B) with its rows and word block of each."""
+    layout = _Layout(params, len(seeds), mesh, device)
+    return _stack(_init_solo(layout.params, list(seeds)[layout.lo:layout.hi], layout.device))
 
 
-def _init_solo(params: LifecycleParams, seeds: Sequence[int], mesh, device: DeviceLike) -> list:
-    if mesh is not None:
-        raise NotImplementedError(_MESH_REFUSAL)
-    dev = resolve_device(device)
-    return [init_state_from_key(params, prng.prng_key(s, dev), dev) for s in seeds]
+def _init_solo(params: LifecycleParams, seeds: Sequence[int], device: torch.device) -> list:
+    return [init_state_from_key(params, prng.prng_key(s, device), device) for s in seeds]
 
 
-def make_fleet_mesh(n_devices: Optional[int] = None, shape=None):
-    """Refused: a block-sharded fleet mesh is ROADMAP A12b."""
-    raise NotImplementedError(_MESH_REFUSAL)
+def make_fleet_mesh(n_devices: Optional[int] = None, shape=None, transport: Optional[str] = None, device=None):
+    """The ``("batch", "node", "rumor")`` mesh for block-sharded fleets over
+    the job's ``torch.distributed`` ranks (``parallel.mesh.FleetMesh``):
+    rank ``b·P·R + p·R + r`` at (b, p, r).  ``n_devices`` (default: every
+    rank of the job) must be the job's size; ``shape`` defaults to
+    ``(n, 1, 1)``, all parallelism on the batch axis (scenarios are
+    independent, so it adds no collective inside a tick and divides each
+    rank's residency by the batch factor).  A collective: every rank makes
+    the mesh's subgroups in one order.  Ranks are processes here, so there
+    is no falling back to other devices: a job of another size raises."""
+    from ringpop_tpu_torch.parallel import mesh as pmesh, multihost
+
+    size = multihost.process_count()
+    n = size if n_devices is None else int(n_devices)
+    if n != size:
+        raise ValueError(f"need {n} ranks, the job has {size} (one process a rank: multihost.init_distributed)")
+    return pmesh.make_fleet_mesh(shape=(n, 1, 1) if shape is None else tuple(shape), transport=transport,
+                                 device=device)
 
 
-def fleet_save_mesh():
-    """Refused: the process-spanning checkpoint mesh is ROADMAP A12b."""
-    raise NotImplementedError(_MESH_REFUSAL)
+def fleet_save_mesh(transport: Optional[str] = None, device=None):
+    """The one-axis fleet mesh over every process of the job in process
+    order, ``(nprocs, 1, 1)``: the checkpoint placement mesh for
+    process-sliced sweeps (``partition.fleet_shard_put`` places each
+    process's batch slice on it, so the store holds every process's rows,
+    each written by its process).  It makes no subgroup (the batch axis is
+    the job's default group), so it is no collective.  Single-process it is
+    the one-rank mesh: the same code path."""
+    from ringpop_tpu_torch.parallel import mesh as pmesh, multihost
+
+    return pmesh.make_fleet_mesh(shape=(multihost.process_count(), 1, 1), transport=transport, device=device)
 
 
 def fleet_state_shardings(mesh, k=None):
-    """Refused: fleet shardings are ROADMAP A12b."""
-    raise NotImplementedError(_MESH_REFUSAL)
+    """A ``LifecycleState`` of ``partition.NamedSharding`` for a [B, ...]
+    replica batch on ``mesh``, from the canonical rule table with a
+    one-deep batch prefix: on a fleet mesh the replica axis is sharded over
+    ``"batch"`` and every state axis keeps its place; on a (P, R) mesh the
+    batch is replicated and every replica sharded.  ``k`` is checked against
+    the mesh's rumor axis (``packbits.check_rumor_shardable``)."""
+    from ringpop_tpu_torch.sim.packbits import check_rumor_shardable
+
+    if k is not None:
+        check_rumor_shardable(k, mesh.shape.get("rumor", 1))
+    return fleet_shardings(LifecycleState(**{f: 0 for f in LifecycleState._fields}), mesh)
 
 
 def fleet_shardings(tree, mesh):
-    """Refused: fleet shardings are ROADMAP A12b."""
-    raise NotImplementedError(_MESH_REFUSAL)
+    """``partition.NamedSharding`` for every leaf of any [B, ...]-batched
+    fleet tree (accumulators, a checkpoint carry), by the rule of
+    :func:`fleet_state_shardings`."""
+    from ringpop_tpu_torch.parallel.partition import named_shardings
+
+    return named_shardings(tree, mesh, batch_axes=1, batch_axis="batch" if "batch" in mesh.shape else None)
 
 
 def fleet_faults_shardings(faults, mesh):
-    """Refused: fleet shardings are ROADMAP A12b."""
-    raise NotImplementedError(_MESH_REFUSAL)
+    """Per-leg ``partition.NamedSharding`` of a (possibly) batched fault
+    model on a fleet mesh: stacked legs (one more axis than their solo rank)
+    take the batch prefix, over ``"batch"`` where the mesh has it; shared
+    legs keep their canonical spec; None legs stay None."""
+    from ringpop_tpu_torch.parallel.partition import P, NamedSharding, spec_for
+
+    batch = "batch" if "batch" in mesh.shape else None
+    if isinstance(faults, chaos.FaultPlan):
+        stacked = {f: v is not None and chaos._leg_rank(f, v) == 1 for f, v in zip(faults._fields, faults)}
+        fields, cls = faults._fields, chaos.FaultPlan
+    else:
+        stacked = {f: _batched(f, getattr(faults, f)) for f in _DELTA_FAULTS_NDIM}
+        fields, cls = tuple(_DELTA_FAULTS_NDIM), DeltaFaults
+    out = {}
+    for f in fields:
+        if getattr(faults, f) is None:
+            continue
+        spec = spec_for(f)
+        out[f] = NamedSharding(mesh, P(batch, *spec) if stacked[f] else spec)
+    return cls(**out)
+
+
+class _Layout:
+    """Where a fleet of ``b`` replicas lives on ``mesh``: the params its
+    replicas step with (bound to the inner (P, R) mesh), this rank's
+    replicas [lo, hi), the inner mesh (None when unsharded) and the batch
+    axis (a ``Mesh`` of the batch coordinates, None without one)."""
+
+    def __init__(self, params: LifecycleParams, b: int, mesh, device: DeviceLike):
+        from ringpop_tpu_torch.parallel.mesh import FleetMesh, with_exchange_mesh
+
+        self.batch = mesh.batch if isinstance(mesh, FleetMesh) else None
+        inner = mesh.inner if isinstance(mesh, FleetMesh) else mesh
+        self.inner = inner if inner is not None and inner.sharded else None
+        self.params = with_exchange_mesh(params, self.inner) if self.inner is not None else params
+        self.lo, self.hi = self.batch.block(b) if self.batch is not None else (0, b)
+        self.device = resolve_device(device if device is not None or mesh is None else mesh.device)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's replicas' [B_local, ...] rows -> the whole fleet's."""
+        return t if self.batch is None else self.batch.gather_rows(t)
 
 
 # solo (unbatched) ndim per DeltaFaults leaf — a leaf with one more axis
@@ -167,9 +251,10 @@ def _index_faults(faults, b: int):
     })
 
 
-def _replica_faults(faults, b_count: int) -> list:
-    """Every replica's solo fault model (:func:`_index_faults`)."""
-    return [_index_faults(faults, b) for b in range(b_count)]
+def _replica_faults(faults, lo: int, hi: int) -> list:
+    """The solo fault models of replicas [lo, hi) (:func:`_index_faults`, by
+    global scenario id)."""
+    return [_index_faults(faults, b) for b in range(lo, hi)]
 
 
 def _mc_block(params: LifecycleParams, states: list, faults: list, ticks: int, telemetry=None):
@@ -191,30 +276,62 @@ def _mc_block(params: LifecycleParams, states: list, faults: list, ticks: int, t
     return states if telemetry is None else (states, telemetry)
 
 
-def _mc_fetch(tel: list, states: list, faults: list):
+def _mc_fetch(tel: list, states: list, faults: list, layout: Optional[_Layout] = None):
     """The fleet's telemetry fetch: every replica's solo ``telemetry.fetch``
     (R1 once a replica on the card) and state digest (D1 once a replica),
-    the records stacked into one [B]-column record.  Returns (record,
-    fresh accumulators, digests[B])."""
+    the records stacked into one [B]-column record; on a mesh each over the
+    replica's (P, R) mesh, and the columns gathered over the batch axis in
+    scenario order.  Returns (record, fresh accumulators, digests[B])."""
+    inner = None if layout is None else layout.inner
     records, fresh = [], []
     for t, s, f in zip(tel, states, faults):
-        rec, zero = _tm.fetch(t, s, f)
+        rec, zero = _tm.fetch(t, s, f, inner)
         records.append(rec)
         fresh.append(zero)
     record = {k: torch.stack([r[k] for r in records]) for k in records[0]}
-    digests = torch.stack([_tm.tree_digest(s) for s in states])
+    digests = torch.stack([_tm.tree_digest(s, inner) for s in states])
+    if layout is not None and layout.batch is not None:
+        columns = _gather_columns(layout, {**record, "state_digest": digests})
+        digests = columns.pop("state_digest")
+        record = columns
     return record, fresh, digests
 
 
-def _detected(states: list, subjects: torch.Tensor, faults: list, min_status: int) -> np.ndarray:
-    """bool[B]: ``detection_complete`` of every replica (L1 once a replica
-    on the card), brought over in ONE host sync."""
-    flags = torch.stack([detection_complete(s, subjects, f, min_status) for s, f in zip(states, faults)])
+def _gather_columns(layout: _Layout, columns: dict) -> dict:
+    """[B_local] columns of mixed dtypes -> the whole fleet's [B] columns,
+    in one gather over the batch axis: each column crosses as its bits in
+    an int64 lane."""
+    lanes = []
+    for v in columns.values():
+        if v.is_floating_point():
+            v = v.view(torch.int32 if v.element_size() == 4 else torch.int64)
+        lanes.append(v.to(torch.int64))
+    whole = layout.gather(torch.stack(lanes, dim=1))
+    out = {}
+    for i, (key, v) in enumerate(columns.items()):
+        lane = whole[:, i]
+        if v.is_floating_point():
+            lane = lane.to(torch.int32 if v.element_size() == 4 else torch.int64).view(v.dtype)
+        out[key] = lane.to(v.dtype)
+    return out
+
+
+def _detected(states: list, subjects: torch.Tensor, faults: list, min_status: int,
+              layout: Optional[_Layout] = None) -> np.ndarray:
+    """bool[B]: ``detection_complete`` of every replica of the fleet (L1
+    once a replica on the card; on a mesh each over its (P, R) mesh, then
+    the flags gathered over the batch axis), brought over in ONE host
+    sync."""
+    inner = None if layout is None else layout.inner
+    flags = torch.stack([detection_complete(s, subjects, f, min_status, mesh=inner) for s, f in zip(states, faults)])
+    if layout is not None:
+        flags = layout.gather(flags)
     return flags.cpu().numpy()
 
 
 def _mc_run_until_device(params: LifecycleParams, states: list, faults: list, subjects: torch.Tensor,
-                         telemetry=None, *, min_status: int, block_ticks: int, max_blocks: int):
+                         telemetry=None, *, min_status: int, block_ticks: int, max_blocks: int,
+                         layout: Optional[_Layout] = None):
     """The whole detection study: step every replica in lockstep blocks of
     ``block_ticks`` ticks, test each with ``detection_complete`` after
     every block (one host sync a block for all B flags), record each
@@ -222,10 +339,13 @@ def _mc_run_until_device(params: LifecycleParams, states: list, faults: list, su
     ``max_blocks`` blocks have run.  A replica that finished keeps stepping
     (its recorded block is frozen), and an armed ``telemetry`` (a list of B
     accumulators) rides every stepped tick.  The entry check reports block
-    0 for a state that has already detected.
+    0 for a state that has already detected.  On a mesh (``layout``) every
+    rank reads every replica's flag (:func:`_detected`), so a batch group
+    whose own replicas are done steps on until the whole fleet is, as the
+    unsharded loop does.
 
     Returns (states, telemetry, blocks_run, first_block[B] (-1 = never))."""
-    first = np.where(_detected(states, subjects, faults, min_status), 0, -1).astype(np.int32)
+    first = np.where(_detected(states, subjects, faults, min_status, layout), 0, -1).astype(np.int32)
     blocks = 0
     while (first < 0).any() and blocks < max_blocks:
         if telemetry is None:
@@ -233,7 +353,7 @@ def _mc_run_until_device(params: LifecycleParams, states: list, faults: list, su
         else:
             states, telemetry = _mc_block(params, states, faults, block_ticks, telemetry)
         blocks += 1
-        first = np.where((first < 0) & _detected(states, subjects, faults, min_status), blocks, first)
+        first = np.where((first < 0) & _detected(states, subjects, faults, min_status, layout), blocks, first)
     return states, telemetry, blocks, first
 
 
@@ -250,8 +370,13 @@ class MonteCarlo:
     into per-scenario verdicts.  ``telemetry_tiers`` arms the per-tier
     suspicion counters.
 
-    ``mesh`` is refused (ROADMAP A12b) and ``aot`` is refused (A15), where
-    ``aot_info`` stays ``{}``.
+    ``mesh``: a ``make_fleet_mesh`` mesh block-shards the fleet (this rank
+    holds its batch block of the replicas, each over its batch group's (P,
+    R) mesh, with the whole plan's legs read by global scenario id); a (P,
+    R) ``parallel.mesh.Mesh`` shards every replica and replicates the
+    batch.  Every member stays bit-identical to its unsharded twin, and
+    ``states``/``telemetry`` read as the whole fleet (gathered).  ``aot``
+    is refused (A15), where ``aot_info`` stays ``{}``.
 
     >>> mc = MonteCarlo(LifecycleParams(n=512, k=32), seeds=range(32))
     >>> ticks, detected = mc.run_until_detected(victims=[3, 99], faults=f)
@@ -270,42 +395,115 @@ class MonteCarlo:
     ):
         if aot is not None:
             raise NotImplementedError(_AOT_REFUSAL)
-        if mesh is not None:
-            raise NotImplementedError(_MESH_REFUSAL)
-        _check_supported(params)
         self.params = params
         self.seeds = list(seeds)
-        self.mesh = None
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._layout = _Layout(params, len(self.seeds), mesh, device)
+        _check_supported(self._layout.params)
+        self.device = self._layout.device
         self.aot_info: dict = {}
         self._telemetry_tiers = telemetry_tiers
-        self._states = _init_solo(params, self.seeds, None, self.device)
+        self._states = self._fresh_states()
         self._tel = self._fresh_telemetry() if telemetry else None
 
+    def _fresh_states(self) -> list:
+        lay = self._layout
+        return _init_solo(lay.params, self.seeds[lay.lo:lay.hi], self.device)
+
     def _fresh_telemetry(self) -> list:
-        return [_tm.zeros(self.params, tiers=self._telemetry_tiers, device=self.device) for _ in self.seeds]
+        return [_tm.zeros(self._layout.params, tiers=self._telemetry_tiers, device=self.device)
+                for _ in self._states]
+
+    def _whole(self, solo: list):
+        """The whole fleet of a tree from this rank's replicas' blocks:
+        each gathered over its (P, R) mesh, stacked, then gathered over the
+        batch axis.  Without a mesh, the stack."""
+        lay = self._layout
+        if self.mesh is None:
+            return _stack(solo)
+        if lay.inner is not None:
+            from ringpop_tpu_torch.parallel.partition import host_gather
+
+            solo = [type(s)(*(None if x is None else torch.from_numpy(x).to(self.device)
+                              for x in host_gather(s, lay.inner))) for s in solo]
+        return type(solo[0])(*(None if leaf is None else lay.gather(leaf) for leaf in _stack(solo)))
+
+    def _solo(self, batched) -> list:
+        """Solo trees on this fleet's device from a [b, ...] tree (tensors or
+        numpy), each leaf a copy."""
+        return _unstack(type(batched)(*(None if x is None else torch.as_tensor(x).to(self.device) for x in batched)))
+
+    def _local(self, batched) -> list:
+        """This rank's replicas' solo blocks of a whole batched tree."""
+        lay = self._layout
+        solo = self._solo(type(batched)(*(None if x is None else x[lay.lo:lay.hi] for x in batched)))
+        if lay.inner is None:
+            return solo
+        from ringpop_tpu_torch.parallel.partition import shard_put
+
+        return [shard_put(t, lay.inner, self.params.n) for t in solo]
 
     @property
     def states(self) -> LifecycleState:
-        """The batched state: every leaf [B, ...], stacked on read."""
-        return _stack(self._states)
+        """The batched state: every leaf [B, ...] (the whole fleet, gathered
+        from the ranks on a mesh; a collective there)."""
+        return self._whole(self._states)
 
     @states.setter
     def states(self, batched: LifecycleState) -> None:
-        solo = _unstack(batched)
-        if len(solo) != self.n_replicas:
-            raise ValueError(f"a B={len(solo)} state for a B={self.n_replicas} fleet")
-        self._states = solo
+        if int(batched.tick.shape[0]) != self.n_replicas:
+            raise ValueError(f"a B={int(batched.tick.shape[0])} state for a B={self.n_replicas} fleet")
+        self._states = self._local(batched)
 
     @property
     def telemetry(self) -> Optional[_tm.TelemetryState]:
-        """The batched accumulators (every leaf [B, ...]), or None when
-        telemetry is off."""
-        return None if self._tel is None else _stack(self._tel)
+        """The batched accumulators (every leaf [B, ...], the whole fleet's),
+        or None when telemetry is off."""
+        return None if self._tel is None else self._whole(self._tel)
 
     @telemetry.setter
     def telemetry(self, batched: Optional[_tm.TelemetryState]) -> None:
-        self._tel = None if batched is None else _unstack(batched)
+        self._tel = None if batched is None else self._local(batched)
+
+    def local_blocks(self):
+        """(states, telemetry) of this rank's replicas as host numpy,
+        [B_local, ...] blocks of the port's dtypes (telemetry None when off),
+        copied replica by replica so the card holds no second copy of the
+        fleet."""
+        def host(solo: list):
+            return type(solo[0])(*(None if leaf is None else np.stack([t[i].detach().cpu().numpy() for t in solo])
+                                   for i, leaf in enumerate(solo[0])))
+
+        return host(self._states), None if self._tel is None else host(self._tel)
+
+    def set_local_blocks(self, states, telemetry=None) -> None:
+        """Take this rank's replicas' blocks ([B_local, ...] leaves, as
+        :meth:`local_blocks` gives them or a restore reads them)."""
+        solo = self._solo(states)
+        if len(solo) != len(self._states):
+            raise ValueError(f"{len(solo)} replicas for this rank's {len(self._states)}")
+        self._states = solo
+        self._tel = None if telemetry is None else self._solo(telemetry)
+
+    def whole_spec(self, b: int) -> dict:
+        """{"states", "telemetry"} of a [b, ...] fleet of this config as
+        ``meta`` tensors: the whole solo shapes (a replica's blocks widened
+        over its (P, R) mesh) with a leading b, the port's dtypes; telemetry
+        None when off.  A checkpoint restore's target."""
+        from ringpop_tpu_torch.parallel.partition import _tree_map_named, global_shape_of, spec_for
+
+        inner = self._layout.inner
+
+        def spec(name, leaf):
+            shape = tuple(leaf.shape) if inner is None else global_shape_of(spec_for(name), inner, tuple(leaf.shape))
+            return torch.empty((b,) + shape, dtype=leaf.dtype, device="meta")
+
+        return _tree_map_named(spec, {"states": self._states[0], "telemetry": None if self._tel is None else self._tel[0]})
+
+    @property
+    def block(self) -> tuple[int, int]:
+        """This rank's replicas [lo, hi) of the fleet."""
+        return self._layout.lo, self._layout.hi
 
     def reset_states(self, seeds: Optional[Sequence[int]] = None):
         """Re-seed the fleet in place (same B).  Zeroes the telemetry
@@ -318,7 +516,7 @@ class MonteCarlo:
                     f"{len(self.seeds)} fleet (B is fixed for the fleet)"
                 )
             self.seeds = seeds
-        self._states = _init_solo(self.params, self.seeds, None, self.device)
+        self._states = self._fresh_states()
         if self._tel is not None:
             self._tel = self._fresh_telemetry()
 
@@ -326,9 +524,11 @@ class MonteCarlo:
         self, subjects, faults: DeltaFaults = DeltaFaults(), min_status: int = FAULTY
     ) -> np.ndarray:
         """Detection fractions per replica -> float[B, S], a host loop over
-        replicas (``lifecycle.detection_fraction`` each)."""
+        replicas (``lifecycle.detection_fraction`` each, on the whole fleet
+        on a mesh)."""
+        states = self._states if self.mesh is None else _unstack(self.states)
         rows = []
-        for b, state in enumerate(self._states):
+        for b, state in enumerate(states):
             rows.append(detection_fraction(state, subjects, _index_faults(faults, b), min_status).cpu().numpy())
         return np.stack(rows)
 
@@ -336,23 +536,40 @@ class MonteCarlo:
     def n_replicas(self) -> int:
         return len(self.seeds)
 
+    def _faults(self, faults) -> list:
+        return _replica_faults(faults, self._layout.lo, self._layout.hi)
+
     def run(self, ticks: int, faults: DeltaFaults = DeltaFaults()) -> LifecycleState:
-        per = _replica_faults(faults, self.n_replicas)
-        if self._tel is None:
-            self._states = _mc_block(self.params, self._states, per, ticks)
-        else:
-            self._states, self._tel = _mc_block(self.params, self._states, per, ticks, self._tel)
+        """``ticks`` steps of every replica; returns the batched state (a
+        stacked copy; on a mesh the whole fleet, gathered)."""
+        self.advance(ticks, faults)
         return self.states
+
+    def advance(self, ticks: int, faults: DeltaFaults = DeltaFaults()) -> None:
+        """``ticks`` steps of every replica of this rank, reading nothing
+        back: :meth:`run` without the batched copy."""
+        params, per = self._layout.params, self._faults(faults)
+        if self._tel is None:
+            self._states = _mc_block(params, self._states, per, ticks)
+        else:
+            self._states, self._tel = _mc_block(params, self._states, per, ticks, self._tel)
 
     def fetch_telemetry(self, faults: DeltaFaults = DeltaFaults(), id_base: int = 0) -> list[dict]:
         """Fetch-and-reset the accumulators: B per-scenario host block
         records (``scenario_id`` = ``id_base`` + replica index), each with
-        its replica's ``state_digest``."""
+        its replica's ``state_digest``; on a mesh every rank gets every
+        record, in scenario order."""
         if self._tel is None:
             raise ValueError("MonteCarlo built without telemetry=True")
-        per = _replica_faults(faults, self.n_replicas)
-        record, self._tel, digests = _mc_fetch(self._tel, self._states, per)
+        record, self._tel, digests = _mc_fetch(self._tel, self._states, self._faults(faults), self._layout)
         return _tm.split_batched(record, {"state_digest": digests}, id_base=id_base)
+
+    def digests(self) -> list[int]:
+        """Every replica's state digest, in replica order (D1 once a replica
+        on the card; on a mesh each over its (P, R) mesh, then gathered)."""
+        lay = self._layout
+        local = torch.stack([_tm.tree_digest(s, lay.inner) for s in self._states])
+        return [int(x) for x in lay.gather(local).cpu()]
 
     def run_until_detected(
         self,
@@ -372,11 +589,10 @@ class MonteCarlo:
         that finish early keep stepping; their recorded tick is frozen.  An
         armed telemetry accumulator covers every tick the fleet stepped."""
         subjects = _subjects(list(victims), self.device)
-        per = _replica_faults(faults, self.n_replicas)
         max_blocks = -(-max_ticks // check_every)
         self._states, self._tel, _, first_block = _mc_run_until_device(
-            self.params, self._states, per, subjects, self._tel, min_status=min_status,
-            block_ticks=check_every, max_blocks=max_blocks,
+            self._layout.params, self._states, self._faults(faults), subjects, self._tel, min_status=min_status,
+            block_ticks=check_every, max_blocks=max_blocks, layout=self._layout,
         )
         first_block = np.asarray(first_block, np.int64)
         first_tick = np.where(first_block >= 0, first_block * check_every, -1)

@@ -27,13 +27,15 @@ The scored path (``scored_fleet`` / ``FleetSweep``) carries the telemetry
 counters one accumulator a replica and reduces them per scenario, one
 fetch for all scenarios a journal block; ``chaos.score_blocks`` turns each
 scenario's block slice into a verdict with its grid coordinates attached.
-``FleetSweep`` checkpoints mid-sweep (``sim/snapshot.save_carry`` plus the
-JAX package's JSON sidecar) and restores bit-exactly.
+``FleetSweep`` checkpoints mid-sweep (the multi-process store,
+``sim/snapshot.save_carry_orbax``, plus the JAX package's JSON sidecars)
+and restores bit-exactly, onto another process count or a fleet mesh.  A
+sweep may be process-sliced (``global_b``: each process its
+``partition.process_block`` of the grid) or block-sharded over a fleet
+mesh (``mesh=``), not both.
 
-Not ported yet, each refused with NotImplementedError: the process-sliced
-sweep (``global_b`` other than the slice's own B, ``fleet_shard_put``) and
-the fleet mesh (``mesh=``): ROADMAP A12b; the AOT warm start (``aot=``):
-A15.
+Not ported yet, refused with NotImplementedError: the AOT warm start
+(``aot=``: A15).
 """
 
 from __future__ import annotations
@@ -45,13 +47,14 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ringpop_tpu_torch.device import DeviceLike, resolve_device
+from ringpop_tpu_torch.parallel import multihost
 from ringpop_tpu_torch.sim import chaos
-from ringpop_tpu_torch.sim import telemetry as _tm
 from ringpop_tpu_torch.sim.chaos import FaultPlan
 from ringpop_tpu_torch.sim.lifecycle import LifecycleParams
 from ringpop_tpu_torch.sim.montecarlo import _AOT_REFUSAL, MonteCarlo
 
-_SLICE_REFUSAL = "process-sliced fleet sweeps are not ported yet (ROADMAP A12b)"
+_MESH_AND_SLICE = ("process-sliced sweeps checkpoint their local slice; a device mesh on top would need two "
+                   "partitioning owners")
 
 
 # -- grid construction (host-side) --------------------------------------------
@@ -243,34 +246,38 @@ def scored_fleet(
     return sweep.scores()
 
 
-def fleet_shard_put(carry, mesh, global_b: int):
-    """Refused: placing a process slice on the process-spanning save mesh
-    is ROADMAP A12b."""
-    raise NotImplementedError(_SLICE_REFUSAL)
-
-
 FLEET_CKPT_VERSION = 1
 
 
 class FleetSweep:
     """A resumable long-horizon scored sweep: B scenarios stepped in
     lockstep journal blocks with the telemetry counters on, checkpointable
-    between blocks and restorable bit-exactly.
+    between blocks and restorable bit-exactly, also onto another process
+    count.
 
     The checkpoint carry is (batched engine state + batched telemetry
-    counters), written by ``snapshot.save_carry`` as one npz; sweep
+    counters), written into the multi-process store
+    (``snapshot.save_carry_orbax``: each process its own rows); sweep
     progress and the already-fetched per-scenario block records ride the
-    JAX package's JSON sidecar under ``<path>.meta/rank0.json`` (block
-    records are native JSON scalars, so the round trip is value-exact and
-    the resumed run's verdicts equal the unbroken run's bit for bit).
+    JAX package's JSON sidecars, ``<path>.meta/rank<r>.json`` a process
+    (block records are native JSON scalars, so the round trip is
+    value-exact and the resumed run's verdicts equal the unbroken run's bit
+    for bit).
+
+    Process slicing: process r of P builds this class over
+    ``chaos.slice_plan(plan, lo, hi)`` / ``meta[lo:hi]`` / ``seeds[lo:hi]``
+    (``lo, hi = partition.process_block(B, r, P)``) with ``global_b=B``; at
+    save its slice is placed on ``montecarlo.fleet_save_mesh`` by
+    ``partition.fleet_shard_put``, so every process writes only its rows,
+    and a restore at another process count reads only the rows of its new
+    slice.  ``mesh`` (a ``montecarlo.make_fleet_mesh`` mesh, over the whole
+    grid) block-shards the fleet instead; the two together raise
+    ValueError.
 
     ``obs`` (duck-typed: ``block_record(rec)``, ``progress(done, horizon,
     last_checkpoint_tick=...)``, ``sync()``) and ``on_block(sweep)`` are
     host-side hooks called after each block's records are journaled; they
     cannot change what the fleet computed.
-
-    ``mesh`` and a ``global_b`` other than ``len(meta)`` (a process slice)
-    are refused (ROADMAP A12b).
     """
 
     def __init__(
@@ -293,13 +300,13 @@ class FleetSweep:
     ):
         if len(meta) != len(list(seeds)):
             raise ValueError(f"{len(meta)} meta entries vs {len(list(seeds))} seeds")
-        if global_b is not None and global_b != len(meta):
-            raise NotImplementedError(_SLICE_REFUSAL)
         self.params, self.plan = params, plan
         self.meta, self.seeds = list(meta), list(seeds)
         self.horizon, self.journal_every = horizon, journal_every
         self.sink, self.scenario = sink, scenario
-        self.global_b = len(self.meta)
+        self.global_b = len(self.meta) if global_b is None else global_b
+        # meta carries grid-global scenario ids; a process slice keeps them,
+        # so the id base is the first entry's id
         self.id_base = self.meta[0]["scenario_id"] if self.meta else 0
         ids = [m["scenario_id"] for m in self.meta]
         if ids != list(range(self.id_base, self.id_base + len(ids))):
@@ -307,6 +314,8 @@ class FleetSweep:
                 "meta scenario_ids must be contiguous (a process_block "
                 f"slice of the grid); got {ids[:4]}..."
             )
+        if mesh is not None and self.sliced:
+            raise ValueError(_MESH_AND_SLICE)
         # a topology-carrying plan arms the per-tier suspicion counters
         tiers = plan.tier_ids is not None if telemetry_tiers is None else telemetry_tiers
         self.mc = MonteCarlo(params, self.seeds, telemetry=True, telemetry_tiers=tiers, mesh=mesh, device=device)
@@ -316,6 +325,11 @@ class FleetSweep:
         self.obs = obs
         self.on_block = on_block
         self._last_checkpoint_tick: Optional[int] = None
+
+    @property
+    def sliced(self) -> bool:
+        """Is this sweep one process's slice of a larger grid?"""
+        return self.global_b != len(self.meta)
 
     def header_params(self) -> dict:
         """Restore-proof fields for a journal header (OBSERVABILITY.md
@@ -348,7 +362,7 @@ class FleetSweep:
             )
         while self.ticks_done < target:
             step = min(self.journal_every, self.horizon - self.ticks_done)
-            self.mc.run(step, self.plan)
+            self.mc.advance(step, self.plan)
             self.ticks_done += step
             for rec in self.mc.fetch_telemetry(self.plan, id_base=self.id_base):
                 self.blocks[rec["scenario_id"]].append(rec)
@@ -368,7 +382,7 @@ class FleetSweep:
     def scores(self) -> list[dict]:
         """Per-scenario ``chaos.score_blocks`` verdicts over every block
         this sweep has seen — including, after a restore, the pre-kill
-        blocks read back from the checkpoint sidecar."""
+        blocks read back from the checkpoint sidecars."""
         scores = []
         for b, m in enumerate(self.meta):
             gid = m["scenario_id"]
@@ -386,24 +400,50 @@ class FleetSweep:
         return scores
 
     def digests(self) -> dict[int, int]:
-        """{global scenario_id: state digest} (D1 once a replica on the
-        card)."""
-        return {self.id_base + i: int(_tm.tree_digest(s)) for i, s in enumerate(self.mc._states)}
+        """{global scenario_id: state digest} for this sweep's scenarios (D1
+        once a replica on the card)."""
+        return {self.id_base + i: d for i, d in enumerate(self.mc.digests())}
 
     # -- checkpointing --------------------------------------------------------
 
-    def _carry(self) -> dict:
-        return {"states": self.mc.states, "telemetry": self.mc.telemetry}
+    def _own_rows(self) -> None:
+        """A process slice must be the process's ``process_block`` of the
+        grid to restore: that is where the store's rows are read from (a
+        save checks the same in ``partition.fleet_shard_put``)."""
+        from ringpop_tpu_torch.parallel.partition import process_block
+
+        nprocs = multihost.process_count()
+        want = process_block(self.global_b, multihost.process_index(), nprocs) if nprocs > 1 else (0, self.global_b)
+        if (self.id_base, self.id_base + len(self.meta)) != want:
+            raise ValueError(
+                f"this process holds scenarios [{self.id_base}, {self.id_base + len(self.meta)}) of "
+                f"{self.global_b}; its process_block is {list(want)}")
 
     def save(self, path: str) -> None:
-        """Checkpoint mid-sweep: the carry to ``path`` (one npz,
-        ``snapshot.save_carry``) plus the JSON sidecar under
-        ``<path>.meta/rank0.json`` carrying progress, the config and the
-        fetched block records."""
-        from ringpop_tpu_torch.sim import snapshot
+        """Checkpoint mid-sweep: the carry into the store at ``path`` (each
+        process writing only its rows, or on a fleet mesh its blocks) plus
+        this process's JSON sidecar under ``<path>.meta/`` carrying progress,
+        the config and its fetched block records.  A collective over the
+        job's processes."""
+        import glob as _glob
 
-        snapshot.save_carry(path, self._carry())
+        from ringpop_tpu_torch.parallel.partition import fleet_shard_put, place_blocks
+        from ringpop_tpu_torch.sim import snapshot
+        from ringpop_tpu_torch.sim.montecarlo import fleet_save_mesh
+
+        states, tel = self.mc.local_blocks()
+        carry = {"states": states, "telemetry": tel}
+        if self.mc.mesh is not None:
+            carry = place_blocks(carry, self.mc.mesh, batch_axes=1)
+        elif self.sliced:
+            carry = fleet_shard_put(carry, fleet_save_mesh(), self.global_b)
+        rank, nprocs = multihost.process_index(), multihost.process_count()
         meta_dir = path + ".meta"
+        if rank == 0:
+            # an earlier save's sidecars go before the store's first barrier
+            for old in _glob.glob(os.path.join(meta_dir, "rank*.json")):
+                os.remove(old)
+        snapshot.save_carry_orbax(path, carry)
         os.makedirs(meta_dir, exist_ok=True)
         sidecar = {
             "version": FLEET_CKPT_VERSION,
@@ -415,13 +455,14 @@ class FleetSweep:
             "ticks_done": self.ticks_done,
             "horizon": self.horizon,
             "journal_every": self.journal_every,
-            "process_count": 1,
+            "process_count": nprocs,
             "blocks": {str(k): v for k, v in self.blocks.items()},
         }
-        tmp = os.path.join(meta_dir, f"rank0.json.tmp{os.getpid()}")
+        tmp = os.path.join(meta_dir, f"rank{rank}.json.tmp{os.getpid()}")
         with open(tmp, "w") as f:
             json.dump(sidecar, f)
-        os.replace(tmp, os.path.join(meta_dir, "rank0.json"))
+        os.replace(tmp, os.path.join(meta_dir, f"rank{rank}.json"))
+        multihost.barrier()
         self._last_checkpoint_tick = self.ticks_done
         if self.obs is not None:
             self.obs.progress(self.ticks_done, self.horizon, last_checkpoint_tick=self.ticks_done)
@@ -443,15 +484,19 @@ class FleetSweep:
         obs=None,
         device: DeviceLike = None,
     ) -> "FleetSweep":
-        """Resume a killed sweep.  ``plan``/``meta``/``seeds`` are the
-        caller's reconstruction of the grid (deterministic in its config);
-        the carry restores into a fresh sweep on ``device``, validated leaf
-        by leaf, and the pre-kill block records merge back from the
-        sidecar so the final verdicts cover the whole horizon.  A
-        checkpoint of a process-sliced sweep is refused (ROADMAP A12b)."""
+        """Resume a killed sweep, at this process count, which need not be
+        the saver's.  ``plan``/``meta``/``seeds`` are the caller's
+        reconstruction of its slice of the grid (deterministic in its
+        config; ``chaos.slice_plan`` and ``partition.process_block`` re-slice
+        it), or of the whole grid with a fleet ``mesh``; the carry restores
+        into a fresh sweep on ``device``, each process reading only the
+        stored rows (or blocks) of its own, validated leaf by leaf, and the
+        pre-kill block records merge back from every process's sidecar so
+        the final verdicts cover the whole horizon."""
         import glob as _glob
 
         from ringpop_tpu_torch.sim import snapshot
+        from ringpop_tpu_torch.sim.montecarlo import fleet_save_mesh, fleet_shardings
 
         meta_dir = path + ".meta"
         sidecars = []
@@ -475,8 +520,6 @@ class FleetSweep:
                 f"{path}: checkpoint was taken with {head['params']}, "
                 f"restore asked for {params!r}"
             )
-        if len(sidecars) > 1 or (head.get("process_count") or 1) > 1:
-            raise NotImplementedError(_SLICE_REFUSAL)
         sweep = cls(
             params, plan, meta, seeds,
             horizon=head["horizon"], journal_every=head["journal_every"],
@@ -489,9 +532,16 @@ class FleetSweep:
                 f"{path}: checkpoint holds a B={head['global_b']} fleet, "
                 f"restore sliced B={sweep.global_b}"
             )
-        carry = snapshot.load_carry(path, sweep._carry())
-        sweep.mc.states = carry["states"]
-        sweep.mc.telemetry = carry["telemetry"]
+        example = sweep.mc.whole_spec(sweep.global_b)
+        if mesh is not None:
+            shardings = fleet_shardings(example, mesh)
+        elif sweep.sliced:
+            sweep._own_rows()
+            shardings = fleet_shardings(example, fleet_save_mesh())
+        else:
+            shardings = None
+        carry = snapshot.load_carry_orbax(path, example, shardings, device=sweep.mc.device)
+        sweep.mc.set_local_blocks(carry["states"], carry["telemetry"])
         sweep.ticks_done = head["ticks_done"]
         sweep._last_checkpoint_tick = head["ticks_done"]
         for s in sidecars:
@@ -503,7 +553,7 @@ class FleetSweep:
             "from_tick": head["ticks_done"],
             "checkpoint": os.path.abspath(path),
             "saved_process_count": head.get("process_count"),
-            "restored_process_count": 1,
+            "restored_process_count": multihost.process_count(),
         }
         return sweep
 

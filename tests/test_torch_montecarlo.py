@@ -227,17 +227,31 @@ def test_states_setter_round_trips_and_refuses_another_b():
 
 
 def test_unported_routes_refuse_by_queue_item():
+    """The AOT warm start (A15) still refuses; the fleet meshes (A12b) now
+    run: on one process the fleet mesh is (1, 1, 1) and the fleet on it is
+    the unsharded fleet (the multi-rank meshes are in
+    tests/test_torch_fleet_mesh.py)."""
+    from ringpop_tpu_torch.parallel.partition import P
+
     params = tl.LifecycleParams(n=N, k=K)
     with pytest.raises(NotImplementedError, match="A15"):
         tm.MonteCarlo(params, SEEDS, aot="tag", device=CPU)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tm.MonteCarlo(params, SEEDS, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tm.init_replicas(params, SEEDS, mesh=object(), device=CPU)
-    for fn, args in ((tm.make_fleet_mesh, ()), (tm.fleet_save_mesh, ()), (tm.fleet_state_shardings, (None,)),
-                     (tm.fleet_shardings, (None, None)), (tm.fleet_faults_shardings, (None, None))):
-        with pytest.raises(NotImplementedError, match="A12"):
-            fn(*args)
+    mesh = tm.make_fleet_mesh(device="cpu")
+    assert mesh.shape == {"batch": 1, "node": 1, "rumor": 1} == tm.fleet_save_mesh(device="cpu").shape
+    on_mesh, plain = tm.MonteCarlo(params, SEEDS, mesh=mesh), tm.MonteCarlo(params, SEEDS, device=CPU)
+    assert on_mesh.device == CPU
+    assert_states_equal(jl.LifecycleState(*tl.state_to_numpy(on_mesh.run(3))), plain.run(3))
+    assert on_mesh.digests() == plain.digests()
+    assert all(torch.equal(a, b) for a, b in zip(tm.init_replicas(params, SEEDS, mesh=mesh),
+                                                 tm.init_replicas(params, SEEDS, device=CPU)))
+    specs = tm.fleet_state_shardings(mesh, k=K)
+    assert specs.pcount.spec == P("batch", "node", "rumor") and specs.tick.spec == P("batch")
+    assert tm.fleet_shardings({"x": 0}, mesh)["x"].spec == P("batch")
+    legs = tm.fleet_faults_shardings(td.DeltaFaults(up=torch.ones(4, N, dtype=torch.bool),
+                                                    drop_rate=torch.tensor(0.1)), mesh)
+    assert legs.up.spec == P("batch", "node") and legs.drop_rate.spec == P() and legs.reach is None
+    with pytest.raises(ValueError, match="need 2 ranks"):
+        tm.make_fleet_mesh(2)
     with pytest.raises(ValueError, match="telemetry=True"):
         tm.MonteCarlo(params, SEEDS, device=CPU).fetch_telemetry()
 

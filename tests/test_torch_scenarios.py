@@ -8,8 +8,9 @@ for bit, on the CPU.
 * the scored sweep: ``scored_fleet``'s verdicts and block records, a
   ``FleetSweep`` saved mid-sweep (save does not perturb it), killed and
   restored (scores and digests equal the unbroken run's and the JAX
-  sweep's), its npz carry leaf for leaf against the JAX sweep's carry, and
-  the refusals (wrong config, off-boundary targets, the A12/A15 routes);
+  sweep's), its stored carry leaf for leaf against the JAX sweep's carry,
+  and the refusals (wrong config, off-boundary targets, a process slice
+  that is not its process's block, a mesh on a slice, the A15 routes);
 * the detection surfaces: ``detect_surface`` against ``sequential_detect``
   and the JAX package, ``refine_surface`` and ``dense_surface`` each
   against the JAX functions' live output on the same inputs (not against
@@ -31,9 +32,12 @@ from ringpop_tpu.sim import scenarios as js
 from ringpop_tpu.sim import snapshot as jsnap
 from ringpop_tpu.sim import telemetry as jt
 from ringpop_tpu.sim import topology as jtop
+from ringpop_tpu_torch.parallel.mesh import Mesh
+from ringpop_tpu_torch.parallel.partition import fleet_shard_put
 from ringpop_tpu_torch.sim import chaos as tc
 from ringpop_tpu_torch.sim import lifecycle as tl
 from ringpop_tpu_torch.sim import scenarios as ts
+from ringpop_tpu_torch.sim.montecarlo import make_fleet_mesh
 from ringpop_tpu_torch.sim import telemetry as tt
 from ringpop_tpu_torch.sim import topology as ttop
 
@@ -162,9 +166,10 @@ def test_fleet_sweep_save_kill_restore_matches_unbroken_and_jax(jax_sweep, tmp_p
     sweep = port_sweep()
     sweep.run(until_tick=BLOCK)
     sweep.save(ck)
-    # the port's carry, read with numpy, is the JAX sweep's carry leaf for leaf
-    with np.load(ck) as data:
-        assert sorted(data.files) == sorted(jax_sweep["carry"])
+    # the port's carry, read with numpy (the store's one file: a single
+    # process writes every leaf whole), is the JAX sweep's carry leaf for leaf
+    with np.load(os.path.join(ck, "shard-00000.npz")) as data:
+        assert sorted(f for f in data.files if f != "__index__") == sorted(jax_sweep["carry"])
         for name, want in jax_sweep["carry"].items():
             assert data[name].dtype == want.dtype and np.array_equal(data[name], want), name
     with open(ck + ".meta/rank0.json") as f:
@@ -212,16 +217,23 @@ def test_fleet_sweep_refusals(tmp_path):
         json.dump({**head, "version": 99}, f)
     with pytest.raises(ValueError, match="version 99"):
         ts.FleetSweep.restore(ck, params, plan, meta, seeds, device=CPU)
+    # a checkpoint another process count wrote restores here (the store's
+    # rows are where they are, whoever wrote them)
     with open(side, "w") as f:
         json.dump({**head, "process_count": 2}, f)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ts.FleetSweep.restore(ck, params, plan, meta, seeds, device=CPU)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ts.FleetSweep(params, plan, meta, seeds, horizon=HORIZON, global_b=8, device=CPU)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ts.FleetSweep(params, plan, meta, seeds, horizon=HORIZON, mesh=object(), device=CPU)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ts.fleet_shard_put({}, None, 4)
+    back = ts.FleetSweep.restore(ck, params, plan, meta, seeds, device=CPU)
+    assert back.resumed["saved_process_count"] == 2 and back.resumed["restored_process_count"] == 1
+    # a process slice must be its process's block of the grid to save: one
+    # process's block is the whole grid
+    part = ts.FleetSweep(params, plan, meta, seeds, horizon=HORIZON, global_b=8, device=CPU)
+    assert part.sliced and part.header_params()["global_b"] == 8
+    with pytest.raises(ValueError, match="process_block"):
+        part.save(str(tmp_path / "part"))
+    with pytest.raises(ValueError, match="two partitioning owners"):
+        ts.FleetSweep(params, plan, meta, seeds, horizon=HORIZON, global_b=8, mesh=make_fleet_mesh(device="cpu"),
+                      device=CPU)
+    with pytest.raises(ValueError, match="'batch' axis"):
+        fleet_shard_put({}, Mesh(size=1, rank=0, device=CPU, transport="gloo"), 4)
     with pytest.raises(ValueError, match="contiguous"):
         ts.FleetSweep(params, plan, meta[1:] + meta[:1], seeds, horizon=HORIZON, device=CPU)
     with pytest.raises(NotImplementedError, match="A15"):

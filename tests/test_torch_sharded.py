@@ -33,7 +33,7 @@ from ringpop_tpu.sim.delta import DeltaFaults as JFaults
 
 from ringpop_tpu_torch.parallel import multihost, partition
 from ringpop_tpu_torch.parallel.mesh import Mesh, delta_shardings, with_exchange_mesh
-from ringpop_tpu_torch.sim import delta as td, lifecycle as tl, montecarlo, scenarios, snapshot
+from ringpop_tpu_torch.sim import delta as td, lifecycle as tl, montecarlo, snapshot
 
 from torch_dist_worker import run_group
 
@@ -238,12 +238,13 @@ def test_partition_tables_and_shardings():
         partition.shard_put(whole._replace(learned=whole.learned[:10]), mesh, 64)
 
 
-def test_a12b_refusals_and_divisibility():
-    """Each item still left for A12b (the fleet's meshes, the orbax
-    checkpoints, the process-sliced sweep) refuses with a
-    NotImplementedError naming it; its first half is ported: telemetry
-    under a mesh builds the rank's block of accumulators, and a rumor axis
-    places word blocks.  Ranks that do not divide n raise ValueError as
+def test_a12b_refusals_and_divisibility(tmp_path):
+    """A12b is ported: telemetry under a mesh builds the rank's block of
+    accumulators, a rumor axis places word blocks, and the fleet's routes
+    that were refused here now work at a small size — the one-rank fleet
+    mesh, the batch-axis placement and gather (a mesh without a batch axis
+    is refused with the JAX package's ValueError), the store behind the
+    orbax checkpoints.  Ranks that do not divide n raise ValueError as
     ``process_block`` does, and so does a ``rumor_shards`` that does not
     divide the job."""
     mesh = Mesh(size=2, rank=0, device=torch.device("cpu"), transport="gloo")
@@ -252,21 +253,21 @@ def test_a12b_refusals_and_divisibility():
     assert sim.telemetry.pings.shape == (32,) and sim.telemetry.piggybacked.shape == (32, 1)
     block = tl.init_state(life, device="cpu")
     assert block.learned.shape == (32, 1) and block.r_subject.shape == (32,)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        montecarlo.make_fleet_mesh()
-    with pytest.raises(NotImplementedError, match="A12b"):
+    assert montecarlo.make_fleet_mesh(device="cpu").shape == {"batch": 1, "node": 1, "rumor": 1}
+    with pytest.raises(ValueError, match="'batch' axis"):
         partition.fleet_shard_put({}, mesh, 4)
-    with pytest.raises(NotImplementedError, match="A12b"):
-        partition.fleet_host_gather({})
-    with pytest.raises(NotImplementedError, match="A12b"):
-        snapshot.save_state_orbax("/nonexistent", block)
+    placed = partition.fleet_shard_put({"a": torch.arange(4)}, montecarlo.fleet_save_mesh(device="cpu"), 4)
+    assert placed["a"].offset == (0,) and placed["a"].shape == (4,)
+    assert partition.fleet_host_gather(placed)["a"].tolist() == [0, 1, 2, 3]
+    snapshot.save_state_orbax(str(tmp_path / "block"), block)
+    assert torch.equal(snapshot.load_state_orbax(str(tmp_path / "block"), block).learned, block.learned)
     with pytest.raises(ValueError, match="must divide"):
         multihost.make_multihost_mesh(rumor_shards=3)
     whole = tl.init_state(tl.LifecycleParams(n=64, k=64, rng="counter"), seed=2, device="cpu")
     placed = partition.shard_put(whole, _RumorMesh(), 64)
     assert torch.equal(placed.learned, whole.learned[:32, 1:]) and torch.equal(placed.pcount, whole.pcount[:32, 32:])
     assert torch.equal(placed.r_subject, whole.r_subject) and torch.equal(placed.base_inc, whole.base_inc[:32])
-    assert "A12b" in scenarios._SLICE_REFUSAL
+    assert partition.block_of(partition.P("node", "rumor"), _RumorMesh(), (64, 2)) == ((0, 1), (32, 1), True)
     for bad in (td.DeltaParams(n=63, k=32, exchange_mesh=mesh), tl.LifecycleParams(n=63, k=32, exchange_mesh=mesh)):
         engine = td if isinstance(bad, td.DeltaParams) else tl
         with pytest.raises(ValueError, match="must divide"):

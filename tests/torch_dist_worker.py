@@ -1,6 +1,8 @@
 """Spawned rank groups for the port's sharding tests: P·R processes on the
 CPU, joined by ``torch.distributed`` over gloo, each holding one rank of a
-(P, R) ``parallel.mesh.Mesh`` (R = 1 unless a group names its shape).
+(P, R) ``parallel.mesh.Mesh`` (R = 1 unless a group names its shape), or
+of a (Bm, P, R) ``parallel.mesh.FleetMesh`` when the shape has three axes;
+the fleet's process-sliced sweeps run as jobs of a group of P processes.
 
 ``multiprocessing``'s spawn re-imports the module that holds a worker's
 function, so this module imports neither ``jax`` nor the JAX package: the
@@ -31,12 +33,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_group(size: int, jobs: list, deadline_s: float = GROUP_DEADLINE_S, shape=None) -> dict:
+def run_group(size: int, jobs: list, deadline_s: float = GROUP_DEADLINE_S, shape=None, every_rank: bool = False):
     """Run ``jobs`` (a list of (name, job function name, payload)) in one
-    group of ``size`` spawned ranks on a mesh of ``shape`` (P, R) (default
-    (size, 1)); returns {name: rank 0's result}.  Raises RuntimeError with
-    a rank's traceback when any job fails, and when the group misses its
-    deadline."""
+    group of ``size`` spawned ranks on a mesh of ``shape``: (P, R) (default
+    (size, 1)) or (Bm, P, R) (a fleet mesh); returns {name: rank 0's
+    result}, or with ``every_rank`` the list of every rank's.  Raises
+    RuntimeError with a rank's traceback when any job fails, and when the
+    group misses its deadline."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = free_port()
@@ -58,7 +61,7 @@ def run_group(size: int, jobs: list, deadline_s: float = GROUP_DEADLINE_S, shape
             proc.join(timeout=10)
             if proc.is_alive():
                 proc.kill()
-    return got[0]
+    return [got[r] for r in range(size)] if every_rank else got[0]
 
 
 def _rank_main(rank: int, size: int, port: int, jobs: list, results, shape=None) -> None:
@@ -67,7 +70,10 @@ def _rank_main(rank: int, size: int, port: int, jobs: list, results, shape=None)
         from ringpop_tpu_torch.parallel import mesh as pmesh, multihost
 
         multihost.init_distributed(f"127.0.0.1:{port}", size, rank, transport="gloo", timeout_s=60)
-        mesh = pmesh.make_mesh(shape=shape, device="cpu")
+        if shape is not None and len(shape) == 3:
+            mesh = pmesh.make_fleet_mesh(shape=shape, device="cpu")
+        else:
+            mesh = pmesh.make_mesh(shape=shape, device="cpu")
         out = {name: JOBS[job](mesh, payload) for name, job, payload in jobs}
         results.put((rank, True, out))
     except BaseException:  # noqa: BLE001 - the parent re-raises it
@@ -292,7 +298,117 @@ def sim_run(mesh, spec: dict) -> dict:
     return {"result": got, "converge": conv, "leaves": partition.host_gather(state, mesh)}
 
 
+# -- the fleet: meshes, process-sliced sweeps, the checkpoint store ----------------
+
+
+def fleet_grid(spec: dict):
+    """The scenario grid of a fleet spec, built by the port on the CPU:
+    (params, plan, meta, seeds, victims)."""
+    from ringpop_tpu_torch.sim import lifecycle, scenarios
+
+    params = lifecycle.LifecycleParams(n=spec["n"], k=spec["k"], suspect_ticks=spec["suspect_ticks"], rng="counter")
+    plan, meta = scenarios.scenario_grid(spec["n"], victims=spec["victims"], doses=spec["doses"],
+                                         losses=spec["losses"], churn_seed=spec["churn_seed"], device="cpu")
+    return params, plan, meta, scenarios.grid_seeds(meta, spec["seed"]), spec["victims"]
+
+
+def fleet_mc(mesh, spec: dict) -> dict:
+    """A ``MonteCarlo`` on a fleet mesh of ``spec["shape"]`` (the group's
+    own mesh when None): ``spec["ticks"]`` ticks and a fetch (every rank's
+    records), then, with ``spec["detect"]``, a fresh fleet's
+    ``run_until_detected``, its records and every final leaf (the whole
+    fleet in the JAX dtypes); and the mesh's stats by axis."""
+    from ringpop_tpu_torch.sim import lifecycle, montecarlo
+
+    if spec.get("shape") is not None:
+        mesh = montecarlo.make_fleet_mesh(spec["size"], spec["shape"], device="cpu")
+    params, plan, _, seeds, victims = fleet_grid(spec)
+    mc = montecarlo.MonteCarlo(params, seeds, telemetry=True, mesh=mesh)
+    mesh.reset_stats()
+    mc.advance(spec["ticks"], plan)
+    out = {"coords": mesh.coords, "block": mc.block, "local": int(mc.local_blocks()[0].tick.shape[0]),
+           "records": mc.fetch_telemetry(plan),
+           "digests": mc.digests(), "axis_stats": {ax: dict(v) for ax, v in mesh.axis_stats.items()}}
+    if spec.get("detect"):
+        mc = montecarlo.MonteCarlo(params, seeds, telemetry=True, mesh=mesh)
+        ticks, detected = mc.run_until_detected(victims, plan, max_ticks=spec["max_ticks"],
+                                                check_every=spec["check_every"])
+        out["detect"] = (ticks.tolist(), detected.tolist())
+        out["detect_records"] = mc.fetch_telemetry(plan)
+        out["leaves"] = [np.asarray(x) for x in lifecycle.state_to_numpy(mc.states)]
+    return out
+
+
+def _sweep_out(sweep) -> dict:
+    return {"digests": sweep.digests(), "scores": sweep.scores(), "header": sweep.header_params()}
+
+
+def fleet_sweep(mesh, spec: dict) -> dict:
+    """This process's slice of a process-sliced ``FleetSweep``
+    (``process_block`` of the grid over the group's processes): run to
+    ``spec["save_at"]``, save to ``spec["path"]``, run to the horizon."""
+    from ringpop_tpu_torch.parallel import multihost, partition
+    from ringpop_tpu_torch.sim import chaos, scenarios
+
+    params, plan, meta, seeds, _ = fleet_grid(spec)
+    lo, hi = partition.process_block(len(meta), multihost.process_index(), multihost.process_count())
+    sweep = scenarios.FleetSweep(params, chaos.slice_plan(plan, lo, hi), meta[lo:hi], seeds[lo:hi],
+                                 horizon=spec["horizon"], journal_every=spec["journal_every"], scenario="fleet-test",
+                                 global_b=len(meta), device="cpu")
+    sweep.run(until_tick=spec["save_at"])
+    sweep.save(spec["path"])
+    return _sweep_out(sweep.run())
+
+
+def fleet_restore(mesh, spec: dict) -> dict:
+    """Restore ``spec["path"]`` at this group: as this process's slice
+    (``spec["shape"]`` None) or onto a fleet mesh of ``spec["shape"]``
+    over the whole grid; with ``spec["resave"]``, run to
+    ``spec["resave_at"]`` and save there from this layout; run to the
+    horizon."""
+    from ringpop_tpu_torch.parallel import multihost, partition
+    from ringpop_tpu_torch.sim import chaos, montecarlo, scenarios
+
+    params, plan, meta, seeds, _ = fleet_grid(spec)
+    kw = {"scenario": "fleet-test", "device": "cpu"}
+    if spec.get("shape") is not None:
+        fleet = montecarlo.make_fleet_mesh(spec["size"], spec["shape"], device="cpu")
+        sweep = scenarios.FleetSweep.restore(spec["path"], params, plan, meta, seeds, mesh=fleet, **kw)
+    else:
+        lo, hi = partition.process_block(len(meta), multihost.process_index(), multihost.process_count())
+        sweep = scenarios.FleetSweep.restore(spec["path"], params, chaos.slice_plan(plan, lo, hi), meta[lo:hi],
+                                             seeds[lo:hi], global_b=len(meta), **kw)
+    if spec.get("resave"):
+        sweep.run(until_tick=spec["resave_at"])
+        sweep.save(spec["resave"])
+    return _sweep_out(sweep.run())
+
+
+def state_store(mesh, spec: dict) -> dict:
+    """A lifecycle state stepped on this (P, R) mesh and saved through
+    ``save_state_orbax`` (each rank its blocks), then restored at (4, 1) on
+    the same ranks: the restored block against the rank's block of the
+    whole state gathered from the (P, R) run."""
+    from ringpop_tpu_torch.parallel import mesh as pmesh, partition
+    from ringpop_tpu_torch.sim import lifecycle, snapshot
+
+    params = pmesh.with_exchange_mesh(lifecycle.LifecycleParams(
+        n=spec["n"], k=spec["k"], rng="counter", suspect_ticks=spec["suspect_ticks"], heal_prob=spec["heal_prob"]),
+        mesh)
+    state = lifecycle.init_state(params, seed=spec["seed"])
+    for _ in range(spec["ticks"]):
+        state = lifecycle.step(params, state, _faults(spec, mesh.device))
+    snapshot.save_state_orbax(spec["path"], state, mesh=mesh)
+    whole = lifecycle.LifecycleState(*(torch.from_numpy(np.array(x)) for x in partition.host_gather(state, mesh)))
+    rows = pmesh.make_mesh(shape=(mesh.size * mesh.rumor_size, 1), device="cpu")
+    back = snapshot.load_state_orbax(spec["path"], whole, lifecycle.state_shardings(rows))
+    want = partition.shard_put(whole, rows, spec["n"])
+    return {"whole": [np.asarray(x) for x in lifecycle.state_to_numpy(whole)],
+            "restored_equal": all(torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(back, want))}
+
+
 JOBS = {"rolls": rolls, "engine_run": engine_run, "refusals": refusals, "sim_run": sim_run,
-        "telemetry_run": telemetry_run, "tel_chaos": tel_chaos, "axis_checks": axis_checks}
+        "telemetry_run": telemetry_run, "tel_chaos": tel_chaos, "axis_checks": axis_checks, "fleet_mc": fleet_mc,
+        "fleet_sweep": fleet_sweep, "fleet_restore": fleet_restore, "state_store": state_store}
 
 __all__ = ["run_group", "free_port"]
