@@ -5,7 +5,8 @@ threefry stream, the headline benchmark record, the exact full-view
 engine with its lockstep conformance gate, the telemetry plane with the
 chaos and topology fault plans, the scenario fleet, the serve tier's
 collector with its transports, the SWIM engines sharded over node and
-rumor ranks, and the fleet's meshes with its multi-process checkpoints.
+rumor ranks, the fleet's meshes with its multi-process checkpoints, and the
+multi-host delta over the TCP fabric.
 
     python3 chip_smoke.py
 
@@ -263,6 +264,20 @@ scale on bench.py's own stream, threefry:
    and run on: == ``PIN_FLEET_SCALE``.  Each cell prints its walls and ms a
    fleet tick sharded and unsharded, per axis the collectives and bytes a
    tick, the store's bytes and seconds, and each rank's launches.
+20. the multi-host delta (``sim/delta_multihost``) over real OS processes on
+   this card, the exchange legs and reduce words over the TCP fabric
+   (``parallel/fabric``), simbench ``multihost16m``'s three legs through
+   ``cli/multihost_bench``, one group of rank processes a process count
+   (``cli/multihost_launch``) running its legs in turn: the twin (65,536 x
+   64, 24 ticks, 64 victims, loss 0.05) at P = 1, at P = 2 with the codec
+   on, off and under swing with overlap, and at P = 4 (codec on; swing
+   with overlap) == ``PIN_MH_TWIN`` on every rank, the P = 1 twin == the
+   port's own ``delta.step`` here; the P = 2 save at tick 16 restored at
+   P = 4 and run 8 ticks on == ``PIN_MH_SNAPSHOT``; the 16,000,000 x 64
+   convergence at P = 1 and 2 == ``PIN_MH_SCALE``, the P = 2 ranks'
+   device peak under 0.75 of the P = 1 run's; S1, S2 and D1 launched on
+   every rank and == plain on every rank's block; ms a tick, wire and raw
+   MB a tick, the legs' blocked and hidden ms, ``d2h_bytes`` and the walls.
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -284,7 +299,7 @@ alone; ``--fullview`` builds them and runs steps 12-13 alone;
 ``--telemetry`` builds them and runs step 14 alone; ``--fleet`` builds them
 and runs step 15 alone; ``--serve`` runs step 16 alone (no kernel build); ``--sharded`` builds
 the kernels and runs steps 17 and 18 alone, ``--rumor-axis`` step 18 alone, ``--fleet-mesh`` step 19
-alone.  ``kernel_compare.py``
+alone, ``--multihost`` step 20 alone.  ``kernel_compare.py``
 times D1, C1 and F1 against another checkout's in alternating pairs.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
@@ -5066,6 +5081,239 @@ def run_fleet_mesh(dev: torch.device, card: str) -> dict:
     return {"fleet_mesh": out}
 
 
+# -- phase 20: the multi-host delta over the TCP fabric --------------------------------------------------------
+
+MH_TWIN = {"n": 65536, "k": 64, "ticks": 24, "victims": 64, "drop": 0.05, "seed": 0}  # simbench.py _MH_TWIN
+MH_SAVE_TICKS, MH_EXTRA_TICKS = 16, 8  # simbench multihost16m's snapshot leg: saved at P = 2, restored at P = 4
+MH_SCALE_N, MH_SCALE_K, MH_JOURNAL_EVERY = 16_000_000, 64, 64  # multihost16m's scale leg at --full
+MH_DEADLINE_S = 600  # a group of rank processes, all its legs
+# pinned from the JAX package (ringpop_tpu.sim.delta and .delta_multihost) on the CPU;
+# tests/test_torch_chip_smoke_pins_multihost.py recomputes them (PIN_MH_SCALE under -m slow)
+PIN_MH_TWIN = 816837250  # tree_digest after the twin's 24 ticks
+PIN_MH_SNAPSHOT = {"at_save": 3874121334, "continued": 787112087}  # victims, no loss: tick 16 and tick 24
+PIN_MH_SCALE = {"ticks": 18, "digest": 2237398445}  # 16M x 64 run_until_converged from seed 0
+# the kernels a rank's block runs, by their wrappers' launch-count names
+MH_KERNELS = {"row_reduce": "packbits_row_reduce", "popcount_rows": "packbits_popcount_rows",
+              "state_digest": "telemetry_state_digest"}
+
+
+def mh_argv(leg: str, *extra: str) -> list[str]:
+    """multihost_bench's argv for one leg of multihost16m."""
+    t = MH_TWIN
+    common = ["--n", str(t["n"]), "--k", str(t["k"]), "--seed", str(t["seed"]), "--victims", str(t["victims"])]
+    if leg == "twin":
+        return ["twin", *common, "--drop", str(t["drop"]), "--ticks", str(t["ticks"]), *extra]
+    if leg == "snapshot-save":
+        return ["snapshot-save", *common, "--ticks", str(MH_SAVE_TICKS), "--path", mh_ckpt_path()]
+    if leg == "snapshot-restore":
+        return ["snapshot-restore", *common, "--extra-ticks", str(MH_EXTRA_TICKS), "--path", mh_ckpt_path()]
+    return ["converge", "--n", str(MH_SCALE_N), "--k", str(MH_SCALE_K), "--seed", str(t["seed"]),
+            "--max-ticks", "4096", "--journal-every", str(MH_JOURNAL_EVERY)]
+
+
+def mh_ckpt_path() -> str:
+    return str((OUT_DIR / "phase20_ckpt").resolve())
+
+
+# each process count's group and its legs, run in turn by the same processes
+MH_GROUPS = {
+    1: [("twin", mh_argv("twin")), ("converge", mh_argv("converge"))],
+    2: [("twin", mh_argv("twin")), ("twin_codec_off", mh_argv("twin", "--codec", "off")),
+        ("twin_swing_overlap", mh_argv("twin", "--schedule", "swing", "--overlap", "on")),
+        ("snapshot_save", mh_argv("snapshot-save")), ("converge", mh_argv("converge"))],
+    4: [("twin", mh_argv("twin")), ("twin_swing_overlap", mh_argv("twin", "--schedule", "swing", "--overlap", "on")),
+        ("snapshot_restore", mh_argv("snapshot-restore"))],
+}
+
+
+def mh_launches() -> dict[str, int]:
+    counts = {**packbits_kernel.launches, "state_digest": telemetry_kernel.launches["state_digest"]}
+    return {name: counts[name] for name in MH_KERNELS}
+
+
+def mh_block_checks(mh, where: str) -> dict:
+    """S1 (OR and AND over the live rows), S2 and D1 (every leaf at its
+    global flat offset) == their plain versions on this rank's block of the
+    engine's state (made after the leg's counts were read)."""
+    from ringpop_tpu_torch.parallel import partition
+
+    plane, up = mh.learned, (mh.up_l if mh.has_up else None)
+    where = f"{where}, rank {mh.rank} of {mh.nprocs}, block [{mh.block}, {plane.shape[1]}] at row {mh.lo}"
+    check(torch.equal(packbits_kernel.reduce_rows_cuda(plane, "or", up), packbits.or_reduce_rows_plain(plane, up))
+          and torch.equal(packbits_kernel.reduce_rows_cuda(plane, "and", up), packbits.and_reduce_rows_plain(plane, up)),
+          f"20: S1 (OR, AND over the live rows) == plain on {where}")
+    check(torch.equal(packbits_kernel.popcount_rows_cuda(plane), packbits.popcount_rows_plain(plane)),
+          f"20: S2 == plain on {where}")
+    leaves = 0
+    for name, leaf in partition.named_leaves(mh._as_block_state()):
+        sharded = partition.spec_for(name)[:1] == ("node",)
+        offset = (mh.lo * (leaf.numel() // max(leaf.shape[0], 1))) & 0xFFFF_FFFF if sharded and leaf.dim() else 0
+        got = telemetry_kernel.state_digest_cuda([leaf.contiguous()], offset=offset, final=False)
+        check(torch.equal(got, telemetry.leaf_digest_sum_plain(leaf, offset)),
+              f"20: D1 == plain on {where}, leaf {name} at offset {offset}")
+        leaves += 1
+    return {"rows": mh.block, "words": int(plane.shape[1]), "d1_leaves": leaves, "max_abs_err": 0}
+
+
+def mh_rank(legs: list) -> int:
+    """One rank of a phase-20 group (started by ``multihost_launch``): the
+    group's legs in turn, each through ``multihost_bench.run_leg`` on a
+    fabric of its own, the launch counts 0 just before each and read just
+    after; after each twin, the kernels == plain on this rank's block.
+    Each leg's record goes to ``MULTIHOST_JSONL``."""
+    import os
+
+    import torch.distributed as dist
+
+    from ringpop_tpu_torch.cli import multihost_bench
+    from ringpop_tpu_torch.parallel import multihost
+    from ringpop_tpu_torch.parallel.fabric import DistributedKV, LocalKV
+
+    dev = torch.device(os.environ["MULTIHOST_DEVICE"])
+    torch.cuda.set_device(dev)
+    distributed = multihost.init_distributed(transport="gloo")
+    nprocs, rank = multihost.process_count(), multihost.process_index()
+    kv = DistributedKV() if distributed else LocalKV()
+    try:
+        for i, (name, argv) in enumerate(legs):
+            args = multihost_bench.parse_args(argv)
+            torch.cuda.synchronize(dev)
+            multihost.barrier()
+            shard_reset()
+            rec, mh = multihost_bench.run_leg(args, rank, nprocs, kv, dev, namespace=f"phase20-{i}-{args.leg}",
+                                              emit=None)
+            torch.cuda.synchronize(dev)
+            rec.update(leg=name, launches=mh_launches(), rank=rank)
+            if args.leg == "twin":
+                rec["block_kernels"] = mh_block_checks(mh, f"P = {nprocs} {name}")
+            multihost_bench._emit(rec)
+            del mh
+            torch.cuda.empty_cache()
+        multihost.barrier()
+    finally:
+        if distributed:
+            dist.destroy_process_group()
+    return 0
+
+
+def mh_group(nprocs: int) -> tuple[list[dict], float]:
+    """Run MH_GROUPS[nprocs] in one group of rank processes on this card;
+    returns each rank's {leg: record} and the group's wall."""
+    from ringpop_tpu_torch.cli import multihost_launch
+
+    t0 = time.perf_counter()
+    try:
+        ranks = multihost_launch.launch(nprocs, [str(Path(__file__).resolve()), "--multihost-rank",
+                                                 json.dumps(MH_GROUPS[nprocs])], timeout_s=MH_DEADLINE_S)
+    except RuntimeError as e:
+        check(False, f"20: the group of {nprocs} rank processes: {e}")
+    wall = time.perf_counter() - t0
+    out = [{rec["leg"]: rec for rec in r["records"]} for r in ranks]
+    check(all(set(r) == {name for name, _ in MH_GROUPS[nprocs]} for r in out),
+          f"20: every rank of P = {nprocs} reported every leg")
+    return out, wall
+
+
+def mh_engine_digest(dev: torch.device) -> int:
+    """The port's own delta.step on this card at the twin's configuration
+    (the P = 1 twin's reference; not counted)."""
+    from ringpop_tpu_torch.cli import multihost_bench
+
+    args = multihost_bench.parse_args(mh_argv("twin"))
+    params = delta.DeltaParams(n=args.n, k=args.k, rng="counter")
+    faults = multihost_bench.leg_faults(args, dev)
+    state = delta.init_state(params, seed=args.seed, device=dev)
+    for _ in range(args.ticks):
+        state = delta.step(params, state, faults)
+    return int(telemetry.tree_digest(state))
+
+
+def run_multihost(dev: torch.device, card: str) -> dict:
+    """Phase 20: simbench multihost16m's three legs over real OS processes on
+    this card, the exchange legs and reduce words over the TCP fabric, one
+    group of rank processes a process count (each running its legs in turn):
+    the twin at P = 1, 2 (codec on, codec off, swing with overlap) and 4
+    (codec on, swing with overlap) == PIN_MH_TWIN on every rank, the P = 1
+    twin == the port's own delta.step here; the P = 2 save at tick 16
+    restored at P = 4 and run 8 ticks on == PIN_MH_SNAPSHOT; the 16M x 64
+    convergence at P = 1 and 2 == PIN_MH_SCALE, with the P = 2 ranks' device
+    peak under FSCALE_MEM_FRAC of the P = 1 run's; S1, S2 and D1 launched
+    on every rank and == plain on every rank's block."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    shard_reset()
+    ref = mh_engine_digest(dev)
+    check(ref == PIN_MH_TWIN, f"20: the port's delta.step at the twin's config {ref} == PIN_MH_TWIN {PIN_MH_TWIN}")
+    OUT_DIR.mkdir(exist_ok=True)
+    shutil.rmtree(mh_ckpt_path(), ignore_errors=True)
+    groups, walls = {}, {}
+    for nprocs in MH_GROUPS:
+        groups[nprocs], walls[nprocs] = mh_group(nprocs)
+    for nprocs, ranks in groups.items():
+        for name in (n for n, _ in MH_GROUPS[nprocs] if n.startswith("twin")):
+            digests = [r[name]["digest"] for r in ranks]
+            check(all(d == PIN_MH_TWIN for d in digests), f"20: P = {nprocs} {name}: every rank's digest "
+                  f"{digests} == PIN_MH_TWIN")
+    check(groups[1][0]["twin"]["digest"] == ref, "20: the P = 1 twin's digest == the port's delta.step on this card")
+    saved = [r["snapshot_save"] for r in groups[2]]
+    restored = [r["snapshot_restore"] for r in groups[4]]
+    check(all(r["digest"] == PIN_MH_SNAPSHOT["at_save"] for r in saved),
+          f"20: P = 2 saved at tick {MH_SAVE_TICKS}: {[r['digest'] for r in saved]} == PIN_MH_SNAPSHOT")
+    check(all(r["digest_at_restore"] == PIN_MH_SNAPSHOT["at_save"] and r["digest"] == PIN_MH_SNAPSHOT["continued"]
+              for r in restored), f"20: restored at P = 4 {[r['digest_at_restore'] for r in restored]} == the save's, "
+          f"continued {MH_EXTRA_TICKS} ticks {[r['digest'] for r in restored]} == the unbroken run's (PIN_MH_SNAPSHOT)")
+    scale = {p: [r["converge"] for r in groups[p]] for p in (1, 2)}
+    for p, recs in scale.items():
+        check(all(r["converged"] and r["ticks"] == PIN_MH_SCALE["ticks"] and r["digest"] == PIN_MH_SCALE["digest"]
+                  for r in recs), f"20: {MH_SCALE_N} x {MH_SCALE_K} at P = {p}: ticks "
+              f"{[r['ticks'] for r in recs]}, digests {[r['digest'] for r in recs]} == PIN_MH_SCALE")
+    mem_frac = max(r["device_peak_mb"] for r in scale[2]) / scale[1][0]["device_peak_mb"]
+    check(mem_frac < FSCALE_MEM_FRAC, f"20: the P = 2 ranks' device peak is {mem_frac:.3f} of the P = 1 run's "
+          f"(< {FSCALE_MEM_FRAC})")
+    launches = {}
+    for nprocs, ranks in groups.items():
+        for name, argv in MH_GROUPS[nprocs]:
+            counts = [r[name]["launches"] for r in ranks]
+            launches[f"P{nprocs}/{name}"] = counts
+            need = ("row_reduce", "state_digest") + (("popcount_rows",) if argv[0] in ("twin", "converge") else ())
+            check(all(c[k] > 0 for c in counts for k in need), f"20: P = {nprocs} {name}: {need} launched on every "
+                  f"rank: {counts}")
+    twin_ticks = MH_TWIN["ticks"]
+    for nprocs, ranks in groups.items():
+        for name, _ in MH_GROUPS[nprocs]:
+            for r in ranks:
+                rec = r[name]
+                if name.startswith("twin"):
+                    log(f"phase20: P = {nprocs} {name} rank {rec['rank']}: {rec['wall_s'] * 1e3 / twin_ticks:.3f} ms a "
+                        f"tick (the leg's wall / {twin_ticks}); wire {rec['fabric_bytes_sent'] / twin_ticks / 1e6:.4f} MB "
+                        f"and raw {rec['fabric_raw_sent'] / twin_ticks / 1e6:.4f} MB a tick "
+                        f"({rec['fabric_codec_counts']}); fabric_leg_ms {rec['fabric_leg_ms']}, overlap_hidden_ms "
+                        f"{rec['overlap_hidden_ms']}; d2h_bytes {rec['d2h_bytes']}; launches {rec['launches']}; "
+                        f"block kernels {rec['block_kernels']}; {card}")
+                elif name == "converge":
+                    log(f"phase20: P = {nprocs} converge {MH_SCALE_N} x {MH_SCALE_K} rank {rec['process_id']}: "
+                        f"{rec['ticks']} ticks, {rec['ms_per_tick']:.3f} ms a tick, wall {rec['wall_s']:.3f} s; wire "
+                        f"{rec['fabric_mb_per_tick']} MB and raw {rec['fabric_raw_mb_per_tick']} MB a tick "
+                        f"({rec['fabric_codec_counts']}); fabric_leg_ms {rec['fabric_leg_ms']}; d2h_bytes "
+                        f"{rec['d2h_bytes']}; device peak {rec['device_peak_mb']} MB, host peak RSS "
+                        f"{rec['peak_rss_mb']} MB; launches {rec['launches']}; {card}")
+                else:
+                    log(f"phase20: P = {nprocs} {name} rank {rec['rank']}: tick {rec['tick']}, digest {rec['digest']}; "
+                        f"launches {rec['launches']}; {card}")
+    wall = time.perf_counter() - t_phase
+    log(f"phase20: multihost16m twin == PIN_MH_TWIN at P = 1, 2, 4; snapshot P = 2 -> 4 == PIN_MH_SNAPSHOT; "
+        f"{MH_SCALE_N} x {MH_SCALE_K} == PIN_MH_SCALE at P = 1, 2 (device peak frac {mem_frac:.3f}); groups' walls "
+        f"{ {p: round(w, 1) for p, w in walls.items()} } s; phase wall {wall:.1f} s; {card}")
+    keep = ("digest", "ticks", "wall_s", "ms_per_tick", "fabric_bytes_sent", "fabric_raw_sent", "fabric_mb_per_tick",
+            "fabric_raw_mb_per_tick", "fabric_codec_counts", "fabric_leg_ms", "overlap_hidden_ms", "d2h_bytes",
+            "device_peak_mb", "peak_rss_mb", "launches", "digest_at_restore", "tick")
+    return {"multihost": {
+        "card": card, "wall_s": wall, "groups_wall_s": walls, "mem_frac": mem_frac, "launches_per_rank": launches,
+        "legs": {f"P{p}/{name}": [{k: r[name][k] for k in keep if k in r[name]} for r in ranks]
+                 for p, ranks in groups.items() for name, _ in MH_GROUPS[p]}}}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
@@ -5083,6 +5331,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--multihost-rank"] and len(sys.argv) == 3:
+        return mh_rank(json.loads(sys.argv[2]))
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}, torch {torch.__version__}, cuda {torch.version.cuda}")
     smi = subprocess.run(
@@ -5137,6 +5387,11 @@ def main() -> int:
         log(f"phase 19 wall {time.perf_counter() - t0:.1f} s; {card}")
         log(json.dumps(out))
         return 0
+    if sys.argv[1:] == ["--multihost"]:
+        build_kernels()
+        out = run_multihost(torch.device("cuda"), card)
+        log(json.dumps(out))
+        return 0
     if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
         rng = (sys.argv[2:] or ["counter"])[0]
         log(json.dumps({"card": card, "rng": rng, "detect_ms": detect_wall(torch.device("cuda"), rng)}))
@@ -5162,6 +5417,7 @@ def main() -> int:
     sharded_timings = phase("17", run_sharded, card, refs)
     rumor_timings = phase("18", run_rumor_axis, card, refs)
     fleet_mesh_timings = phase("19", run_fleet_mesh, card)
+    multihost_timings = phase("20", run_multihost, card)
     log(f"phase walls, s: {walls}")
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
@@ -5204,10 +5460,17 @@ def main() -> int:
             rec["launches_on_fleet_mesh"] = {cell: [c[key] for c in cells["launches_per_rank"]]
                                              for cell, cells in fleet_mesh_timings["fleet_mesh"].items()
                                              if cell != "card"}
+    # phase 20 runs S1, S2 and D1 on every rank's block: their counts by process count, leg and rank
+    for rec in kernels:
+        if rec["name"] in MH_KERNELS.values():
+            key = next(k for k, v in MH_KERNELS.items() if v == rec["name"])
+            rec["launches_on_multihost"] = {leg: [c[key] for c in counts] for leg, counts in
+                                            multihost_timings["multihost"]["launches_per_rank"].items()}
     timings.update(serve_timings)
     timings.update(sharded_timings)
     timings.update(rumor_timings)
     timings.update(fleet_mesh_timings)
+    timings.update(multihost_timings)
     timings["card"] = card
     timings["phase_walls_s"] = walls
     # the whole record, which the end of a long log may not hold

@@ -25,6 +25,10 @@ and ``sim.snapshot``, the scenario fleet; the serve tier's collector
 ``serve.service`` with its transports — ``net.channel``, the RPC and codec
 half of ``parallel.fabric``, ``serve.shm``, ``serve.client`` (torch-free,
 with ``errors``, ``logging``, ``util.metrics`` and ``obs.trace``) — and
-``serve.bench``'s paired A/B ``run_ab``; and ``bench``, the twin of the
-repository's ``bench.py`` (``python -m ringpop_tpu_torch.bench``).
+``serve.bench``'s paired A/B ``run_ab``; the node, rumor and batch axes of
+a mesh (``parallel.partition``, ``parallel.mesh``, ``parallel.shift``,
+``parallel.multihost``); the multi-host delta ``sim.delta_multihost`` over
+the exchange half of ``parallel.fabric``, with ``cli.multihost_bench`` and
+``cli.multihost_launch``; and ``bench``, the twin of the repository's
+``bench.py`` (``python -m ringpop_tpu_torch.bench``).
 """

@@ -16,14 +16,31 @@ for byte as the JAX package has it:
   sticky ``FabricError`` failures — and the same-host shared-memory frame
   lane ``_RpcShmLane``.
 
-The host-bridged DCN mesh (``Fabric``, ``ExchangeHandle``, the peer links,
-``LocalKV``/``DistributedKV`` and the window planners) is not here yet: it
-comes with the multi-host delta engine (ROADMAP A13).  The module imports
-numpy and the standard library only — never ``torch`` — so the serve tier's
-frontend processes import it without a device runtime.
+and the host-bridged DCN mesh the multi-host delta engine
+(``sim/delta_multihost``) rides, as the JAX package has it:
+
+* rendezvous — every rank publishes ``<ns>/addr/<rank>`` in a key-value
+  store (``LocalKV`` for threads of one process; ``DistributedKV``, a
+  ``torch.distributed.TCPStore`` client, for OS processes) and dials its
+  lower-ranked peers once; bulk data never rides the store;
+* data — ``Fabric``: length-framed numpy messages over the peer sockets,
+  tagged by the caller, drained by per-peer persistent sender threads
+  while per-peer receiver threads demux tagged expectations in FIFO order;
+  ``exchange_async`` returns an ``ExchangeHandle`` (``exchange`` is its
+  ``wait()``), ``allgather`` runs the cyclic full mesh or the swing
+  recursive doubling, and byte accounting is split into wire and raw
+  (codec-off) bytes;
+* schedules — the cyclic window planner ``plan_window`` and the
+  distance-halving relay plan ``plan_window_swing``.
+
+The module imports numpy and the standard library only — never ``torch``
+(``DistributedKV`` imports ``torch.distributed`` when it is built) — so the
+serve tier's frontend processes import it without a device runtime.
 """
 from __future__ import annotations
 
+import base64
+import functools
 import json
 import os
 import queue
@@ -32,7 +49,8 @@ import struct
 import tempfile
 import threading
 import time
-from typing import NamedTuple, Optional, Sequence
+from datetime import timedelta
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 
@@ -1423,3 +1441,1014 @@ class RpcEndpoint:
             link.close(err)
         if self._accept_thread is not None:
             self._accept_thread.join(timeout=2.0)
+
+
+# -- the host-bridged DCN mesh: rendezvous stores, peer links, rounds ------------
+
+
+class LocalKV:
+    """In-process KV + barrier standing in for :class:`DistributedKV` — the
+    transport is identical, so threaded single-machine tests exercise the
+    real fabric code paths."""
+
+    def __init__(self):
+        self._d = {}
+        self._cv = threading.Condition()
+        self._barriers: dict[str, threading.Barrier] = {}
+        self._block = threading.Lock()
+
+    def key_value_set(self, key: str, value: str) -> None:
+        with self._cv:
+            self._d[key] = value
+            self._cv.notify_all()
+
+    def blocking_key_value_get(self, key: str, timeout_ms: int) -> str:
+        deadline = time.monotonic() + timeout_ms / 1000.0
+        with self._cv:
+            while key not in self._d:
+                left = deadline - time.monotonic()
+                if left <= 0 or not self._cv.wait(timeout=left):
+                    raise TimeoutError(f"KV key {key!r} not set within {timeout_ms} ms")
+            return self._d[key]
+
+    def barrier(self, name: str, nprocs: int, timeout_ms: int) -> None:
+        with self._block:
+            b = self._barriers.setdefault(name, threading.Barrier(nprocs))
+        b.wait(timeout=timeout_ms / 1000.0)
+
+
+
+class DistributedKV:
+    """The job's key-value store, duck-typed to LocalKV: a client of a
+    ``torch.distributed.TCPStore`` at ``address`` (``host:port``), by default
+    the one the process group's rendezvous serves
+    (``multihost.coordinator_address``).  Values are strings; the fabric
+    only ever stores addresses and base64'd digest words here.  Keys live
+    under ``ringpop-kv/`` so they never meet the process group's own.
+
+    A barrier is a store counter: the i-th arrival at ``name`` belongs to
+    generation ``i // nprocs`` and waits for that generation's release key,
+    which its last arrival sets, so a name used twice never lets the
+    second use through on the first one's release.  ``torch.distributed``
+    is imported here, never at module import."""
+
+    _PREFIX = "ringpop-kv/"
+
+    def __init__(self, address: Optional[str] = None):
+        import torch.distributed as dist
+
+        from ringpop_tpu_torch.parallel import multihost
+
+        address = address or multihost.coordinator_address()
+        if not address:
+            raise RuntimeError(
+                "torch.distributed is not initialized — call "
+                "parallel.multihost.init_distributed() first"
+            )
+        host, port = address.rsplit(":", 1)
+        self._s = dist.TCPStore(host, int(port), is_master=False, timeout=timedelta(minutes=10))
+
+    def _wait(self, key: str, timeout_ms: int) -> None:
+        try:
+            self._s.wait([key], timedelta(milliseconds=timeout_ms))
+        except RuntimeError as e:  # torch.distributed.DistStoreError
+            raise TimeoutError(f"KV key {key!r} not set within {timeout_ms} ms") from e
+
+    def key_value_set(self, key: str, value: str) -> None:
+        self._s.set(self._PREFIX + key, value)
+
+    def blocking_key_value_get(self, key: str, timeout_ms: int) -> str:
+        self._wait(self._PREFIX + key, timeout_ms)
+        return self._s.get(self._PREFIX + key).decode()
+
+    def barrier(self, name: str, nprocs: int, timeout_ms: int) -> None:
+        key = f"{self._PREFIX}barrier/{name}"
+        arrival = self._s.add(f"{key}/count", 1) - 1
+        release = f"{key}/release/{arrival // nprocs}"
+        if arrival % nprocs == nprocs - 1:
+            self._s.set(release, "1")
+        self._wait(release, timeout_ms)
+
+
+class _Future:
+    """One pending send or receive: an event plus a value-or-error slot.
+    ``value`` for a send is the monotonic completion timestamp (the
+    drain-timing hook); for a receive, the decoded array list."""
+
+    __slots__ = ("ev", "value", "err")
+
+    def __init__(self):
+        self.ev = threading.Event()
+        self.value = None
+        self.err: Optional[BaseException] = None
+
+    def fulfill(self, value) -> None:
+        self.value = value
+        self.ev.set()
+
+    def fail(self, err: BaseException) -> None:
+        self.err = err
+        self.ev.set()
+
+
+class _RecvJob(NamedTuple):
+    tag: int
+    stream: Optional[str]
+    fut: _Future
+
+
+
+
+class _PeerLink:
+    """One peer's persistent send/receive machinery: a sender thread
+    draining a FIFO of pre-packed wire messages and a receiver thread
+    draining a FIFO of tagged expectations.  Errors are STICKY — after a
+    socket failure every queued and future job on that side of the link
+    fails with the same typed error (the socket state is undefined after
+    a partial frame, so there is nothing to resume)."""
+
+    def __init__(self, fabric: "Fabric", peer: int, sock: socket.socket):
+        self.fabric = fabric
+        self.peer = peer
+        self.sock = sock
+        self.sendq: "queue.Queue" = queue.Queue()
+        self.recvq: "queue.Queue" = queue.Queue()
+        self.send_err: Optional[BaseException] = None
+        self.recv_err: Optional[BaseException] = None
+        # pooled receive buffers (r21): one header buf + one growable
+        # payload arena per link, reused across every frame this
+        # receiver thread reads — frames no longer cost an allocation
+        self._hdr_buf = bytearray(_HDR.size)
+        self._arena = bytearray(1 << 16)
+        self._sender = threading.Thread(
+            target=self._send_loop, daemon=True,
+            name=f"fabric-r{fabric.rank}-send-p{peer}",
+        )
+        self._receiver = threading.Thread(
+            target=self._recv_loop, daemon=True,
+            name=f"fabric-r{fabric.rank}-recv-p{peer}",
+        )
+        self._sender.start()
+        self._receiver.start()
+
+    def _drain_failed(self, q, err: BaseException) -> None:
+        """Fail every still-queued job on ``q`` — a loop exiting early
+        (fabric closed) must not leave later futures unfulfilled, or
+        their waiters would block into a misleading timeout."""
+        while True:
+            try:
+                job = q.get_nowait()
+            except queue.Empty:
+                return
+            if job is None:
+                continue
+            # send jobs are (fut, msg, tag) tuples; recv jobs are
+            # _RecvJob NamedTuples — which are ALSO tuples, so match the
+            # typed one first
+            fut = job.fut if isinstance(job, _RecvJob) else job[0]
+            fut.fail(err)
+
+    def _arena_for(self, n: int) -> bytearray:
+        """The payload arena, grown geometrically when a frame exceeds
+        it (growth counts as ONE allocation on ``RECV_ALLOCS``; steady-
+        state frames then reuse it for free)."""
+        if len(self._arena) < n:
+            RECV_ALLOCS.bump()
+            self._arena = bytearray(max(n, 2 * len(self._arena)))
+        return self._arena
+
+    def _send_loop(self) -> None:
+        while True:
+            job = self.sendq.get()
+            if job is None:
+                return
+            fut, msg, tag = job
+            if self.send_err is not None:
+                fut.fail(self.send_err)
+                continue
+            try:
+                _send_parts(self.sock, msg)
+                fut.fulfill(time.monotonic())
+            except socket.timeout as e:
+                self.send_err = FabricTimeout(
+                    f"rank {self.fabric.rank}: send to peer {self.peer} "
+                    f"(tag {tag}) could not drain within "
+                    f"{self.fabric.timeout_ms} ms — peer wedged or partitioned"
+                )
+                self.send_err.__cause__ = e
+                if self.fabric.notify_failures:
+                    _notify_failure(self.send_err)
+                fut.fail(self.send_err)
+            except OSError as e:
+                if self.fabric._closed:
+                    err = FabricError(
+                        f"rank {self.fabric.rank}: fabric closed with a send "
+                        f"to peer {self.peer} still queued")
+                    fut.fail(err)
+                    self._drain_failed(self.sendq, err)
+                    return
+                self.send_err = FabricPeerLost(
+                    f"rank {self.fabric.rank}: send to peer {self.peer} "
+                    f"(tag {tag}) failed ({e}) — peer process died mid-exchange"
+                )
+                self.send_err.__cause__ = e
+                if self.fabric.notify_failures:
+                    _notify_failure(self.send_err)
+                fut.fail(self.send_err)
+
+    def _recv_loop(self) -> None:
+        while True:
+            job = self.recvq.get()
+            if job is None:
+                return
+            if self.recv_err is not None:
+                job.fut.fail(self.recv_err)
+                continue
+            try:
+                job.fut.fulfill(
+                    self.fabric._recv(self.peer, job.tag, job.stream, link=self)
+                )
+            except FabricError as e:
+                if self.fabric._closed:
+                    err = FabricError(
+                        f"rank {self.fabric.rank}: fabric closed with a "
+                        f"receive from peer {self.peer} still pending")
+                    job.fut.fail(err)
+                    self._drain_failed(self.recvq, err)
+                    return
+                self.recv_err = e
+                if self.fabric.notify_failures:
+                    _notify_failure(e)
+                job.fut.fail(e)
+            except BaseException as e:  # decode bugs must not hang waiters
+                self.recv_err = FabricError(
+                    f"rank {self.fabric.rank}: receive from peer {self.peer} "
+                    f"(tag {job.tag}) failed: {type(e).__name__}: {e}"
+                )
+                self.recv_err.__cause__ = e
+                job.fut.fail(self.recv_err)
+
+    def shutdown(self) -> None:
+        # let queued sends drain briefly BEFORE the socket closes (an
+        # overlapped final round may still be in the queue); a peer-dead
+        # stall is bounded by the join timeout, then the close forces the
+        # sender out
+        self.sendq.put(None)
+        self._sender.join(timeout=2.0)
+        self.recvq.put(None)
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+        self._sender.join(timeout=2.0)
+        self._receiver.join(timeout=2.0)
+
+
+class ExchangeHandle:
+    """The completion handle of one asynchronous fabric round.
+
+    ``wait()`` (the default, ``join_sends=True``) reproduces the
+    blocking ``exchange`` contract exactly: receives joined in order,
+    sends joined, every error of the round aggregated into one raise.
+    ``wait(join_sends=False)`` joins ONLY the receives — the engine's
+    cross-tick overlap mode: the send drain continues on the persistent
+    sender threads, ordered FIFO behind nothing (a later round's payload
+    cannot overtake it), and a drain failure is sticky on the link so it
+    surfaces at the next enqueue or wait touching that peer.
+    """
+
+    def __init__(self, fabric: "Fabric", tag: int, recv_futs, send_futs):
+        self.fabric = fabric
+        self.tag = tag
+        self._recv_futs = recv_futs  # [(peer, _Future)] in recv_from order
+        self._send_futs = send_futs  # [(peer, _Future)] in enqueue order
+        self.issued_s = time.monotonic()
+        self.waited_s = 0.0  # total wall spent blocked in wait() calls
+
+    def _budget_s(self) -> float:
+        # the socket-level timeout fires first with its richer message;
+        # the margin only catches a wedged demux thread
+        return self.fabric.timeout_ms / 1000.0 + 5.0
+
+    def wait(self, join_sends: bool = True) -> dict[int, list[np.ndarray]]:
+        t0 = time.monotonic()
+        deadline = t0 + self._budget_s()
+        errs: list[BaseException] = []
+        out: dict[int, list[np.ndarray]] = {}
+        try:
+            for peer, fut in self._recv_futs:
+                if not fut.ev.wait(timeout=max(0.0, deadline - time.monotonic())):
+                    errs.append(FabricTimeout(
+                        f"rank {self.fabric.rank}: completion for tag "
+                        f"{self.tag} from peer {peer} not fulfilled within "
+                        f"{self.fabric.timeout_ms} ms"))
+                    continue
+                if fut.err is not None:
+                    errs.append(fut.err)
+                else:
+                    out[peer] = fut.value
+            for peer, fut in self._send_futs:
+                if not join_sends:
+                    # non-blocking: surface only already-failed sends
+                    if fut.ev.is_set() and fut.err is not None:
+                        errs.append(fut.err)
+                    continue
+                if not fut.ev.wait(timeout=max(0.0, deadline - time.monotonic())):
+                    errs.append(FabricTimeout(
+                        f"rank {self.fabric.rank}: send to peer {peer} for "
+                        f"tag {self.tag} still undrained within "
+                        f"{self.fabric.timeout_ms} ms"))
+                elif fut.err is not None:
+                    errs.append(fut.err)
+        finally:
+            self.waited_s += time.monotonic() - t0
+        if errs:
+            _aggregate_raise(errs, notify=self.fabric.notify_failures)
+        return out
+
+    def poll(self) -> Optional[dict[int, Union[list, BaseException]]]:
+        """Non-blocking completion probe of the RECEIVE side: ``None``
+        while any expectation is still outstanding, else a map ``peer ->
+        decoded arrays`` (or the typed error that leg failed with —
+        returned, not raised, so a poller can keep serving the live
+        peers).  Sends are untouched — accounting, sticky errors and the
+        overlap contract behave exactly as if this was never called.
+        The obs plane's rank-0 collector harvests rounds through this."""
+        out: dict[int, Union[list, BaseException]] = {}
+        for peer, fut in self._recv_futs:
+            if not fut.ev.is_set():
+                return None
+            out[peer] = fut.err if fut.err is not None else fut.value
+        return out
+
+    def sends_done_s(self) -> Optional[float]:
+        """Monotonic timestamp when the LAST send of this round hit the
+        socket — ``None`` while any is still draining (or failed).  The
+        engine's ``overlap_hidden_ms`` gauge reads this after the fact."""
+        done = self.issued_s
+        for _, fut in self._send_futs:
+            if not fut.ev.is_set() or fut.err is not None:
+                return None
+            done = max(done, fut.value)
+        return done
+
+
+
+class Fabric:
+    """One rank's endpoint of the host-bridged DCN mesh.
+
+    ``kv`` is a LocalKV (threaded tests) or DistributedKV (real OS
+    processes).  ``namespace`` isolates concurrent fabrics in one KV store
+    (tests, or a snapshot fabric next to a run fabric).
+    """
+
+    def __init__(
+        self,
+        rank: int,
+        nprocs: int,
+        kv,
+        namespace: str = "fabric",
+        host: str = "127.0.0.1",
+        timeout_ms: int = 120_000,
+        codec: bool = True,
+        notify_failures: bool = True,
+        ledger: Optional[TransportLedger] = None,
+        ledger_class: str = "exchange",
+        rejoin: bool = False,
+    ):
+        if not 0 <= rank < nprocs:
+            raise ValueError(f"rank {rank} outside [0, {nprocs})")
+        self.rank, self.nprocs = rank, nprocs
+        self.kv, self.ns = kv, namespace
+        self.timeout_ms = timeout_ms
+        self.codec = codec
+        # the merged transport ledger (r21): every legacy counter below
+        # is mirrored into it under ledger_class, so per-class ledger
+        # sums equal this fabric's own wire_stats by construction —
+        # pass a shared ledger to account several transports together
+        # (the obs fabric registers as class "obs", the channel's RPC
+        # plane as "rpc", the shm ring as "shm")
+        self.ledger = ledger if ledger is not None else TransportLedger()
+        self.ledger_class = ledger_class
+        # notify_failures=False opts this fabric OUT of the global
+        # failure hooks (obs/flight): the obs plane's own side-channel
+        # fabric tolerates rank skew as routine — its timeouts must not
+        # burn the flight recorder's once-per-process dump that exists
+        # for ENGINE fabric failures
+        self.notify_failures = notify_failures
+        self.bytes_sent = 0  # actual wire bytes
+        self.bytes_recv = 0
+        self.raw_bytes_sent = 0  # what the same messages cost codec-off
+        self.raw_bytes_recv = 0
+        self.codec_counts: dict[int, int] = {}  # sent arrays per codec byte
+        # XOR-delta stream state: (peer, stream, array-idx) -> payload
+        # bytes recorded under codec_epoch; reset_codec_state() clears both
+        # sides' dicts and bumps the epoch word (collective by convention:
+        # every rank resets at the same protocol point — snapshot restore)
+        self.codec_epoch = 0
+        self._tx_prev: dict[tuple, bytes] = {}
+        self._rx_prev: dict[tuple, bytes] = {}
+        self._peers: dict[int, socket.socket] = {}
+        self._links: dict[int, _PeerLink] = {}
+        self._closed = False
+        self._lock = threading.Lock()
+        # rejoin support: a RESTARTED rank cannot redo the normal
+        # bring-up (its peers' accept listeners closed after the mesh
+        # came up) — rejoin=True instead advertises a fresh listener in
+        # the KV and waits for a surviving rank's reconnect_peer() to
+        # dial it.  The dial hello carries a 4-byte token the dialer
+        # chooses (the obs plane passes its sync seq so the restarted
+        # rank adopts the live tag sequence); it lands in rejoin_token.
+        self.rejoin_token = 0
+        self._rejoin_seen: dict[int, str] = {}
+        if nprocs > 1:
+            if rejoin:
+                self._rejoin_listen(host)
+            else:
+                self._connect(host)
+                for peer, s in self._peers.items():
+                    self._links[peer] = _PeerLink(self, peer, s)
+
+    # -- bring-up -------------------------------------------------------------
+
+    def _connect(self, host: str) -> None:
+        srv = socket.socket()
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        srv.bind((host, 0))
+        srv.listen(self.nprocs)
+        # the timeout contract covers BOTH sides of every link: a rank
+        # that dies before dialing must fail its peers' accept() at
+        # timeout_ms, not hang them forever; accepted and dialed sockets
+        # alike carry the timeout so a stalled (not closed) peer surfaces
+        # as socket.timeout instead of a wedged _recv_exact
+        srv.settimeout(self.timeout_ms / 1000.0)
+        port = srv.getsockname()[1]
+        self.kv.key_value_set(f"{self.ns}/addr/{self.rank}", f"{host}:{port}")
+        # deterministic dial direction: every rank dials its LOWER peers;
+        # the accept side learns the dialer's rank from a 4-byte hello
+        for peer in range(self.rank):
+            addr = self.kv.blocking_key_value_get(f"{self.ns}/addr/{peer}", self.timeout_ms)
+            h, p = addr.rsplit(":", 1)
+            deadline = time.monotonic() + self.timeout_ms / 1000.0
+            while True:
+                try:
+                    s = socket.create_connection((h, int(p)), timeout=self.timeout_ms / 1000.0)
+                    break
+                except ConnectionRefusedError:
+                    if time.monotonic() > deadline:
+                        raise
+                    time.sleep(0.02)
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            s.settimeout(self.timeout_ms / 1000.0)
+            _send_exact(s, struct.pack(">I", self.rank))
+            self._peers[peer] = s
+        for _ in range(self.rank + 1, self.nprocs):
+            s, _ = srv.accept()
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            s.settimeout(self.timeout_ms / 1000.0)
+            (peer,) = struct.unpack(">I", _recv_exact(s, 4))
+            self._peers[peer] = s
+        srv.close()
+
+    def _rejoin_listen(self, host: str) -> None:
+        """Restarted-rank bring-up: advertise a one-shot listener under
+        ``{ns}/rejoin/{rank}`` (stamped with ``time_ns`` so a surviving
+        rank distinguishes this incarnation's advert from a stale one)
+        and accept exactly one :meth:`reconnect_peer` dial in the
+        background — the fabric is usable immediately, link-less, and
+        ``has_link`` turns true once the dial lands."""
+        srv = socket.socket()
+        srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        srv.bind((host, 0))
+        srv.listen(self.nprocs)
+        srv.settimeout(self.timeout_ms / 1000.0)
+        port = srv.getsockname()[1]
+        self.kv.key_value_set(
+            f"{self.ns}/rejoin/{self.rank}", f"{time.time_ns()}:{host}:{port}"
+        )
+
+        def accept_one() -> None:
+            try:
+                s, _ = srv.accept()
+                s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+                s.settimeout(self.timeout_ms / 1000.0)
+                peer, token = struct.unpack(">II", _recv_exact(s, 8))
+                with self._lock:
+                    if self._closed:
+                        s.close()
+                        return
+                    self.rejoin_token = token
+                    self._peers[peer] = s
+                    self._links[peer] = _PeerLink(self, peer, s)
+            except (OSError, struct.error, FabricError):
+                pass
+            finally:
+                srv.close()
+
+        threading.Thread(
+            target=accept_one, daemon=True,
+            name=f"fabric-rejoin-{self.ns}-{self.rank}",
+        ).start()
+
+    def has_link(self, peer: int) -> bool:
+        """Whether a live(-looking) link to ``peer`` exists — rejoining
+        ranks poll this to learn when their advert has been dialed."""
+        with self._lock:
+            return peer in self._links
+
+    def reconnect_peer(self, peer: int, token: int = 0) -> bool:
+        """Dial a restarted ``peer``'s rejoin advert and swap in a fresh
+        link (the old link, if any, is shut down).  Returns False — and
+        never raises — when no NEW advert exists (no advert published,
+        or the same incarnation was already dialed) or the dial fails;
+        True once the new link is installed.  ``token`` rides the hello
+        into the peer's ``rejoin_token``."""
+        try:
+            advert = self.kv.blocking_key_value_get(f"{self.ns}/rejoin/{peer}", 1)
+        except Exception:
+            return False
+        if advert == self._rejoin_seen.get(peer):
+            return False
+        try:
+            _stamp, rest = advert.split(":", 1)
+            h, p = rest.rsplit(":", 1)
+            s = socket.create_connection(
+                (h, int(p)), timeout=self.timeout_ms / 1000.0
+            )
+            s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            s.settimeout(self.timeout_ms / 1000.0)
+            _send_exact(s, struct.pack(">II", self.rank, token & 0xFFFFFFFF))
+        except (OSError, ValueError):
+            return False
+        with self._lock:
+            old_link = self._links.pop(peer, None)
+            old_sock = self._peers.pop(peer, None)
+        if old_link is not None:
+            old_link.shutdown()
+        if old_sock is not None:
+            try:
+                old_sock.close()
+            except OSError:
+                pass
+        with self._lock:
+            if self._closed:
+                s.close()
+                return False
+            self._peers[peer] = s
+            self._links[peer] = _PeerLink(self, peer, s)
+        self._rejoin_seen[peer] = advert
+        return True
+
+    def close(self) -> None:
+        self._closed = True
+        for link in self._links.values():
+            link.shutdown()
+        self._links.clear()
+        for s in self._peers.values():
+            try:
+                s.close()
+            except OSError:
+                pass
+        self._peers.clear()
+
+    def __enter__(self) -> "Fabric":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- framed numpy messages ------------------------------------------------
+
+    def reset_codec_state(self) -> None:
+        """Drop every XOR-delta stream and bump the epoch word.  Call at
+        any protocol point where the payload history breaks — snapshot
+        restore, engine re-init — on EVERY rank (the epoch word in each
+        XOR frame turns a missed reset into a loud ``FabricError`` instead
+        of silently decoded garbage)."""
+        with self._lock:
+            self.codec_epoch += 1
+            self._tx_prev.clear()
+            self._rx_prev.clear()
+
+    def wire_stats(self) -> dict:
+        """Counter snapshot for journals/bench records (wire vs raw bytes
+        + per-codec sent-array counts, names not bytes)."""
+        with self._lock:
+            return {
+                "bytes_sent": self.bytes_sent,
+                "bytes_recv": self.bytes_recv,
+                "raw_bytes_sent": self.raw_bytes_sent,
+                "raw_bytes_recv": self.raw_bytes_recv,
+                "codec_counts": {
+                    CODEC_NAMES.get(c, str(c)): n
+                    for c, n in sorted(self.codec_counts.items())
+                },
+            }
+
+    def _encode_item(
+        self, item: Union[np.ndarray, Encoded], peer: int, stream, idx: int
+    ) -> Encoded:
+        if isinstance(item, Encoded):
+            if stream is not None:
+                # the sender has no raw bytes to record as XOR history,
+                # but the receiver records its decode — the two prevs
+                # would diverge under MATCHING epochs, defeating the
+                # epoch word's whole purpose.  Refuse rather than
+                # corrupt (today's pre-encoded path, the exchange legs,
+                # is stream-less by design: window shapes move with s).
+                raise ValueError(
+                    "pre-encoded (Encoded) items cannot ride a streamed "
+                    "round: the XOR-delta payload history would diverge "
+                    "between sender and receiver — send the ndarray, or "
+                    "drop the stream"
+                )
+            return item  # pre-encoded (device-sourced ROWS) — pass through
+        a = np.ascontiguousarray(item)
+        if not self.codec:
+            return Encoded(CODEC_RAW, a.dtype, a.shape, a.tobytes(), a.nbytes)
+        prev = self._tx_prev.get((peer, stream, idx)) if stream is not None else None
+        enc = encode_array(a, prev=prev, epoch=self.codec_epoch)
+        if stream is not None:
+            self._tx_prev[(peer, stream, idx)] = a.tobytes()
+        return enc
+
+    def _pack(
+        self, tag: int, arrays, peer: int, stream=None
+    ) -> tuple[list, int, int]:
+        """-> (iovec parts, wire size, raw-equivalent size).  The parts
+        list goes to the sender thread's vectored ``sendmsg`` as-is —
+        payload buffers are never ``+``-concatenated into a wire-sized
+        copy (the r21 zero-copy send path); only the small per-array
+        metadata strips are joined."""
+        parts: list = [None]  # the _HDR slot, filled once total is known
+        total = 0
+        raw_total = _HDR.size
+        counts: dict[int, int] = {}
+        for idx, item in enumerate(arrays):
+            enc = self._encode_item(item, peer, stream, idx)
+            dt = enc.dtype.str.encode()
+            shape = np.asarray(enc.shape, ">u8").tobytes()
+            meta = _AHDR.pack(enc.codec, len(dt), len(enc.shape), len(enc.payload))
+            parts.append(meta + dt + shape)
+            parts.append(enc.payload)
+            total += len(parts[-2]) + len(parts[-1])
+            raw_total += len(meta) + len(dt) + len(shape) + enc.raw_nbytes
+            counts[enc.codec] = counts.get(enc.codec, 0) + 1
+        parts[0] = _HDR.pack(tag, len(arrays), total)
+        with self._lock:
+            for c, k in counts.items():
+                self.codec_counts[c] = self.codec_counts.get(c, 0) + k
+        return parts, _HDR.size + total, raw_total
+
+    def _recv(self, peer: int, tag: int, stream=None, link=None) -> list[np.ndarray]:
+        sock = self._peers[peer]
+        try:
+            hdr = _recv_exact(
+                sock, _HDR.size, link._hdr_buf if link is not None else None
+            )
+            got_tag, n_arrays, total = _HDR.unpack(hdr)
+            if got_tag != tag:
+                raise FabricDesync(
+                    f"fabric desync: rank {self.rank} expected tag {tag} from peer "
+                    f"{peer}, got {got_tag} — a leg was skipped or reordered"
+                )
+            # the payload lands in the link's pooled arena; every decode
+            # below materializes fresh arrays before the next frame
+            # reuses it (decode_array copies exactly where the caller
+            # outlives the arena)
+            payload = _recv_exact(
+                sock, total, link._arena_for(total) if link is not None else None
+            )
+        except socket.timeout as e:
+            raise FabricTimeout(
+                f"rank {self.rank}: peer {peer} sent nothing for tag {tag} "
+                f"within {self.timeout_ms} ms — peer dead-but-connected, "
+                "wedged, or partitioned (NOT a tag desync: nothing arrived "
+                "at all)"
+            ) from e
+        except FabricPeerLost as e:
+            raise FabricPeerLost(
+                f"rank {self.rank}: peer {peer} closed its socket while this "
+                f"rank awaited tag {tag} — peer process died mid-exchange"
+            ) from e
+        except OSError as e:
+            # RST instead of FIN: the peer died with OUR data still in
+            # flight to it — same diagnosis as a clean close
+            raise FabricPeerLost(
+                f"rank {self.rank}: connection to peer {peer} reset while "
+                f"this rank awaited tag {tag} ({e}) — peer process died "
+                "mid-exchange"
+            ) from e
+        out, off = [], 0
+        raw_total = _HDR.size
+        for idx in range(n_arrays):
+            codec, dtl, ndim, nbytes = _AHDR.unpack_from(payload, off)
+            off += _AHDR.size
+            dt = bytes(payload[off : off + dtl]).decode()
+            off += dtl
+            shape = tuple(np.frombuffer(payload, ">u8", count=ndim, offset=off).astype(int))
+            off += 8 * ndim
+            prev = self._rx_prev.get((peer, stream, idx)) if stream is not None else None
+            a = decode_array(
+                codec, np.dtype(dt), shape, payload[off : off + nbytes],
+                prev=prev, epoch=self.codec_epoch,
+            )
+            if stream is not None:
+                self._rx_prev[(peer, stream, idx)] = a.tobytes()
+            out.append(a)
+            raw_total += _AHDR.size + dtl + 8 * ndim + a.nbytes
+            off += nbytes
+        with self._lock:
+            self.bytes_recv += len(hdr) + total
+            self.raw_bytes_recv += raw_total
+        self.ledger.add(
+            self.ledger_class,
+            bytes_recv=len(hdr) + total, raw_bytes_recv=raw_total,
+            frames_recv=1,
+        )
+        return out
+
+    # -- rounds ---------------------------------------------------------------
+
+    def exchange_async(
+        self,
+        tag: int,
+        sends: dict[int, Sequence[Union[np.ndarray, Encoded]]],
+        recv_from: Sequence[int],
+        stream: Optional[str] = None,
+    ) -> ExchangeHandle:
+        """Enqueue one deterministic communication round and return its
+        completion handle: each payload in ``sends`` is packed HERE (so
+        byte accounting and the XOR-delta payload history advance in
+        program order — the double-buffering invariant the overlapped
+        engine leans on) and drained by the peer's persistent sender
+        thread; each peer in ``recv_from`` gets one tagged expectation
+        queued on its receiver thread.  Both sides must derive the same
+        schedule — a mismatch surfaces as a tag desync or timeout, never
+        silent misdata.  ``stream`` (a tick-stable name) opts the round's
+        arrays into the XOR-delta codec: the previous payload per (peer,
+        stream, index) is retained on both sides, so only use it for
+        rounds whose shapes recur (the reduce words — retaining a full
+        window would double memory for no ratio)."""
+        if self._closed:
+            raise FabricError(f"rank {self.rank}: fabric is closed")
+        if stream is not None:
+            # validate BEFORE any socket work so the contract violation
+            # raises synchronously on every rank instead of leaving the
+            # peers blocked into a timeout (_encode_item's check would
+            # only fire inside a sender thread)
+            for arrays in sends.values():
+                for it in arrays:
+                    if isinstance(it, Encoded):
+                        raise ValueError(
+                            "pre-encoded (Encoded) items cannot ride a "
+                            "streamed round: the XOR-delta payload history "
+                            "would diverge between sender and receiver — "
+                            "send the ndarray, or drop the stream"
+                        )
+        # a sticky drain failure from an earlier UNJOINED round (the
+        # overlap mode) surfaces at the next enqueue, not never
+        sticky = [
+            link.send_err
+            for link in self._links.values()
+            if link.send_err is not None
+        ]
+        if sticky:
+            _aggregate_raise(sticky, notify=self.notify_failures)
+        send_futs: list[tuple[int, _Future]] = []
+        # packing runs HERE, serially, and that is a deliberate trade:
+        # program-order packing is what keeps the XOR history and the
+        # byte counters deterministic (readable mid-drain by journals),
+        # and the fan-out is small by construction — a cyclic window leg
+        # sends to <= 2 peers (a block window spans at most two owner
+        # blocks, any P), a swing round to exactly 1; only the tiny
+        # reduce words ever fan to P-1
+        for peer, arrays in sends.items():
+            parts, wire, raw = self._pack(tag, arrays, peer, stream)
+            with self._lock:
+                self.bytes_sent += wire
+                self.raw_bytes_sent += raw
+            self.ledger.add(
+                self.ledger_class,
+                bytes_sent=wire, raw_bytes_sent=raw, frames_sent=1,
+            )
+            fut = _Future()
+            self._links[peer].sendq.put((fut, parts, tag))
+            send_futs.append((peer, fut))
+        recv_futs: list[tuple[int, _Future]] = []
+        for peer in recv_from:
+            fut = _Future()
+            self._links[peer].recvq.put(_RecvJob(tag, stream, fut))
+            recv_futs.append((peer, fut))
+        return ExchangeHandle(self, tag, recv_futs, send_futs)
+
+    def exchange(
+        self,
+        tag: int,
+        sends: dict[int, Sequence[Union[np.ndarray, Encoded]]],
+        recv_from: Sequence[int],
+        stream: Optional[str] = None,
+    ) -> dict[int, list[np.ndarray]]:
+        """The synchronous round: ``exchange_async(...).wait()`` —
+        receives joined in ``recv_from`` order, sends joined, every
+        failure of the round aggregated into one raise (see
+        ``_aggregate_raise``)."""
+        return self.exchange_async(tag, sends, recv_from, stream=stream).wait()
+
+    def allgather(
+        self,
+        tag: int,
+        arr: np.ndarray,
+        stream: Optional[str] = None,
+        schedule: str = "cyclic",
+        join_sends: bool = True,
+        on_round=None,
+    ) -> list[np.ndarray]:
+        """Every rank's ``arr``, ordered by rank (self included).  Tiny
+        payloads only (reduce words, digest partials).
+
+        ``schedule="cyclic"`` is one full-mesh round (P-1 sends, P-1
+        receives).  ``schedule="swing"`` is recursive doubling: log2(P)
+        rounds against ONE partner at distance 2^j each, the accumulated
+        half forwarded whole — the gather analog of the Swing exchange
+        (requires a power-of-two P; the returned per-rank arrays are
+        byte-identical either way, so any bitwise combine over them is
+        schedule-invariant).  Round j's wire tag is ``tag + j`` — callers
+        keep the low nibble of their leg tags clear for it.
+        ``join_sends=False`` lets the final round's drain overlap the
+        caller's next compute (the engine's overlap mode); ``on_round``
+        (called with each round's ExchangeHandle right after its wait)
+        hands those still-draining handles to the caller — the engine's
+        overlap-hidden gauge folds the reduce drain through it."""
+        if self.nprocs == 1:
+            return [np.asarray(arr)]
+        if schedule == "swing":
+            if self.nprocs & (self.nprocs - 1):
+                raise ValueError(
+                    f"swing allgather requires a power-of-two process "
+                    f"count, got {self.nprocs}"
+                )
+            have = {self.rank: np.asarray(arr)}
+            for j in range(self.nprocs.bit_length() - 1):
+                q = self.rank ^ (1 << j)
+                order = sorted(have)
+                h = self.exchange_async(
+                    (tag + j) & 0xFFFFFFFF,
+                    {q: [have[r] for r in order]},
+                    [q],
+                    stream=None if stream is None else f"{stream}/sw{j}",
+                )
+                got = h.wait(join_sends=join_sends)
+                if on_round is not None:
+                    on_round(h)
+                for r, a in zip(sorted(r ^ (1 << j) for r in order), got[q]):
+                    have[r] = a
+            return [have[r] for r in range(self.nprocs)]
+        if schedule != "cyclic":
+            raise ValueError(f"unknown allgather schedule {schedule!r}")
+        peers = [p for p in range(self.nprocs) if p != self.rank]
+        h = self.exchange_async(
+            tag, {p: [np.asarray(arr)] for p in peers}, peers, stream=stream
+        )
+        got = h.wait(join_sends=join_sends)
+        if on_round is not None:
+            on_round(h)
+        return [
+            np.asarray(arr) if r == self.rank else got[r][0]
+            for r in range(self.nprocs)
+        ]
+
+    def barrier(self, name: str) -> None:
+        if self.nprocs > 1:
+            self.kv.barrier(f"{self.ns}/{name}", self.nprocs, self.timeout_ms)
+
+    # -- tiny named value broadcast (rank 0 -> all), via the KV store --------
+
+    def publish(self, name: str, arr: np.ndarray) -> None:
+        a = np.ascontiguousarray(arr)
+        shape = ",".join(map(str, a.shape))
+        body = base64.b64encode(a.tobytes()).decode()
+        self.kv.key_value_set(f"{self.ns}/pub/{name}", f"{a.dtype.str}|{shape}|{body}")
+
+    def lookup(self, name: str) -> np.ndarray:
+        raw = self.kv.blocking_key_value_get(f"{self.ns}/pub/{name}", self.timeout_ms)
+        descr, shape_s, body = raw.split("|", 2)
+        shape = tuple(int(x) for x in shape_s.split(",") if x)
+        return np.frombuffer(base64.b64decode(body), np.dtype(descr)).reshape(shape).copy()
+
+
+# -- the RPC plane (r21): request/response tag family on the fabric core -----
+#
+# The channel's TCP transport (net/channel.py) used to own its OWN asyncio
+
+# -- cyclic-window arithmetic (shared by both endpoints of every leg) ---------
+
+
+def window_pieces(start: int, length: int, n: int) -> list[tuple[int, int]]:
+    """The cyclic row window ``[start, start+length) mod n`` as ordered
+    contiguous global pieces (at most two).  ``start`` is taken mod ``n``
+    (negative and >= n shifts are legal); a zero-length window is the
+    empty list; ``length`` beyond ``n`` is a contract violation (the
+    window would cover rows twice)."""
+    if not 0 <= length <= n:
+        raise ValueError(f"window length {length} outside [0, n={n}]")
+    if length == 0:
+        return []
+    start %= n
+    if start + length <= n:
+        return [(start, length)]
+    return [(start, n - start), (0, start + length - n)]
+
+
+def intersect(a_lo: int, a_len: int, b_lo: int, b_len: int) -> Optional[tuple[int, int]]:
+    lo = max(a_lo, b_lo)
+    hi = min(a_lo + a_len, b_lo + b_len)
+    return (lo, hi - lo) if hi > lo else None
+
+
+def plan_window(
+    want_start: int, block: int, n: int, nprocs: int
+) -> list[tuple[int, int, int, int]]:
+    """Assembly plan for the cyclic window ``[want_start, want_start+block)``
+    over equal process blocks: ordered ``(owner_rank, global_lo, length,
+    window_offset)`` entries, window offsets ascending.  Derived
+    identically on every rank — the sender runs it for the RECEIVER's
+    window to learn what to send.  ``n`` must divide evenly over
+    ``nprocs``: silently planning over truncated ``n // nprocs`` blocks
+    would assign the ring's tail rows to no owner (the same divisibility
+    ``partition.process_block`` imposes, surfaced HERE because this
+    function is also reachable from schedule tooling that never builds a
+    partition)."""
+    if nprocs < 1:
+        raise ValueError(f"nprocs must be >= 1, got {nprocs}")
+    if n % nprocs:
+        raise ValueError(
+            f"n={n} does not divide over {nprocs} processes — equal-block "
+            "window plans would drop the tail rows (pad n or change the "
+            "process count)"
+        )
+    b = n // nprocs
+    out = []
+    off = 0
+    for glo, glen in window_pieces(want_start, block, n):
+        # owners overlapping [glo, glo+glen)
+        first, last = glo // b, (glo + glen - 1) // b
+        for r in range(first, last + 1):
+            piece = intersect(glo, glen, r * b, b)
+            assert piece is not None
+            out.append((r, piece[0], piece[1], off + piece[0] - glo))
+        off += glen
+    return out
+
+
+@functools.lru_cache(maxsize=8192)
+def plan_window_swing(
+    rel_start: int, n: int, nprocs: int
+) -> tuple[dict[int, tuple], ...]:
+    """Distance-halving relay schedule for the per-rank block windows
+    ``[rank*b + rel_start, ...+b) mod n`` (Swing-style, PAPERS arxiv
+    2401.09356, realized as hypercube dimension-fixing on the full-mesh
+    fabric): ``log2(P)`` rounds, each rank talking to exactly ONE partner
+    at distance ``2^j``, relay ranks forwarding coalesced pieces — vs the
+    cyclic :func:`plan_window` execution's direct sends to partners at
+    arbitrary ring distance.  On a physical ring/torus DCN that bounds
+    the worst-case leg count at O(log P) power-of-two hops instead of the
+    O(P)-step walk a distant window piece implies; on this TCP mesh the
+    hop count is priced honestly as relay bytes (the wire accounting
+    counts every forwarded copy).
+
+    Returns one manifest per round: ``rounds[j]`` maps ``holder_rank`` to
+    its ordered entries ``(dest, owner, global_lo, length, window_off)``;
+    every listed entry moves ``holder -> holder ^ (1 << j)`` in round
+    ``j`` (bit j of ``owner ^ dest`` set).  Derived identically on every
+    rank from :func:`plan_window`, so the assembled windows are
+    byte-identical to the cyclic plan's by construction.  Pieces with
+    ``owner == dest`` never enter the wire schedule."""
+    if nprocs < 2 or nprocs & (nprocs - 1):
+        raise ValueError(
+            f"swing schedule requires a power-of-two process count >= 2, "
+            f"got {nprocs}"
+        )
+    if nprocs > (1 << 15):
+        raise ValueError(
+            "swing round tags ride the low nibble-and-a-bit of the leg "
+            f"tag byte — {nprocs} processes would overflow it"
+        )
+    block = n // nprocs  # plan_window validates divisibility
+    nrounds = nprocs.bit_length() - 1
+    rounds: list[dict[int, list]] = [{} for _ in range(nrounds)]
+    for d in range(nprocs):
+        start_d = (rel_start + d * block) % n
+        for owner, glo, glen, woff in plan_window(start_d, block, n, nprocs):
+            if owner == d:
+                continue
+            diff = owner ^ d
+            h = owner
+            for j in range(nrounds):
+                if (diff >> j) & 1:
+                    rounds[j].setdefault(h, []).append((d, owner, glo, glen, woff))
+                    h ^= 1 << j
+    return tuple(
+        {h: tuple(sorted(v, key=lambda e: (e[0], e[4]))) for h, v in r.items()}
+        for r in rounds
+    )

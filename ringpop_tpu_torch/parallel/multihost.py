@@ -34,6 +34,10 @@ DEFAULT_TIMEOUT_S = 60
 # the default group's collective timeout, which the mesh's subgroups take too
 _group_timeout_s = DEFAULT_TIMEOUT_S
 
+# the rendezvous address init_distributed brought the default group up at:
+# its TCPStore serves the fabric's key-value store too (fabric.DistributedKV)
+_coordinator_address: Optional[str] = None
+
 
 def _dist():
     import torch.distributed as dist
@@ -72,6 +76,18 @@ def group_timeout_s() -> float:
     return _group_timeout_s
 
 
+def coordinator_address() -> Optional[str]:
+    """``host:port`` of the store the default group's rendezvous serves:
+    the address :func:`init_distributed` was given, else torchrun's
+    ``MASTER_ADDR``/``MASTER_PORT`` when the group is up, else None."""
+    if _coordinator_address:
+        return _coordinator_address
+    env = os.environ
+    if distributed_initialized() and env.get("MASTER_ADDR") and env.get("MASTER_PORT"):
+        return f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+    return None
+
+
 def default_transport(world_size: int, device=None) -> str:
     """The single-card rule: ``"nccl"`` when ``device`` is a card (or, with
     no device named, a card is visible) and there is a card for every rank,
@@ -98,7 +114,7 @@ def init_distributed(
     times out after ``timeout_s``.  Returns True when the group is (now)
     up, False when no address is configured (single process: build the
     mesh-free engines instead)."""
-    global _group_timeout_s
+    global _group_timeout_s, _coordinator_address
     if distributed_initialized():
         return True
     env = os.environ
@@ -121,6 +137,7 @@ def init_distributed(
     if transport not in ("nccl", "gloo"):
         raise ValueError(f"unknown transport {transport!r}; 'nccl' or 'gloo'")
     _group_timeout_s = timeout_s
+    _coordinator_address = coordinator_address
     _dist().init_process_group(
         backend=transport,
         init_method=f"tcp://{coordinator_address}",

@@ -47,7 +47,10 @@ Counterpart of ``ringpop_tpu/sim``.  Ported so far:
   on a fleet mesh), response surfaces and the adaptive cliff search;
 * :mod:`ringpop_tpu_torch.sim.snapshot` — engine snapshots in the JAX
   package's ``.npz`` format (either package loads the other's), the
-  fleet's npz carry, and the multi-process checkpoint store.
+  fleet's npz carry, and the multi-process checkpoint store;
+* :mod:`ringpop_tpu_torch.sim.delta_multihost` — the delta engine across
+  OS processes (``MultihostDelta``): each steps its node block and ships
+  the window legs and reduce words over ``parallel.fabric``'s TCP mesh.
 
 This module imports none of them, so importing the package costs nothing.
 """

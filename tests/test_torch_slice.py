@@ -92,7 +92,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "sim.topology", "sim.montecarlo", "sim.scenarios", "sim.snapshot", "options", "obs.flight", "swim.member",
               "bench", "errors", "logging", "util.metrics", "obs.trace", "parallel.fabric", "net.channel",
               "serve.client", "serve.shm", "serve.service", "serve.bench", "parallel.partition", "parallel.mesh",
-              "parallel.shift", "parallel.multihost"):
+              "parallel.shift", "parallel.multihost", "sim.delta_multihost", "cli", "cli.multihost_bench",
+              "cli.multihost_launch"):
         assert f"ringpop_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -112,10 +113,11 @@ def test_parallel_package_imports_without_torch():
     """``ringpop_tpu_torch.parallel`` stays import-free: the serve tier's
     frontends reach ``parallel.fabric`` through it without starting torch,
     and the sharding modules beside it (partition, mesh, shift,
-    multihost) load only when named."""
+    multihost) load only when named; the multi-process launcher
+    (``cli.multihost_launch``) starts rank processes without torch too."""
     code = (
         "import sys\n"
-        "import ringpop_tpu_torch.parallel, ringpop_tpu_torch.parallel.fabric\n"
+        "import ringpop_tpu_torch.parallel, ringpop_tpu_torch.parallel.fabric, ringpop_tpu_torch.cli.multihost_launch\n"
         "bad = [m for m in sys.modules if m == 'torch' or m.startswith('torch.') or m == 'jax'\n"
         "       or m.startswith('jax.') or m == 'ringpop_tpu' or m.startswith('ringpop_tpu.')]\n"
         "print(len(bad), bad[:5])\n"
