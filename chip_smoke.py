@@ -5,8 +5,9 @@ threefry stream, the headline benchmark record, the exact full-view
 engine with its lockstep conformance gate, the telemetry plane with the
 chaos and topology fault plans, the scenario fleet, the serve tier's
 collector with its transports, the SWIM engines sharded over node and
-rumor ranks, the fleet's meshes with its multi-process checkpoints, and the
-multi-host delta over the TCP fabric.
+rumor ranks, the fleet's meshes with its multi-process checkpoints, the
+multi-host delta over the TCP fabric, and the serve plane's placement,
+mesh and operations loop.
 
     python3 chip_smoke.py
 
@@ -88,8 +89,8 @@ scale on bench.py's own stream, threefry:
    blocks_per_dispatch=8)``, ``run_until_converged(...)`` and
    ``view_checksums`` reach the JAX package's tick counts, final-leaf
    digests and checksums (pinned below), with their launch counts
-   and wall times (CUDA events, three runs); then the same 128 ticks
-   again in four 32-tick blocks under ``torch.profiler`` (by phase and by
+   and wall times (CUDA events, two runs); then the same 128 ticks
+   again, its first two 32-tick blocks under ``torch.profiler`` (by phase and by
    kernel, the device's busy share, launches a tick in every block — no
    more than 962 — with the profiler's record of the port's launches equal
    to the wrappers' own counts, and every L2 launch's device time, split by
@@ -121,9 +122,9 @@ scale on bench.py's own stream, threefry:
    reaches the JAX package's detection and convergence ticks, view-checksum
    sum and digest, final leaf digests, delta ticks and delta digests (pinned
    below), with T1 launched once a draw; phase 7's uniform exchange with
-   faults at threefry against its pins; a 32-tick block at each stream under
+   faults at threefry against its pins; an 8-tick block at each stream under
    the profiler (launches a tick, busy share); detection at both streams in
-   turns (counter, threefry, threefry, counter);
+   turns (counter, threefry);
 12. hold the fullview kernels bit-equal against their plain versions on the
    card: C1, the masked categorical draw (``csrc/threefry.cu``), over
    random masks at densities 0.01, 0.5 and 0.99 with rows that allow
@@ -167,7 +168,7 @@ scale on bench.py's own stream, threefry:
    ``journal_views=True``: phase 9's tick counts and final digests, the
    JAX package's block records bit for bit (pinned below), P1 once a tick,
    D1 once and R1 twice a record; detection with telemetry off and on in
-   turns and a 32-tick block each way under the profiler, beside the
+   turns and an 8-tick block each way under the profiler, beside the
    figures before D1's redesign;
    c) simbench's churn100k (100,000 x 256, the churn plan, 256 ticks),
    d) ``topo_scenario_plan("zone_loss")`` at 4096 x 32 with the per-tier
@@ -183,7 +184,7 @@ scale on bench.py's own stream, threefry:
    and record equal; a) simbench's ``montecarlo`` at full scale (4096 x
    32, 32 replicas seeded 0..31, threefry, 4 victims, detection checked
    every tick): the distribution and the 32 final digests == the JAX pins,
-   with a 2-tick fleet block at B = 1 and B = 32 under the profiler
+   with a 1-tick fleet block at B = 1 and B = 32 under the profiler
    (launches and ms a fleet tick, busy share); b) simbench's ``mc_churn``
    (up to 128 background crashes, 4096 ticks at most) with its three
    2-replica contrasts: the curve, cliff and contrasts == the pins; c)
@@ -278,6 +279,27 @@ scale on bench.py's own stream, threefry:
    device peak under 0.75 of the P = 1 run's; S1, S2 and D1 launched on
    every rank and == plain on every rank's block; ms a tick, wire and raw
    MB a tick, the legs' blocked and hidden ms, ``d2h_bytes`` and the walls.
+21. the serve plane's placement, mesh and operations loop
+   (``serve/placement``, ``forward``, ``serve/mesh``, ``obs``): a) the DGRO
+   placement pass at simbench ``serve_ring``'s setting (64 servers x 100
+   vnodes, 8 salt candidates and 4 local-move ones, 2**14 probes) and at
+   BASELINE config 5's ring (4096 x 256: 12 candidates x 1,048,576 tokens
+   scored on the card, 2**15 probes), each pick and report ==
+   ``PIN_DGRO``/``PIN_DGRO_1M`` and its sticky replay == the pick; then a
+   DGRO-placed ``RingStore`` on the card, as the game day builds it,
+   through an update, a drain and a rescore: records == the pin, LookupN
+   through ``serve_lookup_n_fused`` == the host walk at every generation;
+   b) simbench ``serve_fanin`` at full scale: the serve mesh (64 x 100,
+   n = 3, 4 streams, 6 rounds of 8192 keys) at P = 1, 2 and 4, P = 4 again
+   with the codec off and traced, every rank's digest == the P = 1 oracle
+   and digests, messages and wire bytes == ``PIN_FANIN``; the quorum chaos
+   harness == ``PIN_QUORUM``; c) simbench ``gameday`` at full scale (zone
+   cut and switch flap, n 128, horizon 64): each controller run, its twin
+   and the bare fleet == ``PIN_GAMEDAY`` with equal digests, the zone cut
+   mitigated strictly earlier; D1 == plain on a game-day fleet state.  It
+   prints the scorer's device ms and the host moves' ms, keys/s a host and
+   wire MB a rank, ms a fleet tick and each leg's wall, and the fleet's
+   launches of S1, L1, L2, P1, D1 and R1.
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -299,7 +321,7 @@ alone; ``--fullview`` builds them and runs steps 12-13 alone;
 ``--telemetry`` builds them and runs step 14 alone; ``--fleet`` builds them
 and runs step 15 alone; ``--serve`` runs step 16 alone (no kernel build); ``--sharded`` builds
 the kernels and runs steps 17 and 18 alone, ``--rumor-axis`` step 18 alone, ``--fleet-mesh`` step 19
-alone, ``--multihost`` step 20 alone.  ``kernel_compare.py``
+alone, ``--multihost`` step 20 alone, ``--serve-mesh`` builds the kernels and runs step 21 alone.  ``kernel_compare.py``
 times D1, C1 and F1 against another checkout's in alternating pairs.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
@@ -385,7 +407,12 @@ PIN_UNIFORM = {
 }
 # the lifecycle engine's configuration: bench.py's headline (bench.py:419-440)
 LIFE_N, LIFE_K, LIFE_SEED, LIFE_VICTIMS = 1_000_000, 256, 0, 1000
-LIFE_MAX_TICKS, LIFE_CHECK_EVERY, LIFE_TWIN_TICKS, LIFE_RUNS = 4096, 32, 8, 3
+LIFE_MAX_TICKS, LIFE_CHECK_EVERY, LIFE_TWIN_TICKS = 4096, 32, 8
+# the measurement legs, cut when the script neared its 1200 s limit: LIFE_RUNS
+# timed runs (phase 9) and bench-twin runs (phase 11), 3 before; phase 9's
+# profiled 32-tick blocks, LIFE_TRACE_BLOCKS of the 4 to detection; phase 11's
+# and 14b's profiled blocks, PROFILE_TICKS ticks (32 before)
+LIFE_RUNS, LIFE_TRACE_BLOCKS, PROFILE_TICKS = 2, 2, 8
 LIFECYCLE_ROWS = (1, 31, 33, 4097, 1_000_000)
 LIFECYCLE_SLOTS = (40, 64, 256)
 # pinned from the JAX package (ringpop_tpu.sim.lifecycle, rng="counter") run
@@ -586,7 +613,12 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke FAILED: {what}")
 
 
+LOG_TIMES: list[tuple[float, str]] = []  # (seconds since the start, the line's head): where the run's time goes
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    LOG_TIMES.append((time.perf_counter() - T_START, msg[:120]))
     print(msg, flush=True)
 
 
@@ -1589,14 +1621,14 @@ def learner_in_tick(block: dict) -> list[dict]:
 
 
 def lifecycle_trace(dev: torch.device, params, faults, victims) -> dict:
-    """The main path's ticks again, from ``init_state``, in blocks of
-    LIFE_CHECK_EVERY under the profiler (by phase and kernel, launches a
-    tick, L2 in the tick by launch), and L1/L2 alone on the state of each
-    detection check (ticks 32, 64, 96, 128)."""
+    """The main path's first LIFE_TRACE_BLOCKS blocks of LIFE_CHECK_EVERY
+    ticks again, from ``init_state``, under the profiler (by phase and
+    kernel, launches a tick, L2 in the tick by launch), and L1/L2 alone on
+    the state of each of those detection checks (ticks 32, 64)."""
     state = lifecycle.init_state(params, seed=LIFE_SEED, device=dev)
     blocks, checks, learner = [], [], []
     plain_inputs = None  # a launch's inputs for the plain version's time: the first where a timer fired
-    for _ in range(PIN_LIFE_DETECT_TICKS // LIFE_CHECK_EVERY):
+    for _ in range(LIFE_TRACE_BLOCKS):
         state, block = lifecycle_block_profile(params, state, faults, LIFE_CHECK_EVERY)
         if plain_inputs is None or not bool(plain_inputs[3].any()):
             plain_inputs = next((c[:4] for c in block["learner_calls"] if bool(c[3].any())),
@@ -2074,11 +2106,11 @@ def t1_profile(dev: torch.device) -> dict:
 
 def interleaved_detect(dev: torch.device, victims, faults) -> dict[str, list[float]]:
     """The headline's ``run_until_detected`` at both streams in turns
-    (counter, threefry, threefry, counter; CUDA events, ms), each held to
+    (counter, threefry; CUDA events, ms), each held to
     its pinned tick count."""
     walls = {"counter": [], "threefry": []}
     pins = {"counter": PIN_LIFE_DETECT_TICKS, "threefry": PIN_TF_LIFE_DETECT_TICKS}
-    for rng in ("counter", "threefry", "threefry", "counter"):
+    for rng in ("counter", "threefry"):
         sim = lifecycle.LifecycleSim(n=LIFE_N, k=LIFE_K, seed=LIFE_SEED, rng=rng, device=dev)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2097,7 +2129,7 @@ def phase11_bench_twin(dev: torch.device) -> dict:
     """bench.py's record on its own stream: the headline's first ticks with
     T1 and with its plain version, the twin (``bench.run_bench``) at full
     scale against the JAX threefry pins with its launch counts, the uniform
-    exchange with faults at threefry, a 32-tick block at each stream under
+    exchange with faults at threefry, an 8-tick block at each stream under
     the profiler, and detection at both streams in turns."""
     n, k = LIFE_N, LIFE_K
     victims, faults = headline_faults(dev, n)
@@ -2187,16 +2219,16 @@ def phase11_bench_twin(dev: torch.device) -> dict:
     for rng in ("counter", "threefry"):
         p = lifecycle.LifecycleParams(n=n, k=k, rng=rng)
         _, block = lifecycle_block_profile(p, lifecycle.init_state(p, seed=LIFE_SEED, device=dev), faults,
-                                           LIFE_CHECK_EVERY)
+                                           PROFILE_TICKS)
         block.pop("learner_calls")
         block.pop("learner_ms")
         blocks[rng] = block
-        log(f"phase11: {rng}, ticks 1-{LIFE_CHECK_EVERY} under the profiler: window {block['window_ms']:.3f} ms, "
+        log(f"phase11: {rng}, ticks 1-{PROFILE_TICKS} under the profiler: window {block['window_ms']:.3f} ms, "
             f"device busy {block['device_busy_ms']:.3f} ms ({block['busy_share']:.1%}), "
             f"{block['kernel_launches_per_tick']:.2f} kernel launches a tick (the port's {block['port_launches']}); "
             f"kernel ms by phase {block['phases_kernel_ms']}")
     walls = interleaved_detect(dev, victims, faults)
-    log(f"phase11: detection in turns (counter, threefry, threefry, counter), ms: {walls}; ms a tick: counter "
+    log(f"phase11: detection in turns (counter, threefry), ms: {walls}; ms a tick: counter "
         f"{[w / PIN_LIFE_DETECT_TICKS for w in walls['counter']]}, threefry "
         f"{[w / PIN_TF_LIFE_DETECT_TICKS for w in walls['threefry']]}")
     return {"record": record, "launches": launches, "twin_wall_s": wall_s,
@@ -3347,7 +3379,7 @@ def phase14b_headline(dev: torch.device) -> dict:
     (counts at 0 before it), its ticks and final-leaf digests == phase 9's
     pins, its block records (with state_digest, views_sum, views_agree) ==
     the JAX pins; detection in turns with telemetry off and on, and a
-    32-tick block on and off under the profiler (ms and launches a tick)."""
+    PROFILE_TICKS-tick block on and off under the profiler (ms and launches a tick)."""
     path = OUT_DIR / "phase14_headline.jsonl"
     path.parent.mkdir(exist_ok=True)
     packbits_kernel.reset_launches()
@@ -3382,7 +3414,7 @@ def phase14b_headline(dev: torch.device) -> dict:
         f"{start.elapsed_time(end):.1f} ms with the views")
     victims, faults = headline_faults(dev, LIFE_N)
     walls = {"off": [], "on": []}
-    for mode in ("off", "on", "on", "off"):
+    for mode in ("off", "on"):
         s = lifecycle.LifecycleSim(n=LIFE_N, k=LIFE_K, seed=LIFE_SEED, rng="counter", device=dev,
                                    telemetry=telemetry.TelemetrySink() if mode == "on" else None)
         torch.cuda.synchronize()
@@ -3399,10 +3431,10 @@ def phase14b_headline(dev: torch.device) -> dict:
     state = lifecycle.init_state(params, seed=LIFE_SEED, device=dev)
     for _ in range(LIFE_TWIN_TICKS):
         state = lifecycle.step(params, state, faults)
-    blocks = {"off": tick_profile(params, state, faults, None, LIFE_CHECK_EVERY),
-              "on": tick_profile(params, state, faults, telemetry.zeros(params, device=dev), LIFE_CHECK_EVERY)}
+    blocks = {"off": tick_profile(params, state, faults, None, PROFILE_TICKS),
+              "on": tick_profile(params, state, faults, telemetry.zeros(params, device=dev), PROFILE_TICKS)}
     log(f"phase14b: detection ms telemetry off {walls['off']}, on {walls['on']} (before: off "
-        f"{TELEMETRY_BEFORE['detect_ms_off_spread']}, on {TELEMETRY_BEFORE['detect_ms_on_spread']}); 32-tick block "
+        f"{TELEMETRY_BEFORE['detect_ms_off_spread']}, on {TELEMETRY_BEFORE['detect_ms_on_spread']}); {PROFILE_TICKS}-tick block "
         f"from tick {LIFE_TWIN_TICKS}: off {blocks['off']}, on {blocks['on']} (before: launches a tick off "
         f"{TELEMETRY_BEFORE['launches_a_tick_off']}, on {TELEMETRY_BEFORE['launches_a_tick_on']}; R1's 2 a journalled "
         f"block come on top, {2 * flushes} over the run's {PIN_LIFE_DETECT_TICKS} ticks)")
@@ -3529,7 +3561,7 @@ FLEET_MC_MAX_TICKS, FLEET_CHURN_MAX_TICKS = 1024, 4096
 FLEET_CHURN_SEED, FLEET_CONTRAST_SEED = FLEET_SEED + 777, FLEET_SEED + 778
 FLEET_LOSSES, FLEET_HORIZON, FLEET_BLOCK, FLEET_SAVE_AT = (0.0, 0.1), 256, 16, 128
 FLEET_TWIN_B, FLEET_TWIN_TICKS = 2, 4  # 15's twin: kernels against plain versions on the fleet's shapes
-FLEET_PROFILE_TICKS = 2  # a profiled fleet block at B = 1 and B = FLEET_B
+FLEET_PROFILE_TICKS = 1  # a profiled fleet block at B = 1 and B = FLEET_B (2 before the measurement cut)
 FLEET_KERNELS = ("slot_walk", "first_live_learner", "row_reduce", "threefry", "telemetry_accumulate",
                  "telemetry_state_digest", "telemetry_f32_sums")
 # pinned from the JAX package (ringpop_tpu.sim.montecarlo, .scenarios) run on
@@ -5314,6 +5346,482 @@ def run_multihost(dev: torch.device, card: str) -> dict:
                  for p, ranks in groups.items() for name, _ in MH_GROUPS[p]}}}
 
 
+# phase 21: the serve plane's placement, mesh and ops loop.  21a simbench
+# serve_ring's DGRO score (cli/simbench.py:1672-1675) and the same pass at
+# ring1m's ring (:908-911, BASELINE config 5) with dgro_place's defaults,
+# then a DGRO-placed RingStore as the game day builds it; 21b serve_fanin at
+# full scale (:1726-1795); 21c the game day at full scale (:2605-2607)
+DGRO_SERVE = {"servers": [f"10.8.{i // 256}.{i % 256}:3000" for i in range(64)], "points": 100,
+              "kw": {"candidates": 8, "probes": 1 << 14, "churn_frac": 0.02, "seed": 0}}
+DGRO_1M = {"servers": [f"10.0.{i // 256}.{i % 256}:3000" for i in range(N_SERVERS)], "points": REPLICAS,
+           "kw": {"seed": 0}}
+DGRO_STORE = {"zones": [f"z{z}" for z in range(4)], "points": 32,
+              "placement_kw": {"candidates": 2, "probes": 1 << 10}}
+DGRO_STORE_STEPS = (("update", ["z4"]), ("drain", ["z1"]), ("rescore", None))
+FANIN = dict(n_servers=64, replica_points=100, n=3, streams=4, rounds=6, keys_per_stream=8192, seed=0)
+FANIN_RUNS = (("P1", 1, {}), ("P2", 2, {}), ("P4", 4, {}), ("P4_raw", 4, {"codec": False}), ("P4_traced", 4, None))
+QUORUM = dict(n_servers=8, replica_points=16, r=3, keys_per_tick=FANIN["keys_per_stream"] // 16, horizon=32, seed=0)
+GAMEDAY = dict(n=128, horizon=64, seed=0)
+GAMEDAY_SCENARIOS = ("zone_cut", "switch_flap")
+# the game day's fleet (FleetSweep, telemetry on, counter stream) runs S1, L2,
+# P1, D1 and R1; it checks no detection, so L1 is counted but not required
+GAMEDAY_KERNELS = ("row_reduce", "slot_walk", "first_live_learner", "state_digest", "accumulate", "f32_sums")
+GAMEDAY_REQUIRED = ("row_reduce", "first_live_learner", "state_digest", "accumulate", "f32_sums")
+# pinned from the JAX package (ringpop_tpu.serve.placement, .serve.mesh,
+# .forward.batch, .obs.gameday) run on the CPU through the views below;
+# tests/test_torch_chip_smoke_pins_serve_mesh.py recomputes them
+PIN_DGRO = {"pass": {"chosen": 1,
+                     "salt": 2654435769,
+                     "local_moves": 0,
+                     "family": 12,
+                     "rescored": True,
+                     "candidates": 8,
+                     "move_candidates": 4,
+                     "probes": 16384,
+                     "churn_cohort": 1,
+                     "movement": [0.014343, 0.012573, 0.016907, 0.015259, 0.015503, 0.012634, 0.016357, 0.015503,
+                                  0.014343, 0.014343, 0.014343, 0.014343],
+                     "excess_movement": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+                     "imbalance": [1.3398, 1.2148, 1.1875, 1.3008, 1.3125, 1.332, 1.3008, 1.2695, 1.3398, 1.3398,
+                                   1.3398, 1.3398],
+                     "diameter": [0.001187, 0.001748, 0.001505, 0.001427, 0.001233, 0.001585, 0.001379, 0.00145,
+                                  0.001093, 0.001091, 0.001052, 0.001001],
+                     "movement_random": 0.014343,
+                     "movement_chosen": 0.012573,
+                     "imbalance_random": 1.3398,
+                     "imbalance_chosen": 1.2148,
+                     "diameter_random": 0.001187,
+                     "diameter_chosen": 0.001748,
+                     "moves": [],
+                     "ring_sha256": "c86e9c8f0fcd8171d9f2cdaaf1dba438473a1050cf63474433687cdf7aea926e"},
+            "store": [{"kind": "ring_update",
+                       "gen": 1,
+                       "checksum": 1797256422,
+                       "n_servers": 5,
+                       "count": 160,
+                       "capacity": 1024,
+                       "reallocated": False,
+                       "added": ["z4"],
+                       "removed": []},
+                      {"kind": "ring_update",
+                       "gen": 2,
+                       "checksum": 2136392972,
+                       "n_servers": 4,
+                       "count": 128,
+                       "capacity": 1024,
+                       "reallocated": False,
+                       "added": [],
+                       "removed": ["z1"],
+                       "drain": True},
+                      {"kind": "ring_update",
+                       "gen": 3,
+                       "checksum": 2136392972,
+                       "n_servers": 4,
+                       "count": 128,
+                       "capacity": 1024,
+                       "reallocated": False,
+                       "added": [],
+                       "removed": [],
+                       "rescored": True,
+                       "placement": {"chosen": 5,
+                                     "salt": 0,
+                                     "movement_chosen": 0.269531,
+                                     "movement_random": 0.291016,
+                                     "imbalance_chosen": 1.2031,
+                                     "imbalance_random": 1.3516,
+                                     "diameter_chosen": 0.020688,
+                                     "diameter_random": 0.029117}}]}
+PIN_DGRO_1M = {"pass": {"chosen": 2,
+                        "salt": 1013904242,
+                        "local_moves": 0,
+                        "family": 12,
+                        "rescored": True,
+                        "candidates": 8,
+                        "move_candidates": 4,
+                        "probes": 32768,
+                        "churn_cohort": 41,
+                        "movement": [0.01004, 0.009796, 0.01004, 0.009735, 0.010406, 0.010132, 0.009033, 0.009888,
+                                     0.01004, 0.01004, 0.01004, 0.01004],
+                        "excess_movement": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+                        "imbalance": [2.75, 2.5, 2.375, 2.75, 2.5, 2.5, 2.375, 2.625, 2.75, 2.75, 2.75, 2.75],
+                        "diameter": [1.3e-05, 1.6e-05, 1.2e-05, 1.4e-05, 1.3e-05, 1.5e-05, 1.4e-05, 1.5e-05, 1.3e-05,
+                                     1.2e-05, 1.2e-05, 1.2e-05],
+                        "movement_random": 0.01004,
+                        "movement_chosen": 0.01004,
+                        "imbalance_random": 2.75,
+                        "imbalance_chosen": 2.375,
+                        "diameter_random": 1.3e-05,
+                        "diameter_chosen": 1.2e-05,
+                        "moves": [],
+                        "ring_sha256": "e3dc16a627278dab350ef780e36eb1a68c4bd2e84bc0fbe79703387a62a97c10"}}
+PIN_FANIN = {"P1": {"digests": [3008062094],
+                    "messages": [0],
+                    "keys_forwarded_out": [0],
+                    "bytes_sent": [0],
+                    "raw_bytes_sent": [0],
+                    "records_sha256": "2caf4b3d81e63a8e35c79abffcd32b50b958e3549e1cce3b88bb82e44565c7b4"},
+             "P2": {"digests": [3008062094],
+                    "messages": [12, 12],
+                    "keys_forwarded_out": [48399, 49960],
+                    "bytes_sent": [793736, 781248],
+                    "raw_bytes_sent": [793736, 781248],
+                    "records_sha256": "fef8bd21f034d364f60e347247e5a1b5a020b68b1ced34aaca2348835f20cf15"},
+             "P4": {"digests": [3008062094],
+                    "messages": [36, 36, 36, 36],
+                    "keys_forwarded_out": [36604, 36754, 37165, 36871],
+                    "bytes_sent": [603124, 593008, 580324, 589192],
+                    "raw_bytes_sent": [603124, 593008, 580324, 589192],
+                    "records_sha256": "669e878e911e3494f960fbb85c9400465a43dc09c2069e7eb6148b87c3d2b9aa"},
+             "P4_raw": {"digests": [3008062094],
+                        "messages": [36, 36, 36, 36],
+                        "keys_forwarded_out": [36604, 36754, 37165, 36871],
+                        "bytes_sent": [603124, 593008, 580324, 589192],
+                        "raw_bytes_sent": [603124, 593008, 580324, 589192],
+                        "records_sha256": "669e878e911e3494f960fbb85c9400465a43dc09c2069e7eb6148b87c3d2b9aa"},
+             "P4_traced": {"digests": [3008062094],
+                           "messages": [36, 36, 36, 36],
+                           "keys_forwarded_out": [36604, 36754, 37165, 36871],
+                           "bytes_sent": [603124, 593008, 580324, 589192],
+                           "raw_bytes_sent": [603124, 593008, 580324, 589192],
+                           "records_sha256": "669e878e911e3494f960fbb85c9400465a43dc09c2069e7eb6148b87c3d2b9aa"}}
+PIN_QUORUM = {"owners_killed": True,
+              "quorum_held": True,
+              "answers_agree": True,
+              "rpcs": 256,
+              "rpcs_naive": 49152,
+              "rpc_ratio": 0.00521,
+              "keys_read": 16384,
+              "time_to_detect_median": 5,
+              "quorum_acks_min": 2,
+              "result_sha256": "8e321582e07ec8896273561372ae0838fbc981244e44b0b78066d1e64a560558"}
+PIN_GAMEDAY = {"zone_cut": {"digests_on": {"0": 2461689580, "1": 3983307382},
+                            "digests_off": {"0": 2461689580, "1": 3983307382},
+                            "digests_bare": {"0": 2461689580, "1": 3983307382},
+                            "cut_at": 16,
+                            "ttm_on": 8,
+                            "ttm_off": 24,
+                            "mitigated_earlier": True,
+                            "mitigation_tick": 24,
+                            "organic_tick": 40,
+                            "alerts": 2,
+                            "twin_alerts": 2,
+                            "twin_actions": 0,
+                            "drains_ok": 1,
+                            "effects_ok": 1,
+                            "chain_ok": True,
+                            "stray_rules": [],
+                            "ring_gen": 1,
+                            "twin_ring_gen": 0},
+               "switch_flap": {"digests_on": {"0": 267325225, "1": 3315158879},
+                               "digests_off": {"0": 267325225, "1": 3315158879},
+                               "digests_bare": {"0": 267325225, "1": 3315158879},
+                               "cut_at": 16,
+                               "ttm_on": 8,
+                               "ttm_off": 48,
+                               "mitigated_earlier": True,
+                               "mitigation_tick": 24,
+                               "organic_tick": None,
+                               "alerts": 4,
+                               "twin_alerts": 4,
+                               "twin_actions": 0,
+                               "drains_ok": 1,
+                               "effects_ok": 1,
+                               "chain_ok": True,
+                               "stray_rules": [],
+                               "ring_gen": 1,
+                               "twin_ring_gen": 0}}
+def sha256_json(obj) -> str:
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()).hexdigest()
+
+
+def dgro_view(tokens, owners, report: dict) -> dict:
+    """What the pins hold of a DGRO pass: every report field (the chosen
+    local moves as sorted [server, replica, token] triples) and the sha256
+    of the chosen ring (uint32 tokens, then int32 owners)."""
+    view = {k: v for k, v in report.items() if k != "moves"}
+    view["moves"] = sorted([srv, int(rep), int(tok)] for (srv, rep), tok in report["moves"].items())
+    view["ring_sha256"] = hashlib.sha256(np.asarray(tokens, np.uint32).tobytes()
+                                         + np.asarray(owners, np.int32).tobytes()).hexdigest()
+    return view
+
+
+def dgro_store_records(store, after=None) -> list[dict]:
+    """``DGRO_STORE_STEPS`` applied to a DGRO-placed RingStore, ``after(step)``
+    called after each: the commit records, JSON-shaped."""
+    out = []
+    for step, arg in DGRO_STORE_STEPS:
+        rec = (store.update(add=arg) if step == "update" else store.drain(arg) if step == "drain"
+               else store.rescore_placement())
+        out.append(json.loads(json.dumps(rec)))
+        if after is not None:
+            after(step)
+    return out
+
+
+def fanin_view(recs: list[dict]) -> dict:
+    """What the pins hold of a serve-mesh run: the digests, every rank's
+    message and key counts and wire and raw bytes sent, and the sha256 of
+    every rank's record bar its wall-clock keys."""
+    strip = [{k: v for k, v in r.items() if k not in ("wall_s", "keys_per_s")} for r in recs]
+    return {"digests": sorted({r["digest"] for r in recs}),
+            "messages": [r["messages_sent"] for r in recs],
+            "keys_forwarded_out": [r["keys_forwarded_out"] for r in recs],
+            "bytes_sent": [r["wire"]["bytes_sent"] for r in recs],
+            "raw_bytes_sent": [r["wire"]["raw_bytes_sent"] for r in recs],
+            "records_sha256": sha256_json(strip)}
+
+
+def quorum_view(rec: dict) -> dict:
+    """What the pins hold of ``quorum_chaos_run``: its verdict fields and the
+    sha256 of the whole result (it reads no wall clock)."""
+    keep = ("owners_killed", "quorum_held", "answers_agree", "rpcs", "rpcs_naive", "rpc_ratio", "keys_read")
+    return {**{k: rec[k] for k in keep}, "time_to_detect_median": rec["score"]["time_to_detect_median"],
+            "quorum_acks_min": rec["score"].get("quorum_acks_min"), "result_sha256": sha256_json(rec)}
+
+
+def gameday_view(pair: dict, head: dict) -> dict:
+    """What the pins hold of one scenario's game day (simbench's scorecard
+    fields, cli/simbench.py:2613-2641, and the digests)."""
+    on, off = pair["on"], pair["off"]
+    digests = lambda d: {str(k): int(v) for k, v in sorted(d.items())}  # noqa: E731
+    return {
+        "digests_on": digests(on["digests"]), "digests_off": digests(off["digests"]),
+        "digests_bare": digests(head), "cut_at": on["cut_at"], "ttm_on": pair["ttm_on"],
+        "ttm_off": pair["ttm_off"], "mitigated_earlier": pair["mitigated_earlier"],
+        "mitigation_tick": on["mitigation_tick"], "organic_tick": off["organic_tick"],
+        "alerts": len(on["alerts"]), "twin_alerts": len(off["alerts"]), "twin_actions": len(off["actions"]),
+        "drains_ok": sum(1 for a in on["actions"] if a["action"] == "drain" and a["ok"]),
+        "effects_ok": sum(1 for a in on["actions"] if a["action"] == "effect" and a["ok"]),
+        "chain_ok": bool(on["chains"]) and all(ch and ch[0]["kind"] == "alert"
+                                               and any(c["kind"] == "action" for c in ch) for ch in on["chains"]),
+        "stray_rules": sorted({a["rule"] for a in on["alerts"]} - {"probe-timeout-spike"}),
+        "ring_gen": on["ring_gen"], "twin_ring_gen": off["ring_gen"],
+    }
+
+
+@contextlib.contextmanager
+def dgro_probe():
+    """Record ``dgro_place``'s scorer inputs and its local moves' host wall
+    for the duration."""
+    from ringpop_tpu_torch.serve import placement
+
+    seen = {"scorer_args": None, "moves_s": 0.0}
+    score, moves = placement._score_candidates, placement._apply_moves
+
+    def score_rec(*args):
+        seen["scorer_args"] = args
+        return score(*args)
+
+    def moves_rec(*args):
+        t0 = time.perf_counter()
+        out = moves(*args)
+        seen["moves_s"] += time.perf_counter() - t0
+        return out
+
+    placement._score_candidates, placement._apply_moves = score_rec, moves_rec
+    try:
+        yield seen
+    finally:
+        placement._score_candidates, placement._apply_moves = score, moves
+
+
+def dgro_leg(dev: torch.device, cfg: dict, pin: dict, what: str, card: str) -> dict:
+    """One DGRO pass on ``dev`` == ``pin``, its sticky replay == the pick, and
+    the scorer alone timed on the pass's own inputs (CUDA events)."""
+    from ringpop_tpu_torch.serve import placement
+
+    t0 = time.perf_counter()
+    with dgro_probe() as seen:
+        tokens, owners, report = placement.dgro_place(cfg["servers"], cfg["points"], device=dev, **cfg["kw"])
+    wall = time.perf_counter() - t0
+    view = dgro_view(tokens, owners, report)
+    check(view == pin, f"21a {what}: the DGRO pick and report == the JAX pin: "
+          f"{ {k: (v, pin.get(k)) for k, v in view.items() if v != pin.get(k)} }")
+    check(report["movement_chosen"] <= report["movement_random"] + 1e-9
+          and all(e == 0.0 for e in report["excess_movement"]),
+          f"21a {what}: the chosen candidate moves no more keys than random, and no candidate breaks consistent "
+          f"hashing")
+    rt, ro, rrep = placement.dgro_place(cfg["servers"], cfg["points"], fixed_salt=report["salt"],
+                                        fixed_moves=report["moves"], device=dev)
+    check(np.array_equal(rt, tokens) and np.array_equal(ro, owners) and not rrep["rescored"],
+          f"21a {what}: the sticky replay == the scored pick")
+    args = seen["scorer_args"]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    scorer_ms = []
+    for _ in range(5):
+        start.record()
+        placement._score_candidates(*args)
+        end.record()
+        torch.cuda.synchronize()
+        scorer_ms.append(start.elapsed_time(end))
+    c, t = args[0].shape
+    out = {"candidates": int(c), "tokens": int(t), "probes": int(args[2].shape[0]), "chosen": report["chosen"],
+           "pass_wall_s": wall, "moves_host_ms": seen["moves_s"] * 1e3, "scorer_ms": scorer_ms,
+           "scorer_ms_median": statistics.median(scorer_ms)}
+    log(f"phase21a: {what}: {c} candidates x {t} tokens, {out['probes']} probes: chosen {report['chosen']} "
+        f"(imbalance {report['imbalance_random']} -> {report['imbalance_chosen']}, diameter "
+        f"{report['diameter_random']} -> {report['diameter_chosen']}) == PIN; scorer {out['scorer_ms_median']:.3f} ms "
+        f"on the device (median of 5, CUDA events; {[round(x, 3) for x in scorer_ms]}), host moves "
+        f"{out['moves_host_ms']:.1f} ms, the pass {wall:.2f} s; {card}")
+    return out
+
+
+def dgro_store_leg(dev: torch.device) -> dict:
+    """A DGRO-placed RingStore on ``dev`` as the game day builds it: its
+    update, drain and rescore records == the pin, and at every generation
+    LookupN through ``serve_lookup_n_fused`` == the host walk."""
+    store = RingStore(DGRO_STORE["zones"], replica_points=DGRO_STORE["points"], placement="dgro",
+                      placement_kw=DGRO_STORE["placement_kw"], device=dev)
+    hashes = np.random.default_rng(SEED + 21).integers(0, 2**32, size=1 << 14, dtype=np.uint32)
+    keys = torch.from_numpy(hashes.astype(np.int64)).to(dev)
+
+    def certify(tag: str) -> None:
+        ring, gen, ns = store.snapshot()
+        tokens, owners, hgen, _ = store.snapshot_host()
+        fused = as_np(serve_lookup_n_fused(ring, ns, keys, 3))
+        check(int(fused[-1]) == gen == hgen, f"21a store {tag}: the fused tail holds generation {gen}")
+        check(np.array_equal(fused[:-1].reshape(-1, 3), host_lookup_n(tokens, owners, hashes, 3, ns)),
+              f"21a store {tag}: serve_lookup_n_fused == the host walk at generation {gen}")
+
+    certify("gen 0")
+    records = dgro_store_records(store, certify)
+    check(records == PIN_DGRO["store"], f"21a store: the update, drain and rescore records == the JAX pin: {records}")
+    return {"gen": store.gen, "records": len(records)}
+
+
+def fanin_leg(dev: torch.device, card: str) -> dict:
+    """Simbench serve_fanin at full scale: the mesh at P = 1, 2, 4, P = 4 with
+    the codec off and traced, every run == PIN_FANIN, then the quorum chaos
+    harness == PIN_QUORUM."""
+    from ringpop_tpu_torch.forward.batch import quorum_chaos_run
+    from ringpop_tpu_torch.serve.mesh import run_serve_mesh
+
+    out, spans = {}, []
+    oracle = PIN_FANIN["P1"]["digests"]
+    for name, nprocs, kw in FANIN_RUNS:
+        kw = {"trace_sink": spans.append} if kw is None else kw
+        t0 = time.perf_counter()
+        recs = run_serve_mesh(nprocs, device=dev, **FANIN, **kw)
+        wall = time.perf_counter() - t0
+        view = fanin_view(recs)
+        check(view == PIN_FANIN[name], f"21b {name}: digests, message counts and wire bytes == the JAX pin: {view}")
+        check(view["digests"] == oracle, f"21b {name}: every rank's digest == the P = 1 oracle {oracle}")
+        msgs, naive = sum(view["messages"]), sum(r["messages_naive"] for r in recs)
+        check(nprocs == 1 or msgs < naive, f"21b {name}: {msgs} messages < the naive plane's {naive}")
+        keys_total = sum(r["keys_total"] for r in recs)
+        rank_wall = max(r["wall_s"] for r in recs)
+        out[name] = {"wall_s": wall, "rank_wall_s_max": rank_wall, "keys_total": keys_total,
+                     "keys_per_s_per_host": keys_total / rank_wall / nprocs,
+                     "wire_mb_per_rank": [b / 1e6 for b in view["bytes_sent"]],
+                     "raw_mb_per_rank": [b / 1e6 for b in view["raw_bytes_sent"]], "messages": msgs}
+        log(f"phase21b: {name}: {keys_total} keys, {out[name]['keys_per_s_per_host']:.0f} keys/s a host (the ranks' "
+            f"slowest wall {rank_wall:.3f} s), wire {[round(x, 4) for x in out[name]['wire_mb_per_rank']]} MB and raw "
+            f"{[round(x, 4) for x in out[name]['raw_mb_per_rank']]} MB a rank, {msgs} messages; run {wall:.2f} s; {card}")
+    reqs = {r["span"]: r for r in spans if r["leg"] == "mesh_request"}
+    answers = [r for r in spans if r["leg"] == "mesh_answer"]
+    check(reqs and answers and all(a["parent"] in reqs and reqs[a["parent"]]["trace"] == a["trace"]
+                                   for a in answers),
+          f"21b P4_traced: {len(answers)} answer spans, each parented on an emitted request span")
+    t0 = time.perf_counter()
+    quorum = quorum_chaos_run(**QUORUM)
+    wall = time.perf_counter() - t0
+    view = quorum_view(quorum)
+    check(view == PIN_QUORUM, f"21b quorum: the result == the JAX pin: {view}")
+    check(quorum["owners_killed"] and quorum["quorum_held"] and quorum["answers_agree"]
+          and quorum["rpcs"] < quorum["rpcs_naive"], "21b quorum: owners killed, the quorum held, answers agree, "
+          "RPCs below naive")
+    out["quorum"] = {"wall_s": wall, "rpcs": quorum["rpcs"], "rpc_ratio": quorum["rpc_ratio"],
+                     "time_to_detect_median": quorum["score"]["time_to_detect_median"]}
+    log(f"phase21b: quorum chaos run (8 servers, r 3, {QUORUM['keys_per_tick']} keys a tick, {QUORUM['horizon']} "
+        f"ticks) == PIN_QUORUM: {quorum['rpcs']} RPCs for {quorum['keys_read']} keys (ratio {quorum['rpc_ratio']}), "
+        f"recovery median {quorum['score']['time_to_detect_median']} ticks; {wall:.2f} s; {card}")
+    return out
+
+
+def gameday_d1_check(dev: torch.device) -> dict:
+    """D1 == plain on a game-day fleet state: the zone cut's fleet run past
+    the cut, each replica's leaves digested by the kernel and by the plain
+    version."""
+    from ringpop_tpu_torch.obs import gameday
+
+    horizon, je = 3 * 8, 8
+    _topo, plan, meta = gameday._build_plan("zone_cut", GAMEDAY["n"], 2 * je, je, dev)
+    sweep = scenarios.FleetSweep(lifecycle.LifecycleParams(n=GAMEDAY["n"], k=32, suspect_ticks=10, rng="counter"),
+                                 plan, meta, [GAMEDAY["seed"], GAMEDAY["seed"] + 101], horizon=horizon,
+                                 journal_every=je, scenario="gameday", device=dev)
+    sweep.run()
+    states = sweep.mc.states
+    for b in range(len(meta)):
+        leaves = [leaf[b].contiguous() for leaf in states]
+        got, want = telemetry_kernel.state_digest_cuda(leaves), telemetry.tree_digest_plain(leaves)
+        check(torch.equal(got, want), f"21c: D1 == plain on replica {b}'s game-day fleet state at tick {horizon}")
+    return {"replicas": len(meta), "tick": horizon, "max_abs_err": 0}
+
+
+def gameday_leg(dev: torch.device, card: str) -> dict:
+    """Simbench gameday at full scale: each scenario's controller run, its
+    twin and the bare fleet == PIN_GAMEDAY; the zone cut judged as simbench
+    certifies it; the fleet's kernel launches counted over the legs."""
+    from ringpop_tpu_torch.obs.gameday import bare_digests, gameday_pair
+
+    out, views = {}, {}
+    shard_reset()
+    for scenario in GAMEDAY_SCENARIOS:
+        t0 = time.perf_counter()
+        pair = gameday_pair(scenario=scenario, device=dev, **GAMEDAY)
+        t1 = time.perf_counter()
+        head = bare_digests(scenario=scenario, device=dev, **GAMEDAY)
+        t2 = time.perf_counter()
+        views[scenario] = view = gameday_view(pair, head)
+        check(view == PIN_GAMEDAY[scenario], f"21c {scenario}: the scorecard and digests == the JAX pin: {view}")
+        check(view["digests_on"] == view["digests_off"] == view["digests_bare"],
+              f"21c {scenario}: controller-on == controller-off == bare fleet digests")
+        out[scenario] = {"pair_wall_s": t1 - t0, "bare_wall_s": t2 - t1,
+                         "ms_a_fleet_tick": (t2 - t1) * 1e3 / GAMEDAY["horizon"],
+                         "ttm_on": view["ttm_on"], "ttm_off": view["ttm_off"]}
+        log(f"phase21c: {scenario} at n {GAMEDAY['n']}, horizon {GAMEDAY['horizon']}: ttm {view['ttm_on']} on vs "
+            f"{view['ttm_off']} off (cut at {view['cut_at']}), {view['alerts']} alerts, {view['drains_ok']} drains, "
+            f"{view['effects_ok']} effects, ring gen {view['ring_gen']}, digests equal on/off/bare == PIN; pair "
+            f"{t1 - t0:.2f} s (two P = 2 runs), bare {t2 - t1:.2f} s = {out[scenario]['ms_a_fleet_tick']:.2f} ms a "
+            f"fleet tick (B = 2, host clock); {card}")
+    launches = {k: v for k, v in rumor_launches().items() if k in GAMEDAY_KERNELS}
+    zc = views["zone_cut"]
+    check(zc["mitigated_earlier"] and zc["ttm_on"] < zc["ttm_off"] and zc["chain_ok"] and not zc["stray_rules"]
+          and zc["twin_actions"] == 0 and zc["drains_ok"] >= 1 and zc["effects_ok"] >= 1,
+          f"21c zone_cut: mitigated earlier ({zc['ttm_on']} < {zc['ttm_off']}), the alert -> action chain "
+          f"reconstructs, no rule fires but probe-timeout-spike, the twin takes no action")
+    check(all(launches[k] > 0 for k in GAMEDAY_REQUIRED), f"21c: S1, L2, P1, D1 and R1 launched: {launches}")
+    out["launches"] = launches
+    out["d1_check"] = gameday_d1_check(dev)
+    log(f"phase21c: the game days' fleet launches {launches}; D1 == plain on the fleet state; {card}")
+    return out
+
+
+def run_serve_plane(dev: torch.device, card: str) -> dict:
+    """Phase 21: a) the DGRO placement pass at simbench serve_ring's setting
+    and at BASELINE config 5's ring, each == its JAX pin, its sticky replay
+    == its pick, then a DGRO-placed RingStore's update, drain and rescore
+    == the pin with LookupN == the host walk at each generation; b)
+    serve_fanin: the serve mesh at P = 1, 2, 4 (and P = 4 with the codec
+    off, and traced), every digest == the P = 1 oracle == PIN_FANIN, wire
+    bytes and message counts == the pin, then the quorum chaos harness ==
+    PIN_QUORUM; c) the game day (zone cut, switch flap at n 128, horizon
+    64): each pair and bare fleet == PIN_GAMEDAY, the zone cut mitigated
+    strictly earlier than its twin with equal digests, and the fleet's
+    kernel launches counted."""
+    t_phase = time.perf_counter()
+    out = {"card": card, "21a": {}}
+    for name, cfg, pin in (("serve_ring", DGRO_SERVE, PIN_DGRO), ("ring1m", DGRO_1M, PIN_DGRO_1M)):
+        out["21a"][name] = dgro_leg(dev, cfg, pin["pass"], name, card)
+    out["21a"]["store"] = dgro_store_leg(dev)
+    out["21b"] = fanin_leg(dev, card)
+    out["21c"] = gameday_leg(dev, card)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase21: DGRO == PIN_DGRO, PIN_DGRO_1M; serve mesh == PIN_FANIN; quorum == PIN_QUORUM; game days == "
+        f"PIN_GAMEDAY; phase wall {out['wall_s']:.1f} s; {card}")
+    return {"serve_plane": out}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
@@ -5392,6 +5900,11 @@ def main() -> int:
         out = run_multihost(torch.device("cuda"), card)
         log(json.dumps(out))
         return 0
+    if sys.argv[1:] == ["--serve-mesh"]:
+        build_kernels()
+        out = run_serve_plane(torch.device("cuda"), card)
+        log(json.dumps(out))
+        return 0
     if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
         rng = (sys.argv[2:] or ["counter"])[0]
         log(json.dumps({"card": card, "rng": rng, "detect_ms": detect_wall(torch.device("cuda"), rng)}))
@@ -5418,6 +5931,7 @@ def main() -> int:
     rumor_timings = phase("18", run_rumor_axis, card, refs)
     fleet_mesh_timings = phase("19", run_fleet_mesh, card)
     multihost_timings = phase("20", run_multihost, card)
+    serve_plane_timings = phase("21", run_serve_plane, card)
     log(f"phase walls, s: {walls}")
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
@@ -5466,16 +5980,24 @@ def main() -> int:
             key = next(k for k, v in MH_KERNELS.items() if v == rec["name"])
             rec["launches_on_multihost"] = {leg: [c[key] for c in counts] for leg, counts in
                                             multihost_timings["multihost"]["launches_per_rank"].items()}
+    # phase 21's game days run S1, L2, P1, D1 and R1 (L1 counted too): their counts over the legs
+    for rec in kernels:
+        if rec["name"] in RUMOR_KERNELS.values():
+            key = next(k for k, v in RUMOR_KERNELS.items() if v == rec["name"])
+            if key in GAMEDAY_KERNELS:
+                rec["launches_on_gameday"] = serve_plane_timings["serve_plane"]["21c"]["launches"][key]
     timings.update(serve_timings)
     timings.update(sharded_timings)
     timings.update(rumor_timings)
     timings.update(fleet_mesh_timings)
     timings.update(multihost_timings)
+    timings.update(serve_plane_timings)
     timings["card"] = card
     timings["phase_walls_s"] = walls
     # the whole record, which the end of a long log may not hold
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke_timings.json").write_text(json.dumps({"timings": timings, "kernels": kernels}))
+    (OUT_DIR / "chip_smoke_log_times.txt").write_text("".join(f"{t:9.1f}  {m}\n" for t, m in LOG_TIMES))
     log(json.dumps(timings))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -221,9 +221,8 @@ class RingStore:
     Capacity doubles (one reallocation) when the server set outgrows it;
     every committed generation's server list is retained in a short ring
     buffer so responses tagged with a recent generation can still be
-    resolved to addresses.  Only ``placement="random"`` (the ring's own
-    placement) exists in this package so far; ``"dgro"`` raises
-    NotImplementedError.
+    resolved to addresses.  ``placement="dgro"`` re-places the tokens
+    through ``serve/placement.py``'s scorer, on the store's device.
     """
 
     def __init__(
@@ -234,17 +233,17 @@ class RingStore:
         capacity: Optional[int] = None,
         keep_generations: int = 8,
         placement: str = "random",
+        placement_kw: Optional[dict] = None,
         on_update: Optional[Callable[[dict], None]] = None,
         device: DeviceLike = None,
     ):
-        if placement == "dgro":
-            raise NotImplementedError("placement='dgro' is not ported yet (ROADMAP A14)")
-        if placement != "random":
+        if placement not in ("random", "dgro"):
             raise ValueError(f"unknown placement {placement!r}")
         self.torch_device = resolve_device(device)
         self._lock = threading.Lock()
         self.ring = HashRing(replica_points=replica_points)
         self.placement = placement
+        self.placement_kw = dict(placement_kw or {})
         self.keep_generations = keep_generations
         self.on_update = on_update
         self._gens: dict[int, list[str]] = {}
@@ -267,9 +266,32 @@ class RingStore:
     # -- placement -----------------------------------------------------------
 
     def _placed_arrays(self):
-        """(tokens uint32, owners int32) for the current server set — the
-        ring's own (reference hashring.go) placement."""
-        toks, owners, _ = self.ring.token_arrays()
+        """(tokens uint32, owners int32) for the current server set under
+        the configured placement.  ``random`` is the ring's own (reference
+        hashring.go) placement; ``dgro`` re-places tokens through the
+        diameter/spread-guided pass (serve/placement.py) — opt-in, and
+        STICKY: the candidate is scored once, then replayed by salt and
+        local-move overrides on every later membership change (a candidate
+        flip would move every token)."""
+        toks, owners, servers = self.ring.token_arrays()
+        if self.placement == "dgro" and servers:
+            from ringpop_tpu_torch.serve.placement import dgro_place
+
+            kw = dict(self.placement_kw)
+            salt = getattr(self, "_dgro_salt", None)
+            if salt is not None:
+                kw["fixed_salt"] = salt
+                # surviving (server, replica) tokens keep their exact
+                # values, departed servers' overrides lapse
+                kw["fixed_moves"] = getattr(self, "_dgro_moves", {})
+            toks32, owners32, report = dgro_place(
+                servers, self.ring.replica_points, device=self.torch_device, **kw
+            )
+            if salt is None:
+                self.placement_report = report
+            self._dgro_salt = report["salt"]
+            self._dgro_moves = report.get("moves", {})
+            return toks32, owners32
         return toks.astype(np.uint32), owners.astype(np.int32)
 
     # -- mutation ------------------------------------------------------------
@@ -294,16 +316,25 @@ class RingStore:
             return self._commit(added=[], removed=removed, drain=True)
 
     def rescore_placement(self) -> Optional[dict]:
-        """Re-score the DGRO placement; only meaningful under
-        ``placement="dgro"``, so None here, as in the JAX version under
-        random placement."""
-        return None
+        """Drop the sticky DGRO candidate and re-score from scratch at the
+        CURRENT membership, committing the result — the telemetry-triggered
+        exception to stickiness.  Only meaningful under
+        ``placement="dgro"`` (None otherwise); the record carries
+        ``"rescored": True`` plus the fresh report's
+        movement/imbalance/diameter summary."""
+        if self.placement != "dgro":
+            return None
+        with self._lock:
+            self._dgro_salt = None
+            self._dgro_moves = {}
+            return self._commit(added=[], removed=[], rescored=True)
 
     def _commit(
         self,
         added: list[str],
         removed: list[str],
         drain: bool = False,
+        rescored: bool = False,
     ) -> dict:
         tokens, owners = self._placed_arrays()
         self.host_tokens = np.asarray(tokens, np.uint32)
@@ -352,8 +383,22 @@ class RingStore:
             "added": added,
             "removed": removed,
         }
+        # controller-initiated commits carry their provenance; organic
+        # commits keep the plain record shape
         if drain:
             record["drain"] = True
+        if rescored:
+            record["rescored"] = True
+            report = getattr(self, "placement_report", None) or {}
+            record["placement"] = {
+                k: report[k]
+                for k in (
+                    "chosen", "salt", "movement_chosen", "movement_random",
+                    "imbalance_chosen", "imbalance_random",
+                    "diameter_chosen", "diameter_random",
+                )
+                if k in report
+            }
         if self.on_update is not None:
             self.on_update(record)
         return record

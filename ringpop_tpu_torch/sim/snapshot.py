@@ -31,7 +31,7 @@ Counterpart of ``ringpop_tpu/sim/snapshot.py``, file for file:
 
 Not ported yet, refused with NotImplementedError: the host-plane membership
 export and import (``export_membership`` / ``import_membership``, which
-need the host memberlist: A14).
+need the host memberlist: A14b).
 """
 
 from __future__ import annotations
@@ -472,10 +472,10 @@ def _read_store(path: str, flat: dict, shardings: dict, device: DeviceLike, what
 
 def export_membership(memberlist, path: str | None = None) -> list[dict]:
     """Refused: the membership change list needs the host memberlist, which
-    the port has not copied yet (ROADMAP A14)."""
-    raise NotImplementedError("membership export needs the host memberlist (ROADMAP Queue A14)")
+    the port has not copied yet (ROADMAP A14b)."""
+    raise NotImplementedError("membership export needs the host memberlist (ROADMAP Queue A14b)")
 
 
 def import_membership(memberlist, source) -> int:
-    """Refused with :func:`export_membership` (ROADMAP A14)."""
-    raise NotImplementedError("membership import needs the host memberlist (ROADMAP Queue A14)")
+    """Refused with :func:`export_membership` (ROADMAP A14b)."""
+    raise NotImplementedError("membership import needs the host memberlist (ROADMAP Queue A14b)")

@@ -230,8 +230,13 @@ def test_listen_to_commits_each_ring_change():
 
 
 def test_placement_options():
-    with pytest.raises(NotImplementedError):
-        tst.RingStore(_servers(6, 2), placement="dgro", device="cpu")
+    # DGRO placement is ported: the store places as the JAX one does (its
+    # records and lookups are held to the JAX store in test_torch_placement.py)
+    kw = dict(placement="dgro", placement_kw={"candidates": 2, "probes": 256})
+    store = tst.RingStore(_servers(6, 2), device="cpu", **kw)
+    jstore = jst.RingStore(_servers(6, 2), **kw)
+    assert np.array_equal(store.host_tokens, jstore.host_tokens)
+    assert store.placement_report == jstore.placement_report
     with pytest.raises(ValueError):
         tst.RingStore(_servers(6, 2), placement="nope", device="cpu")
 

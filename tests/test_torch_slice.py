@@ -93,7 +93,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "bench", "errors", "logging", "util.metrics", "obs.trace", "parallel.fabric", "net.channel",
               "serve.client", "serve.shm", "serve.service", "serve.bench", "parallel.partition", "parallel.mesh",
               "parallel.shift", "parallel.multihost", "sim.delta_multihost", "cli", "cli.multihost_bench",
-              "cli.multihost_launch"):
+              "cli.multihost_launch", "serve.placement", "serve.mesh", "forward", "forward.events",
+              "forward.request_sender", "forward.forwarder", "forward.batch", "obs", "obs.aggregate", "obs.rules",
+              "obs.controller", "obs.endpoint", "obs.gameday"):
         assert f"ringpop_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -118,6 +120,26 @@ def test_parallel_package_imports_without_torch():
     code = (
         "import sys\n"
         "import ringpop_tpu_torch.parallel, ringpop_tpu_torch.parallel.fabric, ringpop_tpu_torch.cli.multihost_launch\n"
+        "bad = [m for m in sys.modules if m == 'torch' or m.startswith('torch.') or m == 'jax'\n"
+        "       or m.startswith('jax.') or m == 'ringpop_tpu' or m.startswith('ringpop_tpu.')]\n"
+        "print(len(bad), bad[:5])\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_forward_and_obs_import_without_torch():
+    """The forwarding plane and the ops plane are host code that serve
+    frontends import: ``forward`` and every ``obs`` module but ``gameday``
+    (whose fleet runs on the device) load without torch."""
+    mods = ["ringpop_tpu_torch.forward"] + [f"ringpop_tpu_torch.forward.{m}" for m in
+                                            ("events", "request_sender", "forwarder", "batch")]
+    mods += ["ringpop_tpu_torch.obs"] + [f"ringpop_tpu_torch.obs.{m}" for m in
+                                         ("aggregate", "rules", "controller", "endpoint", "flight", "trace")]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'torch' or m.startswith('torch.') or m == 'jax'\n"
         "       or m.startswith('jax.') or m == 'ringpop_tpu' or m.startswith('ringpop_tpu.')]\n"
         "print(len(bad), bad[:5])\n"

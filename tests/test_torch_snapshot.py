@@ -208,7 +208,7 @@ def test_carry_round_trips_nested_and_refuses_drift(tmp_path):
 
 
 def test_unported_routes_refuse_by_queue_item(tmp_path):
-    """The membership export and import (A14) still refuse; the store behind
+    """The membership export and import (A14b) still refuse; the store behind
     the orbax routes (A12b) now round-trips a state and a carry at a small
     size (its sharded writes and restores are in
     tests/test_torch_snapshot_store.py and tests/test_torch_fleet_ckpt.py)."""
@@ -220,9 +220,9 @@ def test_unported_routes_refuse_by_queue_item(tmp_path):
     tsnap.save_carry_orbax(str(tmp_path / "carry"), carry)
     out = tsnap.load_carry_orbax(str(tmp_path / "carry"), carry)
     assert torch.equal(out["first"], carry["first"]) and torch.equal(out["states"].key, state.key)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A14b"):
         tsnap.export_membership(None)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(NotImplementedError, match="A14b"):
         tsnap.import_membership(None, [])
 
 
