@@ -6,8 +6,9 @@ engine with its lockstep conformance gate, the telemetry plane with the
 chaos and topology fault plans, the scenario fleet, the serve tier's
 collector with its transports, the SWIM engines sharded over node and
 rumor ranks, the fleet's meshes with its multi-process checkpoints, the
-multi-host delta over the TCP fabric, and the serve plane's placement,
-mesh and operations loop.
+multi-host delta over the TCP fabric, the serve plane's placement, mesh
+and operations loop, and the SWIM host stack with the facade, a live
+cluster feeding the card's ring.
 
     python3 chip_smoke.py
 
@@ -89,15 +90,15 @@ scale on bench.py's own stream, threefry:
    blocks_per_dispatch=8)``, ``run_until_converged(...)`` and
    ``view_checksums`` reach the JAX package's tick counts, final-leaf
    digests and checksums (pinned below), with their launch counts
-   and wall times (CUDA events, two runs); then the same 128 ticks
-   again, its first two 32-tick blocks under ``torch.profiler`` (by phase and by
-   kernel, the device's busy share, launches a tick in every block — no
-   more than 962 — with the profiler's record of the port's launches equal
-   to the wrappers' own counts, and every L2 launch's device time, split by
+   and wall times (CUDA events, one run); then the same 128 ticks
+   again, its first 32-tick block under ``torch.profiler`` (by phase and by
+   kernel, the device's busy share, launches a tick — no more than 962 —
+   with the profiler's record of the port's launches equal to the
+   wrappers' own counts, and every L2 launch's device time, split by
    whether a timer fired, beside its data-dependent bound, each launch ==
-   plain on its inputs), and L1 and L2 alone on the state of each
-   detection check (ticks 32, 64, 96, 128) with its slots in flight and
-   the subjects that hold two or more;
+   plain on its inputs), and L1 and L2 alone on the state of that
+   detection check (tick 32) with its slots in flight and the subjects
+   that hold two or more;
 10. build the threefry kernel T1 (``ringpop_tpu_torch/csrc/threefry.cu``) and
    hold ``split`` (2, 3, 5 keys), ``randint``, ``uniform`` and the raw bits
    bit-equal against their plain PyTorch versions on the card: keys of
@@ -122,9 +123,9 @@ scale on bench.py's own stream, threefry:
    reaches the JAX package's detection and convergence ticks, view-checksum
    sum and digest, final leaf digests, delta ticks and delta digests (pinned
    below), with T1 launched once a draw; phase 7's uniform exchange with
-   faults at threefry against its pins; an 8-tick block at each stream under
-   the profiler (launches a tick, busy share); detection at both streams in
-   turns (counter, threefry);
+   faults at threefry against its pins; an 8-tick block at threefry under
+   the profiler (launches a tick, busy share; the counter tick's are phase
+   9's);
 12. hold the fullview kernels bit-equal against their plain versions on the
    card: C1, the masked categorical draw (``csrc/threefry.cu``), over
    random masks at densities 0.01, 0.5 and 0.99 with rows that allow
@@ -150,8 +151,7 @@ scale on bench.py's own stream, threefry:
    times and fold_in once a tick; c) the same recipe at N = 4096 (41
    victims, 268 MB of state), 16 ticks against the pinned digests; then
    an 8-tick block at each size under the profiler (ms and launches a
-   tick, busy share, device time by ``fullview.PHASES``), and the same
-   block with C1 and F1 swapped for their plain versions; C1 and F1 alone
+   tick, busy share, device time by ``fullview.PHASES``); C1 and F1 alone
    on the calls of one tick at each size beside their bounds;
 14. a) hold the telemetry kernels (``csrc/telemetry.cu``) bit-equal against
    their plain versions on the card: D1, the state digest, over
@@ -300,6 +300,26 @@ scale on bench.py's own stream, threefry:
    prints the scorer's device ms and the host moves' ms, keys/s a host and
    wire MB a rank, ms a fleet tick and each leg's wall, and the fleet's
    launches of S1, L1, L2, P1, D1 and R1.
+22. the SWIM host stack and the facade (``swim``, ``ringpop``,
+   ``sim/snapshot``'s membership export and import), with the card's ring
+   fed live: a) simbench ``host10`` at its full settings: 10 ``Node``s over
+   ``TCPChannel`` on loopback bootstrap and converge, one dies silently
+   and the survivors see it faulty; b) 128 ``Ringpop`` facades on a
+   ``LocalNetwork``, each under ``MockClock(start=1_000_000.0)`` with seed
+   1000 + i, protocol periods ticked in turn: converged, 4 victims
+   black-holed until every survivor suspects them, then faulty 6 s later,
+   node 0's export imported into a fresh node — the ticks, checksums,
+   trajectory digest and export == ``PIN_HOST_CLUSTER``; c) during b, a
+   ``RingStore`` on the card hung on node 0's ring (``listen_to``): at the
+   converged ring and after the victims left it, 1,048,576 request keys
+   through B1 and the ring search (``keyed_owner_lookup``) and through
+   ``serve_lookup_fused`` == the facade's ``lookup_n_batch`` for every key,
+   1000 spot keys == ``lookup``, B1 == plain, the store's generation == the
+   ring events; d) simbench ``forward``: 3 facades over TCP, 5000 requests
+   a rep in waves of 500 through ``handle_or_forward`` from node 0, 4 warm
+   reps and 5 measured: every request answered, the handled-locally count
+   == the keys node 0 owns.  It prints the walls, ms a protocol period,
+   B1's and the lookups' times beside the host walk's, and the req/s.
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -321,7 +341,8 @@ alone; ``--fullview`` builds them and runs steps 12-13 alone;
 ``--telemetry`` builds them and runs step 14 alone; ``--fleet`` builds them
 and runs step 15 alone; ``--serve`` runs step 16 alone (no kernel build); ``--sharded`` builds
 the kernels and runs steps 17 and 18 alone, ``--rumor-axis`` step 18 alone, ``--fleet-mesh`` step 19
-alone, ``--multihost`` step 20 alone, ``--serve-mesh`` builds the kernels and runs step 21 alone.  ``kernel_compare.py``
+alone, ``--multihost`` step 20 alone, ``--serve-mesh`` builds the kernels and runs step 21 alone,
+``--host-stack`` builds B1 and runs step 22 alone.  ``kernel_compare.py``
 times D1, C1 and F1 against another checkout's in alternating pairs.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
@@ -330,6 +351,7 @@ device is available.  Imports nothing of JAX or of ``ringpop_tpu``.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import hashlib
 import json
@@ -340,6 +362,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -409,10 +432,11 @@ PIN_UNIFORM = {
 LIFE_N, LIFE_K, LIFE_SEED, LIFE_VICTIMS = 1_000_000, 256, 0, 1000
 LIFE_MAX_TICKS, LIFE_CHECK_EVERY, LIFE_TWIN_TICKS = 4096, 32, 8
 # the measurement legs, cut when the script neared its 1200 s limit: LIFE_RUNS
-# timed runs (phase 9) and bench-twin runs (phase 11), 3 before; phase 9's
-# profiled 32-tick blocks, LIFE_TRACE_BLOCKS of the 4 to detection; phase 11's
-# and 14b's profiled blocks, PROFILE_TICKS ticks (32 before)
-LIFE_RUNS, LIFE_TRACE_BLOCKS, PROFILE_TICKS = 2, 2, 8
+# timed runs (phase 9) and bench-twin runs (phase 11), 3 and then 2 before;
+# phase 9's profiled 32-tick blocks, LIFE_TRACE_BLOCKS of the 4 to detection
+# (2 before); phase 11's and 14b's profiled blocks, PROFILE_TICKS ticks (32
+# before)
+LIFE_RUNS, LIFE_TRACE_BLOCKS, PROFILE_TICKS = 1, 1, 8
 LIFECYCLE_ROWS = (1, 31, 33, 4097, 1_000_000)
 LIFECYCLE_SLOTS = (40, 64, 256)
 # pinned from the JAX package (ringpop_tpu.sim.lifecycle, rng="counter") run
@@ -1624,7 +1648,7 @@ def lifecycle_trace(dev: torch.device, params, faults, victims) -> dict:
     """The main path's first LIFE_TRACE_BLOCKS blocks of LIFE_CHECK_EVERY
     ticks again, from ``init_state``, under the profiler (by phase and
     kernel, launches a tick, L2 in the tick by launch), and L1/L2 alone on
-    the state of each of those detection checks (ticks 32, 64)."""
+    the state of each of those detection checks (tick 32)."""
     state = lifecycle.init_state(params, seed=LIFE_SEED, device=dev)
     blocks, checks, learner = [], [], []
     plain_inputs = None  # a launch's inputs for the plain version's time: the first where a timer fired
@@ -1792,7 +1816,7 @@ def run_lifecycle(dev: torch.device) -> tuple[list, dict]:
     max_err = phase8_lifecycle_kernels(dev)
     life = phase9_lifecycle_headline(dev)
     launches = life["launches"]
-    full = life["checks"][1]  # tick 64: a full slot table, the detection checks' common case
+    full = life["checks"][-1]  # tick 32: a full slot table, the detection checks' common case
     walk = full["slot_walk_detect"]
     by_case = {f"tick{c['tick']}_{mode}": c[f"slot_walk_{mode}"] for c in life["checks"] for mode in
                ("detect", "checksum")}
@@ -2104,35 +2128,14 @@ def t1_profile(dev: torch.device) -> dict:
     return out
 
 
-def interleaved_detect(dev: torch.device, victims, faults) -> dict[str, list[float]]:
-    """The headline's ``run_until_detected`` at both streams in turns
-    (counter, threefry; CUDA events, ms), each held to
-    its pinned tick count."""
-    walls = {"counter": [], "threefry": []}
-    pins = {"counter": PIN_LIFE_DETECT_TICKS, "threefry": PIN_TF_LIFE_DETECT_TICKS}
-    for rng in ("counter", "threefry"):
-        sim = lifecycle.LifecycleSim(n=LIFE_N, k=LIFE_K, seed=LIFE_SEED, rng=rng, device=dev)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        ticks, ok = sim.run_until_detected(victims, faults, max_ticks=LIFE_MAX_TICKS,
-                                           check_every=LIFE_CHECK_EVERY, blocks_per_dispatch=8)
-        end.record()
-        torch.cuda.synchronize()
-        check(ok and ticks == pins[rng], f"{rng}: detected in {ticks} ticks (JAX: {pins[rng]})")
-        walls[rng].append(start.elapsed_time(end))
-        del sim
-    return walls
-
-
 def phase11_bench_twin(dev: torch.device) -> dict:
     """bench.py's record on its own stream: the headline's first ticks with
     T1 and with its plain version, the twin (``bench.run_bench``) at full
     scale against the JAX threefry pins with its launch counts, the uniform
-    exchange with faults at threefry, an 8-tick block at each stream under
-    the profiler, and detection at both streams in turns."""
+    exchange with faults at threefry, and an 8-tick block at threefry under
+    the profiler (the counter stream's is phase 9's)."""
     n, k = LIFE_N, LIFE_K
-    victims, faults = headline_faults(dev, n)
+    _, faults = headline_faults(dev, n)
     params = lifecycle.LifecycleParams(n=n, k=k)
     check(params.rng == "threefry" and params.exchange == "shift", "the engines' default is bench.py's stream")
     t0 = time.perf_counter()
@@ -2214,9 +2217,9 @@ def phase11_bench_twin(dev: torch.device) -> dict:
         f"{uniform_ms:.3f} ms; final leaf digests == JAX; T1 {drawn}")
     del state
 
-    # -- launches a tick and the busy share at both streams, then detection in turns --
+    # -- launches a tick and the busy share at threefry (the counter stream's: phase 9's block) --
     blocks = {}
-    for rng in ("counter", "threefry"):
+    for rng in ("threefry",):
         p = lifecycle.LifecycleParams(n=n, k=k, rng=rng)
         _, block = lifecycle_block_profile(p, lifecycle.init_state(p, seed=LIFE_SEED, device=dev), faults,
                                            PROFILE_TICKS)
@@ -2227,13 +2230,9 @@ def phase11_bench_twin(dev: torch.device) -> dict:
             f"device busy {block['device_busy_ms']:.3f} ms ({block['busy_share']:.1%}), "
             f"{block['kernel_launches_per_tick']:.2f} kernel launches a tick (the port's {block['port_launches']}); "
             f"kernel ms by phase {block['phases_kernel_ms']}")
-    walls = interleaved_detect(dev, victims, faults)
-    log(f"phase11: detection in turns (counter, threefry), ms: {walls}; ms a tick: counter "
-        f"{[w / PIN_LIFE_DETECT_TICKS for w in walls['counter']]}, threefry "
-        f"{[w / PIN_TF_LIFE_DETECT_TICKS for w in walls['threefry']]}")
     return {"record": record, "launches": launches, "twin_wall_s": wall_s,
             "uniform_threefry": {"ticks": UNIFORM_TICKS, "wall_ms": uniform_ms, "ms_per_tick": uniform_ms / UNIFORM_TICKS},
-            "blocks": blocks, "detect_ms_in_turns": walls}
+            "blocks": blocks}
 
 
 def run_threefry(dev: torch.device) -> tuple[list, dict]:
@@ -2271,20 +2270,6 @@ def fv_launches() -> dict[str, int]:
     """The launch counts of the fullview tick's kernels, by FV_KERNELS' names."""
     return {**{name: threefry_kernel.launches[name] for name in ("categorical", "fold_in", "split", "uniform")},
             "apply": fullview_kernel.launches["apply"]}
-
-
-@contextlib.contextmanager
-def plain_fullview():
-    """Route C1 and F1 (and fold_in) on CUDA tensors to their plain versions
-    (on the card) for the duration: the fullview tick without its kernels."""
-    saved = threefry_kernel.categorical_cuda, threefry_kernel.fold_in_cuda, fullview_kernel.apply_cuda
-    threefry_kernel.categorical_cuda = threefry.categorical_masked_plain
-    threefry_kernel.fold_in_cuda = threefry.fold_in_plain
-    fullview_kernel.apply_cuda = fullview_kernel.apply_plain
-    try:
-        yield
-    finally:
-        threefry_kernel.categorical_cuda, threefry_kernel.fold_in_cuda, fullview_kernel.apply_cuda = saved
 
 
 @contextlib.contextmanager
@@ -2587,19 +2572,17 @@ def fullview_block_profile(params, state, faults, ticks: int) -> dict:
 
 
 def fullview_profiles(params, state, faults, what: str) -> dict:
-    """An FV_BLOCK_TICKS block from ``state`` with the kernels and the same
-    block with C1 and F1 swapped for their plain versions (timing only)."""
-    out = {}
-    for mode in ("kernels", "plain"):
-        with plain_fullview() if mode == "plain" else contextlib.nullcontext():
-            rec = out[mode] = fullview_block_profile(params, state, faults, FV_BLOCK_TICKS)
-        log(f"phase13: {what}, {FV_BLOCK_TICKS} ticks on {'C1 and F1' if mode == 'kernels' else 'the plain versions'}:"
-            f" window {rec['window_ms']:.3f} ms ({rec['ms_a_tick']:.3f} ms a tick), device busy "
-            f"{rec['device_busy_ms']:.3f} ms ({rec['busy_share']:.1%}), {rec['kernel_launches_per_tick']:.2f} launches "
-            f"a tick; kernel ms by phase {rec['phases_kernel_ms']}; the tick's kernels {rec['port_launches']}")
-        for k in rec["top_kernels"]:
-            log(f"phase13:   {k['ms']:.4f} ms  x{k['launches']}  {k['name']}")
-    return out
+    """An FV_BLOCK_TICKS block from ``state`` on the kernels under the
+    profiler (timing only; the block on the plain versions was cut to keep
+    the script inside its limit)."""
+    rec = fullview_block_profile(params, state, faults, FV_BLOCK_TICKS)
+    log(f"phase13: {what}, {FV_BLOCK_TICKS} ticks on C1 and F1: window {rec['window_ms']:.3f} ms "
+        f"({rec['ms_a_tick']:.3f} ms a tick), device busy {rec['device_busy_ms']:.3f} ms ({rec['busy_share']:.1%}), "
+        f"{rec['kernel_launches_per_tick']:.2f} launches a tick; kernel ms by phase {rec['phases_kernel_ms']}; the "
+        f"tick's kernels {rec['port_launches']}")
+    for k in rec["top_kernels"]:
+        log(f"phase13:   {k['ms']:.4f} ms  x{k['launches']}  {k['name']}")
+    return {"kernels": rec}
 
 
 def c1_alone(calls: list, rate: float, buf: torch.Tensor) -> dict:
@@ -2721,9 +2704,8 @@ def phase13_fullview(dev: torch.device) -> dict:
     threefry until every live node holds every victim Faulty, checked every
     tick: the pinned tick and final-leaf digests.  Its launches are the main
     path's.  13c: the same recipe at N = 4096 (41 victims), 16 ticks, the
-    pinned digests.  Then an 8-tick block at each size under the profiler,
-    with the kernels and with C1 and F1 swapped for their plain versions,
-    and C1 and F1 alone on one tick's calls at each size."""
+    pinned digests.  Then an 8-tick block at each size under the profiler
+    on the kernels, and C1 and F1 alone on one tick's calls at each size."""
     out = {}
     rate, _ = instruction_rate(dev)
     buf = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -5822,6 +5804,410 @@ def run_serve_plane(dev: torch.device, card: str) -> dict:
     return {"serve_plane": out}
 
 
+# -- phase 22: the SWIM host stack and the facade, the card's ring fed live ---
+
+HOST_APP = "host-stack"
+HOST_N = 128  # the pinned cluster: 128 facades on one LocalNetwork
+HOST_SUSPECT_S = 5.0
+HOST_START = 1_000_000.0  # every node's MockClock starts here: incarnations are its milliseconds
+HOST_MAX_TICKS = 400
+HOST_KEYS = 1 << 20  # request keys f"key-{i}" answered through the live store
+HOST_SPOT_KEYS = 1000  # keys held to rp.lookup one by one
+# simbench host10 (cli/simbench.py:103-178) and forward (:964-1008), their full settings
+HOST10 = dict(n=10, min_protocol_period=0.02, ping_timeout=0.2, ping_request_timeout=0.4, suspect=0.8,
+              join_timeout=1.0, deadline_s=30.0)
+FORWARD = dict(nodes=3, wave=500, requests=5000, warm_reps=4, reps=5)
+# pinned from the JAX package (ringpop_tpu.ringpop, .swim, .sim.snapshot) run
+# on the CPU through host_cluster_run; tests/test_torch_chip_smoke_pins_host_stack.py
+# recomputes it
+PIN_HOST_CLUSTER = {"n": 128, "victims": ["127.0.0.1:3032", "127.0.0.1:3064", "127.0.0.1:3096", "127.0.0.1:3127"],
+                    "ticks_to_converge": 35, "ticks_to_suspect": 7, "membership_checksum": 3301121928,
+                    "ring_checksum": 1485069047,
+                    "trajectory_sha256": "46de2deeffb331899ae5d4478adae1b53eb57ad856abfd75a17fed89f2e64647",
+                    "ring_events": 4,
+                    "export_sha256": "434940159a6b50cc0195868b1635e7081b21ce6519b1334c70d99c3f0d93def5",
+                    "exported": 128, "imported": 128}
+
+
+def host_victims(n: int) -> list[int]:
+    """The 4 nodes the pinned cluster black-holes (node 0 survives)."""
+    return [n // 4, n // 2, 3 * n // 4, n - 1]
+
+
+def port_host_stack() -> SimpleNamespace:
+    """The port's host-stack entry points under the names host_cluster_run
+    takes (a test passes the JAX package's under the same names)."""
+    from ringpop_tpu_torch.events import RingChangedEvent, on
+    from ringpop_tpu_torch.net import LocalChannel, LocalNetwork
+    from ringpop_tpu_torch.options import Options
+    from ringpop_tpu_torch.ringpop import Ringpop
+    from ringpop_tpu_torch.sim.snapshot import export_membership, import_membership
+    from ringpop_tpu_torch.swim.node import BootstrapOptions, Node, NodeOptions
+    from ringpop_tpu_torch.util.clock import MockClock
+
+    return SimpleNamespace(LocalNetwork=LocalNetwork, LocalChannel=LocalChannel, Ringpop=Ringpop, Options=Options,
+                           MockClock=MockClock, BootstrapOptions=BootstrapOptions, Node=Node,
+                           NodeOptions=NodeOptions, export_membership=export_membership,
+                           import_membership=import_membership, RingChangedEvent=RingChangedEvent, on=on)
+
+
+def host_record(trajectory, nodes: list) -> None:
+    """Feed every node's sorted (address, status, incarnation) members to
+    the trajectory digest."""
+    for node in nodes:
+        members = sorted((m.address, m.status, m.incarnation) for m in node.memberlist.get_members())
+        trajectory.update(repr((node.address, members)).encode())
+
+
+def host_sees(nodes: list, victims: list, status: int) -> bool:
+    return all({m.address: m.status for m in node.memberlist.get_members()}.get(v) == status
+               for node in nodes for v in victims)
+
+
+def host_converged(nodes: list) -> bool:
+    return not any(n.disseminator.has_changes() for n in nodes) and \
+        len({n.memberlist.checksum() for n in nodes}) == 1
+
+
+async def host_tick(nodes: list, trajectory) -> float:
+    """One protocol period on every node in turn, each clock 1 ms on first
+    (as tests/swim_utils.tick_all drives them); then the trajectory digest
+    takes every node's sorted members.  Returns the tick's host seconds."""
+    t0 = time.perf_counter()
+    for node in nodes:
+        node.clock.advance(0.001)
+        await node.gossip.protocol_period()
+    for _ in range(3):  # the reverse full syncs and other spawned work
+        await asyncio.sleep(0)
+    wall = time.perf_counter() - t0
+    host_record(trajectory, nodes)
+    return wall
+
+
+async def _host_cluster(pkg, n: int, on_converged=None, on_removed=None) -> dict:
+    network = pkg.LocalNetwork()
+    hosts = [f"127.0.0.1:{3000 + i}" for i in range(n)]
+    rps = [pkg.Ringpop(HOST_APP, pkg.LocalChannel(network, h, app=HOST_APP),
+                       pkg.Options(clock=pkg.MockClock(start=HOST_START), seed=1000 + i,
+                                   suspect_period=HOST_SUSPECT_S))
+           for i, h in enumerate(hosts)]
+
+    async def boot(rp):
+        await rp.bootstrap(pkg.BootstrapOptions(discover_provider=hosts, join_timeout=0.5))
+        rp.node.gossip.stop()  # protocol periods are driven here, one tick at a time
+        rp.node.healer.stop()
+
+    t0 = time.perf_counter()
+    await asyncio.gather(*(boot(rp) for rp in rps))
+    boot_s = time.perf_counter() - t0
+    nodes = [rp.node for rp in rps]
+    trajectory = hashlib.sha256()
+    host_record(trajectory, nodes)
+    walls, converge_ticks = [], 0
+    while not host_converged(nodes):
+        check(converge_ticks < HOST_MAX_TICKS, f"host cluster of {n} converges within {HOST_MAX_TICKS} ticks")
+        walls.append(await host_tick(nodes, trajectory))
+        converge_ticks += 1
+    check(all(rp.ring.server_count() == n for rp in rps), f"every facade's ring holds the {n} nodes")
+    ring_events = []
+    pkg.on(rps[0].ring.emitter, pkg.RingChangedEvent, ring_events.append)
+    converged_view = on_converged(rps) if on_converged is not None else None
+
+    victims = [hosts[i] for i in host_victims(n)]
+    network.black_hole(*victims)
+    survivors = [node for node in nodes if node.address not in victims]
+    suspect_ticks = 0
+    while not host_sees(survivors, victims, SUSPECT):
+        check(suspect_ticks < HOST_MAX_TICKS, f"the survivors suspect the victims within {HOST_MAX_TICKS} ticks")
+        walls.append(await host_tick(survivors, trajectory))
+        suspect_ticks += 1
+    for node in survivors:
+        node.clock.advance(HOST_SUSPECT_S + 1.0)  # suspect -> faulty on every survivor's own timer
+    host_record(trajectory, survivors)
+    survivor_rps = [rp for rp in rps if rp.node in survivors]
+    check(host_sees(survivors, victims, FAULTY), "every survivor holds every victim faulty")
+    checksums = {node.memberlist.checksum() for node in survivors}
+    ring_checksums = {rp.ring.checksum() for rp in survivor_rps}
+    check(len(checksums) == 1 and len(ring_checksums) == 1,
+          f"the survivors agree on one membership and one ring checksum: {len(checksums)}, {len(ring_checksums)}")
+    check(all(rp.ring.server_count() == n - len(victims) for rp in survivor_rps), "the victims left every ring")
+    removed_view = on_removed(rps, len(ring_events)) if on_removed is not None else None
+
+    export = pkg.export_membership(rps[0].node.memberlist)
+    fresh = pkg.Node(HOST_APP, f"127.0.0.2:{3000 + n}", pkg.LocalChannel(network, f"127.0.0.2:{3000 + n}",
+                                                                          app=HOST_APP),
+                     pkg.NodeOptions(clock=pkg.MockClock(start=HOST_START), seed=7))
+    imported = pkg.import_membership(fresh.memberlist, export)
+    check(fresh.memberlist.checksum() == next(iter(checksums)),
+          "a fresh node that imports node 0's export reaches the survivors' checksum")
+    for rp in rps:
+        rp.destroy()
+    fresh.destroy()
+    pin = {"n": n, "victims": victims, "ticks_to_converge": converge_ticks, "ticks_to_suspect": suspect_ticks,
+           "membership_checksum": next(iter(checksums)), "ring_checksum": next(iter(ring_checksums)),
+           "trajectory_sha256": trajectory.hexdigest(), "ring_events": len(ring_events),
+           "export_sha256": hashlib.sha256(json.dumps(export).encode()).hexdigest(), "exported": len(export),
+           "imported": imported}
+    timing = {"boot_s": boot_s, "ticks": len(walls), "tick_s": walls,
+              "ms_a_period": 1e3 * sum(walls) / (converge_ticks * n + suspect_ticks * len(survivors))}
+    return {"pin": pin, "timing": timing, "converged_view": converged_view, "removed_view": removed_view}
+
+
+def host_cluster_run(pkg, n: int = HOST_N, on_converged=None, on_removed=None) -> dict:
+    """Phase 22b's script: ``n`` facades (``Ringpop``) on a ``LocalNetwork``,
+    each with ``MockClock(start=1_000_000.0)``, seed 1000 + i and suspect
+    5 s; gossip and the healer stopped and protocol periods ticked here.
+    Bootstrap and converge; black-hole ``host_victims(n)`` and tick the
+    survivors until each holds every victim suspect; advance their clocks
+    6 s so the victims turn faulty and leave every ring; import node 0's
+    ``export_membership`` into a fresh node.  ``pkg`` names the package's
+    entry points (:func:`port_host_stack`); the hooks run at the converged
+    ring and after the victims left it.  The record's ``pin`` is the
+    package-independent result held to ``PIN_HOST_CLUSTER``."""
+    return asyncio.run(_host_cluster(pkg, n, on_converged, on_removed))
+
+
+async def _host10() -> dict:
+    from ringpop_tpu_torch.net import TCPChannel
+    from ringpop_tpu_torch.swim.node import BootstrapOptions, Node, NodeOptions
+    from ringpop_tpu_torch.swim.state_transitions import StateTimeouts
+
+    cfg = HOST10
+    chans = [TCPChannel(app="simbench") for _ in range(cfg["n"])]
+    for ch in chans:
+        await ch.listen()
+    nodes = [Node("simbench", ch.hostport, ch,
+                  NodeOptions(min_protocol_period=cfg["min_protocol_period"], ping_timeout=cfg["ping_timeout"],
+                              ping_request_timeout=cfg["ping_request_timeout"],
+                              state_timeouts=StateTimeouts(suspect=cfg["suspect"])))
+             for ch in chans]
+    hosts = [nd.address for nd in nodes]
+    t0 = time.perf_counter()
+    await asyncio.gather(*(nd.bootstrap(BootstrapOptions(discover_provider=hosts, join_timeout=cfg["join_timeout"]))
+                           for nd in nodes))
+    deadline = time.perf_counter() + cfg["deadline_s"]
+    while time.perf_counter() < deadline and len({nd.memberlist.checksum() for nd in nodes}) != 1:
+        await asyncio.sleep(0.05)
+    t_converge = time.perf_counter() - t0
+    converged = len({nd.memberlist.checksum() for nd in nodes}) == 1
+    t1 = time.perf_counter()
+    victim = nodes[-1]
+    victim.destroy()  # silent death: timers torn down, no Leave announced
+    await chans[-1].close()
+    detected = False
+    deadline = time.perf_counter() + cfg["deadline_s"]
+    while time.perf_counter() < deadline:
+        if all(any(m.address == victim.address and m.status >= 2 for m in nd.memberlist.get_members())
+               for nd in nodes[:-1]):
+            detected = True
+            break
+        await asyncio.sleep(0.05)
+    t_detect = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    for nd in nodes[:-1]:
+        nd.destroy()
+    # each close joins its link threads (bounded at 2 s a thread): close them together
+    await asyncio.gather(*(ch.close() for ch in chans[:-1]))
+    return {"converged": converged, "s_to_converge": t_converge, "detected": detected, "failure_detect_s": t_detect,
+            "close_s": time.perf_counter() - t2}
+
+
+class _ForwardCluster:
+    """simbench's ``_FwdCluster`` on the port: three facades over TCP with a
+    keyed ``/op`` handler; requests enter at node 0 via handle_or_forward."""
+
+    async def start(self):
+        from ringpop_tpu_torch.net import TCPChannel
+        from ringpop_tpu_torch.ringpop import Ringpop
+
+        self.chans = [TCPChannel(app="fwd") for _ in range(FORWARD["nodes"])]
+        for ch in self.chans:
+            await ch.listen()
+            ch.register("fwd", "/op", lambda body, headers: {"ok": True})
+        self.rps = [Ringpop("fwd", ch) for ch in self.chans]
+        hosts = [ch.hostport for ch in self.chans]
+        await asyncio.gather(*(rp.bootstrap(discover_provider=hosts) for rp in self.rps))
+        deadline = time.perf_counter() + 30
+        while time.perf_counter() < deadline and not (
+                len({rp.checksum() for rp in self.rps}) == 1
+                and all(rp.ring.server_count() == FORWARD["nodes"] for rp in self.rps)):
+            await asyncio.sleep(0.05)
+        check(all(rp.ring.server_count() == FORWARD["nodes"] for rp in self.rps)
+              and len({rp.checksum() for rp in self.rps}) == 1, "22d: the three facades share one ring")
+        return self
+
+    async def one(self, i: int) -> bool:
+        handled, res = await self.rps[0].handle_or_forward(f"key-{i}", {"i": i}, "fwd", "/op")
+        check(handled or res == {"ok": True}, f"22d: request {i} answered")
+        return handled
+
+    async def rep(self, rep_idx: int) -> tuple[float, int, int]:
+        waves, wave = FORWARD["requests"] // FORWARD["wave"], FORWARD["wave"]
+        t0 = time.perf_counter()
+        done = local = 0
+        for w in range(waves):
+            base = (rep_idx * waves + w) * wave
+            results = await asyncio.gather(*(self.one(base + i) for i in range(wave)))
+            done += len(results)
+            local += sum(1 for h in results if h)
+        return done / (time.perf_counter() - t0), local, done
+
+    async def close(self):
+        for rp in self.rps:
+            rp.destroy()
+        await asyncio.gather(*(ch.close() for ch in self.chans))
+
+
+async def _forward() -> dict:
+    cluster = await _ForwardCluster().start()
+    qps, local, total = [], 0, 0
+    for rep in range(FORWARD["warm_reps"] + FORWARD["reps"]):
+        q, l, d = await cluster.rep(rep)
+        check(d == FORWARD["requests"], f"22d: rep {rep} answered all {FORWARD['requests']} requests")
+        if rep >= FORWARD["warm_reps"]:
+            qps.append(q)
+            local += l
+            total += d
+    waves = FORWARD["requests"] // FORWARD["wave"]
+    keys = [f"key-{i}" for rep in range(FORWARD["warm_reps"], FORWARD["warm_reps"] + FORWARD["reps"])
+            for i in range(rep * waves * FORWARD["wave"], (rep + 1) * waves * FORWARD["wave"])]
+    me = cluster.rps[0].who_am_i()
+    owned = sum(1 for k in keys if cluster.rps[0].lookup(k) == me)
+    await cluster.close()
+    return {"qps_reps": sorted(qps), "qps_median": statistics.median(qps), "requests": total,
+            "handled_locally": local, "owned_by_node0": owned, "forwarded": total - local}
+
+
+def live_feed(dev: torch.device):
+    """Phase 22c: hooks for host_cluster_run that hang a RingStore on the
+    card onto node 0's ring (``listen_to``) at the converged ring and answer
+    HOST_KEYS request keys through B1 at that generation and at the one
+    after the victims left; each answer == the facade's ring."""
+    keys = [f"key-{i}" for i in range(HOST_KEYS)]
+    t0 = time.perf_counter()
+    mat, lens = pack_strings(keys)
+    dmat, dlens = upload_keys(mat, lens, dev)
+    host_hashes = fingerprint32_batch(mat, lens).astype(np.int64)
+    log(f"phase22c: {HOST_KEYS} keys packed ({mat.shape[1]} bytes wide), uploaded and hashed on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    spot = np.random.default_rng(SEED).choice(HOST_KEYS, size=HOST_SPOT_KEYS, replace=False)
+    state = {"store": None, "gens": []}
+
+    def answer(rp, what: str) -> dict:
+        store = state["store"]
+        ring, gen, ns = store.snapshot()
+        servers = store.servers_at(gen)
+        check(servers == rp.ring.servers(), f"22c {what}: the store's servers == the facade's ring")
+        count = int(ring.count[0])
+        t_host = time.perf_counter()
+        rows = rp.ring.lookup_n_batch(keys, 1)
+        host_ms = 1e3 * (time.perf_counter() - t_host)
+        index = {s: i for i, s in enumerate(servers)}
+        want = np.fromiter((index[r[0]] for r in rows), np.int32, HOST_KEYS)
+        before = hash_kernel.launches
+        keyed = as_np(keyed_owner_lookup(ring.tokens[:count], ring.owners[:count], dmat, dlens))
+        hashes = hash_kernel.fingerprint32(dmat, dlens)
+        fused = as_np(serve_lookup_fused(ring, hashes))
+        launched = hash_kernel.launches - before
+        check(np.array_equal(keyed, want), f"22c {what}: keyed_owner_lookup (B1 + search) == rp.ring for every key")
+        check(int(fused[-1]) == gen and np.array_equal(fused[:-1], want),
+              f"22c {what}: serve_lookup_fused at gen {gen} == rp.ring for every key")
+        check(all(servers[want[i]] == rp.lookup(keys[i]) for i in spot),
+              f"22c {what}: {HOST_SPOT_KEYS} spot keys == rp.lookup")
+        plain = fingerprint32_device(dmat, dlens)
+        check(torch.equal(hashes, plain) and np.array_equal(as_np(hashes), host_hashes),
+              f"22c {what}: B1 == its plain version == the numpy farm on the live keys")
+        state["gens"].append({"gen": gen, "servers": ns, "tokens": count, "host_lookup_n_batch_ms": host_ms,
+                              "b1_launches": launched})
+        log(f"phase22c: {what}: gen {gen}, {ns} servers, {count} tokens: {HOST_KEYS} keys through B1 + the ring "
+            f"search and through serve_lookup_fused == rp.ring.lookup_n_batch (host {host_ms:.0f} ms), "
+            f"{HOST_SPOT_KEYS} spot keys == rp.lookup; {launched} B1 launches")
+        return {"gen": gen, "max_abs_err": int((hashes - plain).abs().max())}
+
+    def on_converged(rps):
+        rp = rps[0]
+        hash_kernel.reset_launches()
+        state["store"] = RingStore(rp.ring.servers(), replica_points=rp.ring.replica_points, device=dev)
+        state["store"].listen_to(rp.ring)
+        return answer(rp, "converged ring")
+
+    def on_removed(rps, ring_events: int):
+        store = state["store"]
+        check(store.gen == ring_events, f"22c: the store committed one generation a ring event: "
+                                        f"{store.gen} == {ring_events}")
+        view = answer(rps[0], "victims removed")
+        state["launches"] = hash_kernel.launches
+        state["route_launches"] = dict(hash_kernel.route_launches)
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        ring, gen, ns = store.snapshot()
+        count = int(ring.count[0])
+        hashes = hash_kernel.fingerprint32(dmat, dlens)
+        state["timings_ms"] = {
+            "fingerprint32_call": time_ms(lambda: hash_kernel.fingerprint32(dmat, dlens), 10, flush),
+            "fingerprint32_plain": time_ms(lambda: fingerprint32_device(dmat, dlens), 10, flush),
+            "keyed_owner_lookup": time_ms(lambda: keyed_owner_lookup(ring.tokens[:count], ring.owners[:count],
+                                                                     dmat, dlens), 10, flush),
+            "serve_lookup_fused": time_ms(lambda: serve_lookup_fused(ring, hashes), 10, flush),
+        }
+        del flush
+        return view
+
+    return on_converged, on_removed, state
+
+
+def run_host_stack(dev: torch.device, card: str) -> dict:
+    """Phase 22: the SWIM host stack and the facade.  a) simbench host10
+    over TCP: converged and detected; b) 128 facades on a LocalNetwork
+    under mock clocks == PIN_HOST_CLUSTER (ticks, checksums, the trajectory
+    digest, the export and import); c) during b, a RingStore on the card
+    fed live by node 0's ring, 1,048,576 keys through B1 at two
+    generations == the facade's ring; d) simbench forward over TCP: every
+    request answered, the handled-locally count == the keys node 0 owns."""
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    t0 = time.perf_counter()
+    out["22a"] = asyncio.run(_host10())
+    a = out["22a"]
+    check(a["converged"] and a["detected"], f"22a host10: converged and detected: {a}")
+    log(f"phase22a: host10 over TCP: converged in {a['s_to_converge']:.3f} s, the silent death seen faulty in "
+        f"{a['failure_detect_s']:.3f} s (wall {time.perf_counter() - t0:.1f} s, closing the channels "
+        f"{a['close_s']:.1f} s); {card}")
+
+    on_converged, on_removed, feed = live_feed(dev)
+    t0 = time.perf_counter()
+    run = host_cluster_run(port_host_stack(), HOST_N, on_converged, on_removed)
+    wall = time.perf_counter() - t0
+    pin = run["pin"]
+    check(pin == PIN_HOST_CLUSTER, f"22b: the 128-node cluster == PIN_HOST_CLUSTER: {pin}")
+    check(feed["launches"] == 4 and feed["route_launches"].get("staged") == 4,
+          f"22c: B1 launched twice a generation on the live feed: {feed['launches']} {feed['route_launches']}")
+    timing = run["timing"]
+    out["22b"] = {"wall_s": wall, "boot_s": timing["boot_s"], "ticks": timing["ticks"],
+                  "ms_a_period": timing["ms_a_period"], "tick_s_max": max(timing["tick_s"])}
+    log(f"phase22b: {HOST_N} facades == PIN_HOST_CLUSTER: converged in {pin['ticks_to_converge']} ticks, victims "
+        f"suspect in {pin['ticks_to_suspect']}, checksums {pin['membership_checksum']} / {pin['ring_checksum']}, "
+        f"{pin['ring_events']} ring events, export {pin['exported']} -> {pin['imported']} applied; "
+        f"{timing['ms_a_period']:.3f} ms a protocol period, boot {timing['boot_s']:.1f} s, wall {wall:.1f} s; {card}")
+    out["22c"] = {"generations": feed["gens"], "launches": feed["launches"], "timings_ms": feed["timings_ms"],
+                  "max_abs_err": max(run["converged_view"]["max_abs_err"], run["removed_view"]["max_abs_err"])}
+    t = feed["timings_ms"]
+    log(f"phase22c: 1M keys: B1 call {1e3 * t['fingerprint32_call']:.2f} us (plain {t['fingerprint32_plain']:.3f} ms),"
+        f" keyed_owner_lookup {t['keyed_owner_lookup']:.3f} ms, serve_lookup_fused {t['serve_lookup_fused']:.3f} ms "
+        f"(CUDA events, L2 flushed); host lookup_n_batch "
+        f"{[round(g['host_lookup_n_batch_ms']) for g in feed['gens']]} ms; {card}")
+
+    t0 = time.perf_counter()
+    out["22d"] = d = asyncio.run(_forward())
+    check(d["requests"] == FORWARD["reps"] * FORWARD["requests"] and d["handled_locally"] == d["owned_by_node0"],
+          f"22d: every request answered, handled locally == the keys node 0 owns: {d}")
+    log(f"phase22d: forward over TCP: median {d['qps_median']:.0f} req/s, reps {[round(q) for q in d['qps_reps']]}, "
+        f"{d['handled_locally']} of {d['requests']} handled locally (== the keys node 0 owns), wall "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"phase22: host10, the pinned cluster, the live feed, forward; phase wall {out['wall_s']:.1f} s; {card}")
+    return {"host_stack": out}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
@@ -5905,6 +6291,11 @@ def main() -> int:
         out = run_serve_plane(torch.device("cuda"), card)
         log(json.dumps(out))
         return 0
+    if sys.argv[1:] == ["--host-stack"]:
+        hash_kernel.build()
+        out = run_host_stack(torch.device("cuda"), card)
+        log(json.dumps(out))
+        return 0
     if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
         rng = (sys.argv[2:] or ["counter"])[0]
         log(json.dumps({"card": card, "rng": rng, "detect_ms": detect_wall(torch.device("cuda"), rng)}))
@@ -5932,6 +6323,7 @@ def main() -> int:
     fleet_mesh_timings = phase("19", run_fleet_mesh, card)
     multihost_timings = phase("20", run_multihost, card)
     serve_plane_timings = phase("21", run_serve_plane, card)
+    host_stack_timings = phase("22", run_host_stack, card)
     log(f"phase walls, s: {walls}")
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
@@ -5986,12 +6378,16 @@ def main() -> int:
             key = next(k for k, v in RUMOR_KERNELS.items() if v == rec["name"])
             if key in GAMEDAY_KERNELS:
                 rec["launches_on_gameday"] = serve_plane_timings["serve_plane"]["21c"]["launches"][key]
+    # phase 22's live feed hashes its request keys with B1, twice a generation
+    kernels[0]["launches_on_host_stack"] = host_stack_timings["host_stack"]["22c"]["launches"]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], host_stack_timings["host_stack"]["22c"]["max_abs_err"])
     timings.update(serve_timings)
     timings.update(sharded_timings)
     timings.update(rumor_timings)
     timings.update(fleet_mesh_timings)
     timings.update(multihost_timings)
     timings.update(serve_plane_timings)
+    timings.update(host_stack_timings)
     timings["card"] = card
     timings["phase_walls_s"] = walls
     # the whole record, which the end of a long log may not hold

@@ -29,6 +29,11 @@ with ``errors``, ``logging``, ``util.metrics`` and ``obs.trace``) — and
 a mesh (``parallel.partition``, ``parallel.mesh``, ``parallel.shift``,
 ``parallel.multihost``); the multi-host delta ``sim.delta_multihost`` over
 the exchange half of ``parallel.fabric``, with ``cli.multihost_bench`` and
-``cli.multihost_launch``; and ``bench``, the twin of the repository's
-``bench.py`` (``python -m ringpop_tpu_torch.bench``).
+``cli.multihost_launch``; the serve plane's ``serve.placement``,
+``serve.mesh``, ``forward`` and ``obs``; the SWIM host stack — ``swim``'s
+``Node`` and its parts, ``util.clock``, ``discovery``, ``options.Options``,
+``sim.snapshot``'s membership export and import — and the facade over it,
+``ringpop.Ringpop``, with ``router``, ``replica`` and ``adapter`` (every
+one torch-free but ``sim.snapshot``); and ``bench``, the twin of the repository's ``bench.py``
+(``python -m ringpop_tpu_torch.bench``).
 """

@@ -4,7 +4,8 @@ Counterpart of ``ringpop_tpu/hashing/__init__.py`` without the native C++
 core: every call goes to the numpy copy in :mod:`.farm`, which is bit-equal
 to the reference (``hashring/hashring.go:107``, ``swim/memberlist.go:86``).
 These are the host halves of the keyed path — ring tokens and oracles; the
-per-key hash of a lookup batch runs on the card (``ops/hash_kernel.py``).
+per-key hash of a lookup batch runs on the card (``ops/hash_kernel.py``) —
+and the SWIM memberlist's checksum.
 """
 
 from __future__ import annotations
@@ -31,6 +32,13 @@ def fingerprint32_many(strings: Iterable[str | bytes]) -> np.ndarray:
         return np.empty(0, dtype=np.uint32)
     mat, lens = pack_strings(strings)
     return fingerprint32_batch(mat, lens).astype(np.uint32)
+
+
+def membership_checksum(entries: Sequence[str]) -> int:
+    """farm32 over sorted entries joined with trailing ';' — the membership
+    checksum canonical form (parity: ``swim/memberlist.go:106-128``), built
+    in Python and hashed by the numpy farm copy."""
+    return fingerprint32("".join(s + ";" for s in sorted(entries)))
 
 
 def ring_lookup_n_batch(
@@ -75,6 +83,7 @@ __all__ = [
     "fingerprint32",
     "fingerprint32_batch",
     "fingerprint32_many",
+    "membership_checksum",
     "pack_strings",
     "ring_lookup_n_batch",
     "ring_tokens",

@@ -28,10 +28,9 @@ Counterpart of ``ringpop_tpu/sim/snapshot.py``, file for file:
   reads only the blocks that overlap its own, onto any process count or
   mesh shape (``shardings=``), and raises on a missing block, overlapping
   blocks, or a leaf whose global shape or dtype is not the target's.
-
-Not ported yet, refused with NotImplementedError: the host-plane membership
-export and import (``export_membership`` / ``import_membership``, which
-need the host memberlist: A14b).
+* :func:`export_membership` / :func:`import_membership` write and apply a
+  host-plane memberlist as the wire-schema change list that joins and full
+  syncs ship (``member.go`` JSON tags), the JAX package's own format.
 """
 
 from __future__ import annotations
@@ -471,11 +470,34 @@ def _read_store(path: str, flat: dict, shardings: dict, device: DeviceLike, what
 
 
 def export_membership(memberlist, path: str | None = None) -> list[dict]:
-    """Refused: the membership change list needs the host memberlist, which
-    the port has not copied yet (ROADMAP A14b)."""
-    raise NotImplementedError("membership export needs the host memberlist (ROADMAP Queue A14b)")
+    """Serialize a host-plane memberlist as a wire-schema change list
+    (the same JSON shape joins/full-syncs ship; ``member.go`` JSON tags)."""
+    from ringpop_tpu_torch.swim.member import member_to_change
+
+    local = memberlist.local
+    addr = local.address if local else ""
+    inc = local.incarnation if local else 0
+    changes = [
+        member_to_change(m, source=addr, source_inc=inc).to_wire()
+        for m in memberlist.get_members()
+    ]
+    if path is not None:
+        with open(path, "w") as f:
+            json.dump(changes, f)
+    return changes
 
 
-def import_membership(memberlist, source) -> int:
-    """Refused with :func:`export_membership` (ROADMAP A14b)."""
-    raise NotImplementedError("membership import needs the host memberlist (ROADMAP Queue A14b)")
+def import_membership(memberlist, source: str | list[dict]) -> int:
+    """Apply an exported change list to a memberlist (warm boot).  Entries
+    older than what the node already knows are discarded by the normal
+    override rules, so stale snapshots are harmless.  Returns the number of
+    changes that applied."""
+    from ringpop_tpu_torch.swim.member import Change
+
+    if isinstance(source, str):
+        with open(source) as f:
+            data = json.load(f)
+    else:
+        data = source
+    applied = memberlist.update([Change.from_wire(d) for d in data])
+    return len(applied)

@@ -1,17 +1,22 @@
-"""SWIM member states, override predicates and packed override keys.
+"""SWIM member states, override predicates, packed override keys, and the
+host plane's ``Member`` and ``Change``.
 
-Counterpart of the pure-function half of ``ringpop_tpu/swim/member.py``
-(reference ``swim/member.go``): the five states in precedence order, the
-override comparisons, and the packed key ``(incarnation << 3) | state``
-whose integer order is the override order, so the sim engines take lattice
-maxes over it.  Every function uses only ``>``, ``>=``, ``&``, ``|``,
-``==``, ``<<`` and ``>>``, so it works elementwise on Python ints, numpy
-arrays and int32 tensors alike.  On int32, ``pack_key`` wraps for
+Counterpart of ``ringpop_tpu/swim/member.py`` (reference ``swim/member.go``):
+the five states in precedence order, the override comparisons, and the
+packed key ``(incarnation << 3) | state`` whose integer order is the
+override order, so the sim engines take lattice maxes over it; and the host
+plane's member and change records with the wire codec (the reference's JSON
+tags and tombstone shims, ``member.go:150-167``).  Every predicate uses only
+``>``, ``>=``, ``&``, ``|``, ``==``, ``<<`` and ``>>``, so it works
+elementwise on Python ints, numpy arrays and int32 tensors alike.  On int32, ``pack_key`` wraps for
 incarnations at or above 2**28 and ``key_incarnation`` shifts
 arithmetically, exactly as the JAX package's int32 arrays do.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
 
 # Member states, ordered by precedence (reference member.go:30-45,112-128).
 ALIVE = 0
@@ -33,6 +38,12 @@ def state_name(state: int) -> str:
 
 def state_id(name: str) -> int:
     return STATE_IDS.get(name, UNKNOWN)
+
+
+def state_precedence(state):
+    """Identity by construction: the int encoding is the precedence order
+    (parity: ``member.go:112-128`` statePrecedence)."""
+    return state
 
 
 def overrides(inc_a, state_a, inc_b, state_b):
@@ -84,3 +95,111 @@ def key_state(key):
 
 def key_incarnation(key):
     return key >> KEY_STATE_BITS
+
+
+@dataclass
+class Member:
+    """A member of the cluster as seen by one node
+    (parity: ``member.go:48-53``)."""
+
+    address: str
+    status: int = ALIVE
+    incarnation: int = 0
+
+    @property
+    def is_reachable(self) -> bool:
+        return bool(is_reachable(self.status))
+
+    @property
+    def is_pingable(self) -> bool:
+        return bool(is_pingable(self.status))
+
+    def non_local_override(self, change: "Change") -> bool:
+        return bool(non_local_override(change.incarnation, change.status, self.incarnation, self.status))
+
+    def local_override(self, local_address: str, change: "Change") -> bool:
+        if self.address != local_address:
+            return False
+        return bool(local_override(change.incarnation, change.status, self.incarnation))
+
+
+@dataclass
+class Change:
+    """A membership change to disseminate (parity: ``member.go:135-145``).
+
+    ``status`` is an int state here; the wire codec maps to the reference's
+    string states and applies the tombstone back-compat shim."""
+
+    address: str
+    incarnation: int
+    status: int
+    source: str = ""
+    source_incarnation: int = 0
+    timestamp: int = 0  # integer Unix seconds (util.Timestamp codec)
+    # original wire string for states we don't recognize: the reference keeps
+    # unknown status strings verbatim (they decode to precedence -1 but
+    # re-serialize unchanged); without this, an int-encoded UNKNOWN would
+    # corrupt into a different state on re-send
+    raw_status: str = ""
+
+    def overrides(self, other: "Change") -> bool:
+        return bool(
+            overrides(self.incarnation, self.status, other.incarnation, other.status)
+        )
+
+    @property
+    def is_pingable(self) -> bool:
+        return bool(is_pingable(self.status))
+
+    # -- wire codec (parity: member.go JSON tags + :150-167 shims) ----------
+
+    def to_wire(self) -> dict:
+        """Serialize with reference-compatible JSON keys; Tombstone is sent as
+        Faulty+tombstone flag for old peers (parity: ``member.go:159-167``
+        validateOutgoing)."""
+        status = self.status
+        d: dict[str, Any] = {
+            "source": self.source,
+            "sourceIncarnationNumber": self.source_incarnation,
+            "address": self.address,
+            "incarnationNumber": self.incarnation,
+            "timestamp": int(self.timestamp),
+        }
+        if status == TOMBSTONE:
+            d["status"] = STATE_NAMES[FAULTY]
+            d["tombstone"] = True
+        elif status == UNKNOWN:
+            d["status"] = self.raw_status or "unknown"
+        else:
+            d["status"] = STATE_NAMES[status]
+        return d
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "Change":
+        """Parse with the incoming tombstone shim: Faulty+flag → Tombstone
+        (parity: ``member.go:150-157`` validateIncoming)."""
+        status = state_id(d["status"])
+        if status == FAULTY and d.get("tombstone"):
+            status = TOMBSTONE
+        return cls(
+            address=d["address"],
+            incarnation=int(d["incarnationNumber"]),
+            status=status,
+            source=d.get("source", ""),
+            source_incarnation=int(d.get("sourceIncarnationNumber", 0)),
+            timestamp=int(d.get("timestamp", 0)),
+            raw_status=d["status"] if status == UNKNOWN else "",
+        )
+
+
+def member_to_change(m: Member, source: str, source_inc: int, ts: int = 0) -> Change:
+    """A full-membership entry sent on the wire (joins/full-syncs) is just a
+    Change (parity: ``swim/disseminator.go:107-123`` MembershipAsChanges)."""
+    return Change(
+        address=m.address,
+        incarnation=m.incarnation,
+        status=m.status,
+        source=source,
+        source_incarnation=source_inc,
+        timestamp=ts,
+    )

@@ -95,7 +95,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "parallel.shift", "parallel.multihost", "sim.delta_multihost", "cli", "cli.multihost_bench",
               "cli.multihost_launch", "serve.placement", "serve.mesh", "forward", "forward.events",
               "forward.request_sender", "forward.forwarder", "forward.batch", "obs", "obs.aggregate", "obs.rules",
-              "obs.controller", "obs.endpoint", "obs.gameday"):
+              "obs.controller", "obs.endpoint", "obs.gameday", "util", "util.clock", "discovery", "swim",
+              "swim.events", "swim.stats", "swim.state_transitions", "swim.memberlist", "swim.iter",
+              "swim.disseminator", "swim.rollup", "swim.ping", "swim.ping_request", "swim.join", "swim.handlers",
+              "swim.heal", "swim.gossip", "swim.node", "ringpop", "router", "replica", "adapter"):
         assert f"ringpop_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -137,6 +140,28 @@ def test_forward_and_obs_import_without_torch():
                                             ("events", "request_sender", "forwarder", "batch")]
     mods += ["ringpop_tpu_torch.obs"] + [f"ringpop_tpu_torch.obs.{m}" for m in
                                          ("aggregate", "rules", "controller", "endpoint", "flight", "trace")]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'torch' or m.startswith('torch.') or m == 'jax'\n"
+        "       or m.startswith('jax.') or m == 'ringpop_tpu' or m.startswith('ringpop_tpu.')]\n"
+        "print(len(bad), bad[:5])\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_host_stack_imports_without_torch():
+    """The SWIM host stack and the facade over it are host code: ``swim``
+    and every module of it, ``util.clock``, ``discovery``, ``options``,
+    ``ringpop``, ``router``, ``replica`` and ``adapter`` load without torch."""
+    mods = ["ringpop_tpu_torch.swim"] + [f"ringpop_tpu_torch.swim.{m}" for m in
+                                         ("member", "events", "stats", "state_transitions", "memberlist", "iter",
+                                          "disseminator", "rollup", "ping", "ping_request", "join", "handlers",
+                                          "heal", "gossip", "node")]
+    mods += [f"ringpop_tpu_torch.{m}" for m in ("util", "util.clock", "discovery", "options", "ringpop", "router",
+                                                "replica", "adapter")]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -7,10 +7,11 @@ dtypes: uint32 planes and key); a resumed port run steps on exactly as the
 unbroken one; the pre-round-3 migration (no ``ride_ok``, an unpacked bool
 ``learned``) rebuilds what the JAX package rebuilds, warning alike without
 params; type, field and magic validation; the carry store round-trips
-nested structures with None legs and refuses a shape or dtype drift; and
-the unported routes refuse by their ROADMAP item.
+nested structures with None legs and refuses a shape or dtype drift; and a
+host memberlist's export and import equal the JAX package's.
 """
 
+import asyncio
 import json
 import os
 
@@ -208,10 +209,10 @@ def test_carry_round_trips_nested_and_refuses_drift(tmp_path):
 
 
 def test_unported_routes_refuse_by_queue_item(tmp_path):
-    """The membership export and import (A14b) still refuse; the store behind
-    the orbax routes (A12b) now round-trips a state and a carry at a small
-    size (its sharded writes and restores are in
-    tests/test_torch_snapshot_store.py and tests/test_torch_fleet_ckpt.py)."""
+    """The store behind the orbax routes (A12b) round-trips a state and a
+    carry at a small size (its sharded writes and restores are in
+    tests/test_torch_snapshot_store.py and tests/test_torch_fleet_ckpt.py);
+    the membership export and import are ported (the round trip below)."""
     state = tl.step(tl.LifecycleParams(n=8, k=8), tl.init_state(tl.LifecycleParams(n=8, k=8), device=CPU))
     assert tsnap.save_state_orbax(str(tmp_path / "state"), state, wait=True) is None
     back = tsnap.load_state_orbax(str(tmp_path / "state"), state)
@@ -220,10 +221,38 @@ def test_unported_routes_refuse_by_queue_item(tmp_path):
     tsnap.save_carry_orbax(str(tmp_path / "carry"), carry)
     out = tsnap.load_carry_orbax(str(tmp_path / "carry"), carry)
     assert torch.equal(out["first"], carry["first"]) and torch.equal(out["states"].key, state.key)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        tsnap.export_membership(None)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        tsnap.import_membership(None, [])
+
+
+def test_host_membership_export_import_matches_jax(tmp_path):
+    """The round trip of tests/test_snapshot.py on both packages' nodes: the
+    exported change lists equal byte for byte (the JSON files too), and
+    ``import_membership`` applies the same changes into a fresh node."""
+    from torch_swim_harness import JAX, PORT, bootstrap_nodes, make_node, make_nodes, member_rows, package
+
+    async def run(ns, path):
+        network = ns.LocalNetwork()
+        nodes = make_nodes(ns, 3, network)
+        await bootstrap_nodes(ns, nodes)
+        changes = ns.snapshot.export_membership(nodes[0].memberlist, path)
+        assert len(changes) == 3
+        assert {"address", "status", "incarnationNumber", "source"} <= set(changes[0])
+        fresh = make_node(ns, network, "127.0.0.1:3100", seed=7)
+        fresh.memberlist.reincarnate()
+        n_applied = ns.snapshot.import_membership(fresh.memberlist, path)
+        assert n_applied == 3
+        assert {n.address for n in nodes} <= {m.address for m in fresh.memberlist.get_members()}
+        again = ns.snapshot.import_membership(fresh.memberlist, changes)
+        assert again == 0
+        rec = {"changes": changes, "file": open(path).read(), "applied": (n_applied, again),
+               "fresh": member_rows(fresh), "checksum": fresh.memberlist.checksum()}
+        for n in nodes + [fresh]:
+            n.destroy()
+        return rec
+
+    want = asyncio.run(run(package(JAX), str(tmp_path / "jax.json")))
+    got = asyncio.run(run(package(PORT), str(tmp_path / "port.json")))
+    assert json.dumps(got["changes"]) == json.dumps(want["changes"])
+    assert got == want
 
 
 def test_load_state_defaults_to_the_card(tmp_path, monkeypatch):
