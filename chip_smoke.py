@@ -7,8 +7,9 @@ chaos and topology fault plans, the scenario fleet, the serve tier's
 collector with its transports, the SWIM engines sharded over node and
 rumor ranks, the fleet's meshes with its multi-process checkpoints, the
 multi-host delta over the TCP fabric, the serve plane's placement, mesh
-and operations loop, and the SWIM host stack with the facade, a live
-cluster feeding the card's ring.
+and operations loop, the SWIM host stack with the facade, a live cluster
+feeding the card's ring, and the host plane's process entry points with
+the warm start.
 
     python3 chip_smoke.py
 
@@ -197,12 +198,12 @@ scale on bench.py's own stream, threefry:
    ``serve/bench``): a) simbench's ``serve_ring`` at full scale through the
    port's ``run_ab`` with the store on the card (64 servers x 100 vnodes,
    4 frontend processes over the shared-memory ring, 8192-key batches x 16,
-   5 measured reps, 300 B = 1 requests): serve and bisect owner digests
+   3 measured reps (simbench's 5, cut as a measurement leg), 300 B = 1 requests): serve and bisect owner digests
    equal per (worker, rep), every answer at the pinned generation, a live
    update re-certified, the B = 1 answers == the bisect oracle, and a
    journal with ``serve`` and ``ring_update`` records (the last one's gen ==
    the committed one); b) the same over TCP with the json codec at
-   simbench's non-full settings; c) a ``RingService`` on its own loop over
+   simbench's non-full settings, 2 measured reps (its 3); c) a ``RingService`` on its own loop over
    BASELINE config 5's ring on the card (4096 servers x 256 vnodes), fed
    1,048,576 keys as 128 requests of 8192 with an n = 3 group every 8, a 1 %
    churn commit on another thread while requests are pending: every answer
@@ -257,9 +258,11 @@ scale on bench.py's own stream, threefry:
    their plain versions on every rank's block of a replica with slots in
    flight.  b)
    simbench's ``fleet_scale`` sweep (4096 x 64, B = 64: ``b_doses`` 16 of
-   its 512, horizon 32) at P = 1, at P = 2 (each process its slice, saved
-   at tick 16 into the store, each writing only its rows) and restored
-   here at P = 1: digests and scores == each other == ``PIN_FLEET_SCALE``,
+   its 512, horizon 32) through its worker ``cli/fleet_bench`` under
+   ``cli/multihost_launch``, as simbench runs it: at P = 1, at P = 2 (each
+   process its slice, saved at tick 16 into the store, each writing only
+   its rows) and restored at P = 1 (the P = 1 leg beside the other two):
+   digests and scores == each other == ``PIN_FLEET_SCALE``,
    and the P = 2 ranks' device-memory peak under 0.75 of the P = 1 run's.
    c) the P = 2 checkpoint restored onto a (2, 2, 1) fleet mesh of 4 ranks
    and run on: == ``PIN_FLEET_SCALE``.  Each cell prints its walls and ms a
@@ -316,10 +319,24 @@ scale on bench.py's own stream, threefry:
    ``serve_lookup_fused`` == the facade's ``lookup_n_batch`` for every key,
    1000 spot keys == ``lookup``, B1 == plain, the store's generation == the
    ring events; d) simbench ``forward``: 3 facades over TCP, 5000 requests
-   a rep in waves of 500 through ``handle_or_forward`` from node 0, 4 warm
-   reps and 5 measured: every request answered, the handled-locally count
+   a rep in waves of 500 through ``handle_or_forward`` from node 0, 1 warm
+   rep and 3 measured (simbench's 4 and 5, cut as a measurement leg): every request answered, the handled-locally count
    == the keys node 0 owns.  It prints the walls, ms a protocol period,
    B1's and the lookups' times beside the host walk's, and the req/s.
+23. the host plane's process entry points and the warm start: a) the
+   port's ``harness.ProcessCluster`` of 5 ``cli/testpop`` processes on
+   loopback (suspect period 1 s), the first writing its stats to a file:
+   converged, ``cli/admin``'s ``status`` and ``members`` (run as processes)
+   agree with ``/admin/stats``' checksum, one process killed with SIGKILL
+   is seen faulty by every survivor, and the stats file holds the gossip
+   counters; b) the warm start (``util/aot``) at the bench twin's delta
+   shape (1,000,000 x 128, one 8-tick block of ``run_until_converged``)
+   in a fresh build cache: a child process misses (nvcc builds the
+   libraries the block launches, the manifest is written), a fresh child
+   hits with no nvcc run, both final leaves' digests == each other == the
+   block run uncached here, both launch S1, == its plain version.  It
+   prints the walls, the convergence and detection times, and
+   ``compile_s`` on the miss and on the hit.
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -342,7 +359,8 @@ alone; ``--fullview`` builds them and runs steps 12-13 alone;
 and runs step 15 alone; ``--serve`` runs step 16 alone (no kernel build); ``--sharded`` builds
 the kernels and runs steps 17 and 18 alone, ``--rumor-axis`` step 18 alone, ``--fleet-mesh`` step 19
 alone, ``--multihost`` step 20 alone, ``--serve-mesh`` builds the kernels and runs step 21 alone,
-``--host-stack`` builds B1 and runs step 22 alone.  ``kernel_compare.py``
+``--host-stack`` builds B1 and runs step 22 alone, ``--process-plane`` runs step 23 alone
+(its children build what they launch).  ``kernel_compare.py``
 times D1, C1 and F1 against another checkout's in alternating pairs.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
@@ -353,6 +371,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import functools
 import hashlib
 import json
 import re
@@ -396,6 +415,7 @@ from ringpop_tpu_torch.sim import (
     topology,
 )
 from ringpop_tpu_torch.swim.member import FAULTY, SUSPECT
+from ringpop_tpu_torch.util import accel
 
 SEED = 20261016
 N_SERVERS = 4096
@@ -2175,6 +2195,10 @@ def phase11_bench_twin(dev: torch.device) -> dict:
     check(record["delta_final_digests"] == PIN_TF_DELTA, "twin delta final leaf digests == JAX")
     check(record["rng"] == "threefry" and record["platform"] == "cuda" and len(record["detect_s_runs"]) == LIFE_RUNS,
           "the record names its stream, platform and every timed run")
+    check(isinstance(record["delta_cache_hit"], bool) and record["delta_aot_compile_s"] is not None
+          and record["delta_aot_error"] is None,
+          f"the delta leg went through the warm start: delta_cache_hit {record['delta_cache_hit']}, "
+          f"delta_aot_compile_s {record['delta_aot_compile_s']}")
     # each timed run detects from a fresh state, the convergence leg runs once,
     # after the last, and each engine's warm-up steps one tick
     life_ticks = LIFE_RUNS * PIN_TF_LIFE_DETECT_TICKS + PIN_TF_LIFE_CONVERGE_TICKS + 1
@@ -3848,10 +3872,11 @@ def run_fleet(dev: torch.device) -> dict:
 # phase 16: the serve tier's collector and transports.  16a simbench
 # serve_ring at full scale (cli/simbench.py:1657-1659), 16b the same A/B over
 # TCP with the json codec at simbench's non-full settings (:1660-1662), 16c
-# the collector at BASELINE config 5's ring (phase 2-3's 4096 x 256 tokens)
-SERVE_AB_FULL = dict(n_servers=64, replica_points=100, frontends=4, batch=8192, batches_per_rep=16, reps=5,
+# the collector at BASELINE config 5's ring (phase 2-3's 4096 x 256 tokens).  The measured reps were cut to
+# stay inside the script's limit (simbench: 5 and 3); the certificates hold on every rep
+SERVE_AB_FULL = dict(n_servers=64, replica_points=100, frontends=4, batch=8192, batches_per_rep=16, reps=3,
                      warm_reps=1, latency_reqs=300, transport="shm", seed=0)
-SERVE_AB_TCP = dict(n_servers=64, replica_points=100, frontends=4, batch=4096, batches_per_rep=8, reps=3,
+SERVE_AB_TCP = dict(n_servers=64, replica_points=100, frontends=4, batch=4096, batches_per_rep=8, reps=2,
                     warm_reps=1, latency_reqs=150, transport="tcp", codec="json", seed=0)
 SERVE_SUBMIT, SERVE_N3_KEYS = 8192, 1024  # 16c: 128 submits of 8192 keys; an n = 3 group every 8
 SERVE_MAX_BATCH = SERVE_INLINE_MAX = 65536  # run_ab's collector settings
@@ -4327,8 +4352,6 @@ def sharded_rank(rank: int, size: int, port: int, transport: str, results, shape
 
     cell_fns = {"17a": sharded_100k, "17b": sharded_headline, "17c": sharded_delta, "18a": sharded_100k,
                 "18b": chaos_twins, "18c": churn_telemetry, "18d": headline_and_delta, "19a": fleet_twin_cell,
-                "19b_p1": fleet_scale_cell,
-                "19b_p2": lambda mesh: fleet_scale_cell(mesh, fleet_ckpt_path(), FSCALE_SAVE_AT),
                 "19c": lambda mesh: fleet_restore_cell(mesh, fleet_ckpt_path())}
     try:
         dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}")
@@ -4933,29 +4956,31 @@ def fleet_twin_cell(mesh) -> dict:
     return out
 
 
-def fleet_memory(out: dict) -> dict:
-    """The process's device-memory peak since the last reset and its host
-    peak RSS, in MB."""
-    import resource
+def fleet_cli_argv(leg: str, *extra: str) -> list[str]:
+    """``cli/fleet_bench``'s argv for one leg of ``fleet_scale`` at 19b's
+    grid."""
+    return ["-m", "ringpop_tpu_torch.cli.fleet_bench", leg, "--n", str(FSCALE_N), "--k", str(FSCALE_K),
+            "--b-doses", str(FSCALE_B_DOSES), "--losses", ",".join(str(x) for x in FSCALE_LOSSES),
+            "--seed", str(FSCALE_SEED), "--suspect-ticks", str(FSCALE_SUSPECT_TICKS),
+            "--horizon", str(FSCALE_HORIZON), "--journal-every", str(FSCALE_BLOCK), *extra]
 
-    out["peak_device_mb"] = torch.cuda.max_memory_allocated() / 2**20
-    out["peak_rss_mb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+
+def fleet_cli(nprocs: int, leg: str, *extra: str) -> list[dict]:
+    """19b's legs as a user runs them: ``nprocs`` rank processes of
+    ``cli/fleet_bench`` started by ``cli/multihost_launch`` on this card.
+    Each rank's record, its digests keyed by scenario id and its launch
+    counts (over the leg, in the rank process) by phase 18's names."""
+    from ringpop_tpu_torch.cli import multihost_launch
+
+    ranks = multihost_launch.launch(nprocs, fleet_cli_argv(leg, *extra), timeout_s=SHARD_DEADLINE_S)
+    out = []
+    for r in ranks:
+        rec = r["records"][-1]
+        rec["digests"] = {int(k): v for k, v in rec["digests"].items()}
+        rec["launches"] = {name.split(".", 1)[1]: n for name, n in rec["launches"].items()
+                           if name.split(".")[0] in ("packbits_kernel", "lifecycle_kernel", "telemetry_kernel")}
+        out.append(rec)
     return out
-
-
-def fleet_scale_cell(mesh, path: str | None = None, save_at: int = 0) -> dict:
-    """19b on this rank: its slice of the scored sweep (saved at ``save_at``
-    into ``path`` when given), the device peak reset just before."""
-    fleet_reset(mesh)
-    torch.cuda.reset_peak_memory_stats()
-    out = fleet_scale_sweep(mesh.device, path, save_at)
-    out["launches"] = rumor_launches()
-    if path is not None:
-        from ringpop_tpu_torch.parallel import multihost
-
-        shard = Path(path) / f"shard-{multihost.process_index():05d}.npz"
-        out["bytes_written"] = shard.stat().st_size if shard.exists() else 0
-    return fleet_memory(out)
 
 
 def fleet_restore_cell(mesh, path: str) -> dict:
@@ -4993,8 +5018,8 @@ def run_fleet_mesh(dev: torch.device, card: str) -> dict:
     checkpoints.  19a simbench's fleet twin unsharded on this card (==
     PIN_FLEET_TWIN), then over a (2, 2, 2) fleet mesh of 8 ranks (every
     rank's records == the unsharded run's; the kernels == plain on every
-    rank's block); 19b fleet_scale's scored sweep at P = 1, at P = 2 saved
-    at tick 16, and restored here at P = 1 (digests and scores == each other
+    rank's block); 19b fleet_scale's scored sweep through cli/fleet_bench
+    at P = 1, at P = 2 saved at tick 16, and restored at P = 1 (digests and scores == each other
     and PIN_FLEET_SCALE; the P = 2 ranks' device peak under FSCALE_MEM_FRAC
     of the P = 1 run's); 19c the P = 2 checkpoint restored onto a (2, 2, 1)
     fleet mesh (== PIN_FLEET_SCALE)."""
@@ -5029,47 +5054,54 @@ def run_fleet_mesh(dev: torch.device, card: str) -> dict:
                   "sharded_ms_per_tick": [r["tick_ms"] for r in twin], "exchange_per_rank": [r["exchange"] for r in twin],
                   "launches_per_rank": [r["launches"] for r in twin], "block_kernels": [r["block_kernels"] for r in twin]}
 
-    # 19b: P = 1, P = 2 saved mid-sweep, P = 1 restored
+    # 19b: P = 1, P = 2 saved mid-sweep, P = 1 restored, each leg through cli/fleet_bench.  The P = 1 leg
+    # needs neither of the others and runs beside them (which run in turn), to keep the script inside its
+    # limit: the legs' walls are taken side by side, their digests, scores, launches and device peaks (each
+    # process its own) are not affected
     path = fleet_ckpt_path()
     OUT_DIR.mkdir(exist_ok=True)
-    t0 = time.perf_counter()
-    p1 = spawn_ranks(1, multihost.default_transport(1), None, ("19b_p1",), "phase19b")[0]["19b_p1"]
-    p1_wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    p2 = [r["19b_p2"] for r in spawn_ranks(FSCALE_P, multihost.default_transport(FSCALE_P), None, ("19b_p2",),
-                                          "phase19b")]
-    p2_wall = time.perf_counter() - t0
-    shard_reset()
-    restored = fleet_scale_sweep(dev, path, restore=True)
-    restored_launches = rumor_launches()
+
+    def timed_cli(*args):
+        t0 = time.perf_counter()
+        return fleet_cli(*args), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as ex:
+        p1_job = ex.submit(timed_cli, 1, "sweep")
+        p2, p2_wall = timed_cli(FSCALE_P, "sweep", "--save-at", str(FSCALE_SAVE_AT), "--path", path)
+        for rank, r in enumerate(p2):
+            r["bytes_written"] = (Path(path) / f"shard-{rank:05d}.npz").stat().st_size
+        (restored,), restored_wall = timed_cli(1, "sweep-restore", "--path", path)
+        (p1,), p1_wall = p1_job.result()
     want = {"digests": {int(k): v for k, v in PIN_FLEET_SCALE["digests"].items()}}
     check(p1["digests"] == want["digests"] and scores_sha256(p1["scores"]) == PIN_FLEET_SCALE["scores_sha256"],
-          f"19b: P = 1: the {len(p1['digests'])} digests and scores == PIN_FLEET_SCALE")
+          f"19b: P = 1 through cli/fleet_bench: the {len(p1['digests'])} digests and scores == PIN_FLEET_SCALE")
     merged = fleet_merged(p2)
-    check(merged["digests"] == p1["digests"] and merged["scores"] == p1["scores"],
+    check(merged["digests"] == p1["digests"] and merged["scores"] == p1["scores"]
+          and [r["saved_at"] for r in p2] == [FSCALE_SAVE_AT] * FSCALE_P,
           "19b: P = 2 (saved at tick 16): every digest and score == the P = 1 run's")
     check(restored["digests"] == p1["digests"] and restored["scores"] == p1["scores"]
-          and restored["header"]["resumed"]["saved_process_count"] == FSCALE_P,
+          and restored["resumed"]["saved_process_count"] == FSCALE_P,
           f"19b: restored at P = 1 from the P = {FSCALE_P} checkpoint: every digest and score == the P = 1 run's")
-    mem_frac = max(r["peak_device_mb"] for r in p2) / p1["peak_device_mb"]
+    mem_frac = max(r["device_peak_mb"] for r in p2) / p1["device_peak_mb"]
     check(mem_frac < FSCALE_MEM_FRAC, f"19b: the P = 2 ranks' device peak is {mem_frac:.3f} of the P = 1 run's "
           f"(< {FSCALE_MEM_FRAC})")
-    check_fleet_launches("19b", [p1, *p2, {"launches": restored_launches}])
-    log(f"phase19b: fleet_scale {FSCALE_N} x {FSCALE_K}, B {len(p1['digests'])}, {FSCALE_HORIZON} ticks: P = 1 "
-        f"{p1['wall_s']:.3f} s ({p1['wall_s'] * 1e3 / FSCALE_HORIZON:.3f} ms a fleet tick), P = 2 "
-        f"{[round(r['wall_s'], 3) for r in p2]} s (save {[round(r['save_s'], 3) for r in p2]} s, "
-        f"{[r['bytes_written'] for r in p2]} bytes a rank), restored at P = 1 {restored['wall_s']:.3f} s (restore "
-        f"{restored['restore_s']:.3f} s); device peak P = 1 {p1['peak_device_mb']:.1f} MB, P = 2 "
-        f"{[round(r['peak_device_mb'], 1) for r in p2]} MB (frac {mem_frac:.3f}); host peak RSS P = 1 "
-        f"{p1['peak_rss_mb']:.1f} MB, P = 2 {[round(r['peak_rss_mb'], 1) for r in p2]} MB; launches P = 1 "
-        f"{p1['launches']}, P = 2 {[r['launches'] for r in p2]}, restored {restored_launches}; processes' walls "
-        f"{p1_wall:.1f} / {p2_wall:.1f} s; {card}")
+    check_fleet_launches("19b", [p1, *p2, restored])
+    log(f"phase19b: fleet_scale {FSCALE_N} x {FSCALE_K}, B {len(p1['digests'])}, {FSCALE_HORIZON} ticks, through "
+        f"cli/fleet_bench: P = 1 {p1['wall_s']:.3f} s ({p1['wall_s'] * 1e3 / FSCALE_HORIZON:.3f} ms a fleet tick), "
+        f"P = 2 {[r['wall_s'] for r in p2]} s (save {[r['save_s'] for r in p2]} s, "
+        f"{[r['bytes_written'] for r in p2]} bytes a rank), restored at P = 1 {restored['wall_s']:.3f} s; device "
+        f"peak P = 1 {p1['device_peak_mb']:.1f} MB, P = 2 {[r['device_peak_mb'] for r in p2]} MB (frac "
+        f"{mem_frac:.3f}); host peak RSS P = 1 {p1['peak_rss_mb']:.1f} MB, P = 2 {[r['peak_rss_mb'] for r in p2]} "
+        f"MB; launches P = 1 {p1['launches']}, P = 2 {[r['launches'] for r in p2]}, restored "
+        f"{restored['launches']}; processes' walls {p1_wall:.1f} / {p2_wall:.1f} / {restored_wall:.1f} s (P = 1 beside "
+        f"the other two); {card}")
     out["19b"] = {"b": len(p1["digests"]), "p1_wall_s": p1["wall_s"], "p2_wall_s": [r["wall_s"] for r in p2],
                   "save_s": [r["save_s"] for r in p2], "bytes_written": [r["bytes_written"] for r in p2],
-                  "restore_s": restored["restore_s"], "restored_wall_s": restored["wall_s"],
-                  "peak_device_mb": [p1["peak_device_mb"]] + [r["peak_device_mb"] for r in p2], "mem_frac": mem_frac,
+                  "restored_wall_s": restored["wall_s"],
+                  "processes_wall_s": [p1_wall, p2_wall, restored_wall],
+                  "peak_device_mb": [p1["device_peak_mb"]] + [r["device_peak_mb"] for r in p2], "mem_frac": mem_frac,
                   "peak_rss_mb": [p1["peak_rss_mb"]] + [r["peak_rss_mb"] for r in p2],
-                  "launches_per_rank": [p1["launches"]] + [r["launches"] for r in p2] + [restored_launches]}
+                  "launches_per_rank": [p1["launches"]] + [r["launches"] for r in p2] + [restored["launches"]]}
 
     # 19c: the P = 2 checkpoint restored onto a (2, 2, 1) fleet mesh
     size = FSCALE_MESH[0] * FSCALE_MESH[1] * FSCALE_MESH[2]
@@ -5816,7 +5848,9 @@ HOST_SPOT_KEYS = 1000  # keys held to rp.lookup one by one
 # simbench host10 (cli/simbench.py:103-178) and forward (:964-1008), their full settings
 HOST10 = dict(n=10, min_protocol_period=0.02, ping_timeout=0.2, ping_request_timeout=0.4, suspect=0.8,
               join_timeout=1.0, deadline_s=30.0)
-FORWARD = dict(nodes=3, wave=500, requests=5000, warm_reps=4, reps=5)
+# simbench forward's waves (cli/simbench.py:964-1008); its 4 warm and 5 measured reps cut to 1 and 3, a
+# measurement leg, to stay inside the script's limit
+FORWARD = dict(nodes=3, wave=500, requests=5000, warm_reps=1, reps=3)
 # pinned from the JAX package (ringpop_tpu.ringpop, .swim, .sim.snapshot) run
 # on the CPU through host_cluster_run; tests/test_torch_chip_smoke_pins_host_stack.py
 # recomputes it
@@ -6208,6 +6242,185 @@ def run_host_stack(dev: torch.device, card: str) -> dict:
     return {"host_stack": out}
 
 
+# -- phase 23: the host plane's process entry points and the warm start ---------------------------------------
+
+# 23a: the port's ProcessCluster of testpop processes on loopback, the size and suspect period of
+# tests/test_integration_processes.py's five-process run, the first process writing its stats to a file
+PROC_N, PROC_SUSPECT_S, PROC_DEADLINE_S = 5, 1.0, 60.0
+# 23b: the warm start at the bench twin's delta shape (bench.py:414: 1,000,000 x 128, seed 1, threefry and
+# shift, the engine's defaults), one 8-tick block of run_until_converged through util/aot's front door
+WARM_N, WARM_K, WARM_SEED, WARM_TICKS = DELTA_N, DELTA_K, DELTA_SEED, DELTA_CHECK_EVERY
+WARM_TAG = f"smoke-delta-n{WARM_N}k{WARM_K}"
+ROOT = Path(__file__).resolve().parent
+
+
+def admin_cli(*argv: str) -> list[dict]:
+    """``python -m ringpop_tpu_torch.cli.admin <argv>``'s JSON lines."""
+    proc = subprocess.run([sys.executable, "-m", "ringpop_tpu_torch.cli.admin", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=60)
+    check(proc.returncode == 0, f"23a: ringpop-admin {' '.join(argv)} exited {proc.returncode}: {proc.stdout[-300:]}")
+    return [json.loads(line) for line in proc.stdout.splitlines() if line.strip()]
+
+
+async def _process_cluster(stats_path: Path) -> dict:
+    """23a's scenario over the port's harness; returns its walls and reads."""
+    import signal
+
+    from ringpop_tpu_torch.harness import ProcessCluster
+
+    out = {}
+    cluster = ProcessCluster(PROC_N, suspect_period=PROC_SUSPECT_S,
+                             extra_args=[["--stats-file", str(stats_path)]] + [[]] * (PROC_N - 1))
+    t0 = time.perf_counter()
+    cluster.start()
+    try:
+        stats = await cluster.wait_converged(expect_members=PROC_N, timeout=PROC_DEADLINE_S)
+        out["converge_s"] = time.perf_counter() - t0
+        out["checksum"] = next(iter(stats.values()))["membership"]["checksum"]
+        out["status"] = (await asyncio.to_thread(admin_cli, "status", cluster.hosts[1]))[0]
+        out["members"] = await asyncio.to_thread(admin_cli, "members", cluster.hosts[2])
+        victim, survivors = cluster.hosts[-1], cluster.hosts[:-1]
+        t1 = time.perf_counter()
+        cluster.kill(victim, signal.SIGKILL)
+        for obs in survivors:
+            await cluster.wait_member_status(obs, victim, "faulty", timeout=PROC_DEADLINE_S)
+        out["detect_s"] = time.perf_counter() - t1
+        out["after"] = await asyncio.to_thread(admin_cli, "members", survivors[0])
+        out["victim"], out["hosts"] = victim, cluster.hosts
+    finally:
+        t2 = time.perf_counter()
+        await cluster.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t2
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def process_cluster_leg(card: str) -> dict:
+    """23a: 5 testpop processes converge; the admin CLI's status and members
+    agree with /admin/stats' checksum; one killed with SIGKILL is seen
+    faulty by every survivor; the stats file holds the gossip counters."""
+    OUT_DIR.mkdir(exist_ok=True)
+    stats_path = (OUT_DIR / "phase23_stats.txt").resolve()
+    stats_path.unlink(missing_ok=True)
+    a = asyncio.run(_process_cluster(stats_path))
+    rows, summary = a["members"][:-1], a["members"][-1]
+    check(a["status"]["state"] == "ready" and a["status"]["membership"]["checksum"] == a["checksum"],
+          f"23a: ringpop-admin status's checksum == /admin/stats' {a['checksum']}")
+    check(summary["checksum"] == a["checksum"] and len(rows) == PROC_N and {r["status"] for r in rows} == {"alive"},
+          f"23a: ringpop-admin members: {len(rows)} alive, checksum == /admin/stats' ({summary})")
+    after = {r["address"]: r["status"] for r in a["after"][:-1]}
+    check(after[a["victim"]] == "faulty", f"23a: ringpop-admin members after the kill: {after}")
+    lines = stats_path.read_text().splitlines()
+    counts = {}
+    for line in lines:
+        _, kind, key, _ = line.split(" ")
+        if kind == "count":
+            name = key.split(".", 2)[-1]
+            counts[name] = counts.get(name, 0) + 1
+    check(all(counts.get(k, 0) > 0 for k in ("ping.send", "ping.recv")),
+          f"23a: the stats file holds the gossip counters ({len(lines)} lines; counts {counts})")
+    log(f"phase23a: {PROC_N} testpop processes on loopback: converged in {a['converge_s']:.3f} s, the SIGKILLed "
+        f"process seen faulty by the {PROC_N - 1} survivors in {a['detect_s']:.3f} s (suspect period "
+        f"{PROC_SUSPECT_S} s), ringpop-admin status / members == /admin/stats' checksum {a['checksum']}, "
+        f"{len(lines)} stats lines; shutdown {a['shutdown_s']:.1f} s, wall {a['wall_s']:.1f} s; {card}")
+    return {"converge_s": a["converge_s"], "detect_s": a["detect_s"], "wall_s": a["wall_s"],
+            "shutdown_s": a["shutdown_s"], "stats_lines": len(lines), "counters": counts}
+
+
+def warm_child() -> int:
+    """One process of 23b (``chip_smoke.py --warm-start-child``): the bench
+    twin's delta block through the front door, in the build cache the
+    parent names (``RINGPOP_TPU_COMPILE_CACHE``); S1 held to its plain
+    version on the run's plane.  Prints one JSON line."""
+    from ringpop_tpu_torch.util import aot
+
+    accel.configure_compile_cache()
+    dev = torch.device("cuda")
+    params = delta.DeltaParams(n=WARM_N, k=WARM_K)
+    state = delta.init_state(params, seed=WARM_SEED, device=dev)
+    torch.cuda.synchronize()
+    bench.reset_launch_counts()
+    t0 = time.perf_counter()
+    run, info = aot.load_or_compile(functools.partial(delta.run_until_converged, params), state, delta.DeltaFaults(),
+                                    dyn_kw={"max_ticks": WARM_TICKS}, tag=WARM_TAG,
+                                    static_kw={"check_every": WARM_TICKS}, statics=(repr(params),))
+    front_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, ticks, ok = run(state, delta.DeltaFaults(), max_ticks=WARM_TICKS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = aot.launch_counts()
+    before = packbits_kernel.launches["row_reduce"]
+    s1 = packbits.or_reduce_rows(out.learned)
+    s1_equal = packbits_kernel.launches["row_reduce"] == before + 1 and torch.equal(s1, reduce_plain(out.learned, "or"))
+    print(json.dumps({"info": {k: info[k] for k in ("cache_hit", "compile_s", "saved", "error", "key")},
+                      "front_s": front_s, "run_s": run_s, "ticks": ticks, "converged": ok,
+                      "digests": leaf_digests(delta.state_to_numpy(out)), "launches": launches,
+                      "nvcc_runs": _cuda_build.nvcc_runs, "s1_equal": s1_equal,
+                      "libraries": json.loads(Path(info["path"]).read_text())["libraries"]}), flush=True)
+    return 0
+
+
+def warm_start_leg(dev: torch.device, card: str) -> dict:
+    """23b: the warm start in a fresh build cache.  The parent's uncached
+    block, then a child that misses (builds the libraries the block
+    launches and writes the manifest) and a fresh child that hits (loads
+    them, no nvcc): digests == each other == the uncached run's, S1
+    launched in both and == plain; compile_s on the miss and on the hit."""
+    import os
+    import shutil
+
+    cache = (OUT_DIR / "phase23_cache").resolve()
+    shutil.rmtree(cache, ignore_errors=True)
+    params = delta.DeltaParams(n=WARM_N, k=WARM_K)
+    t0 = time.perf_counter()
+    ref, ref_ticks, _ = delta.run_until_converged(params, delta.init_state(params, seed=WARM_SEED, device=dev),
+                                                  max_ticks=WARM_TICKS, check_every=WARM_TICKS)
+    ref_digests = leaf_digests(delta.state_to_numpy(ref))
+    uncached_s = time.perf_counter() - t0
+    del ref
+    env = {k: v for k, v in os.environ.items() if k != "RINGPOP_TPU_AOT_CACHE"}
+    env["RINGPOP_TPU_COMPILE_CACHE"] = str(cache)
+    children = []
+    for which in ("miss", "hit"):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--warm-start-child"], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"23b: the {which} child exited {proc.returncode}: {proc.stderr[-2000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec["wall_s"] = wall
+        children.append(rec)
+    miss, hit = children
+    check(not miss["info"]["cache_hit"] and miss["info"]["saved"] and miss["info"]["error"] is None
+          and miss["nvcc_runs"] > 0, f"23b: the first child missed, built {miss['nvcc_runs']} libraries with nvcc "
+          f"and saved its manifest: {miss['info']}")
+    check(hit["info"]["cache_hit"] and hit["info"]["error"] is None and hit["nvcc_runs"] == 0
+          and hit["info"]["key"] == miss["info"]["key"],
+          f"23b: the fresh child hit the same key and ran no nvcc: {hit['info']}, nvcc runs {hit['nvcc_runs']}")
+    check(miss["digests"] == hit["digests"] == ref_digests and miss["ticks"] == hit["ticks"] == ref_ticks,
+          f"23b: the miss's and the hit's final leaves == each other == the uncached block's ({ref_ticks} ticks)")
+    check(all(c["launches"]["packbits_kernel.row_reduce"] > 0 and c["s1_equal"] for c in children),
+          "23b: both children launched S1, and S1 == its plain version on the block's plane")
+    log(f"phase23b: the warm start at {WARM_N} x {WARM_K}, one {WARM_TICKS}-tick block: miss compile_s "
+        f"{miss['info']['compile_s']} (nvcc {miss['nvcc_runs']} builds: {[lib['module'] for lib in miss['libraries']]}), "
+        f"hit compile_s {hit['info']['compile_s']} (no nvcc); the block after the front door {miss['run_s']:.3f} / "
+        f"{hit['run_s']:.3f} s, uncached in this process {uncached_s:.3f} s; children's walls {miss['wall_s']:.1f} / "
+        f"{hit['wall_s']:.1f} s; S1 launches {miss['launches']['packbits_kernel.row_reduce']} / "
+        f"{hit['launches']['packbits_kernel.row_reduce']}; {card}")
+    return {"miss": miss, "hit": hit, "uncached_s": uncached_s}
+
+
+def run_process_plane(dev: torch.device, card: str) -> dict:
+    """Phase 23: the host plane's process entry points (23a) and the warm
+    start (23b)."""
+    t0 = time.perf_counter()
+    out = {"card": card, "23a": process_cluster_leg(card), "23b": warm_start_leg(dev, card)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase23: the process cluster and the warm start; phase wall {out['wall_s']:.1f} s; {card}")
+    return {"process_plane": out}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
@@ -6227,6 +6440,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--multihost-rank"] and len(sys.argv) == 3:
         return mh_rank(json.loads(sys.argv[2]))
+    if sys.argv[1:] == ["--warm-start-child"]:
+        return warm_child()
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind}, torch {torch.__version__}, cuda {torch.version.cuda}")
     smi = subprocess.run(
@@ -6296,11 +6511,16 @@ def main() -> int:
         out = run_host_stack(torch.device("cuda"), card)
         log(json.dumps(out))
         return 0
+    if sys.argv[1:] == ["--process-plane"]:
+        out = run_process_plane(torch.device("cuda"), card)
+        log(json.dumps(out))
+        return 0
     if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
         rng = (sys.argv[2:] or ["counter"])[0]
         log(json.dumps({"card": card, "rng": rng, "detect_ms": detect_wall(torch.device("cuda"), rng)}))
         return 0
     walls = {}
+    log(f"build cache: {accel.configure_compile_cache()} ({accel.cache_status()})")
 
     def phase(name, fn, *args):
         t0 = time.perf_counter()
@@ -6324,6 +6544,7 @@ def main() -> int:
     multihost_timings = phase("20", run_multihost, card)
     serve_plane_timings = phase("21", run_serve_plane, card)
     host_stack_timings = phase("22", run_host_stack, card)
+    process_plane_timings = phase("23", run_process_plane, card)
     log(f"phase walls, s: {walls}")
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
@@ -6381,6 +6602,10 @@ def main() -> int:
     # phase 22's live feed hashes its request keys with B1, twice a generation
     kernels[0]["launches_on_host_stack"] = host_stack_timings["host_stack"]["22c"]["launches"]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], host_stack_timings["host_stack"]["22c"]["max_abs_err"])
+    # phase 23b's children launch S1 in their block (the miss's warm-up run included)
+    warm = process_plane_timings["process_plane"]["23b"]
+    next(rec for rec in kernels if rec["name"] == "packbits_row_reduce")["launches_on_warm_start"] = {
+        which: warm[which]["launches"]["packbits_kernel.row_reduce"] for which in ("miss", "hit")}
     timings.update(serve_timings)
     timings.update(sharded_timings)
     timings.update(rumor_timings)
@@ -6388,6 +6613,7 @@ def main() -> int:
     timings.update(multihost_timings)
     timings.update(serve_plane_timings)
     timings.update(host_stack_timings)
+    timings.update(process_plane_timings)
     timings["card"] = card
     timings["phase_walls_s"] = walls
     # the whole record, which the end of a long log may not hold

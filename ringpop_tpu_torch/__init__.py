@@ -34,6 +34,12 @@ the exchange half of ``parallel.fabric``, with ``cli.multihost_bench`` and
 ``Node`` and its parts, ``util.clock``, ``discovery``, ``options.Options``,
 ``sim.snapshot``'s membership export and import — and the facade over it,
 ``ringpop.Ringpop``, with ``router``, ``replica`` and ``adapter`` (every
-one torch-free but ``sim.snapshot``); and ``bench``, the twin of the repository's ``bench.py``
-(``python -m ringpop_tpu_torch.bench``).
+one torch-free but ``sim.snapshot``); the host plane's process entry
+points — ``cli.testpop`` (a standalone node), ``cli.admin`` and
+``cli.stats`` (the operator and stats clients) and ``harness`` (clusters of
+testpop processes), all torch-free; the warm start — ``util.accel`` (the
+probe and the kernels' fingerprinted build cache) and ``util.aot`` (the
+load-or-compile front door behind the engines' ``aot=``) — and
+``cli.fleet_bench``, one rank of a scenario-fleet run; and ``bench``, the
+twin of the repository's ``bench.py`` (``python -m ringpop_tpu_torch.bench``).
 """

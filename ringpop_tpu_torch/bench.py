@@ -14,7 +14,10 @@ through the port's entry points, and prints one JSON record with its keys:
   victims (``BENCH_FAST=1``: 20,000 x 64 with 5);
 * delta rumor convergence — ``run_until_converged(max_ticks=4096,
   check_every=8)`` from ``init_state(seed=1)``: 1,000,000 x 128
-  (``BENCH_FAST=1``: 50,000 x 64);
+  (``BENCH_FAST=1``: 50,000 x 64), through the warm-start front door
+  (``util/aot.py``, tag ``bench-delta-n<n>k<k>``), as bench.py routes it:
+  ``delta_cache_hit``, ``delta_aot_compile_s`` and ``delta_aot_error`` are
+  its record;
 * ``ring_lookup`` and the serve tier's ``serve_lookup_fused`` over a
   4096-server x 256-vnode ring (512 servers fast), each ten batches of
   1,000,000 hashes from ``default_rng(0)`` (100,000 fast) shifted by the
@@ -31,11 +34,10 @@ Both engines run ``--rng threefry`` (bench.py's own stream, the default) or
 ``--rng counter``; the record names it.  Detection and convergence are
 host-clock times of work that ends in a device synchronize: the detection
 leg is timed ``--runs`` times from a fresh state, every run listed beside
-the median, which is ``value``.  Keys of legs the port does not have yet
-are null, each with a reason key: the AOT front door (``delta_cache_hit``,
-``delta_aot_*``), and the msgpack pair of the channel's round trip where
-msgpack is not importable (``transport_msgpack_reason``: that leg is
-refused, never switched to json).  Every ``vs_baseline*`` and
+the median, which is ``value``.  The msgpack pair of the channel's round
+trip is null, beside its reason, where msgpack is not importable
+(``transport_msgpack_reason``: that leg is refused, never switched to
+json).  Every ``vs_baseline*`` and
 ``transport_*_baseline*`` is null: those figures were taken on other
 hardware.  The record also carries the tick counts' companions the tests
 and ``chip_smoke.py`` hold against the JAX package: the final leaves'
@@ -49,6 +51,7 @@ PyTorch path; it never falls back to the CPU silently.
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import os
@@ -65,12 +68,12 @@ from ringpop_tpu_torch.ops import _cuda_build, hash_kernel, lifecycle_kernel, pa
 from ringpop_tpu_torch.ops.ring_ops import build_ring_tokens, ring_lookup
 from ringpop_tpu_torch.serve.state import device_ring, serve_lookup_fused
 from ringpop_tpu_torch.sim import delta, lifecycle
+from ringpop_tpu_torch.util import aot
 
 M32 = 0xFFFF_FFFF
 CHECK_EVERY, DELTA_CHECK_EVERY, MAX_TICKS = 32, 8, 4096
 
-# the legs the port does not have yet, and why their keys are null
-AOT_REASON = "the AOT front door (util/aot.py) is not ported: ROADMAP A15"
+# why the keys of these legs are null
 BASELINE_REASON = "BASELINE.json's figures were taken on other hardware; no ratio against them is kept"
 TRANSPORT_BASELINE_REASON = (
     "bench.py's transport baselines were taken on a CPU container of the TPU era; no ratio against them is kept")
@@ -290,10 +293,20 @@ def run_bench(device: DeviceLike = None, rng: str = "threefry", fast: bool = Fal
     del life
 
     # -- delta rumor convergence ------------------------------------------------
+    # the run goes through the warm-start front door, as bench.py's does: a
+    # miss builds and loads the kernels of the program's entry check, a hit
+    # (an earlier process on this card and toolchain) loads them, and
+    # delta_cache_hit says which.  Then the entry check alone (0 ticks) and
+    # one tick, discarded, warm the rest outside the timed runs.
     t0 = time.perf_counter()
     dparams = delta.DeltaParams(n=sc["n_delta"], k=sc["k_delta"], rng=rng)
+    dfaults = delta.DeltaFaults()
     warm = delta.init_state(dparams, seed=0, device=dev)
-    delta.run_until_converged(dparams, warm, max_ticks=0, check_every=DELTA_CHECK_EVERY)
+    delta_run, delta_aot = aot.load_or_compile(
+        functools.partial(delta.run_until_converged, dparams), warm, dfaults, dyn_kw={"max_ticks": 0},
+        tag=f"bench-delta-n{sc['n_delta']}k{sc['k_delta']}", static_kw={"check_every": DELTA_CHECK_EVERY},
+        statics=(repr(dparams),))
+    delta_run(warm, dfaults, max_ticks=0)
     delta.step(dparams, warm)
     del warm
     _sync(dev)
@@ -301,8 +314,7 @@ def run_bench(device: DeviceLike = None, rng: str = "threefry", fast: bool = Fal
     delta_runs = []
     for _ in range(runs):
         state0 = delta.init_state(dparams, seed=1, device=dev)
-        (dstate, d_ticks, d_ok), secs = _timed(dev, lambda: delta.run_until_converged(
-            dparams, state0, max_ticks=MAX_TICKS, check_every=DELTA_CHECK_EVERY))
+        (dstate, d_ticks, d_ok), secs = _timed(dev, lambda: delta_run(state0, dfaults, max_ticks=MAX_TICKS))
         delta_runs.append(secs)
     delta_s = statistics.median(delta_runs)
     delta_digests = leaf_digests(delta.state_to_numpy(dstate), delta.DeltaState._fields)
@@ -350,10 +362,9 @@ def run_bench(device: DeviceLike = None, rng: str = "threefry", fast: bool = Fal
         "delta_converged": d_ok,
         "delta_vs_baseline": None,
         "delta_compile_s": round(delta_warmup_s, 2),
-        "delta_cache_hit": None,
-        "delta_aot_compile_s": None,
-        "delta_aot_error": None,
-        "delta_aot_reason": AOT_REASON,
+        "delta_cache_hit": delta_aot["cache_hit"],
+        "delta_aot_compile_s": delta_aot["compile_s"],
+        "delta_aot_error": delta_aot["error"],
         "ring_lookup_qps": round(ring_qps, 0),
         "serve_lookup_qps": round(serve_qps, 0),
         **transport,
@@ -366,7 +377,7 @@ def run_bench(device: DeviceLike = None, rng: str = "threefry", fast: bool = Fal
         "runs": runs,
         "platform": dev.type,
         "device_name": _device_name(dev),
-        "compile_cache_dir": str(_cuda_build.BUILD_DIR) if dev.type == "cuda" else None,
+        "compile_cache_dir": str(_cuda_build.build_dir()) if dev.type == "cuda" else None,
     }
 
 

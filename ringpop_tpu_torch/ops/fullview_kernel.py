@@ -27,7 +27,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -45,7 +45,7 @@ from ringpop_tpu_torch.swim.member import (
 )
 
 SOURCE = _cuda_build.CSRC / "fullview.cu"
-BUILD_DIR = _cuda_build.BUILD_DIR
+BUILD_DIR: Optional[Path] = None  # None: _cuda_build.build_dir(), the configured build cache
 
 # the planes' dtypes, in FullViewState's field order
 PLANE_DTYPES = (torch.int8, torch.int32, torch.bool, torch.bool, torch.int32, torch.int8, torch.int32)

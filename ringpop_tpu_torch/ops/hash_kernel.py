@@ -31,6 +31,7 @@ import ctypes
 import threading
 from functools import lru_cache
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,7 +40,7 @@ from ringpop_tpu_torch.ops import _cuda_build
 from ringpop_tpu_torch.ops.hash_ops import check_key_matrix, fingerprint32_device
 
 SOURCE = _cuda_build.CSRC / "fingerprint32.cu"
-BUILD_DIR = _cuda_build.BUILD_DIR
+BUILD_DIR: Optional[Path] = None  # None: _cuda_build.build_dir(), the configured build cache
 
 SMEM_BUDGET = 232_448  # dynamic shared memory one block may use on Hopper (227 KB)
 MAX_ROWS_PER_TILE = 256  # rows of a tile = threads of a block

@@ -41,7 +41,7 @@ from ringpop_tpu_torch.sim.packbits import M32, bit_column, mix32, unpack_bits
 from ringpop_tpu_torch.swim.member import TOMBSTONE, key_state
 
 SOURCE = _cuda_build.CSRC / "lifecycle.cu"
-BUILD_DIR = _cuda_build.BUILD_DIR
+BUILD_DIR: Optional[Path] = None  # None: _cuda_build.build_dir(), the configured build cache
 
 MODES = {"checksum": 0, "detect": 1}
 INT32_MAX = 2**31 - 1

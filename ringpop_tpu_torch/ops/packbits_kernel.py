@@ -31,7 +31,7 @@ import torch
 from ringpop_tpu_torch.ops import _cuda_build
 
 SOURCE = _cuda_build.CSRC / "packbits.cu"
-BUILD_DIR = _cuda_build.BUILD_DIR
+BUILD_DIR: Optional[Path] = None  # None: _cuda_build.build_dir(), the configured build cache
 
 _OPS = {"or": (0, 0), "and": (1, -1)}  # op -> (kernel op id, identity word)
 

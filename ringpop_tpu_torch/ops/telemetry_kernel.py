@@ -29,14 +29,14 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from ringpop_tpu_torch.ops import _cuda_build
 
 SOURCE = _cuda_build.CSRC / "telemetry.cu"
-BUILD_DIR = _cuda_build.BUILD_DIR
+BUILD_DIR: Optional[Path] = None  # None: _cuda_build.build_dir(), the configured build cache
 MAX_LEAVES = 64  # csrc/telemetry.cu kMaxLeaves: the leaves one digest launch takes
 MAX_SUMS = 32  # csrc/telemetry.cu kMaxSums: the inputs one R1 call takes (a column of a plane counts one)
 SUM_WINDOW = 32  # csrc/telemetry.cu kSumWindow

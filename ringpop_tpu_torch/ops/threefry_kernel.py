@@ -36,13 +36,14 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from ringpop_tpu_torch.ops import _cuda_build
 
 SOURCE = _cuda_build.CSRC / "threefry.cu"
-BUILD_DIR = _cuda_build.BUILD_DIR
+BUILD_DIR: Optional[Path] = None  # None: _cuda_build.build_dir(), the configured build cache
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 # C1 indexes a row's columns and runs in int32
 CATEGORICAL_MAX_COLS = 2**30

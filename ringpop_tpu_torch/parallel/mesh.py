@@ -87,13 +87,15 @@ class Mesh:
     rank: int
     device: torch.device
     transport: str
-    group: Optional[object] = None
+    # the groups and the counters stay out of the repr, which keys the warm
+    # start's programs (util/aot.py) and so must not change with them
+    group: Optional[object] = field(default=None, repr=False)
     rumor_size: int = 1
     rumor_rank: int = 0
-    node_group: Optional[object] = None
-    rumor_group: Optional[object] = None
-    stats: dict = field(default_factory=_new_stats)
-    axis_stats: dict = field(default_factory=_new_axis_stats)
+    node_group: Optional[object] = field(default=None, repr=False)
+    rumor_group: Optional[object] = field(default=None, repr=False)
+    stats: dict = field(default_factory=_new_stats, repr=False)
+    axis_stats: dict = field(default_factory=_new_axis_stats, repr=False)
 
     @property
     def shape(self) -> dict:

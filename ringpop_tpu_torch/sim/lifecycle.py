@@ -69,12 +69,15 @@ reduces' words and L2's answer (one gather each).  The queries take a
 L1 walks each node rank's rows and the node ranks OR their detect flags,
 and ``view_checksums`` stays on the ranks that own the observer.  With a
 telemetry accumulator its planes are word blocks and its per-node counters
-row blocks (``telemetry.zeros``); ``telemetry.fetch`` gathers them.  The
-AOT warm start (A15) is refused with NotImplementedError.
+row blocks (``telemetry.zeros``); ``telemetry.fetch`` gathers them.
+``LifecycleSim(aot=)`` runs its blocks through the warm start
+(``util/aot.py``).
 """
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import time
 from dataclasses import dataclass
 from typing import Any, NamedTuple, Optional, Sequence
@@ -1259,19 +1262,23 @@ class LifecycleSim:
     hands it over with the state's digest (``state_digest``) attached, and
     with ``journal_views`` also the wrapped sum of the view checksums
     (``views_sum``) and their live agreement (``views_agree``).
-    ``telemetry_tiers`` arms the per-tier suspicion counters.  ``aot`` is
-    refused (ROADMAP A15).  With ``exchange_mesh`` (a (P, R) mesh) the
+    ``telemetry_tiers`` arms the per-tier suspicion counters.  ``aot="tag"``
+    sends every distinct block program :meth:`run` dispatches through the
+    warm-start front door (``util/aot.py``), one memoized runner per block
+    length, faults descriptor and telemetry on or off; ``aot_info`` collects
+    one front-door record per program.  With ``exchange_mesh`` (a (P, R) mesh) the
     state and the accumulators are this rank's block, every rank calls each
     method in step with the others, and every rank's records are the whole
     state's."""
 
     def __init__(self, n: int, seed: int = 0, telemetry=None, journal_views: bool = False,
                  aot: Optional[str] = None, telemetry_tiers: bool = False, device: DeviceLike = None, **kw):
-        if aot is not None:
-            raise NotImplementedError("the AOT warm start (util/aot) is not ported yet (ROADMAP Queue A15)")
         self.params = LifecycleParams(n=n, **kw)
         _check_supported(self.params)
         self.state = init_state(self.params, seed=seed, device=device)
+        self._aot_tag = aot
+        self._aot_calls: dict = {}
+        self.aot_info: dict = {}
         self.telemetry = None
         self.telemetry_sink = None
         self.journal_views = journal_views
@@ -1286,11 +1293,35 @@ class LifecycleSim:
             self.state, self.telemetry = step(self.params, self.state, faults, self.telemetry)
         return self.state
 
+    def _block_call(self, state, faults, ticks: int, telemetry=None):
+        """One block of ``ticks`` ticks, through the warm-start front door
+        when the instance carries a tag: one runner per (ticks, faults
+        structure and leaf descriptors, telemetry on or off), so a faults
+        tree of another structure or shape gets its own keyed program."""
+        dyn_kw = {} if telemetry is None else {"telemetry": telemetry}
+        if self._aot_tag is None:
+            return _run_block(self.params, state, faults, ticks, **dyn_kw)
+        from ringpop_tpu_torch.util import aot as _aot
+
+        fdesc = _aot.tree_descriptor(faults)
+        memo = (ticks, fdesc, telemetry is not None)
+        if memo not in self._aot_calls:
+            # a short hash of the faults descriptor keeps the records of two
+            # programs at one block size from overwriting each other
+            tag = (f"{self._aot_tag}-blk{ticks}" + ("-tm" if telemetry is not None else "")
+                   + f"-f{hashlib.sha256(fdesc.encode()).hexdigest()[:6]}")
+            call, info = _aot.load_or_compile(
+                functools.partial(_run_block, self.params), state, faults, dyn_kw=dyn_kw or None,
+                tag=tag, static_kw={"ticks": ticks}, statics=(repr(self.params),))
+            self._aot_calls[memo] = call
+            self.aot_info[tag] = info
+        return self._aot_calls[memo](state, faults, **dyn_kw)
+
     def run(self, ticks: int, faults: DeltaFaults = DeltaFaults()) -> LifecycleState:
         if self.telemetry is None:
-            self.state = _run_block(self.params, self.state, faults, ticks)
+            self.state = self._block_call(self.state, faults, ticks)
         else:
-            self.state, self.telemetry = _run_block(self.params, self.state, faults, ticks, self.telemetry)
+            self.state, self.telemetry = self._block_call(self.state, faults, ticks, telemetry=self.telemetry)
             self._flush(faults)
         return self.state
 

@@ -40,8 +40,8 @@ whole-fleet reads of ``states`` and ``telemetry``.  A (P, R) mesh with no
 batch axis keeps the JAX package's other layout: every rank holds every
 replica, each sharded.
 
-Not ported yet, refused with NotImplementedError: the AOT warm start
-(``aot=``: A15).
+``aot="tag"`` sends the fleet's detection program through the warm-start
+front door (``util/aot.py``).
 
 Reference analogs: failure detection `swim/node.go:470-513`; the suspicion
 timeout sweep scenario (BASELINE `sweep100k`).
@@ -49,6 +49,8 @@ timeout sweep scenario (BASELINE `sweep100k`).
 
 from __future__ import annotations
 
+import functools
+import hashlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -69,8 +71,6 @@ from ringpop_tpu_torch.sim.lifecycle import (
     init_state_from_key,
     step,
 )
-
-_AOT_REFUSAL = "the AOT warm start (util/aot) is not ported yet (ROADMAP Queue A15)"
 
 
 def _stack(trees: list):
@@ -375,8 +375,10 @@ class MonteCarlo:
     R) mesh, with the whole plan's legs read by global scenario id); a (P,
     R) ``parallel.mesh.Mesh`` shards every replica and replicates the
     batch.  Every member stays bit-identical to its unsharded twin, and
-    ``states``/``telemetry`` read as the whole fleet (gathered).  ``aot``
-    is refused (A15), where ``aot_info`` stays ``{}``.
+    ``states``/``telemetry`` read as the whole fleet (gathered).
+    ``aot="tag"`` routes the detection program through the warm-start
+    front door (``util/aot.py``; ``aot_info`` collects the measured
+    ``cache_hit`` / ``compile_s`` per keyed program).
 
     >>> mc = MonteCarlo(LifecycleParams(n=512, k=32), seeds=range(32))
     >>> ticks, detected = mc.run_until_detected(victims=[3, 99], faults=f)
@@ -393,14 +395,14 @@ class MonteCarlo:
         mesh=None,
         device: DeviceLike = None,
     ):
-        if aot is not None:
-            raise NotImplementedError(_AOT_REFUSAL)
         self.params = params
         self.seeds = list(seeds)
         self.mesh = mesh
         self._layout = _Layout(params, len(self.seeds), mesh, device)
         _check_supported(self._layout.params)
         self.device = self._layout.device
+        self._aot_tag = aot
+        self._aot_calls: dict = {}
         self.aot_info: dict = {}
         self._telemetry_tiers = telemetry_tiers
         self._states = self._fresh_states()
@@ -571,6 +573,32 @@ class MonteCarlo:
         local = torch.stack([_tm.tree_digest(s, lay.inner) for s in self._states])
         return [int(x) for x in lay.gather(local).cpu()]
 
+    def _until_call(self, states, faults, subjects, tel, *, min_status: int, block_ticks: int, max_blocks: int):
+        """The whole-fleet detection program, through the warm-start front
+        door when the instance carries a tag.  One runner per (statics,
+        faults structure and leaf descriptors, subjects, telemetry on or
+        off, the fleet's mesh): value-only swaps of plans and seeds reuse
+        it."""
+        kw = dict(min_status=min_status, block_ticks=block_ticks)
+        fn = functools.partial(_mc_run_until_device, self._layout.params, layout=self._layout)
+        if self._aot_tag is None:
+            return fn(states, faults, subjects, tel, max_blocks=max_blocks, **kw)
+        from ringpop_tpu_torch.util import aot as _aot
+
+        fdesc = (_aot.tree_descriptor(faults) + "|s:" + _aot._leaf_descriptor(subjects)
+                 + "|t:" + _aot.tree_descriptor(tel) + "|m:" + _aot.sharding_descriptor(self.mesh))
+        memo = (min_status, block_ticks, fdesc)
+        if memo not in self._aot_calls:
+            tag = f"{self._aot_tag}-mc{block_ticks}-f{hashlib.sha256(fdesc.encode()).hexdigest()[:6]}"
+            # max_blocks is a value of the program, not part of its key: the
+            # miss's warm-up runs one block, which launches every kernel of it
+            call, info = _aot.load_or_compile(
+                fn, states, faults, subjects, tel, dyn_kw={"max_blocks": 1}, tag=tag, static_kw=kw,
+                statics=(repr(self._layout.params),))
+            self._aot_calls[memo] = call
+            self.aot_info[tag] = info
+        return self._aot_calls[memo](states, faults, subjects, tel, max_blocks=max_blocks)
+
     def run_until_detected(
         self,
         victims: Sequence[int],
@@ -590,9 +618,9 @@ class MonteCarlo:
         armed telemetry accumulator covers every tick the fleet stepped."""
         subjects = _subjects(list(victims), self.device)
         max_blocks = -(-max_ticks // check_every)
-        self._states, self._tel, _, first_block = _mc_run_until_device(
-            self._layout.params, self._states, self._faults(faults), subjects, self._tel, min_status=min_status,
-            block_ticks=check_every, max_blocks=max_blocks, layout=self._layout,
+        self._states, self._tel, _, first_block = self._until_call(
+            self._states, self._faults(faults), subjects, self._tel, min_status=min_status,
+            block_ticks=check_every, max_blocks=max_blocks,
         )
         first_block = np.asarray(first_block, np.int64)
         first_tick = np.where(first_block >= 0, first_block * check_every, -1)

@@ -32,10 +32,8 @@ scenario's block slice into a verdict with its grid coordinates attached.
 and restores bit-exactly, onto another process count or a fleet mesh.  A
 sweep may be process-sliced (``global_b``: each process its
 ``partition.process_block`` of the grid) or block-sharded over a fleet
-mesh (``mesh=``), not both.
-
-Not ported yet, refused with NotImplementedError: the AOT warm start
-(``aot=``: A15).
+mesh (``mesh=``), not both.  The surfaces' ``aot=`` sends their fleet
+detection program through the warm start (``util/aot.py``).
 """
 
 from __future__ import annotations
@@ -51,7 +49,7 @@ from ringpop_tpu_torch.parallel import multihost
 from ringpop_tpu_torch.sim import chaos
 from ringpop_tpu_torch.sim.chaos import FaultPlan
 from ringpop_tpu_torch.sim.lifecycle import LifecycleParams
-from ringpop_tpu_torch.sim.montecarlo import _AOT_REFUSAL, MonteCarlo
+from ringpop_tpu_torch.sim.montecarlo import MonteCarlo
 
 _MESH_AND_SLICE = ("process-sliced sweeps checkpoint their local slice; a device mesh on top would need two "
                    "partitioning owners")
@@ -185,8 +183,9 @@ def detect_surface(
 ) -> tuple[np.ndarray, np.ndarray, dict]:
     """First-detection ticks for every scenario of a stacked plan, through
     one fleet detection run (1-tick resolution by default).  Returns
-    ``(ticks[B], detected[B], aot_info)``; ``aot_info`` is ``{}`` (``aot``
-    is refused: ROADMAP A15)."""
+    ``(ticks[B], detected[B], aot_info)``; ``aot_info`` carries the front
+    door's measured ``cache_hit`` / ``compile_s`` when a tag was given
+    (``{}`` otherwise)."""
     mc = MonteCarlo(params, seeds, aot=aot, device=device)
     ticks, detected = mc.run_until_detected(victims, plan, max_ticks=max_ticks, check_every=check_every)
     return ticks, detected, next(iter(mc.aot_info.values()), {})
@@ -655,8 +654,6 @@ class _CliffRunner:
                 f"width {width} must be a multiple of seeds_per_point "
                 f"{seeds_per_point}"
             )
-        if aot is not None:
-            raise NotImplementedError(_AOT_REFUSAL)
         self.params, self.victims, self.masks = params, victims, masks
         self.width, self.base_seed = width, base_seed
         self.max_ticks, self.check_every = max_ticks, check_every
@@ -677,7 +674,7 @@ class _CliffRunner:
             slots = [(pt, j) for pt in batch for j in range(self.spp)]
             seeds = [self.base_seed + d * self.spp + j for (d, _), j in slots]
             if self.mc is None:
-                self.mc = MonteCarlo(self.params, seeds, device=self.device)
+                self.mc = MonteCarlo(self.params, seeds, aot=self.aot, device=self.device)
             else:
                 self.mc.reset_states(seeds)
             ticks, det = self.mc.run_until_detected(
@@ -705,6 +702,7 @@ class _CliffRunner:
         return {p: self.cache[p] for p in points}
 
     def result_fields(self) -> dict:
+        tagged = self.mc is not None and self.aot is not None
         return {
             "evals_unique": len(self.cache) * self.spp,
             "evals_dispatched": self.slots,
@@ -712,9 +710,9 @@ class _CliffRunner:
             "width": self.width,
             "seeds_per_point": self.spp,
             "all_detected": all(v is not None for v in self.cache.values()),
-            # the JAX package counts compiled programs only under an AOT tag
-            "compiled_programs": None,
-            "aot": {},
+            # compiled programs are counted only under an AOT tag
+            "compiled_programs": len(self.mc._aot_calls) if tagged else None,
+            "aot": next(iter(self.mc.aot_info.values()), {}) if tagged else {},
         }
 
 

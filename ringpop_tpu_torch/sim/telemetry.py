@@ -695,6 +695,7 @@ class TelemetryJournal:
 
     def header(self, engine: str, scenario: str = "", params: Optional[dict] = None) -> None:
         from ringpop_tpu_torch.obs.flight import git_commit
+        from ringpop_tpu_torch.util.accel import cache_status
 
         # which rank of which job size wrote the stream: 1/0 unless a
         # torch.distributed group is up
@@ -711,10 +712,9 @@ class TelemetryJournal:
             "toolchain": toolchain_fingerprint(),
             "git_commit": git_commit(),
             "mesh_budget": mesh_budget_fingerprint(),
-            # the port keeps no persistent compile cache: its kernels are
-            # built once a checkout into _build/, keyed by their source (an
-            # AOT warm start is ROADMAP A15)
-            "compile_cache": {"cache_dir": None, "error": None, "persistent": False},
+            # the kernel build cache's outcome (util/accel.py): where the
+            # libraries are built, or why the cache could not be configured
+            "compile_cache": cache_status(),
             "process_count": pc,
             "process_id": pid,
         })

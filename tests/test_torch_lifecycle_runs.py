@@ -146,7 +146,7 @@ def _cpu_mesh(size, rumor=1):
     return Mesh(size=size, rank=0, device=torch.device("cpu"), transport="gloo", rumor_size=rumor)
 
 
-def test_refusals_name_their_roadmap_item():
+def test_refusals_name_their_roadmap_item(monkeypatch, tmp_path):
     default = tl.LifecycleParams(n=64, k=32)
     assert default.rng == "threefry"  # the JAX default, kept so a call means the same
     # the default stream runs: step and LifecycleSim match the JAX package's
@@ -182,8 +182,19 @@ def test_refusals_name_their_roadmap_item():
     out, tel = tl.step(counter, state, telemetry=tt.zeros(counter, device="cpu"))
     assert int(tel.ticks) == 1 and torch.equal(out.learned, tl.step(counter, state).learned)
     assert tl.LifecycleSim(64, k=32, rng="counter", telemetry=True, device="cpu").telemetry is not None
-    with pytest.raises(NotImplementedError, match="A15"):
-        tl.LifecycleSim(64, k=32, rng="counter", aot="tag", device="cpu")
+    # the warm start (A15) is ported: a tagged LifecycleSim runs its blocks
+    # through the front door (tests/test_torch_aot.py), bit-equal to the JAX
+    # package's with aot= on, one program a block length, with its record
+    monkeypatch.setenv("RINGPOP_TPU_AOT_CACHE", str(tmp_path))
+    jf, tf = _faults("drop", 64, [3, 40], seed=0)
+    jsim = jl.LifecycleSim(64, k=32, rng="counter", aot="tag")
+    tsim = tl.LifecycleSim(64, k=32, rng="counter", aot="tag", device="cpu")
+    for t in range(2):
+        assert_same_state(jsim.run(3, jf), tsim.run(3, tf), f"aot block {t}")
+    assert [tag.rsplit("-f", 1)[0] for tag in tsim.aot_info] == [tag.rsplit("-f", 1)[0] for tag in jsim.aot_info] \
+        == ["tag-blk3"]
+    (tinfo,), (jinfo,) = tsim.aot_info.values(), jsim.aot_info.values()
+    assert set(tinfo) == set(jinfo) and tinfo["error"] is None and tinfo["saved"] and not tinfo["cache_hit"]
     # learned_sharding (A12) is a route hint: over one node rank it changes nothing
     hint = NamedSharding(_cpu_mesh(1), P("node", None))
     sim = tl.LifecycleSim(64, k=32, rng="counter", device="cpu")

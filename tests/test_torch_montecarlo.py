@@ -8,8 +8,8 @@ streams, ``run_until_detected`` at ``check_every`` 1 (through
 ``detection_latency_distribution``'s own program) and 4 (batched ``up`` and
 ``drop_rate`` legs beside a shared ``group``), the churn study, a stacked
 chaos plan with telemetry (every ``fetch_telemetry`` record, state digest
-included), the B = 1 fleet against the solo ``LifecycleSim`` and the
-refusals of the unported routes.
+included), the B = 1 fleet against the solo ``LifecycleSim``, the fleet
+through the warm start and the refusals.
 """
 
 import jax.numpy as jnp
@@ -226,16 +226,28 @@ def test_states_setter_round_trips_and_refuses_another_b():
         tmc.reset_states([1, 2, 3])
 
 
-def test_unported_routes_refuse_by_queue_item():
-    """The AOT warm start (A15) still refuses; the fleet meshes (A12b) now
-    run: on one process the fleet mesh is (1, 1, 1) and the fleet on it is
+def test_unported_routes_refuse_by_queue_item(monkeypatch, tmp_path):
+    """The AOT warm start (A15) now runs: a tagged fleet's detection program
+    goes through the front door, bit-equal to the JAX package's with aot=
+    on, one program with the JAX package's record keys.  The fleet meshes
+    (A12b) run: on one process the fleet mesh is (1, 1, 1) and the fleet on it is
     the unsharded fleet (the multi-rank meshes are in
     tests/test_torch_fleet_mesh.py)."""
     from ringpop_tpu_torch.parallel.partition import P
 
     params = tl.LifecycleParams(n=N, k=K)
-    with pytest.raises(NotImplementedError, match="A15"):
-        tm.MonteCarlo(params, SEEDS, aot="tag", device=CPU)
+    monkeypatch.setenv("RINGPOP_TPU_AOT_CACHE", str(tmp_path))
+    up = up_mask()
+    jmc = jm.MonteCarlo(jl.LifecycleParams(n=N, k=K, suspect_ticks=SUSPECT), SEEDS, aot="tag")
+    tmc = tm.MonteCarlo(tl.LifecycleParams(n=N, k=K, suspect_ticks=SUSPECT), SEEDS, aot="tag", device=CPU)
+    want = jmc.run_until_detected(VICTIMS, jd.DeltaFaults(up=jnp.asarray(up)), max_ticks=64, check_every=4)
+    got = tmc.run_until_detected(VICTIMS, td.DeltaFaults(up=torch.from_numpy(up)), max_ticks=64, check_every=4)
+    assert want[1].all() and all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert_states_equal(jmc.states, tmc.states, "aot")
+    assert [tag.rsplit("-f", 1)[0] for tag in tmc.aot_info] == [tag.rsplit("-f", 1)[0] for tag in jmc.aot_info] \
+        == ["tag-mc4"]
+    (tinfo,), (jinfo,) = tmc.aot_info.values(), jmc.aot_info.values()
+    assert set(tinfo) == set(jinfo) and tinfo["error"] is None and tinfo["saved"]
     mesh = tm.make_fleet_mesh(device="cpu")
     assert mesh.shape == {"batch": 1, "node": 1, "rumor": 1} == tm.fleet_save_mesh(device="cpu").shape
     on_mesh, plain = tm.MonteCarlo(params, SEEDS, mesh=mesh), tm.MonteCarlo(params, SEEDS, device=CPU)

@@ -192,7 +192,7 @@ def test_fleet_sweep_save_kill_restore_matches_unbroken_and_jax(jax_sweep, tmp_p
     assert hp["resumed"]["checkpoint"] == os.path.abspath(ck)
 
 
-def test_fleet_sweep_refusals(tmp_path):
+def test_fleet_sweep_refusals(tmp_path, monkeypatch):
     plan, meta, seeds = fleet_grid(ts, device=CPU)
     params = tl.LifecycleParams(**FLEET)
     sweep = port_sweep()
@@ -236,10 +236,19 @@ def test_fleet_sweep_refusals(tmp_path):
         fleet_shard_put({}, Mesh(size=1, rank=0, device=CPU, transport="gloo"), 4)
     with pytest.raises(ValueError, match="contiguous"):
         ts.FleetSweep(params, plan, meta[1:] + meta[:1], seeds, horizon=HORIZON, device=CPU)
-    with pytest.raises(NotImplementedError, match="A15"):
-        ts.detect_surface(params, plan, seeds, VICTIMS, aot="tag", device=CPU)
-    with pytest.raises(NotImplementedError, match="A15"):
-        ts.refine_surface(params, victims=VICTIMS, losses=(0.0,), max_dose=4, aot="tag", device=CPU)
+    # the surfaces' aot= (A15) is ported: the detection program runs through
+    # the warm start with the answers it gives without it (against the JAX
+    # package's with aot= on: the surface tests below)
+    monkeypatch.setenv("RINGPOP_TPU_AOT_CACHE", str(tmp_path / "aot"))
+    ticks, detected, info = ts.detect_surface(params, plan, seeds, VICTIMS, max_ticks=64, aot="tag", device=CPU)
+    plain_ticks, plain_detected, plain_info = ts.detect_surface(params, plan, seeds, VICTIMS, max_ticks=64, device=CPU)
+    assert np.array_equal(ticks, plain_ticks) and np.array_equal(detected, plain_detected) and plain_info == {}
+    assert info["tag"].startswith("tag-mc1-f") and info["saved"] and info["error"] is None
+    got = ts.refine_surface(params, victims=VICTIMS, losses=(0.0,), max_dose=4, max_ticks=64, aot="tag", device=CPU)
+    plain = ts.refine_surface(params, victims=VICTIMS, losses=(0.0,), max_dose=4, max_ticks=64, device=CPU)
+    assert {k: v for k, v in got.items() if k not in ("compiled_programs", "aot")} == \
+        {k: v for k, v in plain.items() if k not in ("compiled_programs", "aot")}
+    assert got["compiled_programs"] == 1 and plain["compiled_programs"] is None and plain["aot"] == {}
 
 
 def test_fleet_sweep_hooks_see_every_block():
@@ -295,6 +304,29 @@ def test_refine_surface_matches_jax_live_output():
     assert got == want
     assert want["dispatches"] > 2 and want["cliffs"][0.0]["cliff_at"] is not None
     assert got["compiled_programs"] is None and got["aot"] == {}
+
+
+def test_surfaces_with_aot_match_jax_and_compile_once(tmp_path, monkeypatch):
+    """The surfaces with ``aot=`` on in both packages: the same ticks and
+    flags; every dispatch of the adaptive search's runner reuses its one
+    keyed program (``tests/test_scenarios.py::test_refine_runner_compiles_once``),
+    with the JAX package's record keys."""
+    monkeypatch.setenv("RINGPOP_TPU_AOT_CACHE", str(tmp_path))
+    kw = dict(victims=VICTIMS, doses=[0, 6, 12], churn_seed=777)
+    jplan, jmeta = js.scenario_grid(N, **kw)
+    tplan, _ = ts.scenario_grid(N, device=CPU, **kw)
+    seeds = ts.grid_seeds(jmeta, 0)
+    want_t, want_d, info = js.detect_surface(jl.LifecycleParams(**SURFACE), jplan, seeds, VICTIMS, max_ticks=256,
+                                             aot="surf")
+    got_t, got_d, got_info = ts.detect_surface(tl.LifecycleParams(**SURFACE), tplan, seeds, VICTIMS, max_ticks=256,
+                                               aot="surf", device=CPU)
+    assert np.array_equal(got_t, want_t) and np.array_equal(got_d, want_d) and want_d.all()
+    assert set(got_info) == set(info) and got_info["tag"].rsplit("-f", 1)[0] == info["tag"].rsplit("-f", 1)[0]
+    want = js.refine_surface(jl.LifecycleParams(**SURFACE), coarse=3, aot="refine", **SURF_KW)
+    got = ts.refine_surface(tl.LifecycleParams(**SURFACE), coarse=3, aot="refine", device=CPU, **SURF_KW)
+    assert {k: v for k, v in got.items() if k != "aot"} == {k: v for k, v in want.items() if k != "aot"}
+    assert got["compiled_programs"] == want["compiled_programs"] == 1 and got["dispatches"] > 2
+    assert set(got["aot"]) == set(want["aot"]) and got["aot"]["error"] is None
 
 
 def test_dense_surface_matches_jax_live_output():

@@ -98,7 +98,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "obs.controller", "obs.endpoint", "obs.gameday", "util", "util.clock", "discovery", "swim",
               "swim.events", "swim.stats", "swim.state_transitions", "swim.memberlist", "swim.iter",
               "swim.disseminator", "swim.rollup", "swim.ping", "swim.ping_request", "swim.join", "swim.handlers",
-              "swim.heal", "swim.gossip", "swim.node", "ringpop", "router", "replica", "adapter"):
+              "swim.heal", "swim.gossip", "swim.node", "ringpop", "router", "replica", "adapter", "cli.stats",
+              "cli.testpop", "cli.admin", "harness", "util.accel", "util.aot", "cli.fleet_bench"):
         assert f"ringpop_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
@@ -162,6 +163,23 @@ def test_host_stack_imports_without_torch():
                                           "heal", "gossip", "node")]
     mods += [f"ringpop_tpu_torch.{m}" for m in ("util", "util.clock", "discovery", "options", "ringpop", "router",
                                                 "replica", "adapter")]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'torch' or m.startswith('torch.') or m == 'jax'\n"
+        "       or m.startswith('jax.') or m == 'ringpop_tpu' or m.startswith('ringpop_tpu.')]\n"
+        "print(len(bad), bad[:5])\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_process_entry_points_import_without_torch():
+    """The host plane's process entry points are host code: the testpop
+    node, the admin and stats clients and the multi-process harness load
+    without torch (a cluster of testpop processes starts none)."""
+    mods = [f"ringpop_tpu_torch.{m}" for m in ("cli.testpop", "cli.admin", "cli.stats", "harness")]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

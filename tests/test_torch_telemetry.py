@@ -401,7 +401,9 @@ def test_journal_round_trips_under_the_schema(tmp_path):
     header = records[0]
     assert set(header) - {"kind"} == schema["header"]
     assert {"torch", "cuda", "numpy", "python"} == set(header["toolchain"])
-    assert header["compile_cache"]["persistent"] is False and header["compile_cache"]["cache_dir"] is None
+    from ringpop_tpu_torch.util import accel
+
+    assert header["compile_cache"] == accel.cache_status() and set(header["compile_cache"]) == {"cache_dir", "error"}
     assert header["process_count"] == 1 and header["process_id"] == 0
     assert header["git_commit"] is None or re.fullmatch(r"[0-9a-f]{40}", header["git_commit"])
     assert records[1:5] == [{"kind": "block", **r} for r in sink.records]
