@@ -8,8 +8,8 @@ collector with its transports, the SWIM engines sharded over node and
 rumor ranks, the fleet's meshes with its multi-process checkpoints, the
 multi-host delta over the TCP fabric, the serve plane's placement, mesh
 and operations loop, the SWIM host stack with the facade, a live cluster
-feeding the card's ring, and the host plane's process entry points with
-the warm start.
+feeding the card's ring, the host plane's process entry points with the
+warm start, and the simbench twin's rows at their own settings.
 
     python3 chip_smoke.py
 
@@ -337,6 +337,23 @@ scale on bench.py's own stream, threefry:
    block run uncached here, both launch S1, == its plain version.  It
    prints the walls, the convergence and detection times, and
    ``compile_s`` on the miss and on the hit.
+24. the simbench twin (``cli/simbench``) through its own row runner at full
+   scale, the rows not yet run on the card at their own settings:
+   ``loss1k`` (BASELINE config 2: the lifecycle engine at 1000 x 128, 5 %
+   loss, ``suspect_ticks`` 25), ``sweep100k`` (config 3: 100,000 x 256 at
+   ``suspect_ticks`` 5, 25, 50), ``partition_lc`` (1,000,000 x 256, a 30 %
+   partition blip after detection), ``flap1k`` and ``asym_partition``
+   (their chaos plans for 256 ticks, scored, their sharded twins from
+   phase 18b's 4 x 2 group), ``delta16m`` (16,000,000 x 64, the state built
+   word by word) and ``ring1m`` (a 4096 x 256 ring, 1,000,000 lookups,
+   100,000 keyed lookups through B1, a 1 % churn rebuild), then
+   ``sharded100k``'s ``step1m`` leg (one 1M x 256 step over phase 18's
+   4 x 2 ranks through the warm start): every record's exact fields and
+   every final state's digest == the JAX pins (``delta16m``'s ticks and
+   digest == its plain version's: no JAX pin at 16M), the twins ==
+   ``PIN_CHAOS_TWIN``, ``ring1m``'s owners == the host searchsorted; each
+   row's wall, ms a tick and launches, and the device's busy share of an
+   8-tick block of ``partition_lc``.
 
 Every ``torch.profiler`` session opens with ``profiler_warmup``'s marks:
 the profiler drops the device records of the first work a session sees,
@@ -360,7 +377,8 @@ and runs step 15 alone; ``--serve`` runs step 16 alone (no kernel build); ``--sh
 the kernels and runs steps 17 and 18 alone, ``--rumor-axis`` step 18 alone, ``--fleet-mesh`` step 19
 alone, ``--multihost`` step 20 alone, ``--serve-mesh`` builds the kernels and runs step 21 alone,
 ``--host-stack`` builds B1 and runs step 22 alone, ``--process-plane`` runs step 23 alone
-(its children build what they launch).  ``kernel_compare.py``
+(its children build what they launch), ``--simbench`` builds the kernels and runs step 24 alone
+(the twins and ``step1m`` then in 4 x 2 groups of its own).  ``kernel_compare.py``
 times D1, C1 and F1 against another checkout's in alternating pairs.
 
 Exits non-zero, printing no result, on any failed check or when no CUDA
@@ -4352,6 +4370,7 @@ def sharded_rank(rank: int, size: int, port: int, transport: str, results, shape
 
     cell_fns = {"17a": sharded_100k, "17b": sharded_headline, "17c": sharded_delta, "18a": sharded_100k,
                 "18b": chaos_twins, "18c": churn_telemetry, "18d": headline_and_delta, "19a": fleet_twin_cell,
+                "24s": simbench_step1m_cell,
                 "19c": lambda mesh: fleet_restore_cell(mesh, fleet_ckpt_path())}
     try:
         dev = torch.device(f"cuda:{rank % torch.cuda.device_count()}")
@@ -4721,7 +4740,7 @@ def run_rumor_axis(dev: torch.device, card: str, refs: dict) -> dict:
     log(f"phase18: {RUMOR_SHAPE} ranks over {transport} for 18a-c, {RUMOR_HEADLINE_SHAPE} over {transport_d} for "
         f"18d ({torch.cuda.device_count()} card(s) visible); {card}")
     t0 = time.perf_counter()
-    ranks = spawn_ranks(size, transport, RUMOR_SHAPE, ("18a", "18b", "18c"), "phase18")
+    ranks = spawn_ranks(size, transport, RUMOR_SHAPE, ("18a", "18b", "18c", "24s"), "phase18")
     wall_abc = time.perf_counter() - t0
     t0 = time.perf_counter()
     ranks_d = spawn_ranks(size_d, transport_d, RUMOR_HEADLINE_SHAPE, ("18d",), "phase18d")
@@ -4787,9 +4806,20 @@ def run_rumor_axis(dev: torch.device, card: str, refs: dict) -> dict:
         f"PIN_LIFE* ({b['detect_ticks']} + {b['converge_ticks']} ticks) and delta == PIN_SHIFT on "
         f"{RUMOR_HEADLINE_SHAPE}; S1, S2, L1, L2, P1, D1, R1 == plain on every rank's block {blocks}; ranks' wall "
         f"{wall_abc:.1f} + {wall_d:.1f} s; {card}")
+    # phase 24's flap1k and asym_partition rows take these plans' certificates, and its step1m leg
+    # rode this group (cell 24s)
+    for_simbench = {
+        "twins": {name: {"digest_unsharded": twin_ref[name]["digest"],
+                         "digest_sharded": r0["18b"]["plans"][name]["digest"],
+                         "equal": r0["18b"]["plans"][name]["digests"] == twin_ref[name]["digests"],
+                         "n": TWIN_N, "k": TWIN_K, "ticks": TWIN_TICKS,
+                         "mesh": f"4x2 (node x rumor), {size} rank processes over {transport}"}
+                  for name in ("flap", "asym")},
+        "step1m": [r["24s"] for r in ranks]}
     return {"rumor_axis": {"shape": list(RUMOR_SHAPE), "headline_shape": list(RUMOR_HEADLINE_SHAPE),
                            "transport": transport, "card": card, "cells": cells,
-                           "ranks_wall_s": [wall_abc, wall_d], "block_kernels": blocks}}
+                           "ranks_wall_s": [wall_abc, wall_d], "block_kernels": blocks,
+                           "for_simbench": for_simbench}}
 
 
 # -- phase 19: the fleet's meshes, the process-sliced sweep and its checkpoints --
@@ -6421,6 +6451,324 @@ def run_process_plane(dev: torch.device, card: str) -> dict:
     return {"process_plane": out}
 
 
+# -- phase 24: the simbench twin's rows at full scale -------------------------------
+
+# the rows not yet run on the card at their own settings (cli/simbench.py, the twin of
+# ringpop_tpu/cli/simbench.py), through the twin's BENCHES at full scale, seed 0; sharded100k's
+# step1m leg rides phase 18a's 4 x 2 group (cell 24s)
+SIMBENCH_SEED = 0
+SIMBENCH_ROWS = ("loss1k", "sweep100k", "partition_lc", "flap1k", "asym_partition", "delta16m", "ring1m")
+STEP1M_N, STEP1M_K = 1_000_000, 256
+SIMBENCH_PROFILE_TICKS = 8  # partition_lc's profiled block: the device's busy share
+# the fields of each row's record that are not pinned, and why; every other field is held to
+# PIN_SIMBENCH[row]["record"] (tests/test_torch_chip_smoke_pins_simbench.py strips these from
+# the JAX package's full-scale records)
+SIMBENCH_INEXACT = {
+    "loss1k": {"value": "a wall"},
+    "sweep100k": {"value": "a wall"},
+    "partition_lc": {"value": "a wall", "detect_s": "a wall", "blip_s": "a wall", "converge_s": "a wall"},
+    "flap1k": {"value": "a wall", "sharded_twin.mesh": "names the twin's devices"},
+    "asym_partition": {"value": "a wall", "sharded_twin.mesh": "names the twin's devices"},
+    "delta16m": {"value": "a wall",
+                 "ticks": "no JAX pin (16M x 64 takes ~17 GB of host memory in the JAX engine): held to the plain "
+                          "version on the card",
+                 "converged": "as ticks"},
+    "ring1m": {"value": "a rate", "keyed_hash_lookup_qps": "a rate", "build_s": "a wall",
+               "churn_rebalance_s": "a wall"},
+}
+PIN_SIMBENCH = {  # the JAX package's full-scale records (the pinned fields) and final-state digests
+    "loss1k": {"record": {"metric": "lifecycle_1k_5pct_loss_detection",
+                   "unit": "s",
+                   "ticks": 40,
+                   "sim_seconds": 8.0,
+                   "detected": True,
+                   "n_victims": 10,
+                   "quiescence_ticks_after_detect": 0,
+                   "quiesced": True},
+        "digests": [1585251447]},
+    "sweep100k": {"record": {"metric": "lifecycle_100k_suspicion_sweep",
+                   "unit": "s_total",
+                   "n_nodes": 100000,
+                   "sweep": {"5": {"ticks": 24, "detected": True},
+                             "25": {"ticks": 40, "detected": True},
+                             "50": {"ticks": 64, "detected": True}}},
+        "digests": [1506645198, 1388392494, 1306847558]},
+    "partition_lc": {"record": {"metric": "lifecycle_1000k_30pct_partition_blip_heal",
+                   "unit": "s",
+                   "n_nodes": 1000000,
+                   "n_rumor_slots": 256,
+                   "n_victims": 1000,
+                   "detect_ticks": 128,
+                   "detected": True,
+                   "blip_ticks": 24,
+                   "views_agree_after_blip": False,
+                   "converge_extra_ticks": 24,
+                   "converged": True},
+        "digests": [3028937533]},
+    "flap1k": {"record": {"metric": "chaos_flap1k",
+                   "unit": "s",
+                   "n_nodes": 1000,
+                   "n_rumor_slots": 64,
+                   "ticks": 256,
+                   "events": 1,
+                   "time_to_detect_median": None,
+                   "rumor_half_life_median": None,
+                   "false_positive_suspects": 100,
+                   "rejoin_convergence_ticks": None,
+                   "final_detect_frac": 1.0,
+                   "sharded_digest_equal": True,
+                   "sharded_twin": {"digest_unsharded": 1785704893,
+                                    "digest_sharded": 1785704893,
+                                    "equal": True,
+                                    "n": 4096,
+                                    "k": 64,
+                                    "ticks": 24}},
+        "digests": [2780757384]},
+    "asym_partition": {"record": {"metric": "chaos_asym_partition",
+                   "unit": "s",
+                   "n_nodes": 50000,
+                   "n_rumor_slots": 64,
+                   "ticks": 256,
+                   "events": 3,
+                   "time_to_detect_median": 46,
+                   "rumor_half_life_median": 46,
+                   "false_positive_suspects": 231,
+                   "rejoin_convergence_ticks": None,
+                   "final_detect_frac": 1.0,
+                   "sharded_digest_equal": True,
+                   "sharded_twin": {"digest_unsharded": 4163614190,
+                                    "digest_sharded": 4163614190,
+                                    "equal": True,
+                                    "n": 4096,
+                                    "k": 64,
+                                    "ticks": 24}},
+        "digests": [587218152]},
+    "delta16m": {"record": {"metric": "delta_16m_convergence", "unit": "s", "n_nodes": 16000000, "n_rumors": 64},
+        "digests": []},
+    "ring1m": {"record": {"metric": "ring_lookup_1048k_vnodes",
+                   "unit": "lookups_per_s",
+                   "n_servers": 4096,
+                   "replica_points": 256,
+                   "batch": 1000000},
+        "digests": []},
+}
+PIN_STEP1M = {"tick": 1, "digest": 1912610331}  # the unsharded JAX step: 1M x 256, every 1000th down, seed 0
+
+
+# the kernel records' names and the wrappers' counters (util/aot.launch_counts) they read
+SIMBENCH_KERNELS = {"fingerprint32": "hash_kernel", "packbits_row_reduce": "packbits_kernel.row_reduce",
+                    "packbits_popcount_rows": "packbits_kernel.popcount_rows",
+                    "lifecycle_slot_walk": "lifecycle_kernel.slot_walk",
+                    "lifecycle_first_live_learner": "lifecycle_kernel.first_live_learner",
+                    "telemetry_state_digest": "telemetry_kernel.state_digest",
+                    "telemetry_accumulate": "telemetry_kernel.accumulate",
+                    "telemetry_f32_sums": "telemetry_kernel.f32_sums"}
+# the kernels each row's main path must launch
+SIMBENCH_ROW_KERNELS = {
+    "loss1k": ("packbits_row_reduce", "lifecycle_slot_walk", "lifecycle_first_live_learner"),
+    "sweep100k": ("packbits_row_reduce", "lifecycle_slot_walk", "lifecycle_first_live_learner"),
+    "partition_lc": ("packbits_row_reduce", "lifecycle_slot_walk", "lifecycle_first_live_learner"),
+    "flap1k": ("packbits_row_reduce", "lifecycle_first_live_learner", "telemetry_state_digest",
+               "telemetry_accumulate", "telemetry_f32_sums"),
+    "asym_partition": ("packbits_row_reduce", "lifecycle_first_live_learner", "telemetry_state_digest",
+                       "telemetry_accumulate", "telemetry_f32_sums"),
+    "delta16m": ("packbits_row_reduce",),
+    "ring1m": ("fingerprint32",),
+    "step1m": ("packbits_row_reduce", "lifecycle_first_live_learner"),
+}
+
+
+def simbench_launches(before: dict) -> dict:
+    """The kernels' launches since ``before`` (``util/aot.launch_counts``),
+    by the kernel records' names."""
+    from ringpop_tpu_torch.util import aot
+
+    now = aot.launch_counts()
+    return {name: now[key] - before[key] for name, key in SIMBENCH_KERNELS.items()}
+
+
+def simbench_strip(record: dict, inexact) -> dict:
+    """``record`` as the CLI prints it, without the ``inexact`` fields."""
+    out = json.loads(json.dumps(record))
+    for path in inexact:
+        *head, last = path.split(".")
+        node = out
+        for key in head:
+            node = node[key]
+        node.pop(last, None)
+    return out
+
+
+def simbench_step1m_cell(mesh) -> dict:
+    """Phase 24's ``step1m`` leg on this rank of a 4 x 2 group (phase 18's,
+    or its own with ``--simbench``): the twin's ``step1m_rank``, one 1M x 256
+    step over the mesh through the warm start, its record, its launches
+    (counts 0 before it, read after) and the stepped state's digest
+    combined from the ranks."""
+    from ringpop_tpu_torch.cli import simbench
+    from ringpop_tpu_torch.util import aot
+
+    fleet_reset(mesh)
+    before = aot.launch_counts()
+    rec = simbench.step1m_rank(mesh, SIMBENCH_SEED)
+    torch.cuda.synchronize()
+    launches = simbench_launches(before)
+    state = simbench.LAST_RUN.pop("step1m", {"states": [None]})["states"][0]
+    digest = int(telemetry.tree_digest(state, mesh)) if rec.get("ok") else None
+    del state
+    torch.cuda.empty_cache()
+    return {"record": rec, "digest": digest, "launches": launches}
+
+
+def simbench_row_ticks(row: str, rec: dict) -> dict:
+    """The ticks behind each timed wall of a row's record: {wall field: ticks}."""
+    if row == "loss1k":
+        return {"value": rec["ticks"]}
+    if row == "sweep100k":
+        return {"value": sum(v["ticks"] for v in rec["sweep"].values())}
+    if row == "partition_lc":
+        return {"detect_s": rec["detect_ticks"], "blip_s": rec["blip_ticks"], "converge_s": rec["converge_extra_ticks"]}
+    if row in ("flap1k", "asym_partition"):
+        return {"value": rec["ticks"] - 16}  # the first 16-tick block (builds and loads) is not timed
+    if row == "delta16m":
+        return {"value": rec["ticks"]}
+    return {}
+
+
+def check_step1m(dev: torch.device, ranks: list, card: str) -> dict:
+    """The step1m leg's records from every rank: ok, one tick, the digest
+    combined on every rank == the unsharded step on this card == the JAX
+    pin, and the leg's kernels launched on every rank."""
+    params = lifecycle.LifecycleParams(n=STEP1M_N, k=STEP1M_K, suspect_ticks=10, rng="counter")
+    up = np.ones(STEP1M_N, bool)
+    up[::1000] = False
+    state = lifecycle._run_block(params, lifecycle.init_state(params, seed=SIMBENCH_SEED, device=dev),
+                                 delta.DeltaFaults(up=torch.from_numpy(up).to(dev)), 1)
+    ref = int(telemetry.tree_digest(state))
+    del state
+    torch.cuda.empty_cache()
+    recs = [r["record"] for r in ranks]
+    check(all(r["ok"] and r["tick"] == PIN_STEP1M["tick"] for r in recs),
+          f"24 step1m: ok, one tick, every rank: {recs}")
+    check(ref == PIN_STEP1M["digest"], f"24 step1m: the unsharded step on this card == the JAX pin ({ref})")
+    check(all(r["digest"] == ref for r in ranks), f"24 step1m: the 4 x 2 step's digest on every rank == the "
+                                                  f"unsharded step's ({[r['digest'] for r in ranks]})")
+    for name in SIMBENCH_ROW_KERNELS["step1m"]:
+        check(all(r["launches"][name] > 0 for r in ranks), f"24 step1m: {name} launched on every rank")
+    r0 = recs[0]
+    log(f"phase24 step1m: 1M x 256 over 4 x 2 ranks through the warm start: cache_hit {r0['cache_hit']}, compile_s "
+        f"{r0['compile_s']}, first call {r0['first_call_s']} s, execute {r0['execute_s']} s (rank 0), digest {ref} "
+        f"== pin; {card}")
+    return {"records": recs, "digest": ref, "launches_per_rank": [r["launches"] for r in ranks]}
+
+
+def check_ring1m(run: dict) -> None:
+    """ring1m's owners == a host searchsorted over its ring: the batch's
+    and, through the numpy farm, the keyed lookup's."""
+    tokens, owners = as_np(run["tokens"]), as_np(run["owners"])
+    check(np.array_equal(as_np(run["owners_batch"]), host_owner(tokens, owners, as_np(run["hashes"]))),
+          f"24 ring1m: {run['hashes'].shape[0]} batch owners == host searchsorted")
+    mat, lens = run["keys"]
+    check(np.array_equal(as_np(run["owners_keyed"]), host_owner(tokens, owners, fingerprint32_batch(mat, lens))),
+          f"24 ring1m: {mat.shape[0]} keyed owners (B1) == numpy farm + host searchsorted")
+
+
+def check_delta16m(run: dict, rec: dict) -> dict:
+    """delta16m's ticks and final state == the same run on the plain
+    reduces (no JAX pin at 16M: see SIMBENCH_INEXACT)."""
+    from ringpop_tpu_torch.cli import simbench
+
+    params = run["params"]
+    got = int(telemetry.tree_digest(run["states"][0]))
+    with plain_packbits():
+        state = simbench._delta_init_packed(params, SIMBENCH_SEED + 1, run["states"][0].learned.device)
+        state, ticks, ok = delta.run_until_converged(params, state, max_ticks=4096)
+    want = int(telemetry.tree_digest(state))
+    del state
+    check((rec["ticks"], rec["converged"], got) == (ticks, ok, want) and ok,
+          f"24 delta16m: {rec['ticks']} ticks, converged, digest {got} == the plain reduces' ({ticks}, {ok}, {want})")
+    return {"ticks": ticks, "digest": got}
+
+
+def run_simbench(dev: torch.device, card: str, rumor: dict | None = None) -> dict:
+    """Phase 24: the simbench twin's rows not yet run on the card at their
+    own settings, through its ``run_rows`` (``BENCHES``) at full scale: each
+    record's exact fields and each final state's digest == the JAX pins, the
+    row's kernels launched (counts 0 before the row, read after), its wall,
+    ms a tick and launches logged.  ``flap1k``'s and ``asym_partition``'s
+    twin certificates come from phase 18b's 4 x 2 group (``rumor``) when it
+    ran, else from one group of the twin's own (``simbench.chaos_twins``);
+    ``step1m`` rides phase 18's group, else a 4 x 2 group of its own."""
+    from ringpop_tpu_torch.cli import simbench
+    from ringpop_tpu_torch.parallel import multihost
+    from ringpop_tpu_torch.util import aot
+
+    simbench._DEVICE = dev
+    specs = {"flap1k": simbench._twin_spec("flap", SIMBENCH_SEED),
+             "asym_partition": simbench._twin_spec("asym", SIMBENCH_SEED)}
+    t0 = time.perf_counter()
+    if rumor is not None:
+        for spec in specs.values():
+            simbench.remember_twin(spec, rumor["twins"][spec[0]], dev)
+        step_ranks = rumor["step1m"]
+        source = "phase 18's 4 x 2 group"
+    else:
+        simbench.chaos_twins(list(specs.values()), dev)
+        size = RUMOR_SHAPE[0] * RUMOR_SHAPE[1]
+        step_ranks = [r["24s"] for r in spawn_ranks(size, multihost.default_transport(size), RUMOR_SHAPE, ("24s",),
+                                                    "phase24")]
+        source = "groups of the phase's own"
+    groups_s = time.perf_counter() - t0
+    out = {"card": card, "rows": {}, "groups_s": groups_s, "twins_and_step1m_from": source,
+           "step1m": check_step1m(dev, step_ranks, card)}
+    for row in SIMBENCH_ROWS:
+        before = aot.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = simbench.run_rows([row], SIMBENCH_SEED, True, "gpu")[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = simbench_launches(before)
+        check("error" not in rec and rec.get("ok", True), f"24 {row}: the row ran: {rec}")
+        check(rec["full_scale"] is True and rec["platform"] == "gpu", f"24 {row}: full scale on the card")
+        got = simbench_strip(rec, [*SIMBENCH_INEXACT[row], "bench", "platform", "full_scale", "wall_s"])
+        check(got == PIN_SIMBENCH[row]["record"], f"24 {row}: the record's exact fields == the JAX pins: {got}")
+        run = simbench.LAST_RUN.pop(row)
+        digests = [int(telemetry.tree_digest(s)) for s in run.get("states", [])]
+        if row != "delta16m":  # held to its plain version below
+            check(digests == PIN_SIMBENCH[row]["digests"], f"24 {row}: final state digests {digests} == the JAX pins")
+        for name in SIMBENCH_ROW_KERNELS[row]:
+            check(launches[name] > 0, f"24 {row}: {name} launched on the row's path: {launches}")
+        entry = {"wall_s": wall, "record_wall_s": rec["wall_s"], "launches": {k: v for k, v in launches.items() if v},
+                 "digests": digests}
+        entry["ms_per_tick"] = {field: rec[field] * 1e3 / ticks for field, ticks in simbench_row_ticks(row, rec).items()
+                                if ticks}
+        if row == "ring1m":
+            check_ring1m(run)
+            entry["rates"] = {k: rec[k] for k in ("value", "keyed_hash_lookup_qps", "build_s", "churn_rebalance_s")}
+        if row == "delta16m":
+            entry["plain"] = check_delta16m(run, rec)
+        if row in specs:
+            twin = rec["sharded_twin"]
+            pin = PIN_CHAOS_TWIN[specs[row][0]]["digest"]
+            check(twin["equal"] and twin["digest_sharded"] == twin["digest_unsharded"] == pin,
+                  f"24 {row}: the sharded twin == PIN_CHAOS_TWIN ({twin})")
+        if row == "partition_lc":
+            _, block = lifecycle_block_profile(run["sim"].params, run["sim"].state, run["faults"],
+                                               SIMBENCH_PROFILE_TICKS)
+            entry["profile"] = {k: block[k] for k in ("ticks", "window_ms", "device_busy_ms", "busy_share",
+                                                      "idle_share", "kernel_launches_per_tick")}
+            log(f"phase24 partition_lc: a {SIMBENCH_PROFILE_TICKS}-tick block at 1M x 256: window "
+                f"{block['window_ms']:.3f} ms, device busy {block['device_busy_ms']:.3f} ms "
+                f"({block['busy_share']:.1%}), {block['kernel_launches_per_tick']:.1f} launches a tick; {card}")
+        del run
+        torch.cuda.empty_cache()
+        out["rows"][row] = entry
+        log(f"phase24 {row}: wall {wall:.2f} s, ms a tick {entry['ms_per_tick']}, launches {entry['launches']}, "
+            f"== the JAX pins; {card}")
+    return {"simbench": out}
+
+
 def build_kernels() -> None:
     """Build every kernel source at once, one nvcc each."""
     t0 = time.perf_counter()
@@ -6515,6 +6863,13 @@ def main() -> int:
         out = run_process_plane(torch.device("cuda"), card)
         log(json.dumps(out))
         return 0
+    if sys.argv[1:] == ["--simbench"]:
+        build_kernels()
+        t0 = time.perf_counter()
+        out = run_simbench(torch.device("cuda"), card)
+        log(f"phase 24 wall {time.perf_counter() - t0:.1f} s; {card}")
+        log(json.dumps(out))
+        return 0
     if sys.argv[1:2] == ["--detect-wall"] and sys.argv[2:] in ([], ["counter"], ["threefry"]):
         rng = (sys.argv[2:] or ["counter"])[0]
         log(json.dumps({"card": card, "rng": rng, "detect_ms": detect_wall(torch.device("cuda"), rng)}))
@@ -6545,6 +6900,7 @@ def main() -> int:
     serve_plane_timings = phase("21", run_serve_plane, card)
     host_stack_timings = phase("22", run_host_stack, card)
     process_plane_timings = phase("23", run_process_plane, card)
+    simbench_timings = phase("24", run_simbench, card, rumor_timings["rumor_axis"]["for_simbench"])
     log(f"phase walls, s: {walls}")
     # S1 runs on both sim paths: its launches are the sum of their runs
     life_launches = life_timings["lifecycle"]["launches"]
@@ -6613,7 +6969,19 @@ def main() -> int:
     timings.update(multihost_timings)
     timings.update(serve_plane_timings)
     timings.update(host_stack_timings)
+    # phase 24's rows launch B1, S1, L1, L2, P1, D1 and R1: their counts by row, and step1m's by rank
+    sb = simbench_timings["simbench"]
+    for rec in kernels:
+        if rec["name"] in SIMBENCH_KERNELS:
+            by_row = {row: r["launches"][rec["name"]] for row, r in sb["rows"].items()
+                      if r["launches"].get(rec["name"])}
+            steps = [r[rec["name"]] for r in sb["step1m"]["launches_per_rank"]]
+            if any(steps):
+                by_row["step1m_per_rank"] = steps
+            if by_row:
+                rec["launches_on_simbench"] = by_row
     timings.update(process_plane_timings)
+    timings.update(simbench_timings)
     timings["card"] = card
     timings["phase_walls_s"] = walls
     # the whole record, which the end of a long log may not hold

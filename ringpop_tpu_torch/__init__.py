@@ -40,6 +40,12 @@ points — ``cli.testpop`` (a standalone node), ``cli.admin`` and
 testpop processes), all torch-free; the warm start — ``util.accel`` (the
 probe and the kernels' fingerprinted build cache) and ``util.aot`` (the
 load-or-compile front door behind the engines' ``aot=``) — and
-``cli.fleet_bench``, one rank of a scenario-fleet run; and ``bench``, the
-twin of the repository's ``bench.py`` (``python -m ringpop_tpu_torch.bench``).
+``cli.fleet_bench``, one rank of a scenario-fleet run; ``bench``, the
+twin of the repository's ``bench.py`` (``python -m ringpop_tpu_torch.bench``);
+and ``cli.simbench``, the twin of the scenario suite (``python -m
+ringpop_tpu_torch.cli.simbench``).
 """
+
+from ringpop_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -29,6 +29,24 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
+class MovingSender(FakeSender):
+    """A ``FakeSender`` whose keys move to their new owners once ``after``
+    look-ups have been answered: a scene ordered by the forwarder's own
+    retries, not by a sleep racing them."""
+
+    def __init__(self, lookups, moved, after):
+        super().__init__(lookups=dict(lookups))
+        self.moved = moved
+        self.after = after
+        self.calls = 0
+
+    def lookup(self, key):
+        if self.calls == self.after:
+            self.lookups = dict(self.moved)
+        self.calls += 1
+        return super().lookup(key)
+
+
 def both(scene, *args):
     want = run(scene(package(JAX), *args))
     got = run(scene(package(PORT), *args))
@@ -287,40 +305,34 @@ async def scene_forward_retries(ns, case):
             await fwd.forward_request({}, "gone:9", "svc", "/ep", ["k"],
                                       Opts(max_retries=2, retry_schedule=(0.001, 0.001), timeout=0.05))
         return {"error": type(e.value).__name__}
-    sender = FakeSender(lookups={"k1": "gone:9", "k2": "gone:9"} if case == "diverge" else {"k": "gone:9"})
-    fwd = ns.forward.Forwarder(sender, client)
     if case == "diverge":
-        async def move():
-            await asyncio.sleep(0.002)
-            sender.lookups = {"k1": "a:1", "k2": "b:2"}
-
-        task = asyncio.ensure_future(move())
+        # the keys' owners move after the first retry's look-ups, so the
+        # second retry finds them on two destinations
+        sender = MovingSender({"k1": "gone:9", "k2": "gone:9"}, {"k1": "a:1", "k2": "b:2"}, after=2)
+        fwd = ns.forward.Forwarder(sender, client)
         with pytest.raises(ns.request_sender.DestinationsDivergedError) as e:
             await fwd.forward_request({}, "gone:9", "svc", "/ep", ["k1", "k2"],
                                       Opts(max_retries=3, retry_schedule=(0.001,), timeout=0.05))
-        await task
-        return {"error": type(e.value).__name__}
+        return {"error": type(e.value).__name__, "lookups": sender.calls}
 
     async def handler(body, headers):
         return {"served": "new"}
 
     ns.LocalChannel(network, "new:1").register("svc", "/ep", handler)
-
-    async def move():
-        await asyncio.sleep(0.002)
-        sender.lookups = {"k": "new:1"}
-
-    task = asyncio.ensure_future(move())
+    # the key's owner moves after the first retry's look-up, so the second
+    # retry reroutes to it
+    sender = MovingSender({"k": "gone:9"}, {"k": "new:1"}, after=1)
+    fwd = ns.forward.Forwarder(sender, client)
     res = await fwd.forward_request({}, "gone:9", "svc", "/ep", ["k"],
                                     Opts(max_retries=2, retry_schedule=(0.001,), timeout=0.05,
                                          reroute_retries=True))
-    await task
-    return {"res": res}
+    return {"res": res, "lookups": sender.calls}
 
 
 @pytest.mark.parametrize("case", ["then_succeeds", "exhausted", "diverge", "reroute"])
 def test_forward_retries(case):
     rec = both(scene_forward_retries, case)
+    rec.pop("lookups", None)
     want = {"then_succeeds": {"res": {"ok": 0}}, "exhausted": {"error": "MaxRetriesError"},
             "diverge": {"error": "DestinationsDivergedError"}, "reroute": {"res": {"served": "new"}}}
     assert rec == want[case]

@@ -99,7 +99,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
               "swim.events", "swim.stats", "swim.state_transitions", "swim.memberlist", "swim.iter",
               "swim.disseminator", "swim.rollup", "swim.ping", "swim.ping_request", "swim.join", "swim.handlers",
               "swim.heal", "swim.gossip", "swim.node", "ringpop", "router", "replica", "adapter", "cli.stats",
-              "cli.testpop", "cli.admin", "harness", "util.accel", "util.aot", "cli.fleet_bench"):
+              "cli.testpop", "cli.admin", "harness", "util.accel", "util.aot", "cli.fleet_bench", "cli.simbench",
+              "version"):
         assert f"ringpop_tpu_torch.{m}" in modules
     code = (
         "import importlib, sys\n"
